@@ -10,8 +10,9 @@ the same parameters give the same pixels.
 
 Random numbers come from an explicit `torch.Generator`. Every function that
 draws has a counterpart that takes the drawn values (`sample_geometric` ->
-`apply_geometric`, `sample_jitter` -> `apply_jitter`, `sample_twice` ->
-`augment_twice`, `flip_params` -> `apply_flip`), so a test can inject the
+`apply_geometric`, `sample_jitter` -> `apply_jitter`, `sample_once` ->
+`augment_once`, `sample_twice` -> `augment_twice`, `flip_params` ->
+`apply_flip`), so a test can inject the
 parameters drawn by the JAX package and compare the pixels.
 """
 from __future__ import annotations
@@ -125,6 +126,23 @@ def sample_geometric(gen: torch.Generator, batch: int, policy: AugmentPolicy,
 
     return {"theta": theta, "fh": fh, "fv": fv,
             "cy": _offset(u[3], rh), "cx": _offset(u[4], rw),
+            "rh": rh, "rw": rw, "oh": oh, "ow": ow}
+
+
+def center_geometric(batch: int, policy: AugmentPolicy, in_size: int,
+                     sizes: Optional[torch.Tensor] = None,
+                     out_size: Optional[int] = None, device=None) -> Params:
+    """Deterministic params (val transform parity): plain resize for resize
+    policies, center crop of the original extent otherwise. `out_size`
+    overrides the output extent (> crop pads around the centered frame —
+    the shortest-side val-resize path)."""
+    out = policy.crop if out_size is None else out_size
+    oh, ow = _orig_dims(batch, in_size, sizes, device)
+    rh, rw = _frame_dims(policy, oh, ow)
+    z = torch.zeros((batch,), dtype=torch.float32, device=device)
+    f = torch.zeros((batch,), dtype=torch.bool, device=device)
+    return {"theta": z, "fh": f, "fv": f,
+            "cy": torch.floor((rh - out) / 2.0), "cx": torch.floor((rw - out) / 2.0),
             "rh": rh, "rw": rw, "oh": oh, "ow": ow}
 
 
@@ -246,6 +264,26 @@ def apply_jitter(image: torch.Tensor, brightness: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- composed views
+def sample_once(gen: torch.Generator, batch: int, policy: AugmentPolicy,
+                in_size: int, sizes: Optional[torch.Tensor] = None, device=None) -> Dict:
+    """Draw the parameters of one view: {"geo", "jitter"} (jitter only for
+    policies that jitter)."""
+    out = {"geo": sample_geometric(gen, batch, policy, in_size, sizes, device)}
+    if policy.jitter:
+        out["jitter"] = sample_jitter(gen, batch, policy, device)
+    return out
+
+
+def augment_once(image: torch.Tensor, label: Optional[torch.Tensor],
+                 policy: AugmentPolicy, params: Dict):
+    """One augmented view from drawn `params` (see `sample_once`)."""
+    img, lab = apply_geometric(image, label, params["geo"], policy.crop,
+                               policy.rotate_after_crop)
+    if policy.jitter:
+        img = apply_jitter(img, *params["jitter"])
+    return img, lab
+
+
 def sample_twice(gen: torch.Generator, batch: int, policy: AugmentPolicy,
                  in_size: int, total_freedom: bool = True,
                  sizes: Optional[torch.Tensor] = None, device=None) -> Dict:
@@ -271,6 +309,35 @@ def augment_twice(image: torch.Tensor, label: Optional[torch.Tensor],
         img1 = apply_jitter(img1, *params["jitter1"])
         img2 = apply_jitter(img2, *params["jitter2"])
     return (img1, lab1), (img2, lab2)
+
+
+def center_crop(image: torch.Tensor, label: Optional[torch.Tensor], crop: int,
+                sizes: Optional[torch.Tensor] = None,
+                policy: Optional[AugmentPolicy] = None,
+                out_size: Optional[int] = None):
+    """Val transform: deterministic center crop, or plain resize for resize
+    policies (reference val transforms, semi_seg/augment.py:35-37,84-87,135-137).
+    Pads if the frame is smaller than the crop. `out_size` > crop produces a
+    larger canvas with the resized frame centered (shortest-side val resize)."""
+    if policy is None:
+        policy = AugmentPolicy(crop=crop)
+    out = policy.crop if out_size is None else out_size
+    params = center_geometric(image.shape[0], policy, image.shape[-1], sizes, out,
+                              device=image.device)
+    return apply_geometric(image, label, params, out)
+
+
+def frame_pixel_mask(params: Params, out_size: int) -> torch.Tensor:
+    """[B, out, out] 1/0 mask of output pixels that lie inside the resized
+    frame [rh, rw] under the centered placement of `center_geometric`: the
+    reference's shortest-side val Resize never produces the padding pixels,
+    so eval loss and dice exclude them."""
+    ys = torch.arange(out_size, dtype=torch.float32, device=params["cy"].device)[None, :]
+    y = ys + params["cy"][:, None]
+    x = ys + params["cx"][:, None]
+    my = (y >= -0.1) & (y <= params["rh"][:, None] - 0.9)
+    mx = (x >= -0.1) & (x <= params["rw"][:, None] - 0.9)
+    return (my[:, :, None] & mx[:, None, :]).float()
 
 
 # --------------------------------------------------------------------------- replayable flips

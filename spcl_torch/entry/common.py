@@ -1,9 +1,11 @@
 """Entry-point plumbing: config -> model/data/trainer.
 
-The pretrain branch of `spcl_tpu/entry/common.py` (reference main.py:18-83,
-utils.py:7-34, semi_seg/data/creator.py): hook activation by config-block
-presence, `pre_`/`ft_` config splitting for the two-phase pipeline, and the
-encoder-pretrain trainer wired to the contrastive loader.
+The pretrain and fine-tune branches of `spcl_tpu/entry/common.py` (reference
+main.py:18-83, utils.py:7-34, semi_seg/data/creator.py): trainer dispatch by
+`Trainer.name`, hook activation by config-block presence, `pre_`/`ft_` config
+splitting for the two-phase pipeline, the encoder-pretrain trainer wired to
+the contrastive loader and the fine-tune trainer to the labeled, val and test
+loaders.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Dict, Optional, Tuple
 from ..configure.dictionary_utils import (dictionary_merge_by_hierachy,
                                           extract_params_with_key_prefix)
 from ..constants import data2class_numbers, data2input_dim
-from ..data import (SliceDataset, corrupt_meta_labels, create_contrastive_loader,
+from ..data import (SliceDataset, corrupt_meta_labels, create_contrastive_loader, get_data,
                     load_packed, synthetic_dataset, synthetic_dataset_hard)
 from ..data.augment import POLICY_ZOO
 from ..hooks import create_hook_from_config, feature_until_from_hooks
@@ -41,11 +43,16 @@ def build_model_from_config(config: Dict) -> UNet:
     data_name = (config.get("Data") or {}).get("name", "acdc")
     if str(arch.get("dtype", "float32")) != "float32":
         raise NotImplementedError("Arch.dtype: only float32 is ported yet")
-    if str(arch.get("small_c_layout", "nhwc")) not in ("nhwc", "nchw"):
-        # "packed"/"pallas" select the fused small-channel stage kernels,
-        # which are not ported yet; nhwc/nchw compute the same function
-        raise NotImplementedError(f"Arch.small_c_layout={arch['small_c_layout']!r}")
+    layout = str(arch.get("small_c_layout", "nhwc"))
+    if layout == "packed":
+        # the pure-jnp lane-packed layout fills the TPU's 128 lanes and has no
+        # kernel behind it: there is nothing to port. "pallas" selects the
+        # fused stage kernels; nhwc/nchw compute the same function plainly
+        raise NotImplementedError(
+            "Arch.small_c_layout='packed' is a TPU lane layout without a kernel; "
+            "use 'pallas' (fused CUDA stages) or 'nhwc'")
     return UNet(
+        small_c_layout=layout,
         input_dim=int(arch.get("input_dim", data2input_dim.get(data_name, 1))),
         num_classes=int(arch.get("num_classes", data2class_numbers.get(data_name, 4))),
         max_channel=int(arch.get("max_channel", 256)),
@@ -81,35 +88,49 @@ def load_datasets_from_config(config: Dict) -> Tuple[SliceDataset, SliceDataset]
 
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
-    """Construct a wired (not yet init'ed) encoder-pretrain trainer."""
+    """Construct a wired (not yet init'ed) trainer from a config: the
+    encoder-pretrain trainer, or the fine-tune trainer (`Trainer.name: ft`)."""
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
     if name not in trainer_zoo:
         raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (encoder pretraining only)")
+            f"trainer {name!r} is not ported yet (ported: {sorted(trainer_zoo)})")
     data_name = data_cfg.get("name", "acdc")
     default_crop = POLICY_ZOO.get(data_name, {"val": None})["val"]
     crop = int(data_cfg.get("crop", default_crop.crop if default_crop else 224))
     seed = int(config.get("RandomSeed", 10))
 
-    tra_set, _ = load_datasets_from_config(config)
+    tra_set, test_set = load_datasets_from_config(config)
 
     max_epoch = int(trainer_cfg.get("max_epoch", 75))
-    hooks = create_hook_from_config(config, max_epoch=max_epoch)
-    cl_cfg = config.get("ContrastiveLoaderParams", {})
-    contrastive_loader = create_contrastive_loader(
-        tra_set, scan_sample_num=int(cl_cfg.get("scan_sample_num", 10)),
-        partition_sample_num=int(cl_cfg.get("partition_sample_num", 1)),
-        seed=seed, use_contrast_sampler=data_name == "acdc")
-    until = feature_until_from_hooks(*hooks)
-    trainer = trainer_zoo[name](
-        model=build_model_from_config(config), contrastive_loader=contrastive_loader,
-        save_dir=save_dir or trainer_cfg.get("save_dir", "runs/tmp"),
-        max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
-        config=config, seed=seed, crop=crop, data_name=data_name,
-        forward_until=until, device=device)
-    trainer.register_hooks(*hooks)
-    trainer.set_trainable_stages(stages_from_range(None, until))
-    logger.info("pretrain trainer %s: forward_until=%s", name, until)
-    return trainer
+    kwargs = dict(model=build_model_from_config(config),
+                  save_dir=save_dir or trainer_cfg.get("save_dir", "runs/tmp"),
+                  max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
+                  config=config, seed=seed, crop=crop, data_name=data_name, device=device)
+
+    if name.startswith("pretrain"):
+        hooks = create_hook_from_config(config, max_epoch=max_epoch)
+        cl_cfg = config.get("ContrastiveLoaderParams", {})
+        contrastive_loader = create_contrastive_loader(
+            tra_set, scan_sample_num=int(cl_cfg.get("scan_sample_num", 10)),
+            partition_sample_num=int(cl_cfg.get("partition_sample_num", 1)),
+            seed=seed, use_contrast_sampler=data_name == "acdc")
+        until = feature_until_from_hooks(*hooks)
+        trainer = trainer_zoo[name](contrastive_loader=contrastive_loader,
+                                    forward_until=until, **kwargs)
+        trainer.register_hooks(*hooks)
+        trainer.set_trainable_stages(stages_from_range(None, until))
+        logger.info("pretrain trainer %s: forward_until=%s", name, until)
+        return trainer
+
+    # fine-tuning activates no hooks (reference FineTuneTrainer.activate_hooks)
+    lab, _, val_loader, test_loader = get_data(
+        tra_set=tra_set, test_set=test_set,
+        labeled_scan_num=int(data_cfg.get("labeled_scan_num", 1)),
+        labeled_batch_size=int((config.get("LabeledLoader") or {}).get("batch_size", 5)),
+        unlabeled_batch_size=int((config.get("UnlabeledLoader") or {}).get("batch_size", 5)),
+        pretrain=pretrain, seed=1,
+        load_predefined_list=not bool(data_cfg.get("synthetic", False)))
+    return trainer_zoo[name](labeled_loader=lab, val_loader=val_loader,
+                             test_loader=test_loader, **kwargs)

@@ -1,15 +1,19 @@
 #!/usr/bin/env python
-"""The paper's encoder pretraining on the GPU (phase 1 of
-`main_pretrain_encoder.py`).
+"""The paper's end-to-end pipeline on the GPU: encoder pretrain -> fine-tune
+sweep (both phases of `main_pretrain_encoder.py`).
 
     python -m spcl_torch.main_pretrain_encoder [Key.Sub=value ...] \
         [--opt-path config/specific/selfpaced_infonce.yaml] [--device cuda]
 
 Merges config/base.yaml + config/pretrain.yaml (+ --opt-path files + dotted
-CLI overrides; needs pyyaml), keeps the `pre_`-prefixed overrides, and
-pretrains the UNet encoder to Conv5 with the configured (self-paced) InfoNCE
-hooks. Writes `<save_dir>/pre/last.ckpt` and returns its path. The
-fine-tune sweep over labeled ratios (phase 2) is not ported yet.
+CLI overrides; needs pyyaml) and splits it into a pretrain config (`pre_`
+overrides) and a fine-tune config (`ft_` overrides). Phase 1 pretrains the
+UNet encoder to Conv5 with the configured (self-paced) InfoNCE hooks and
+writes `<save_dir>/pre/last.ckpt`; phase 2 (`entry.val`) fine-tunes the whole
+UNet from it at every labeled ratio (`Data.ratios`, else the dataset's ratio
+zoo) under `<save_dir>/tra_<ratio>/`. Returns and prints {ratio: best val DSC}.
+`Arch.small_c_layout=pallas` runs Conv1/Conv2 through the fused CUDA stages
+in both phases; `--device cpu` runs everything on the plain versions.
 """
 import argparse
 import sys
@@ -17,16 +21,16 @@ from pathlib import Path
 
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
-from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs
+from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs, val
 from spcl_torch.utils import config_logger, fix_all_seed
 
 
-def main(argv=None, *, device="cuda", until_check: str = "Conv5") -> str:
+def main(argv=None, *, device="cuda", until_check: str = "Conv5"):
     cm = ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"),
                        str(Path(CONFIG_PATH) / "pretrain.yaml"),
                        strict=False).parse_args(argv)
     config = cm.merged_config
-    pretrain_config, _ = separate_pretrain_finetune_configs(config)
+    pretrain_config, ft_config = separate_pretrain_finetune_configs(config)
     save_dir = config.get("Trainer", {}).get("save_dir", "runs/pretrain_encoder")
     config_logger(save_dir)
     fix_all_seed(int(config.get("RandomSeed", 10)))
@@ -39,7 +43,9 @@ def main(argv=None, *, device="cuda", until_check: str = "Conv5") -> str:
                            f"expected {until_check}")  # reference :65-67
     trainer.init()
     trainer.start_training()
-    return str(Path(save_dir) / "pre" / "last.ckpt")
+    ckpt = str(Path(save_dir) / "pre" / "last.ckpt")
+    return val(base_config=ft_config, pretrained_checkpoint=ckpt, save_dir=save_dir,
+               device=device)
 
 
 if __name__ == "__main__":

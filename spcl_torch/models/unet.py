@@ -13,6 +13,13 @@ reference's (`_Conv1.conv.0.weight`, `_Up5.up.1.weight`, ...):
 "logits") and stops after `until`. Every stage exists in the module whatever
 `until` is, so a checkpoint always holds the full state_dict; stages past
 `until` are frozen by the trainer (models/masking.py).
+
+`small_c_layout="pallas"` (the JAX package's name for its fused stage
+kernels, kept so one config serves both packages) runs Conv1 and Conv2 with
+their pools through the fused CUDA stage (experimental/packed_stage.py) —
+only in train mode and only for packable shapes, as
+`spcl_tpu/models/unet.py:189-213` dispatches; eval mode and odd shapes take
+the plain path. Parameters and state_dict keys are the same either way.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 from torch import nn
 
 from .norm import batch_norm
+from ..experimental.packed_stage import packable, run_conv_stage
 
 ENCODER_NAMES: Tuple[str, ...] = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5")
 DECODER_NAMES: Tuple[str, ...] = ("Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3",
@@ -32,6 +40,11 @@ ARCH_ELEMENTS: Tuple[str, ...] = ENCODER_NAMES + DECODER_NAMES
 LAYER_DIMENSION = {"Conv1": 1, "Conv2": 2, "Conv3": 4, "Conv4": 8, "Conv5": 16,
                    "Up_conv5": 8, "Up_conv4": 4, "Up_conv3": 2, "Up_conv2": 1,
                    "Deconv_1x1": None}
+
+
+# "nhwc" / "nchw": the plain path (one function in NCHW PyTorch); "pallas":
+# the fused train-mode stage kernels for Conv1 / Conv2
+SMALL_C_LAYOUTS: Tuple[str, ...] = ("nhwc", "nchw", "pallas")
 
 
 def arch_order(name: str) -> int:
@@ -89,10 +102,14 @@ class UNet(nn.Module):
     """5-stage encoder / 4-stage decoder UNet with named-stage outputs."""
 
     def __init__(self, input_dim: int = 1, num_classes: int = 4, max_channel: int = 256,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, small_c_layout: str = "nhwc"):
         super().__init__()
         if max_channel % 16:
             raise ValueError(f"max_channel must be a multiple of 16, got {max_channel}")
+        if small_c_layout not in SMALL_C_LAYOUTS:
+            raise ValueError(f"small_c_layout must be one of {SMALL_C_LAYOUTS}, "
+                             f"got {small_c_layout!r}")
+        self.small_c_layout = small_c_layout
         self.input_dim = int(input_dim)
         self.num_classes = int(num_classes)
         self.max_channel = int(max_channel)
@@ -120,21 +137,45 @@ class UNet(nn.Module):
         """The submodule of a stage name (`Conv1` -> `_Conv1`)."""
         return getattr(self, f"_{name}")
 
+    def _use_fused_stages(self, x: torch.Tensor) -> bool:
+        """The dispatch of `spcl_tpu/models/unet.py:189-196`: the fused
+        stages run in train mode on packable shapes; eval mode (running
+        statistics) and odd shapes take the plain path."""
+        return (self.small_c_layout == "pallas" and self.training
+                and x.shape[2] % 4 == 0
+                and packable(x.shape[3], self.channel_dim("Conv1"),
+                             self.channel_dim("Conv2")))
+
     def forward(self, x: torch.Tensor, until: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Run the net on NCHW `x`, returning `{stage: activation}` for every
         computed stage; stops after `until`. The final logits live under both
         "Deconv_1x1" and "logits"."""
         stages_up_to(until)  # validates `until`
         acts: Dict[str, torch.Tensor] = {}
-        e1 = self._Conv1(x)
-        acts["Conv1"] = e1
-        if until == "Conv1":
-            return acts
-        e2 = self._Conv2(self._pool(e1))
-        acts["Conv2"] = e2
-        if until == "Conv2":
-            return acts
-        e3 = self._Conv3(self._pool(e2))
+        if self._use_fused_stages(x):
+            # channels-last inside the two stages; `acts` holds NCHW views
+            p1, e1 = run_conv_stage(self._Conv1, x, first_conv_plain=True)
+            e1 = e1.permute(0, 3, 1, 2)
+            acts["Conv1"] = e1
+            if until == "Conv1":
+                return acts
+            p2, e2 = run_conv_stage(self._Conv2, p1)
+            e2 = e2.permute(0, 3, 1, 2)
+            acts["Conv2"] = e2
+            if until == "Conv2":
+                return acts
+            p2 = p2.permute(0, 3, 1, 2)
+        else:
+            e1 = self._Conv1(x)
+            acts["Conv1"] = e1
+            if until == "Conv1":
+                return acts
+            e2 = self._Conv2(self._pool(e1))
+            acts["Conv2"] = e2
+            if until == "Conv2":
+                return acts
+            p2 = self._pool(e2)
+        e3 = self._Conv3(p2)
         acts["Conv3"] = e3
         if until == "Conv3":
             return acts

@@ -17,32 +17,25 @@ flows through ratio, gamma, target or valid.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 the plain version (same per-row statistics, dense). The kernels are built
-with nvcc at first use into `build/spcl_torch/` (see `build`). `LAUNCHES`
-counts each kernel launch; `reset_launch_counts` zeroes it.
+with nvcc at first use into `build/spcl_torch/` (see `build`, `_build.py`).
+`LAUNCHES` counts each kernel launch; `reset_launch_counts` zeroes it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from . import _build
 
 _TILE = 32          # rows/cols per kernel tile (supcon_tile() in the source)
 _EPS = 1e-16
 _NEG_BIG = -1e30
 _MODES = {"none": 0, "hard": 1, "soft": 2}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "supcon.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spcl_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = _build.CSRC_DIR / "supcon.cu"
 
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"supcon_fwd": 0, "supcon_bwd": 0}
@@ -56,44 +49,14 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------------ build / bind
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-
-
 def library_path() -> Path:
-    """The built library's path, keyed by the source and flags so that an
-    edited source rebuilds."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libspcl_supcon_{digest.hexdigest()[:16]}.so"
+    return _build.library_path(SOURCE, "spcl_supcon")
 
 
 def build(verbose: bool = False) -> Tuple[Path, float, str]:
     """Compile `csrc/supcon.cu` with nvcc for sm_90a unless already built.
     Returns (library path, seconds spent compiling, compiler output)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=str(BUILD_DIR), suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return _build.build_library(SOURCE, "spcl_supcon", verbose)
 
 
 def _load() -> ctypes.CDLL:
@@ -135,11 +98,6 @@ def _check_operands(zr, zc, row_vecs, col_vecs, extra=()):
             if tuple(v.shape) != (n,):
                 raise ValueError(f"per-row vector of shape {tuple(v.shape)}, expected ({n},)")
     return rows, cols, d
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 # ------------------------------------------------------------------ plain versions
@@ -201,7 +159,7 @@ def fwd_stats_kernel(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
     err = lib.supcon_fwd(*(t.data_ptr() for t in ops), rows, cols, d,
                          float(inv_t), float(gamma), _MODES[mode],
                          *(out[k].data_ptr() for k in range(4)), stream)
-    _raise_on(err, "supcon_fwd")
+    _build.raise_on(err, "supcon_fwd")
     LAUNCHES["supcon_fwd"] += 1
     return out[0], out[1], out[2], out[3]
 
@@ -223,7 +181,7 @@ def bwd_dz_kernel(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
     err = lib.supcon_bwd(*(t.data_ptr() for t in ops), rows, cols, d,
                          float(inv_t), float(gamma), scale.data_ptr(), _MODES[mode],
                          dz.data_ptr(), stream)
-    _raise_on(err, "supcon_bwd")
+    _build.raise_on(err, "supcon_bwd")
     LAUNCHES["supcon_bwd"] += 1
     return dz
 

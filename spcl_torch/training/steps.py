@@ -1,14 +1,24 @@
-"""The contrastive pretrain step.
+"""The steps of the main path: contrastive pretrain, fine-tune, eval.
 
-The semantics of `spcl_tpu/training/steps.py::build_pretrain_step`
-(reference _PretrainEpocherMixin, new_pretrain.py:19-126): two augmented
-views made on the device, view 2 additionally flipped with replayable
-params, one partial forward of both views to `until` (train-mode BN), loss =
-sum of the hooks' losses, one optimizer step.
+The semantics of `spcl_tpu/training/steps.py`:
+
+- `build_pretrain_step` (reference _PretrainEpocherMixin,
+  new_pretrain.py:19-126): two augmented views made on the device, view 2
+  additionally flipped with replayable params, one partial forward of both
+  views to `until` (train-mode BN), loss = sum of the hooks' losses, one
+  optimizer step;
+- `build_finetune_step` (reference FineTuneEpocher, new_epocher.py:241-289),
+  without hooks: one augmented labeled view, whole UNet in train mode,
+  pixel-mean cross-entropy over valid slices, one optimizer step, per-slice
+  Dice statistics of the prediction;
+- `build_eval_step` (reference EvalEpocher, new_epocher.py:56-97): val
+  transform, eval-mode forward, masked cross-entropy and Dice statistics.
 
 Randomness comes from the step's `torch.Generator`. A caller may instead
 inject the drawn values — `params={"aug": <sample_twice dict>, "flip":
-<flip_params dict>}` — so a test can replay the JAX step's draws exactly.
+<flip_params dict>}` for the pretrain step, `params={"aug": <sample_once
+dict>}` for the fine-tune step — so a test can replay the JAX step's draws
+exactly.
 """
 from __future__ import annotations
 
@@ -16,8 +26,14 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from ..data.augment import AugmentPolicy, apply_flip, augment_twice, flip_params, sample_twice
+import torch.nn.functional as F
+
+from ..data.augment import (AugmentPolicy, apply_flip, apply_geometric, augment_once,
+                            augment_twice, center_geometric, flip_params, frame_pixel_mask,
+                            sample_once, sample_twice)
 from ..hooks.base import TrainerHook
+from ..losses.functional import class2one_hot
+from ..meters.dice import dice_stats_from_labels
 from ..models.unet import UNet
 
 _META_KEYS = ("partition", "patient", "cycle", "scan_idx", "valid")
@@ -76,5 +92,76 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         total.backward()
         optimizer.step()
         return {"reg_loss": total.detach(), "hooks": hook_metrics}
+
+    return step
+
+
+def _masked_ce(logits: torch.Tensor, onehot: torch.Tensor, valid: torch.Tensor,
+               pixel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixel-mean CE over valid slices (kl_div(softmax, onehot) parity) on
+    [B, C, h, w] logits. `pixel_mask` [B, h, w] additionally restricts to
+    in-frame pixels (the shortest-side val-resize path pads non-square
+    frames)."""
+    logp = F.log_softmax(logits, dim=1)
+    ce = -(onehot * logp).sum(dim=1)  # [B, h, w]
+    m = valid[:, None, None] * torch.ones_like(ce)
+    if pixel_mask is not None:
+        m = m * pixel_mask
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def build_eval_step(model: UNet, *, num_classes: int, crop: int,
+                    val_policy: Optional[AugmentPolicy] = None,
+                    out_size: Optional[int] = None) -> Callable:
+    """Returns eval_step(batch) -> {"loss", "inter", "union"} (device
+    tensors): val transform (center crop, or plain resize for the
+    resize-based datasets) -> eval-mode forward -> masked CE + per-slice dice
+    statistics. `out_size` > crop: shortest-side val resize on non-square
+    slices; the frame pads into the canvas and loss and dice restrict to
+    frame pixels. Eval mode takes the UNet's plain path whatever
+    `small_c_layout` is."""
+    shortest_side = val_policy is not None and isinstance(val_policy.resize, int)
+    out = crop if out_size is None else int(out_size)
+    pol = val_policy if val_policy is not None else AugmentPolicy(crop=crop)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        image = _as_float_image(batch["image"])
+        geo = center_geometric(image.shape[0], pol, image.shape[-1], batch.get("size"), out,
+                               device=image.device)
+        img, lab = apply_geometric(image, batch["label"].long(), geo, out)
+        pix = frame_pixel_mask(geo, out) if shortest_side else None
+        model.eval()
+        logits = model(img)["logits"]
+        loss = _masked_ce(logits, class2one_hot(lab, num_classes), batch["valid"],
+                          pixel_mask=pix)
+        inter, union = dice_stats_from_labels(logits.argmax(dim=1), lab, num_classes,
+                                              batch["valid"], pixel_mask=pix)
+        return {"loss": loss, "inter": inter, "union": union}
+
+    return eval_step
+
+
+def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_classes: int,
+                        policy: AugmentPolicy) -> Callable:
+    """Returns step(batch, generator, params=None) -> {"sup_loss", "inter",
+    "union"} (detached device tensors): the labeled-only step."""
+
+    def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+             params: Optional[Dict] = None):
+        image = _as_float_image(batch["image"])
+        if params is None:
+            params = {"aug": sample_once(generator, image.shape[0], policy, image.shape[-1],
+                                         sizes=batch.get("size"), device=image.device)}
+        img, lab = augment_once(image, batch["label"].long(), policy, params["aug"])
+        model.train()
+        logits = model(img)["logits"]
+        sup = _masked_ce(logits, class2one_hot(lab, num_classes), batch["valid"])
+        optimizer.zero_grad(set_to_none=True)
+        sup.backward()
+        optimizer.step()
+        inter, union = dice_stats_from_labels(logits.detach().argmax(dim=1), lab,
+                                              num_classes, batch["valid"])
+        return {"sup_loss": sup.detach(), "inter": inter, "union": union}
 
     return step

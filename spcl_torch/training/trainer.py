@@ -1,39 +1,46 @@
-"""Encoder-pretrain trainer: the outer epoch loop around the pretrain step.
+"""Trainers of the main path: the outer epoch loops around the steps.
 
-The counterpart of `spcl_tpu/training/trainer.py::PretrainEncoderTrainer`
-(trainer.py:1110-1265; reference new_pretrain.py:18-110):
+The counterparts of `spcl_tpu/training/trainer.py` on the host-batch path:
 
-- `init()` moves the UNet and the hooks' projectors to the device, freezes
-  the stages outside `set_trainable_stages` (no update, no weight decay),
-  and builds RAdam over the trainable parameters and the projectors;
-- each epoch reads gamma from the hooks' `epoch_scalars`, sets the epoch's
-  learning rate (warmup x multiplier -> cosine, per epoch), runs
-  `num_batches` steps on host batches of the contrastive loader copied to
-  the device, then drains the metrics once: `reg_loss` plus each hook's
-  `sp_weight` / `age_param` meters, failing fast on a non-finite loss;
-- `last.ckpt` every `Trainer.save_every` epochs and at the last epoch, then
-  the hooks' `on_epoch_end`.
+- `PretrainEncoderTrainer` (trainer.py:1110-1265; reference
+  new_pretrain.py:18-110): loss = hook regularizers only, no eval,
+  `last.ckpt` per `save_every` epochs;
+- `FineTuneTrainer` (trainer.py:1006-1031 with what it inherits from
+  `Trainer`; reference new_trainer.py:59-76): labeled-only training of the
+  whole UNet, per-scan 3D Dice on the val and test loaders after every
+  epoch, `best.ckpt` at every improvement of the val DSC, `storage.csv`.
+
+Both share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
+to the device, warm-starts from `Arch.checkpoint`, freezes the stages outside
+`set_trainable_stages` (no update, no weight decay), and builds RAdam over
+the trainable parameters and the projectors; each epoch sets the learning
+rate (warmup x multiplier -> cosine, per epoch), runs `num_batches` steps on
+host batches copied to the device, then drains the metrics once, failing
+fast on a non-finite loss.
 
 Randomness inside the steps comes from one `torch.Generator` on the device,
-seeded from the config's RandomSeed.
+seeded from the config's RandomSeed. Not ported yet: `device_data`, `mesh`,
+`defer_reads`, `resume_from_path`, TensorBoard.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .checkpoint import load_model_state_dict, save_checkpoint
 from .optim import build_optimizer
-from .steps import batch_to_device, build_pretrain_step
+from .steps import (batch_to_device, build_eval_step, build_finetune_step,
+                    build_pretrain_step)
 from ..data.augment import POLICY_ZOO, AugmentPolicy
 from ..data.loader import HostLoader
 from ..hooks.base import TrainerHook, get_individual_hooks
-from ..meters import AverageValueMeter, MeterInterface, meter_display
+from ..meters import (AverageValueMeter, MeterInterface, Storage, UniversalDice,
+                      meter_display)
 from ..models.masking import set_trainable_stages
 from ..models.unet import UNet
 from ..schedulers.lr import warmup_cosine_epoch_schedule
@@ -42,20 +49,16 @@ from ..utils.utils import get_logger
 logger = get_logger("trainer")
 
 
-class PretrainEncoderTrainer:
-    """Contrastive encoder pretraining: loss = hook regularizers only, no
-    eval, `last.ckpt` per `save_every` epochs."""
-    total_freedom = True  # independent geometry per view
-    policy_kind = "pretrain"
+class _TrainerBase:
+    """What every trainer shares: registration, policies, `init()`, the
+    per-epoch learning rate, and checkpoint writing."""
+    policy_kind = "label"
     train_meter_focus = "tra"
 
-    def __init__(self, *, model: UNet, contrastive_loader: HostLoader, save_dir: str,
-                 max_epoch: int = 100, num_batches: int = 100,
-                 config: Optional[Dict] = None, seed: int = 10, crop: int = 224,
-                 data_name: str = "acdc", forward_until: Optional[str] = None,
-                 device="cuda"):
+    def __init__(self, *, model: UNet, save_dir: str, max_epoch: int = 100,
+                 num_batches: int = 100, config: Optional[Dict] = None, seed: int = 10,
+                 crop: int = 224, data_name: str = "acdc", device="cuda"):
         self._model = model
-        self._contrastive_loader = contrastive_loader
         self._save_dir = str(save_dir)
         self._max_epoch = int(max_epoch)
         self._num_batches = int(num_batches)
@@ -63,14 +66,11 @@ class PretrainEncoderTrainer:
         self._seed = int(seed)
         self._crop = int(crop)
         self._data_name = data_name
-        self._forward_until = forward_until
         self._device = torch.device(device)
         self._hooks: List[TrainerHook] = []
         self._trainable_stages: Optional[List[str]] = None
         self._cur_epoch = 0
         self._initialized = False
-        # one entry per step, host floats: {"epoch", "reg_loss", "hooks"}
-        self.step_metrics: List[Dict] = []
         self.last_epoch_stats: Dict = {}
 
     # ----------------------------------------------------------------- registration
@@ -83,9 +83,8 @@ class PretrainEncoderTrainer:
         """`set_grad` (reference arch/unet.py:242-259): only these stages train."""
         self._trainable_stages = list(stages)
 
-    @property
-    def train_policy(self) -> AugmentPolicy:
-        policy = POLICY_ZOO[self._data_name][self.policy_kind]
+    def _zoo_policy(self, kind: str) -> AugmentPolicy:
+        policy = POLICY_ZOO[self._data_name][kind]
         if policy.crop != self._crop:
             # keep resize targets self-similar under a crop override
             resize = policy.resize
@@ -95,6 +94,14 @@ class PretrainEncoderTrainer:
                 resize = (self._crop, self._crop)
             policy = dataclasses.replace(policy, crop=self._crop, resize=resize)
         return policy
+
+    @property
+    def train_policy(self) -> AugmentPolicy:
+        return self._zoo_policy(self.policy_kind)
+
+    @property
+    def val_policy(self) -> AugmentPolicy:
+        return self._zoo_policy("val")
 
     # ----------------------------------------------------------------- init
     def init(self) -> None:
@@ -126,10 +133,11 @@ class PretrainEncoderTrainer:
             weight_decay=float(optim_cfg.get("weight_decay", 0.0)))
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(self._seed)
-        self._train_step = build_pretrain_step(
-            self._model, self._hooks, self._optimizer, policy=self.train_policy,
-            total_freedom=self.total_freedom, until=self._forward_until)
+        self._build_steps()
         self._initialized = True
+
+    def _build_steps(self) -> None:
+        raise NotImplementedError
 
     # ----------------------------------------------------------------- epochs
     def _hook_scalars(self) -> Dict[str, Dict[str, float]]:
@@ -140,9 +148,63 @@ class PretrainEncoderTrainer:
     def _epoch_lr(self) -> float:
         return float(self._lr_schedule(max(self._cur_epoch - 1, 0) * self._num_batches))
 
+    def _set_epoch_lr(self) -> float:
+        lr = self._epoch_lr()
+        for group in self._optimizer.param_groups:
+            group["lr"] = lr
+        return lr
+
     def _synchronize(self) -> None:
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+
+    def _save_now(self) -> bool:
+        save_every = int((self._config.get("Trainer") or {}).get("save_every", 1))
+        return (self._cur_epoch % max(save_every, 1) == 0
+                or self._cur_epoch == self._max_epoch)
+
+    # ----------------------------------------------------------------- io
+    def _checkpoint_state(self) -> Dict:
+        return {"_model": self._model.state_dict(),
+                "_optimizer": self._optimizer.state_dict(),
+                "cur_epoch": self._cur_epoch}
+
+    def save_to(self, save_name: str) -> None:
+        save_checkpoint(str(Path(self._save_dir) / save_name), self._checkpoint_state())
+
+    @property
+    def save_dir(self) -> str:
+        return self._save_dir
+
+    @property
+    def model(self) -> UNet:
+        return self._model
+
+    @property
+    def hooks(self) -> List[TrainerHook]:
+        return list(self._hooks)
+
+
+class PretrainEncoderTrainer(_TrainerBase):
+    """Contrastive encoder pretraining: loss = hook regularizers only, no
+    eval, `last.ckpt` per `save_every` epochs. Each epoch reads gamma from
+    the hooks' `epoch_scalars` and drains `reg_loss` plus each hook's
+    `sp_weight` / `age_param` meters."""
+    total_freedom = True  # independent geometry per view
+    policy_kind = "pretrain"
+
+    def __init__(self, *, contrastive_loader: HostLoader,
+                 forward_until: Optional[str] = None, **kwargs):
+        super().__init__(**kwargs)
+        self._contrastive_loader = contrastive_loader
+        self._forward_until = forward_until
+        # one entry per step, host floats: {"epoch", "reg_loss", "hooks"}
+        self.step_metrics: List[Dict] = []
+
+    def _build_steps(self) -> None:
+        self._train_step = build_pretrain_step(
+            self._model, self._hooks, self._optimizer, policy=self.train_policy,
+            total_freedom=self.total_freedom, until=self._forward_until)
 
     def _run_train_epoch(self) -> Dict:
         meters = MeterInterface(default_focus=self.train_meter_focus)
@@ -150,9 +212,7 @@ class PretrainEncoderTrainer:
             meters.register_meter("lr", AverageValueMeter())
             meters.register_meter("reg_loss", AverageValueMeter())
         scalars = self._hook_scalars()
-        lr = self._epoch_lr()
-        for group in self._optimizer.param_groups:
-            group["lr"] = lr
+        lr = self._set_epoch_lr()
         it = iter(self._contrastive_loader)
         pending = []
         n_slices = 0
@@ -199,12 +259,10 @@ class PretrainEncoderTrainer:
         if not self._initialized:
             raise RuntimeError("call init() first")
         start = self._cur_epoch + 1 if self._cur_epoch else 1
-        save_every = int((self._config.get("Trainer") or {}).get("save_every", 1))
         for self._cur_epoch in range(start, self._max_epoch + 1):
             train_stats = self._run_train_epoch()
             self.last_epoch_stats = train_stats
-            if (self._cur_epoch % max(save_every, 1) == 0
-                    or self._cur_epoch == self._max_epoch):
+            if self._save_now():
                 self.save_to("last.ckpt")
             for h in self._hooks:
                 h.on_epoch_end()
@@ -214,31 +272,165 @@ class PretrainEncoderTrainer:
         success(self._save_dir)
         return 0.0
 
-    # ----------------------------------------------------------------- io
-    def save_to(self, save_name: str) -> None:
-        save_checkpoint(str(Path(self._save_dir) / save_name), {
-            "_model": self._model.state_dict(),
-            "_hooks": {h.name: h.projector.state_dict() for h in self._hooks
-                       if h.projector is not None},
-            "_hook_states": {h.name: h.state_dict() for h in self._hooks},
-            "_optimizer": self._optimizer.state_dict(),
-            "cur_epoch": self._cur_epoch,
-        })
+    def _checkpoint_state(self) -> Dict:
+        state = super()._checkpoint_state()
+        state["_hooks"] = {h.name: h.projector.state_dict() for h in self._hooks
+                           if h.projector is not None}
+        state["_hook_states"] = {h.name: h.state_dict() for h in self._hooks}
+        return state
+
+
+class FineTuneTrainer(_TrainerBase):
+    """Labeled-only training of the whole UNet (reference new_trainer.py:59-76,
+    no hooks) with per-scan Dice on the val and test loaders after every
+    epoch; `start_training` returns the best val DSC."""
+
+    def __init__(self, *, labeled_loader: HostLoader, val_loader: HostLoader,
+                 test_loader: Optional[HostLoader] = None, **kwargs):
+        super().__init__(**kwargs)
+        self._labeled_loader = labeled_loader
+        self._val_loader = val_loader
+        self._test_loader = test_loader
+        self._best_score = -np.inf
+        self._storage = Storage(save_dir=self._save_dir)
+        # one entry per train step, host floats: {"epoch", "sup_loss"}
+        self.step_metrics: List[Dict] = []
+
+    def register_hooks(self, *hooks: TrainerHook) -> None:
+        if hooks:
+            raise NotImplementedError("fine-tuning runs without hooks "
+                                      "(the MixUp trainer is not ported yet)")
+
+    def _eval_out_size(self) -> int:
+        """The eval canvas. Shortest-side val policies (Resize(int)) can
+        produce frames longer than `crop` on one side of non-square slices;
+        size the canvas from the datasets' stored extents (square data ->
+        crop)."""
+        pol = self.val_policy
+        if not isinstance(pol.resize, int):
+            return self._crop
+        out = self._crop
+        for loader in (self._val_loader, self._test_loader):
+            if loader is None:
+                continue
+            sizes = np.asarray(loader.dataset.sizes, np.float64)
+            out = max(out, int(np.max(np.floor(pol.resize * sizes.max(axis=1)
+                                               / sizes.min(axis=1)))))
+        # the decoder upsamples by exact x2 per stage: keep every pooled dim
+        # even (4 pool levels -> multiple of 16); extra padding is masked
+        return ((out + 15) // 16) * 16
+
+    def _build_steps(self) -> None:
+        num_classes = self._model.num_classes
+        self._train_step = build_finetune_step(
+            self._model, self._optimizer, num_classes=num_classes, policy=self.train_policy)
+        self._eval_step = build_eval_step(
+            self._model, num_classes=num_classes, crop=self._crop,
+            val_policy=self.val_policy, out_size=self._eval_out_size())
+
+    # ----------------------------------------------------------------- epochs
+    def _run_train_epoch(self) -> Dict:
+        C = self._model.num_classes
+        meters = MeterInterface(default_focus=self.train_meter_focus)
+        with meters.focus_on(self.train_meter_focus):
+            meters.register_meter("lr", AverageValueMeter())
+            meters.register_meter("sup_loss", AverageValueMeter())
+            meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
+        lr = self._set_epoch_lr()
+        scans = self._labeled_loader.dataset.unique_scans
+        it = iter(self._labeled_loader)
+        pending = []
+        n_slices = 0
+        self._synchronize()
+        t0 = time.perf_counter()
+        for _ in range(self._num_batches):
+            host = next(it)
+            n_slices += host["image"].shape[0]
+            metrics = self._train_step(batch_to_device(host, self._device), self._generator)
+            pending.append((metrics, host["scan_idx"], host["valid"]))
+        self._synchronize()
+        elapsed = time.perf_counter() - t0
+        # one device -> host copy per metric per epoch: no per-step synchronisation
+        stacked = {k: torch.stack([m[k] for m, _, _ in pending]).cpu().numpy()
+                   for k in ("sup_loss", "inter", "union")}
+        with meters.focus_on(self.train_meter_focus):
+            for b, (_, scan_idx, valid) in enumerate(pending):
+                sup = float(stacked["sup_loss"][b])
+                # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
+                if not np.isfinite(sup):
+                    raise RuntimeError(f"non-finite sup_loss at batch {b}: {sup}")
+                self.step_metrics.append({"epoch": self._cur_epoch, "sup_loss": sup})
+                meters["sup_loss"].add(sup)
+                keep = np.asarray(valid).astype(bool)
+                meters["sup_dice"].add(
+                    stacked["inter"][b][keep], stacked["union"][b][keep],
+                    group_name=[scans[i] for i, k in zip(np.asarray(scan_idx), keep) if k])
+            meters["lr"].add(lr)
+        stats = meters.statistics()
+        stats.setdefault(self.train_meter_focus, {})["throughput"] = {
+            "slices_per_sec": n_slices / max(elapsed, 1e-9),
+            "steps_per_sec": len(pending) / max(elapsed, 1e-9)}
+        return stats
+
+    def _run_eval_epoch(self, loader: HostLoader) -> Tuple[Dict, float]:
+        C = self._model.num_classes
+        meters = MeterInterface(default_focus="eval")
+        meters.register_meter("loss", AverageValueMeter())
+        dice = meters.register_meter("dice", UniversalDice(C, report_axises=list(range(1, C))))
+        sampler = loader.sampler
+        pending = []
+        for i, host in enumerate(loader):
+            out = self._eval_step(batch_to_device(host, self._device))
+            pending.append((out, host["valid"], sampler.scan_of_batch(i)))
+        if pending:
+            stacked = {k: torch.stack([o[k] for o, _, _ in pending]).cpu().numpy()
+                       for k in ("loss", "inter", "union")}
+        for b, (_, valid, scan) in enumerate(pending):
+            meters["loss"].add(float(stacked["loss"][b]))
+            keep = np.asarray(valid).astype(bool)
+            dice.add(stacked["inter"][b][keep], stacked["union"][b][keep], group_name=scan)
+        stats = meters.statistics("eval")
+        return stats, float(stats["dice"]["DSC_mean"])
+
+    def start_training(self) -> float:
+        if not self._initialized:
+            raise RuntimeError("call init() first")
+        start = self._cur_epoch + 1 if self._cur_epoch else 1
+        for self._cur_epoch in range(start, self._max_epoch + 1):
+            train_stats = self._run_train_epoch()
+            self.last_epoch_stats = train_stats
+            val_stats, cur_score = self._run_eval_epoch(self._val_loader)
+            test_stats, _ = (self._run_eval_epoch(self._test_loader)
+                             if self._test_loader is not None else ({}, 0.0))
+            is_best = cur_score > self._best_score
+            if is_best:
+                self._best_score = cur_score
+                self.save_to("best.ckpt")
+            if self._save_now():
+                self.save_to("last.ckpt")
+            self._storage.put_epoch(self._cur_epoch, {**train_stats, "val": val_stats,
+                                                      "test": test_stats})
+            self._storage.flush()
+            logger.info("epoch %03d | val DSC %.4f (best %.4f) | %s", self._cur_epoch,
+                        cur_score, self._best_score, meter_display(train_stats))
+        from .. import success
+        success(self._save_dir)
+        return float(self._best_score)
+
+    def _checkpoint_state(self) -> Dict:
+        state = super()._checkpoint_state()
+        state["best_score"] = float(self._best_score)
+        state["storage"] = self._storage.state_dict()
+        return state
 
     @property
-    def save_dir(self) -> str:
-        return self._save_dir
-
-    @property
-    def model(self) -> UNet:
-        return self._model
-
-    @property
-    def hooks(self) -> List[TrainerHook]:
-        return list(self._hooks)
+    def best_score(self) -> float:
+        return float(self._best_score)
 
 
 trainer_zoo = {
+    "ft": FineTuneTrainer,
+    "finetune": FineTuneTrainer,
     "pretrain": PretrainEncoderTrainer,
     "pretrain_encoder": PretrainEncoderTrainer,
 }

@@ -6,11 +6,13 @@ versions, on the card. Marked `gpu`: skipped where torch sees no CUDA device
 
 Tolerance: 2e-4 absolute on the per-row statistics (rowloss, c, log denom,
 a — all O(1..10)) and on the loss; 2e-4 x max|dz| on dz. float32 sums run in
-another order, and s carries 1/T = 14.3x the dot-product rounding.
+another order, and s carries 1/T = 14.3x the dot-product rounding. The
+stage kernels of `convstage_cuda`: 2e-4 x max|plain| on every tensor.
 """
 import pytest
 import torch
 
+from spcl_torch.ops import convstage_cuda as cs
 from spcl_torch.ops import supcon_cuda as sc
 
 pytestmark = pytest.mark.gpu
@@ -23,7 +25,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the supcon kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sc.build()
+    cs.build()
     return torch.device("cuda")
 
 
@@ -100,3 +104,77 @@ def test_kernel_rejects_malformed_operands(cuda):
         sc.fwd_stats_kernel(z, z, short, v, v, v, v, v, 1.0, 1.0, "hard")
     with pytest.raises(ValueError):  # float64 operands
         sc.fwd_stats_kernel(z.double(), z, v, v, v, v, v, v, 1.0, 1.0, "hard")
+
+
+# ------------------------------------------------------------------ stage kernels
+def _stage_args(b, h, w, ci, c, external_first, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x = rn(b, h, w, c if external_first else ci)
+    w0 = None if external_first else rn(3, 3, ci, c, scale=(9 * ci) ** -0.5)
+    args = (x, w0, 1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(3, 3, c, c, scale=(9 * c) ** -0.5),
+            1 + rn(c, scale=0.1), rn(c, scale=0.1))
+    return args, rn(b, h // 2, w // 2, c), rn(b, h, w, c)
+
+
+def _assert_stage_close(got, want):
+    for k, p in zip(got, want):
+        if p is None:
+            assert k is None
+            continue
+        scale = max(float(p.abs().max()), 1e-12)
+        assert float((k.double() - p.double()).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("b,h,w,ci,c,external_first", [
+    (3, 20, 36, 16, 16, True), (3, 20, 36, 16, 32, False), (2, 32, 32, 16, 16, False),
+    (2, 16, 48, 32, 32, False), (5, 64, 64, 16, 32, False)])
+def test_stage_kernels_match_plain(cuda, b, h, w, ci, c, external_first):
+    args, dp, de = _stage_args(b, h, w, ci, c, external_first, seed=b + h)
+    out_k, res = cs.stage_forward(*args, external_first)
+    out_p, _ = cs.stage_forward(*args, external_first, plain=True)
+    _assert_stage_close(out_k, out_p)
+    for cot in ((dp, de), (dp, None), (None, de)):
+        # both from the kernels' residuals: the same ReLU masks and pool maxima
+        _assert_stage_close(cs.stage_backward(res, *cot, external_first),
+                            cs.stage_backward(res, *cot, external_first, plain=True))
+    again, res2 = cs.stage_forward(*args, external_first)
+    assert all(torch.equal(a, b2) for a, b2 in zip(out_k, again))  # fixed-order sums
+    assert all(torch.equal(a, b2) for a, b2 in zip(cs.stage_backward(res, dp, de, external_first),
+                                                   cs.stage_backward(res2, dp, de, external_first))
+               if a is not None)
+
+
+def test_stage_autograd_on_card_matches_cpu(cuda):
+    args, dp, de = _stage_args(2, 16, 32, 16, 32, False, seed=7)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in args]
+        cs.reset_launch_counts()
+        p, e = cs.fused_conv_stage(*leaves)[:2]
+        ((p * dp.to(dev)).sum() + (e * de.to(dev)).sum()).backward()
+        launched = sum(cs.LAUNCHES.values())
+        assert launched == (7 if dev == "cuda" else 0)
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for k, p_ in zip(grads["cuda"], grads["cpu"]):
+        assert float((k - p_).abs().max()) <= 5e-4 * float(p_.abs().max())
+
+
+def test_stage_kernels_reject_malformed_operands(cuda):
+    z = torch.zeros(2, 8, 8, 16, device="cuda")
+    coef = torch.zeros(2, 16, device="cuda")
+    with pytest.raises(ValueError):  # channels the kernels are not built for
+        cs.bnpool_kernel(torch.zeros(2, 8, 8, 8, device="cuda"), coef[:, :8].contiguous())
+    with pytest.raises(ValueError):  # odd height in a pool pass
+        cs.bnpool_kernel(torch.zeros(2, 7, 8, 16, device="cuda"), coef)
+    with pytest.raises(ValueError):  # not contiguous
+        cs.bnpool_kernel(z.permute(0, 2, 1, 3), coef)
+    with pytest.raises(ValueError):  # float64
+        cs.bnconv_kernel(z.double(), coef, torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(ValueError):  # weights of another shape
+        cs.bnconv_kernel(z, coef, torch.zeros(3, 3, 16, 32, device="cuda"))
+    with pytest.raises(ValueError):  # dp of the wrong size
+        cs.poolsums_kernel(z, coef, torch.zeros(2, 8, 8, 16, device="cuda"), None)

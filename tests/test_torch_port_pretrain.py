@@ -253,13 +253,19 @@ def test_trainer_runs_on_cpu(tmp_path):
 def test_main_pretrain_encoder_entry_point(tmp_path):
     from spcl_torch.main_pretrain_encoder import main
 
-    ckpt = main(["Arch.max_channel=128", "Data.synthetic=true", "Data.canvas=48",
-                 "Data.crop=32", "Data.synthetic_scans=6", "Trainer.num_batches=1",
-                 "Trainer.max_epoch=1", f"Trainer.save_dir={tmp_path}",
-                 "ContrastiveLoaderParams.scan_sample_num=2", "--opt-path",
-                 str(ROOT / "config" / "specific" / "selfpaced_infonce.yaml")],
-                device="cpu")
-    assert Path(ckpt).exists()
+    # both phases: encoder pretrain, then the fine-tune sweep over Data.ratios
+    scores = main(["Arch.max_channel=128", "Data.synthetic=true", "Data.canvas=48",
+                   "Data.crop=32", "Data.synthetic_scans=6", "Data.ratios=[1,2]",
+                   "Trainer.num_batches=1", "Trainer.max_epoch=1",
+                   f"Trainer.save_dir={tmp_path}",
+                   "ContrastiveLoaderParams.scan_sample_num=2", "--opt-path",
+                   str(ROOT / "config" / "specific" / "selfpaced_infonce.yaml")],
+                  device="cpu")
+    assert (tmp_path / "pre" / "last.ckpt").exists()
+    assert sorted(scores) == [1, 2]
+    assert all(0.0 <= v <= 1.0 for v in scores.values())
+    assert (tmp_path / "tra_1" / "best.ckpt").exists()
+    assert (tmp_path / "tra_2" / "storage.csv").exists()
 
 
 def _imported_roots(path: Path):

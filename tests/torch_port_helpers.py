@@ -44,3 +44,20 @@ def to_torch(tree):
 def nchw(x):
     x = np.asarray(x)
     return np.transpose(x, (0, 3, 1, 2)) if x.ndim == 4 else x
+
+
+def jax_finetune_draws(key, batch, policy, in_size, sizes=None):
+    """The draws of spcl_tpu's fine-tune step for `key` (steps.py:164 and
+    augment.py:392-397 `augment_once`): {"aug": <sample_once dict>} for
+    spcl_torch's step `params`."""
+    k_aug, _ = jax.random.split(key)
+    kg, kj = jax.random.split(k_aug)
+    out = {"geo": to_torch(jaug.sample_geometric(kg, batch, policy, in_size, sizes))}
+    if policy.jitter:
+        kb, kc = jax.random.split(kj)
+        br = jax.random.uniform(kb, (batch, 1, 1, 1), minval=policy.brightness[0],
+                                maxval=policy.brightness[1])
+        ct = jax.random.uniform(kc, (batch, 1, 1, 1), minval=policy.contrast[0],
+                                maxval=policy.contrast[1])
+        out["jitter"] = (to_torch(br).reshape(-1), to_torch(ct).reshape(-1))
+    return {"aug": out}
