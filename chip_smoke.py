@@ -32,7 +32,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                val and test loaders, warm-started from the pretrain
                last.ckpt; checks the stage kernels' launch counts per step
                (none during eval), finite losses, a DSC in [0, 1], and a
-               best.ckpt that reloads strictly into a plain UNet.
+               best.ckpt that reloads strictly into a plain UNet; then
+               times the fine-tune step and the eval step after a warm-up.
   6. profile — the pretrain step under `pallas` beside `nhwc`: 20 timed
                steps each (twice, in turns), 5 under torch.profiler (kernel
                time by kernel, the stage kernels' share); and the two
@@ -40,9 +41,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   7. parity  — one small pretrain step, and one small fine-tune step under
                `pallas`, on the card (kernels) against the same step on the
                CPU (plain versions) from the same weights and draws.
-  8. report  — the `kernels` JSON line, the nvidia-smi line, a device line
-               with the slice's throughput, and last
+  8. strips  — the supcon kernels on ROW-STRIP operands (rows of one rank
+               against the columns of all ranks), one process walking the
+               ranks of a virtual mesh: 2N=126 over 2 ranks (63 slices
+               padded to 64: strip 64 x 128), 2N=60 over 4 (strip 32 x 64),
+               2N=3840 over 8 (strip 480 x 3840); every weighting mode,
+               correct_grad on and off, an invalid tail; each strip's
+               statistics and dz against the plain versions, the assembled
+               loss, ratio, dz1, dz2 against the square-form kernels; kernel
+               strip, plain strip and naive strip timed beside the bound.
+  9. nccl    — a process group of ONE rank on NCCL in this process: the
+               row-sharded loss and the cross-rank BatchNorm, forward and
+               backward, through the collectives on CUDA tensors, against
+               the single-device results.
+ 10. slice C — multi-GPU training at the production configuration
+               (base.yaml + pretrain.yaml + specific/production_pretrain.yaml:
+               21 scans x 3 partitions = 63 slices, 2N=126, `global_contrast:
+               row_sharded`, `nhwc`) with `Trainer.mesh=2`: two spawned ranks
+               run 5 pretrain steps through spcl_torch.entry.build_trainer,
+               then `val()` at one labeled ratio under the mesh, then 5 steps
+               with `replicated`. With two or more cards the ranks take one
+               each over NCCL; on one card both compute on it and the
+               collectives go through gloo, staged through host memory. This
+               process runs the same padded batches (63 slices + one valid=0
+               entry) alone and checks: per rank and step one supcon_fwd and
+               one supcon_bwd launch at 64 x 128; losses, sp_weight, Conv5
+               weights and the last Conv5 gradient equal to the single
+               process's and row_sharded equal to replicated (tolerance
+               stated there); files from rank 0 only; last.ckpt reloads
+               strictly; the fine-tune DSC in [0, 1].
+ 11. report  — the `kernels` JSON line, the nvidia-smi line, a device line
+               with the slices' throughput, and last
                {"ok": true, "device": {...}}.
+
+Development aids: `--stage-kernels-only` stops after the build and the stage
+kernel check, `--mesh-only` runs the build and phases 8-10.
 """
 import copy
 import json
@@ -606,7 +639,30 @@ def slice_b_phase(sc, cs):
           f"{float(rows[0]['test/dice/DSC_mean']):.5f} | best.ckpt reloads strictly into a "
           f"plain UNet", flush=True)
     launches = {k: pre_launches[k] + ft_launches[k] for k in cs.LAUNCHES}
+    _time_finetune_and_eval(ft_config, ckpt, save_dir / "timing")
     return launches, trainer
+
+
+def _time_finetune_and_eval(ft_config, ckpt, save_dir):
+    """Wall time per fine-tune step and per eval step (one scan) after a
+    warm-up epoch, host batch and copy included: a trainer built as `val()`
+    builds it, its epochs run outside the launch accounting above."""
+    from spcl_torch.entry import build_trainer
+    config = copy.deepcopy(ft_config)
+    config["Data"]["labeled_scan_num"] = 1
+    config["Arch"]["checkpoint"] = str(ckpt)
+    config["Trainer"]["name"] = "ft"
+    trainer = build_trainer(config, save_dir=str(save_dir), device=DEVICE)
+    trainer.init()
+    trainer._run_train_epoch()
+    thr = trainer._run_train_epoch()[trainer.train_meter_focus]["throughput"]
+    loader = trainer._val_loader
+    eval_ms = _wall_ms(lambda n: [trainer._run_eval_epoch(loader) for _ in range(n)], 2)
+    batches = sum(1 for _ in loader.sampler)
+    print(f"fine-tune step (pallas, batch {thr['slices_per_sec'] / thr['steps_per_sec']:.0f}): "
+          f"{1e3 / thr['steps_per_sec']:.3f} ms/step wall over "
+          f"{config['Trainer']['num_batches']} steps | eval step: {eval_ms / batches:.3f} ms "
+          f"per scan over {batches} val scans ({eval_ms:.1f} ms per eval epoch)", flush=True)
 
 
 STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnpool_kernel",
@@ -615,13 +671,13 @@ STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnpool_kernel",
 
 def _pretrain_steps(trainer):
     from spcl_torch.training import batch_to_device
-    it = iter(trainer._contrastive_loader)
+    it = trainer._host_batches(trainer._contrastive_loader)
     scalars = trainer._hook_scalars()
 
     def run(n):
         for _ in range(n):
-            trainer._train_step(batch_to_device(next(it), DEVICE), trainer._generator,
-                                scalars)
+            trainer._train_step(batch_to_device(next(it), trainer._device),
+                                trainer._generator, scalars)
     return run
 
 
@@ -859,6 +915,470 @@ def finetune_parity_phase(cs):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------------------ strip kernels
+# (2N real views, ranks, invalid tail beside the rank padding): 63 slices pad
+# to 64 over 2 ranks, 30 to 32 over 4 (the pad entries are invalid), and the
+# bigbatch loss (config/specific/bigbatch_pretrain.yaml) over 8
+STRIP_SHAPES = ((126, 2, 0), (60, 4, 0), (3840, 8, 5))
+MODE_CASES = (("none", False), ("soft", False), ("soft", True), ("hard", False),
+              ("hard", True))
+
+
+def _strip_inputs(n2, world, invalid_tail, gen):
+    """`_inputs`, right-padded to a rank multiple as the trainers pad a
+    batch: the filler repeats entry 0, label -1, valid 0."""
+    z1, z2, labels, valid = _inputs(n2, gen, invalid_tail)
+    pad = (-(n2 // 2)) % world
+    if pad:
+        z1, z2 = torch.cat([z1, z1[:1].expand(pad, -1)]), torch.cat([z2, z2[:1].expand(pad, -1)])
+        labels = torch.cat([labels, labels.new_full((pad,), -1)])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    return z1.contiguous(), z2.contiguous(), labels, valid
+
+
+def _strip_bound_ms(rows, cols):
+    """Least ms for one strip, rows x cols at D=256: bytes (row and column z
+    read once, 3 vectors per row and column, outputs written once; the
+    backward also reads 3 statistics per row and column and writes dz) over
+    the memory rate against float32 operations (2 * rows * cols * D forward,
+    twice that backward) over the float32 peak."""
+    fwd_bytes = (rows + cols) * D * 4 + 3 * (rows + cols) * 4 + 4 * rows * 4
+    bwd_bytes = (rows + cols) * D * 4 + 6 * (rows + cols) * 4 + rows * D * 4
+    out = {}
+    for name, nbytes, flops in (("supcon_fwd", fwd_bytes, 2.0 * rows * cols * D),
+                                ("supcon_bwd", bwd_bytes, 4.0 * rows * cols * D)):
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        out[name] = {"bound_ms": max(tb, tf) * 1e3,
+                     "bound_by": "operations" if tf > tb else "bytes"}
+    return out
+
+
+def _strip_ops(strip):
+    rows, cols, stats_l, stats_g = strip
+    ops = (rows[0], cols[0], rows[1], cols[1], rows[2], cols[2], rows[3], cols[3])
+    stats = (stats_l[0], stats_g[0], stats_l[1], stats_g[1], stats_l[2], stats_g[2])
+    return ops, stats
+
+
+def strip_kernel_phase(sc):
+    phase("strip kernels: rows of one rank x columns of all ranks, vs plain and vs the "
+          "square form")
+    from spcl_torch.parallel.contrastive import naive_strip_sums
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    inv_t = 1 / 0.07
+    max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
+    shapes, cases = {}, 0
+    for n2, world, tail in STRIP_SHAPES:
+        z1, z2, labels, valid = _strip_inputs(n2, world, tail, gen)
+        hard_gamma, gap = _hard_gamma(sc, z1, z2, labels, valid)
+        for mode, correct_grad in MODE_CASES:
+            gamma = {"none": 1e9, "soft": 8.0, "hard": hard_gamma}[mode]
+            w = sc.walk_strips(z1, z2, labels, valid, world, gamma=gamma, temperature=0.07,
+                               weight_update=mode, correct_grad=correct_grad)
+            scale = 1.0 / w["m"]
+            if correct_grad and mode != "none" and float(w["ratio"]) > 0:
+                scale = scale / w["ratio"]
+            scale = scale.reshape(1)
+            fwd_err = dz_err = 0.0
+            for strip in w["strips"]:  # every rank's strip against the plain versions
+                ops, stats = _strip_ops(strip)
+                k = sc.fwd_stats_kernel(*ops, inv_t, gamma, mode)
+                p = sc.fwd_stats_plain(*ops, inv_t, gamma, mode)
+                c_safe = torch.clamp(p[1], min=1.0)
+                fwd_err = max(fwd_err,
+                              float((torch.log(k[0] + 1e-16) - torch.log(p[0] + 1e-16)).abs().max()),
+                              float((k[1] - p[1]).abs().max()),
+                              float(((k[2] - p[2]) / c_safe).abs().max()),
+                              float(((k[3] - p[3]) / c_safe).abs().max()))
+                dzk = sc.bwd_dz_kernel(*ops, *stats, inv_t, gamma, scale, mode)
+                dzp = sc.bwd_dz_plain(*ops, *stats, inv_t, gamma, scale, mode)
+                dz_err = max(dz_err, float((dzk - dzp).abs().max()))
+            # the assembled strips against the square-form kernels on the whole batch
+            sq = _stats_and_dz(sc, True, z1, z2, labels, valid, gamma, mode, correct_grad)
+            dz_scale = float(torch.cat([sq[3], sq[4]]).abs().max())
+            sq_dz_err = float(torch.cat([w["dz1"] - sq[3], w["dz2"] - sq[4]]).abs().max())
+            loss_err = abs(float(w["loss"]) - float(sq[0]))
+            ratio_err = abs(float(w["ratio"]) - float(sq[1]))
+            rows_pad, cols_pad = w["strips"][0][0][0].shape[0], w["strips"][0][1][0].shape[0]
+            # the tolerances of the square-form phase, for the same reasons
+            ok = (fwd_err <= 2e-4 and dz_err <= 2e-4 * dz_scale and sq_dz_err <= 2e-4 * dz_scale
+                  and loss_err <= 2e-4 * max(1.0, abs(float(sq[0]))) and ratio_err <= 1e-5)
+            print(f"2N={n2:5d} R={world} strip {rows_pad}x{cols_pad} {mode:4s} "
+                  f"cg={int(correct_grad)} gamma={gamma:.6g}"
+                  f"{f' (gap {gap:.2e})' if mode == 'hard' else ''} loss={float(sq[0]):.6f} "
+                  f"ratio={float(sq[1]):.4f} | err vs plain: stats {fwd_err:.2e} dz {dz_err:.2e}"
+                  f" | vs square form: dz {sq_dz_err:.2e} (scale {dz_scale:.2e}) loss "
+                  f"{loss_err:.2e} ratio {ratio_err:.2e} {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"strip kernels disagree at 2N={n2} R={world} {mode} cg={correct_grad}")
+            max_err["supcon_fwd"] = max(max_err["supcon_fwd"], fwd_err)
+            max_err["supcon_bwd"] = max(max_err["supcon_bwd"], dz_err)
+            cases += 1
+
+        # ---- times of rank 0's strip: kernel, plain, naive (hard, gamma 3)
+        w = sc.walk_strips(z1, z2, labels, valid, world, gamma=3.0, weight_update="hard")
+        ops, stats = _strip_ops(w["strips"][0])
+        rows_pad, cols_pad = ops[0].shape[0], ops[1].shape[0]
+        scale = (1.0 / w["m"]).reshape(1)
+        fargs = (*ops, inv_t, 3.0, "hard")
+        bargs = (*ops, *stats, inv_t, 3.0, scale, "hard")
+        reps = 200 if n2 <= 1024 else 20
+        fk, fp = _best_of_turns(lambda: sc.fwd_stats_kernel(*fargs),
+                                lambda: sc.fwd_stats_plain(*fargs), reps)
+        bk, bp = _best_of_turns(lambda: sc.bwd_dz_kernel(*bargs),
+                                lambda: sc.bwd_dz_plain(*bargs), reps)
+        n_l = z1.shape[0] // world
+        a = z1[:n_l].clone().requires_grad_(True)
+        b = z2[:n_l].clone().requires_grad_(True)
+
+        def naive():
+            a.grad = b.grad = None
+            s4 = naive_strip_sums(a, b, labels[:n_l], valid[:n_l], z1, z2, labels, valid, 0,
+                                  gamma=3.0, temperature=0.07, weight_update="hard")
+            (-s4[0] / s4[1]).backward()
+
+        naive_ms = _time_ms(naive, reps)
+        bound = _strip_bound_ms(rows_pad, cols_pad)
+        at = f"{rows_pad}x{cols_pad}"
+        shapes[at] = {"supcon_fwd": {"at": f"2N={n2}, R={world}, strip {at}, D={D}", "ms": fk,
+                                     "plain_ms": fp, **bound["supcon_fwd"]},
+                      "supcon_bwd": {"at": f"2N={n2}, R={world}, strip {at}, D={D}", "ms": bk,
+                                     "plain_ms": bp, **bound["supcon_bwd"]},
+                      "naive_strip_fwd_bwd_ms": naive_ms}
+        print(f"time strip {at} (2N={n2}, R={world}): supcon_fwd kernel {fk:.4f} ms | plain "
+              f"{fp:.4f} ms | bound {bound['supcon_fwd']['bound_ms']:.6f} ms "
+              f"({bound['supcon_fwd']['bound_by']}) || supcon_bwd kernel {bk:.4f} ms | plain "
+              f"{bp:.4f} ms | bound {bound['supcon_bwd']['bound_ms']:.6f} ms "
+              f"({bound['supcon_bwd']['bound_by']}) || kernel strip forward + backward "
+              f"{fk + bk:.4f} ms | naive strip forward + backward (autograd) {naive_ms:.4f} ms",
+              flush=True)
+    print(f"{cases} strip cases agree (stats tol 2e-4 abs; dz tol 2e-4 x max|dz|)", flush=True)
+    print("strip_timings " + json.dumps(shapes), flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    return max_err, shapes
+
+
+def nccl_phase(sc):
+    """A process group of one rank on NCCL in this process: the row-sharded
+    loss and the cross-rank BatchNorm run their collectives on CUDA tensors
+    and must give the single-device results."""
+    phase("NCCL, world size 1: row-sharded loss and cross-rank BatchNorm through the "
+          "collectives")
+    import torch.distributed as dist
+    from spcl_torch.models.norm import BN_EPS, batch_norm
+    from spcl_torch.parallel import mesh
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    z1, z2, labels, valid = _strip_inputs(126, 2, 0, gen)
+
+    def loss_and_grads(fn):
+        a, b = z1.clone().requires_grad_(True), z2.clone().requires_grad_(True)
+        loss, ratio = fn(a, b)
+        loss.backward()
+        return loss.detach(), ratio, a.grad, b.grad
+
+    kw = dict(gamma=3.0, temperature=0.07, weight_update="hard", correct_grad=True)
+    ref = loss_and_grads(lambda a, b: sc.fused_self_paced_supcon(a, b, target=labels,
+                                                                 valid=valid, **kw))
+    x = torch.randn(8, 16, 24, 24, generator=gen, device=DEVICE) * 2 + 0.5
+    dy = torch.randn(8, 16, 24, 24, generator=gen, device=DEVICE)
+
+    def bn_run(bn):
+        bn = bn.to(DEVICE).train()
+        xx = x.clone().requires_grad_(True)
+        y = bn(xx)
+        (y * dy).sum().backward()
+        return [y.detach(), xx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean.clone(),
+                bn.running_var.clone()]
+
+    bn_ref = bn_run(torch.nn.BatchNorm2d(16, eps=BN_EPS, momentum=0.1))
+    check(not mesh.active(), "a process group is already up")
+    mesh.initialize_distributed(f"localhost:{mesh.free_port()}", 1, 0, device=DEVICE,
+                                timeout_s=120.0)
+    try:
+        check(dist.get_backend() == "nccl" and mesh.world_size() == 1, dist.get_backend())
+        sc.reset_launch_counts()
+        got = loss_and_grads(lambda a, b: sc.sharded_fused_self_paced_supcon(
+            a, b, labels, valid, **kw))
+        torch.cuda.synchronize()
+        check(sc.LAUNCHES == {"supcon_fwd": 1, "supcon_bwd": 1}, dict(sc.LAUNCHES))
+        bn_got = bn_run(batch_norm(16))
+        mesh.host_barrier()
+    finally:
+        mesh.shutdown()
+    dz_scale = float(torch.cat([ref[2], ref[3]]).abs().max())
+    dz_err = float(torch.cat([got[2] - ref[2], got[3] - ref[3]]).abs().max())
+    print(f"row-sharded loss over NCCL {float(got[0]):.6f} (single device {float(ref[0]):.6f})"
+          f" ratio {float(got[1]):.4f} / {float(ref[1]):.4f} | dz err {dz_err:.2e} (scale "
+          f"{dz_scale:.2e})", flush=True)
+    check(abs(float(got[0]) - float(ref[0])) <= 2e-4 * max(1.0, abs(float(ref[0]))),
+          "row-sharded loss over NCCL differs")
+    check(abs(float(got[1]) - float(ref[1])) <= 1e-5 and dz_err <= 2e-4 * dz_scale,
+          "row-sharded ratio or dz over NCCL differs")
+    # one-pass E[x^2] - mean^2 statistics against cuDNN's: float32 rounding
+    names = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+    errs = []
+    for name, g, r in zip(names, bn_got, bn_ref):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        errs.append(f"{name} {err:.1e}/{scale:.1e}")
+        check(err <= 1e-4 * scale, f"cross-rank BatchNorm over NCCL: {name} {err} of {scale}")
+    print("cross-rank BatchNorm over NCCL vs nn.BatchNorm2d (abs err / max|ref|, tol 1e-4): "
+          + " | ".join(errs), flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+
+
+# ------------------------------------------------------------------ slice C
+RANKS_C = 2
+SLICE_C_TIMED_STEPS = 10
+
+
+def _config_c(global_contrast):
+    """base.yaml + pretrain.yaml + specific/production_pretrain.yaml, with
+    Data.synthetic (24 scans) and the depth cut to 1 x 5; the callers set
+    Trainer.mesh and hand `build_trainer` the run directory."""
+    config = copy.deepcopy(CONFIG)
+    config["Data"]["synthetic_scans"] = 24
+    config["ContrastiveLoaderParams"]["scan_sample_num"] = 21
+    config["SPInfonceParams"]["global_contrast"] = global_contrast
+    return config
+
+
+class _PaddedSampler:
+    """The index batches of `base`, right-padded with -1 to a multiple: hands
+    the single process the very batches a mesh run pads for its ranks."""
+
+    def __init__(self, base, multiple):
+        self._base, self._multiple = base, multiple
+
+    def __iter__(self):
+        from spcl_torch.parallel.mesh import pad_multiple
+        for idx in self._base:
+            yield pad_multiple(np.asarray(idx), self._multiple)
+
+
+def _conv5(trainer):
+    return trainer.model._Conv5.conv[0].weight
+
+
+def _pretrain_c(sc, config, save_dir, mesh_ranks, recorder):
+    """5 pretrain steps of slice C's configuration in this process (one rank
+    of a mesh run, or the single process on the same padded batches)."""
+    from spcl_torch.data.loader import HostLoader
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.utils import fix_all_seed
+    config = copy.deepcopy(config)
+    config["Trainer"]["mesh"] = mesh_ranks
+    fix_all_seed(config["RandomSeed"])
+    trainer = build_trainer(config, save_dir=save_dir, pretrain=True, device=DEVICE)
+    check(trainer._forward_until == "Conv5", trainer._forward_until)
+    if not mesh_ranks:
+        loader = trainer._contrastive_loader
+        trainer._contrastive_loader = HostLoader(loader.dataset,
+                                                 _PaddedSampler(loader.sampler, RANKS_C))
+    trainer.init()
+    before = _conv5(trainer).detach().cpu().clone()
+    sc.reset_launch_counts()
+    recorder.clear()
+    trainer.start_training()
+    torch.cuda.synchronize()
+    name = "spinfonce/Conv5/partition"
+    return trainer, {
+        "n_shards": trainer.n_shards, "launches": dict(sc.LAUNCHES), "shapes": list(recorder),
+        "reg_loss": [m["reg_loss"] for m in trainer.step_metrics],
+        "sp_weight": [m["hooks"][name]["sp_weight"] for m in trainer.step_metrics],
+        "conv5_before": before.numpy(),
+        "conv5": _conv5(trainer).detach().cpu().numpy().copy(),
+        "conv5_grad": _conv5(trainer).grad.detach().cpu().numpy().copy(),
+        "files": sorted(str(f.relative_to(save_dir)) for f in Path(save_dir).rglob("*")
+                        if f.is_file()) if Path(save_dir).is_dir() else []}
+
+
+def _record_launch_shapes(sc):
+    """Wrap the two kernel launchers of this process so that every launch
+    notes (kernel, rows, columns); returns the list they append to."""
+    seen = []
+    fwd, bwd = sc.fwd_stats_kernel, sc.bwd_dz_kernel
+
+    def fwd_rec(zr, zc, *rest):
+        seen.append(("supcon_fwd", zr.shape[0], zc.shape[0]))
+        return fwd(zr, zc, *rest)
+
+    def bwd_rec(zr, zc, *rest):
+        seen.append(("supcon_bwd", zr.shape[0], zc.shape[0]))
+        return bwd(zr, zc, *rest)
+
+    sc.fwd_stats_kernel, sc.bwd_dz_kernel = fwd_rec, bwd_rec
+    return seen
+
+
+def _timed_pretrain_steps(trainer, steps):
+    """ms per pretrain step, steady state, host batch and copy included."""
+    from spcl_torch.parallel import mesh
+    run = _pretrain_steps(trainer)
+    run(2)
+    mesh.host_barrier()
+    return _wall_ms(run, steps)
+
+
+def slice_c_rank(root, base_dir, device, base_config):
+    """One rank of slice C (runs in a spawned process, which is handed the
+    parent's device and base configuration)."""
+    global DEVICE, CONFIG
+    DEVICE, CONFIG = device, base_config
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+    from spcl_torch.entry import val
+    from spcl_torch.ops import supcon_cuda as sc
+    from spcl_torch.parallel import mesh
+    recorder = _record_launch_shapes(sc)
+    my_dir = str(Path(base_dir) / f"rank{mesh.rank()}")
+    out = {"backend": dist.get_backend(), "rank": mesh.rank()}
+    trainer, out["row_sharded"] = _pretrain_c(
+        sc, _config_c("row_sharded"), str(Path(my_dir) / "pre"), RANKS_C, recorder)
+    out["device"] = str(trainer._device)
+    # phase 2 under the mesh, warm-started from what rank 0 wrote
+    ft_config = _config_c("row_sharded")
+    ft_config["Trainer"]["mesh"] = RANKS_C
+    del ft_config["Trainer"]["name"]
+    sc.reset_launch_counts()
+    out["scores"] = val(base_config=ft_config,
+                        pretrained_checkpoint=str(Path(base_dir) / "rank0" / "pre" / "last.ckpt"),
+                        save_dir=my_dir, labeled_ratios=[1], device=DEVICE)
+    out["val_launches"] = dict(sc.LAUNCHES)
+    out["files"] = sorted(str(f.relative_to(my_dir)) for f in Path(my_dir).rglob("*")
+                          if f.is_file()) if Path(my_dir).is_dir() else []
+    _, out["replicated"] = _pretrain_c(
+        sc, _config_c("replicated"), str(Path(my_dir) / "pre_replicated"), RANKS_C,
+        recorder)
+    out["ms_per_step"] = _timed_pretrain_steps(trainer, SLICE_C_TIMED_STEPS)
+    return out
+
+
+def slice_c_phase(sc):
+    phase(f"slice C: Trainer.mesh={RANKS_C}, production configuration (UNet-256, 224^2, "
+          "2N=126, row_sharded), pretrain then val() under the mesh")
+    from spcl_torch.models import UNet
+    from spcl_torch.parallel.mesh import spawn_local
+    from spcl_torch.training import load_model_state_dict
+    base_dir = ROOT / "runs" / "chip_smoke_c"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    print(f"{cards} card(s): " + (
+        "one rank per card, collectives over NCCL" if cards >= RANKS_C else
+        "both ranks compute on this card; collectives over gloo, staged through host "
+        "memory (for the collectives only)"), flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_local(RANKS_C, slice_c_rank, (str(ROOT), str(base_dir), DEVICE, CONFIG),
+                        device=DEVICE,
+                        timeout_s=600.0, collective_timeout_s=300.0)
+    print(f"two ranks done in {time.perf_counter() - t0:.1f} s (process start, CUDA context and "
+          f"warm-up included); backend {ranks[0]['backend']}, devices "
+          f"{[r['device'] for r in ranks]}", flush=True)
+    check(ranks[0]["backend"] == ("nccl" if cards >= RANKS_C else "gloo"), ranks[0]["backend"])
+    check(all(r["device"].startswith(DEVICE) for r in ranks), f"a rank computed off {DEVICE}")
+
+    # ---- the single process on the same padded batches (63 slices + 1 invalid = 64)
+    recorder = _record_launch_shapes(sc)
+    trainer, one = _pretrain_c(sc, _config_c("row_sharded"),
+                               str(base_dir / "single"), 0, recorder)
+    steps = CONFIG["Trainer"]["max_epoch"] * CONFIG["Trainer"]["num_batches"]
+    check(one["n_shards"] == 1 and one["shapes"] == [("supcon_fwd", 128, 128),
+                                                     ("supcon_bwd", 128, 128)] * steps,
+          f"single process: {one['shapes']}")
+
+    # ---- launches: per rank and step one forward and one dz launch at 64 x 128
+    for r in ranks:
+        rs, rp = r["row_sharded"], r["replicated"]
+        print(f"rank {r['rank']} on {r['device']}: row_sharded launches {rs['launches']} "
+              f"shapes {sorted(set(rs['shapes']))} | val() launches {r['val_launches']} | "
+              f"replicated launches {rp['launches']} shapes {sorted(set(rp['shapes']))}",
+              flush=True)
+        check(rs["n_shards"] == RANKS_C and rp["n_shards"] == RANKS_C, "not a mesh run")
+        check(rs["launches"] == {"supcon_fwd": steps, "supcon_bwd": steps}, rs["launches"])
+        check(rs["shapes"] == [("supcon_fwd", 64, 128), ("supcon_bwd", 64, 128)] * steps,
+              f"row_sharded strip operands: {rs['shapes']}")
+        check(rp["shapes"] == [("supcon_fwd", 128, 128), ("supcon_bwd", 128, 128)] * steps,
+              f"replicated operands: {rp['shapes']}")
+        check(r["val_launches"] == {"supcon_fwd": 0, "supcon_bwd": 0}, r["val_launches"])
+        check(list(r["scores"]) == [1] and 0.0 <= r["scores"][1] <= 1.0, r["scores"])
+    check(ranks[0]["scores"] == ranks[1]["scores"], "the ranks' DSC differ")
+
+    # ---- agreement. Tolerance: the ranks convolve 64 rows each and the single
+    # process 128, so cuDNN may pick other TF32 algorithms (TF32 keeps ~3
+    # digits) and the BatchNorm sums run in another order; z enters the loss
+    # as s = z.z / 0.07, and hard weights are thresholds that may flip (one
+    # pair of the 2N=126 batch moves sp_weight by 4e-4). First measured on an
+    # H100: 1e-5, 1e-10 and 3e-3.
+    tol = {"reg_loss": 1e-3, "sp_weight": 5e-3, "grad": 5e-2}
+    for key in ("reg_loss", "sp_weight"):  # the replicas agree to the bit
+        for run in ("row_sharded", "replicated"):
+            check(ranks[0][run][key] == ranks[1][run][key], f"ranks differ in {run} {key}")
+    check(np.array_equal(ranks[0]["row_sharded"]["conv5"], ranks[1]["row_sharded"]["conv5"]),
+          "the replicas' Conv5 weights drifted apart")
+
+    def compare(name, a, b):
+        reg = max(abs(x - y) / abs(y) for x, y in zip(a["reg_loss"], b["reg_loss"]))
+        spw = max(abs(x - y) for x, y in zip(a["sp_weight"], b["sp_weight"]))
+        grad = float(np.linalg.norm(a["conv5_grad"] - b["conv5_grad"])
+                     / np.linalg.norm(b["conv5_grad"]))
+        moved = float(np.abs(b["conv5"] - b["conv5_before"]).max())
+        weights = float(np.abs(a["conv5"] - b["conv5"]).max())
+        print(f"{name}: max rel diff reg_loss {reg:.2e} (tol {tol['reg_loss']}) | max abs diff "
+              f"sp_weight {spw:.2e} (tol {tol['sp_weight']}) | last step's Conv5 gradient rel "
+              f"L2 {grad:.2e} (tol {tol['grad']}) | Conv5 weights max abs diff {weights:.2e} "
+              f"(they moved by {moved:.2e} in {steps} steps at lr 1e-7)", flush=True)
+        check(all(math.isfinite(v) for v in a["reg_loss"] + b["reg_loss"]), "non-finite loss")
+        check(reg <= tol["reg_loss"] and spw <= tol["sp_weight"] and grad <= tol["grad"],
+              f"{name} disagree")
+        check(weights <= max(2.0 * moved, 1e-7), f"{name}: Conv5 weights differ by {weights}")
+
+    for step in range(steps):
+        print(f"step {step}: reg_loss 2 ranks row_sharded "
+              f"{ranks[0]['row_sharded']['reg_loss'][step]:.6f} | replicated "
+              f"{ranks[0]['replicated']['reg_loss'][step]:.6f} | single process "
+              f"{one['reg_loss'][step]:.6f} || sp_weight "
+              f"{ranks[0]['row_sharded']['sp_weight'][step]:.4f} | "
+              f"{ranks[0]['replicated']['sp_weight'][step]:.4f} | {one['sp_weight'][step]:.4f}",
+              flush=True)
+    compare("2 ranks row_sharded vs single process", ranks[0]["row_sharded"], one)
+    compare("2 ranks row_sharded vs 2 ranks replicated", ranks[0]["row_sharded"],
+            ranks[0]["replicated"])
+
+    # ---- files: rank 0 wrote, the others did not; last.ckpt reloads strictly here
+    print(f"files of rank 0: {ranks[0]['files']} | of rank 1: {ranks[1]['files']}", flush=True)
+    check(ranks[1]["files"] == [], f"rank 1 wrote {ranks[1]['files']}")
+    for f in ("pre/.success", "pre/last.ckpt", "tra_1/.success", "tra_1/best.ckpt",
+              "tra_1/last.ckpt", "tra_1/storage.csv"):
+        check(f in ranks[0]["files"], f"rank 0 did not write {f}")
+    fresh = UNet(input_dim=1, num_classes=4, max_channel=CONFIG["Arch"]["max_channel"])
+    fresh.load_state_dict(load_model_state_dict(str(base_dir / "rank0" / "pre" / "last.ckpt")),
+                          strict=True)
+    fresh.load_state_dict(load_model_state_dict(str(base_dir / "rank0" / "tra_1" / "best.ckpt")),
+                          strict=True)
+
+    # ---- step time, 2 ranks beside the single process (same global batch of 64 + 64 views)
+    single_ms = _timed_pretrain_steps(trainer, SLICE_C_TIMED_STEPS)
+    mesh_ms = max(r["ms_per_step"] for r in ranks)
+    views = 2 * 63
+    shared = cards < RANKS_C
+    print(f"slice C step, {SLICE_C_TIMED_STEPS} timed steps: {RANKS_C} ranks over "
+          f"{ranks[0]['backend']} {mesh_ms:.3f} ms/step = {1e3 / mesh_ms:.3f} steps/s, "
+          f"{views * 1e3 / mesh_ms:.1f} slices/s | single process {single_ms:.3f} ms/step = "
+          f"{1e3 / single_ms:.3f} steps/s, {views * 1e3 / single_ms:.1f} slices/s"
+          + (" | both ranks share ONE card and stage their collectives through the host: "
+             "this is no speed-up figure" if shared else ""), flush=True)
+    print(f"fine-tune under the mesh: val DSC {ranks[0]['scores'][1]:.5f}; last.ckpt and "
+          f"best.ckpt of rank 0 reload strictly", flush=True)
+    launches = {k: ranks[0]["row_sharded"]["launches"][k] + ranks[0]["replicated"]["launches"][k]
+                for k in sc.LAUNCHES}
+    return launches, {"mesh_ms": mesh_ms, "single_ms": single_ms,
+                      "backend": ranks[0]["backend"], "shared_card": shared}
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -866,8 +1386,13 @@ def main():
     from spcl_torch.ops import supcon_cuda as sc
 
     build_phase(sc, cs)
-    if "--stage-kernels-only" in sys.argv[1:]:  # development aid: one phase
+    if "--stage-kernels-only" in sys.argv[1:]:  # development aids: one phase
         stage_kernel_phase(cs)
+        return
+    if "--mesh-only" in sys.argv[1:]:
+        strip_kernel_phase(sc)
+        nccl_phase(sc)
+        slice_c_phase(sc)
         return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
@@ -879,6 +1404,9 @@ def main():
     stage_region_phase()
     step_parity_phase()
     finetune_parity_phase(cs)
+    strip_err, strip_shapes = strip_kernel_phase(sc)
+    nccl_phase(sc)
+    launches_c, steps_c = slice_c_phase(sc)
 
     main_t = timings[MAIN_2N]
     why = ("no single PyTorch call computes the self-paced SupCon per-row "
@@ -888,12 +1416,15 @@ def main():
         "supcon_bwd": "spcl_tpu/ops/supcon_pallas.py:167 _bwd_kernel",
     }
     kernels = [{"name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/supcon.cu",
-                "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": max_err[name], "ms": main_t[name]["ms"],
+                "replaces": replaces[name], "launches": launches[name] + launches_c[name],
+                "launches_by_path": {"slice_a": launches[name],
+                                     "slice_c_rank_0": launches_c[name]},
+                "max_abs_err": max(max_err[name], strip_err[name]), "ms": main_t[name]["ms"],
                 "kernel_ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"], "library_ms": None,
-                "library_why": why, "at": f"2N={MAIN_2N}, D={D}"}
+                "library_why": why, "at": f"2N={MAIN_2N}, D={D}",
+                "shapes": {at: v[name] for at, v in strip_shapes.items()}}
                for name in ("supcon_fwd", "supcon_bwd")]
     stage_why = ("no single PyTorch call computes a pass: each fuses BatchNorm, ReLU or the "
                  "pool with a convolution, its statistics or its weight gradient")
@@ -918,7 +1449,11 @@ def main():
           f"{VIEWS * 1e3 / steps['nhwc_ms']:.1f} slices/s ({steps['nhwc_ms']:.3f} ms/step) | "
           f"slice B pretrain step (pallas) {1e3 / steps['pallas_ms']:.3f} steps/s, "
           f"{VIEWS * 1e3 / steps['pallas_ms']:.1f} slices/s ({steps['pallas_ms']:.3f} ms/step), "
-          f"steady state", flush=True)
+          f"steady state | slice C (2N=126, {RANKS_C} ranks over {steps_c['backend']}"
+          f"{', one shared card' if steps_c['shared_card'] else ''}) "
+          f"{1e3 / steps_c['mesh_ms']:.3f} steps/s ({steps_c['mesh_ms']:.3f} ms/step) beside "
+          f"the single process {1e3 / steps_c['single_ms']:.3f} steps/s "
+          f"({steps_c['single_ms']:.3f} ms/step)", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

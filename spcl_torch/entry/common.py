@@ -89,7 +89,10 @@ def load_datasets_from_config(config: Dict) -> Tuple[SliceDataset, SliceDataset]
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
-    encoder-pretrain trainer, or the fine-tune trainer (`Trainer.name: ft`)."""
+    encoder-pretrain trainer, or the fine-tune trainer (`Trainer.name: ft`).
+    `Trainer.mesh: N|auto` makes it one rank of an N-rank run; the calling
+    process must then be one of N ranks (see `spcl_torch.main_pretrain_encoder`
+    and `parallel.mesh.spawn_local`)."""
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
@@ -107,7 +110,8 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     kwargs = dict(model=build_model_from_config(config),
                   save_dir=save_dir or trainer_cfg.get("save_dir", "runs/tmp"),
                   max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
-                  config=config, seed=seed, crop=crop, data_name=data_name, device=device)
+                  config=config, seed=seed, crop=crop, data_name=data_name, device=device,
+                  mesh=trainer_cfg.get("mesh", 0))
 
     if name.startswith("pretrain"):
         hooks = create_hook_from_config(config, max_epoch=max_epoch)

@@ -4,6 +4,10 @@ The counterpart of `spcl_tpu/entry/val.py` (reference val.py:24-66): for each
 labeled scan count in the dataset's ratio zoo, warm-start the model from the
 pretrained checkpoint, rebuild the loaders at that ratio, and run a full
 FineTuneTrainer with eval. Returns {ratio: best val DSC}.
+
+Under `Trainer.mesh` every rank calls `val` with the same config; the
+pretrain trainer's closing barrier guarantees that `pretrained_checkpoint`,
+written by rank 0, is complete before any rank reads it here.
 """
 from __future__ import annotations
 

@@ -12,8 +12,13 @@ Criterion dispatch: `use_fused` "auto" or true runs `ops.supcon_cuda` —
 the hand-written kernels on a CUDA tensor at EVERY batch size, their plain
 per-row version on a CPU tensor; false runs the dense `losses/supcon.py`.
 (`spcl_tpu`'s FUSED_MIN_ROWS crossover is a TPU measurement and does not
-apply here.) `global_contrast` is accepted for config compatibility; on one
-device both of its values compute the same loss.
+apply here.)
+
+`global_contrast` says how the loss spans the ranks of a multi-rank run
+(`Trainer.mesh`): "replicated" gathers z and computes the full [2N, 2N] loss
+on every rank; "row_sharded" computes this rank's [2 n_local, 2N] strip
+(`parallel/contrastive.py`). Both give the same loss and the same metrics on
+every rank; in a single process both are the single-device loss.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from ..losses.supcon import self_paced_supcon_loss, supcon_loss
 from ..models.heads import ProjectionHead
 from ..models.unet import ENCODER_NAMES
 from ..ops.supcon_cuda import fused_self_paced_supcon, fused_supcon
+from ..parallel import mesh
+from ..parallel.contrastive import global_self_paced_supcon, sharded_self_paced_supcon
 from ..schedulers.gamma import PScheduler
 
 
@@ -69,8 +76,18 @@ class INFONCEHook(TrainerHook):
         z = self.projector(torch.cat([v1_tf, v2], dim=0))
         return z[:n], z[n:]
 
+    def _mesh_criterion(self, z1, z2, target, valid, *, gamma, mode, correct_grad=False):
+        """(loss, ratio) over the global batch of a multi-rank run."""
+        fn = (sharded_self_paced_supcon if self.global_contrast == "row_sharded"
+              else global_self_paced_supcon)
+        return fn(z1, z2, target, valid, gamma=gamma, temperature=self.temperature,
+                  weight_update=mode, correct_grad=correct_grad, use_fused=self.use_fused)
+
     def _criterion(self, z1, z2, target, valid, scalars):
-        if self.fused:
+        if mesh.active():
+            # hard weights at gamma = 1e9 are exactly 1: plain SupCon
+            loss, _ = self._mesh_criterion(z1, z2, target, valid, gamma=1e9, mode="hard")
+        elif self.fused:
             loss = fused_supcon(z1, z2, target=target, valid=valid,
                                 temperature=self.temperature)
         else:
@@ -112,7 +129,11 @@ class SelfPacedINFONCEHook(INFONCEHook):
 
     def _criterion(self, z1, z2, target, valid, scalars):
         gamma = scalars["gamma"]
-        if self.fused:
+        if mesh.active():
+            loss, ratio = self._mesh_criterion(z1, z2, target, valid, gamma=gamma,
+                                               mode=self.mode,
+                                               correct_grad=self.correct_grad)
+        elif self.fused:
             loss, ratio = fused_self_paced_supcon(
                 z1, z2, target=target, valid=valid, gamma=gamma,
                 temperature=self.temperature, weight_update=self.mode,

@@ -14,15 +14,29 @@ UNet from it at every labeled ratio (`Data.ratios`, else the dataset's ratio
 zoo) under `<save_dir>/tra_<ratio>/`. Returns and prints {ratio: best val DSC}.
 `Arch.small_c_layout=pallas` runs Conv1/Conv2 through the fused CUDA stages
 in both phases; `--device cpu` runs everything on the plain versions.
+
+`Trainer.mesh=N` (or `auto`: one rank per visible card) trains on N ranks:
+this process starts N local ranks (`parallel.mesh.spawn_local`), each runs
+both phases on its rows of every global batch, and rank 0's scores come back.
+With fewer cards than ranks the ranks share cards and the collectives go
+through gloo; `--device cpu` runs the ranks on the CPU. To place the ranks
+yourself, start one process per rank with SPCL_COORDINATOR=host:port,
+SPCL_NUM_PROCESSES=N and SPCL_PROCESS_ID=rank set: such a process starts no
+further ranks.
 """
 import argparse
+import logging
 import sys
 from pathlib import Path
 
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
 from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs, val
+from spcl_torch.parallel import mesh
 from spcl_torch.utils import config_logger, fix_all_seed
+
+# a run whose ranks are not all done after this many seconds fails
+RANKS_TIMEOUT_S = 7 * 24 * 3600.0
 
 
 def main(argv=None, *, device="cuda", until_check: str = "Conv5"):
@@ -30,9 +44,22 @@ def main(argv=None, *, device="cuda", until_check: str = "Conv5"):
                        str(Path(CONFIG_PATH) / "pretrain.yaml"),
                        strict=False).parse_args(argv)
     config = cm.merged_config
+    ranks = mesh.requested_ranks(config.get("Trainer", {}).get("mesh", 0), device)
+    if ranks > 1 and not mesh.is_rank_process():
+        return mesh.spawn_local(ranks, run, (config, device, until_check), device=device,
+                                timeout_s=RANKS_TIMEOUT_S)[0]
+    return run(config, device, until_check)
+
+
+def run(config, device="cuda", until_check: str = "Conv5"):
+    """Both phases from a merged config, in this process (one rank of the run
+    under `Trainer.mesh`)."""
     pretrain_config, ft_config = separate_pretrain_finetune_configs(config)
     save_dir = config.get("Trainer", {}).get("save_dir", "runs/pretrain_encoder")
-    config_logger(save_dir)
+    mesh.initialize_distributed(device=device)  # no-op unless SPCL_* name a run
+    master = mesh.on_master()
+    config_logger(save_dir if master else None,
+                  level=logging.INFO if master else logging.WARNING)
     fix_all_seed(int(config.get("RandomSeed", 10)))
 
     pretrain_config.setdefault("Trainer", {})["name"] = "pretrain_encoder"

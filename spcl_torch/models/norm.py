@@ -1,16 +1,54 @@
-"""Torch-convention BatchNorm for the UNet.
+"""Torch-convention BatchNorm for the UNet, with cross-rank statistics.
 
 `spcl_tpu/models/norm.py::TorchBatchNorm` pins torch's semantics on flax:
 normalize with the biased batch variance, update the running variance with
 the unbiased one, running = (1-m)*running + m*batch with m = 0.1, eps 1e-5.
-That is exactly `nn.BatchNorm2d(momentum=0.1, eps=1e-5)`, so here it is one.
+In one process that is exactly `nn.BatchNorm2d(momentum=0.1, eps=1e-5)`.
+
+In a multi-rank run the training statistics span the ranks, to the
+arithmetic of `TorchBatchNorm` under an `axis_name` (norm.py:60-80): each
+rank's mean and mean of squares are averaged over ranks (every rank holds the
+same number of rows of the padded global batch), the variance is
+E[x^2] - mean^2 clamped at 0, and the running variance takes Bessel's factor
+with the GLOBAL count. The averages go through the differentiable sum of
+`parallel/mesh.py`, so the gradient crosses the ranks too. `nn.SyncBatchNorm`
+is not used: it has no CPU path, and one code path serves gloo on the CPU and
+NCCL on the card. Parameters, buffers and state_dict keys are those of
+`nn.BatchNorm2d`.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from ..parallel import mesh
 
 BN_EPS = 1e-5  # TorchBatchNorm.epsilon
 
 
+class CrossRankBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode batch statistics span the ranks of
+    the process group; without a group, and in eval mode, it is its parent."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and mesh.active()):
+            return super().forward(x)
+        world = mesh.world_size()
+        xf = x.float()
+        local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        mean, mean2 = mesh.all_reduce_sum(local) / world
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            n = world * x.numel() // x.shape[1]
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+            self.num_batches_tracked += 1
+        w = self.weight * torch.rsqrt(var + self.eps)
+        shape = (1, -1, 1, 1)
+        return ((x - mean.to(x.dtype).reshape(shape)) * w.to(x.dtype).reshape(shape)
+                + self.bias.to(x.dtype).reshape(shape))
+
+
 def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=momentum)
+    return CrossRankBatchNorm2d(channels, eps=BN_EPS, momentum=momentum)

@@ -19,6 +19,12 @@ Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 the plain version (same per-row statistics, dense). The kernels are built
 with nvcc at first use into `build/spcl_torch/` (see `build`, `_build.py`).
 `LAUNCHES` counts each kernel launch; `reset_launch_counts` zeroes it.
+
+The row-strip form across ranks (`_sharded_fused`, supcon_pallas.py:401-467)
+is `ShardedFusedSupCon` / `sharded_fused_self_paced_supcon`: the same two
+kernels on strip operands (rows of this rank, columns of all ranks) with
+`torch.distributed` collectives around them; it adds no kernel body, as the
+TPU path adds none.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ..parallel import mesh
 
 _TILE = 32          # rows/cols per kernel tile (supcon_tile() in the source)
 _EPS = 1e-16
@@ -264,6 +271,188 @@ class FusedSupCon(torch.autograd.Function):
         dz = bwd_dz(z, z, t2, t2, v2, v2, gid, gid, c, c, denom, denom, a, a,
                     inv_t, gamma, scale, mode)
         return (dz[:n].to(dt1), dz[n:2 * n].to(dt2), None, None, None, None, None, None)
+
+
+# ------------------------------------------------------------------ row strip (multi-GPU)
+# `_sharded_fused` of the TPU module (supcon_pallas.py:401-467): each rank
+# owns the rows of its local entries, [2 n_local, D], against the gathered
+# columns [2N, D]. The arithmetic of one strip (`_strip_prepare`,
+# `strip_forward`, `strip_loss`, `strip_backward`) takes the gathered columns
+# as arguments and touches no process group, so one process can walk every
+# rank's strip (`walk_strips`); `ShardedFusedSupCon` adds the collectives.
+def global_order(x: torch.Tensor, world: int, n_local: int) -> torch.Tensor:
+    """Rank-major rows ([view 1; view 2] of rank 0, then of rank 1, ...) ->
+    the global order of the columns: view 1 of every rank, then view 2."""
+    return (x.reshape((world, 2, n_local) + tuple(x.shape[1:])).transpose(0, 1)
+            .reshape((2 * world * n_local,) + tuple(x.shape[1:])))
+
+
+def _strip_prepare(z1, z2, target, valid, cols_z, cols_t, cols_v, row_off: int,
+                   n_global: int):
+    """Row (local) and column (global) operands, padded for the kernels.
+    Local row r has global id row_off + r (view 1) and n_global + row_off + r
+    (view 2); pad rows carry id -1 and pad columns id -2, distinct from every
+    real id and both with valid 0 and label -7. Ids are float32, exact up to
+    2^24 entries."""
+    n_l = z1.shape[0]
+    zr, tr, vr, rows_pad = _prepare(z1, z2, target, valid)
+    half = torch.arange(n_l, dtype=torch.float32, device=zr.device)
+    gid_r = _pad_to(torch.cat([row_off + half, n_global + row_off + half]), rows_pad, -1.0)
+    cols = 2 * n_global
+    cols_pad = -(-cols // _TILE) * _TILE
+    zc = _pad_to(cols_z.float(), cols_pad).contiguous()
+    tc = _pad_to(cols_t.float(), cols_pad, -7.0).contiguous()
+    vc = _pad_to(cols_v.float(), cols_pad, 0.0).contiguous()
+    ids = torch.arange(cols_pad, dtype=torch.float32, device=zr.device)
+    gid_c = torch.where(ids < cols, ids, torch.full_like(ids, -2.0))
+    return (zr, tr, vr, gid_r.contiguous()), (zc, tc, vc, gid_c)
+
+
+def strip_forward(rows, cols, inv_t: float, gamma: float, mode: str):
+    """One strip's forward: the four partial sums that add up over ranks
+    (sum of row losses, valid rows with a positive, weight sum, positive
+    count) and the per-row (c, denom, a) of the strip's rows."""
+    (zr, tr, vr, gid_r), (zc, tc, vc, gid_c) = rows, cols
+    rowloss, c, denom, a, spsum = fwd_stats(zr, zc, tr, tc, vr, vc, gid_r, gid_c,
+                                            inv_t, gamma, mode)
+    row_ok = ((c > 0) & (vr > 0)).float()
+    parts = torch.stack([(rowloss * row_ok).sum(), row_ok.sum(),
+                         (spsum * row_ok).sum(), (c * row_ok).sum()])
+    return parts, (c, denom, a)
+
+
+def strip_loss(parts: torch.Tensor, mode: str, correct_grad: bool):
+    """(loss, ratio, m) from the four sums over all ranks."""
+    m = torch.clamp(parts[1], min=1.0)
+    loss = -parts[0] / m
+    ratio = parts[2] / torch.clamp(parts[3], min=1.0)
+    if correct_grad and mode != "none":
+        loss = torch.where(ratio > 0, loss / torch.clamp(ratio, min=_EPS), loss)
+    return loss, ratio, m
+
+
+def column_stats(stats_rank_major: torch.Tensor, world: int, n_local: int, cols_pad: int):
+    """Per-row statistics of every rank, [R * 2 n_local, 3] rank-major ->
+    (c, denom, a) of the COLUMN entries in global order, padded to the
+    column padding (`_gather_row_stats` of the TPU module)."""
+    g = _pad_to(global_order(stats_rank_major, world, n_local), cols_pad)
+    return tuple(g[:, k].contiguous() for k in range(3))
+
+
+def strip_backward(rows, cols, stats_l, stats_g, g_loss, m, ratio, inv_t: float,
+                   gamma: float, mode: str, correct_grad: bool, n_local: int):
+    """(dz1, dz2) of the strip's rows: the row term and, through the
+    columns' statistics and the symmetry of the pair terms, the column term.
+    `g_loss` is the cotangent of the global loss (already summed over ranks)."""
+    (zr, tr, vr, gid_r), (zc, tc, vc, gid_c) = rows, cols
+    scale = g_loss / m
+    if correct_grad and mode != "none":
+        scale = torch.where(ratio > 0, scale / torch.clamp(ratio, min=_EPS), scale)
+    dz = bwd_dz(zr, zc, tr, tc, vr, vc, gid_r, gid_c, stats_l[0], stats_g[0],
+                stats_l[1], stats_g[1], stats_l[2], stats_g[2], inv_t, gamma, scale, mode)
+    return dz[:n_local], dz[n_local:2 * n_local]
+
+
+def walk_strips(z1, z2, target, valid, world: int, *, gamma: float,
+                temperature: float = 0.07, weight_update: str = "soft",
+                correct_grad: bool = False):
+    """The row-strip loss of a virtual mesh of `world` ranks in ONE process:
+    every rank's strip in a loop, the sums over ranks as plain additions.
+    z1, z2 [N, D] and target, valid [N] are the global batch, N a multiple of
+    `world`. Returns {"loss", "ratio", "m" (rows that count), "dz1", "dz2" (of
+    d loss), "strips": [(rows, cols, stats_l, stats_g) per rank]}. Tests and
+    chip_smoke.py hold the strip operands and results with it without a
+    process group."""
+    n = z1.shape[0]
+    if n % world:
+        raise ValueError(f"N = {n} does not divide over {world} ranks")
+    n_l, inv_t = n // world, float(1.0 / float(temperature))
+    z1, z2 = z1.detach(), z2.detach()
+    cols_z = torch.cat([z1, z2])
+    cols_t, cols_v = torch.cat([target, target]), torch.cat([valid, valid])
+    operands, parts, stats = [], [], []
+    for r in range(world):
+        sl = slice(r * n_l, (r + 1) * n_l)
+        rows, cols = _strip_prepare(z1[sl], z2[sl], target[sl], valid[sl], cols_z, cols_t,
+                                    cols_v, r * n_l, n)
+        p, st = strip_forward(rows, cols, inv_t, float(gamma), weight_update)
+        operands.append((rows, cols))
+        parts.append(p)
+        stats.append(st)
+    loss, ratio, m = strip_loss(torch.stack(parts).sum(dim=0), weight_update, correct_grad)
+    cols_pad = operands[0][1][0].shape[0]
+    stats_g = column_stats(torch.cat([torch.stack(st, dim=1)[:2 * n_l] for st in stats]),
+                           world, n_l, cols_pad)
+    g_loss = torch.ones((), dtype=torch.float32, device=z1.device)
+    dz = [strip_backward(rows, cols, st, stats_g, g_loss, m, ratio, inv_t, float(gamma),
+                         weight_update, correct_grad, n_l)
+          for (rows, cols), st in zip(operands, stats)]
+    return {"loss": loss, "ratio": ratio, "m": m,
+            "dz1": torch.cat([d[0] for d in dz]), "dz2": torch.cat([d[1] for d in dz]),
+            "strips": [(rows, cols, st, stats_g) for (rows, cols), st in zip(operands, stats)]}
+
+
+class ShardedFusedSupCon(torch.autograd.Function):
+    """(loss, ratio) of the self-paced SupCon over the GLOBAL batch from this
+    rank's [n_local, D] views: the columns are gathered, this rank's strip
+    goes through the kernels, four scalars are summed over ranks, and the
+    per-row statistics are gathered for the backward's column term. The
+    backward sums the loss cotangent over ranks first, as
+    `_sharded_fused_bwd` does (:457), and returns the complete dL/dz of the
+    local rows: no other gradient traffic."""
+
+    @staticmethod
+    def forward(ctx, z1, z2, target, valid, gamma: float, inv_t: float, mode: str,
+                correct_grad: bool, group):
+        world, r = mesh.world_size(group), mesh.rank(group)
+        n_l, d = z1.shape
+        z1, z2 = z1.detach(), z2.detach()
+        # one gather: z, labels and valid travel as columns of one array
+        local = torch.cat([torch.cat([z1, z2]).float(),
+                           torch.cat([target, target]).float()[:, None],
+                           torch.cat([valid, valid]).float()[:, None]], dim=1)
+        gathered = global_order(mesh.all_gather_cat(local, group), world, n_l)
+        rows, cols = _strip_prepare(z1, z2, target, valid, gathered[:, :d], gathered[:, d],
+                                    gathered[:, d + 1], r * n_l, world * n_l)
+        parts, stats_l = strip_forward(rows, cols, inv_t, gamma, mode)
+        loss, ratio, m = strip_loss(mesh.all_reduce_sum(parts, group), mode, correct_grad)
+        stats_g = column_stats(
+            mesh.all_gather_cat(torch.stack(stats_l, dim=1)[:2 * n_l], group),
+            world, n_l, cols[0].shape[0])
+        ctx.save_for_backward(*rows, *cols, *stats_l, *stats_g, m, ratio)
+        ctx.cfg = (gamma, inv_t, mode, correct_grad, n_l, z1.dtype, z2.dtype, group)
+        ctx.mark_non_differentiable(ratio)
+        return loss, ratio
+
+    @staticmethod
+    def backward(ctx, g_loss, g_ratio):
+        t = ctx.saved_tensors
+        rows, cols, stats_l, stats_g, (m, ratio) = t[0:4], t[4:8], t[8:11], t[11:14], t[14:16]
+        gamma, inv_t, mode, correct_grad, n_l, dt1, dt2, group = ctx.cfg
+        g_loss = mesh.all_reduce_sum(g_loss.detach(), group)
+        dz1, dz2 = strip_backward(rows, cols, stats_l, stats_g, g_loss, m, ratio, inv_t,
+                                  gamma, mode, correct_grad, n_l)
+        return (dz1.to(dt1), dz2.to(dt2)) + (None,) * 7
+
+
+def sharded_fused_self_paced_supcon(z1: torch.Tensor, z2: torch.Tensor,
+                                    target: torch.Tensor, valid: torch.Tensor, *,
+                                    gamma: float, temperature: float = 0.07,
+                                    weight_update: str = "soft", correct_grad: bool = False,
+                                    group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded fused SelfPacedSupConLoss: per-rank inputs [n_local, D] /
+    [n_local]; returns (loss, ratio), identical on every rank and equal to
+    the single-device loss on the gathered batch. Each rank computes only its
+    [2 n_local, 2N] strip. weight_update="none" is plain SupCon. The loss
+    carries 1/R of its cotangent (`parallel.mesh.grad_share`), so the ranks'
+    parameter gradients SUM to the global gradient. Without a process group
+    this is the single-process loss through the strip code."""
+    if weight_update not in _MODES:
+        raise ValueError(weight_update)
+    loss, ratio = ShardedFusedSupCon.apply(
+        z1, z2, target, valid.float(), float(gamma), float(1.0 / float(temperature)),
+        weight_update, bool(correct_grad), group)
+    return mesh.grad_share(loss, group), ratio
 
 
 def fused_self_paced_supcon(z1: torch.Tensor, z2: torch.Tensor, *, gamma: float,

@@ -19,6 +19,17 @@ inject the drawn values — `params={"aug": <sample_twice dict>, "flip":
 <flip_params dict>}` for the pretrain step, `params={"aug": <sample_once
 dict>}` for the fine-tune step — so a test can replay the JAX step's draws
 exactly.
+
+In a multi-rank run (`parallel/mesh.py`) the steps keep global-batch
+semantics, as `spcl_tpu/training/steps.py:12` states them: every rank is
+handed the same GLOBAL batch and makes (or is handed) the same global draws,
+computes on its own rows of both (`shard_rows`), writes its loss so that the
+ranks' gradients sum to the global gradient (a mean over the global count;
+`grad_share` inside the contrastive losses), and sums the parameter gradients
+over ranks before the optimizer step. BatchNorm statistics span the ranks
+(`models/norm.py`). Losses come back as global values, per-slice Dice
+statistics gathered in global row order, identical on every rank. In one
+process all of this is the identity.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from ..hooks.base import TrainerHook
 from ..losses.functional import class2one_hot
 from ..meters.dice import dice_stats_from_labels
 from ..models.unet import UNet
+from ..parallel import mesh
 
 _META_KEYS = ("partition", "patient", "cycle", "scan_idx", "valid")
 
@@ -65,15 +77,18 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
-        image = _as_float_image(batch["image"])
-        n, device = image.shape[0], image.device
+        n_global, device = batch["image"].shape[0], batch["image"].device
         if params is None:
             params = {
-                "aug": sample_twice(generator, n, policy, image.shape[-1],
+                "aug": sample_twice(generator, n_global, policy, batch["image"].shape[-1],
                                     total_freedom=total_freedom,
                                     sizes=batch.get("size"), device=device),
-                "flip": flip_params(generator, n, threshold=flip_threshold, device=device),
+                "flip": flip_params(generator, n_global, threshold=flip_threshold,
+                                    device=device),
             }
+        batch, params = mesh.shard_rows((batch, params), n_global)
+        image = _as_float_image(batch["image"])
+        n = image.shape[0]
         (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
         fp = params["flip"]
         v2 = apply_flip(v2, fp)
@@ -90,10 +105,16 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
                                     for k, v in m.items()}
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        _reduce_gradients(optimizer)
         optimizer.step()
         return {"reg_loss": total.detach(), "hooks": hook_metrics}
 
     return step
+
+
+def _reduce_gradients(optimizer: torch.optim.Optimizer) -> None:
+    """Sum the parameter gradients over ranks (no-op in one process)."""
+    mesh.all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]])
 
 
 def _masked_ce(logits: torch.Tensor, onehot: torch.Tensor, valid: torch.Tensor,
@@ -101,13 +122,23 @@ def _masked_ce(logits: torch.Tensor, onehot: torch.Tensor, valid: torch.Tensor,
     """Pixel-mean CE over valid slices (kl_div(softmax, onehot) parity) on
     [B, C, h, w] logits. `pixel_mask` [B, h, w] additionally restricts to
     in-frame pixels (the shortest-side val-resize path pads non-square
-    frames)."""
+    frames). In a multi-rank run this is the rank's SHARE of the global mean:
+    its rows' sum over the global count of valid pixels (ranks hold different
+    numbers of valid rows once a batch is padded), so the shares, and their
+    gradients, add up to the global loss."""
     logp = F.log_softmax(logits, dim=1)
     ce = -(onehot * logp).sum(dim=1)  # [B, h, w]
     m = valid[:, None, None] * torch.ones_like(ce)
     if pixel_mask is not None:
         m = m * pixel_mask
-    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (ce * m).sum() / torch.clamp(mesh.all_reduce_sum(m.sum()), min=1.0)
+
+
+def _global_outputs(loss_share: torch.Tensor, inter: torch.Tensor, union: torch.Tensor):
+    """(loss, inter, union) of the global batch from a rank's loss share and
+    its rows' Dice statistics."""
+    stats = mesh.all_gather_cat(torch.stack([inter, union], dim=1))
+    return mesh.all_reduce_sum(loss_share.detach()), stats[:, 0], stats[:, 1]
 
 
 def build_eval_step(model: UNet, *, num_classes: int, crop: int,
@@ -126,6 +157,7 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]):
+        batch = mesh.shard_rows(batch, batch["image"].shape[0])
         image = _as_float_image(batch["image"])
         geo = center_geometric(image.shape[0], pol, image.shape[-1], batch.get("size"), out,
                                device=image.device)
@@ -137,6 +169,7 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
                           pixel_mask=pix)
         inter, union = dice_stats_from_labels(logits.argmax(dim=1), lab, num_classes,
                                               batch["valid"], pixel_mask=pix)
+        loss, inter, union = _global_outputs(loss, inter, union)
         return {"loss": loss, "inter": inter, "union": union}
 
     return eval_step
@@ -149,19 +182,24 @@ def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_cl
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
              params: Optional[Dict] = None):
-        image = _as_float_image(batch["image"])
+        n_global = batch["image"].shape[0]
         if params is None:
-            params = {"aug": sample_once(generator, image.shape[0], policy, image.shape[-1],
-                                         sizes=batch.get("size"), device=image.device)}
+            params = {"aug": sample_once(generator, n_global, policy,
+                                         batch["image"].shape[-1], sizes=batch.get("size"),
+                                         device=batch["image"].device)}
+        batch, params = mesh.shard_rows((batch, params), n_global)
+        image = _as_float_image(batch["image"])
         img, lab = augment_once(image, batch["label"].long(), policy, params["aug"])
         model.train()
         logits = model(img)["logits"]
         sup = _masked_ce(logits, class2one_hot(lab, num_classes), batch["valid"])
         optimizer.zero_grad(set_to_none=True)
         sup.backward()
+        _reduce_gradients(optimizer)
         optimizer.step()
         inter, union = dice_stats_from_labels(logits.detach().argmax(dim=1), lab,
                                               num_classes, batch["valid"])
-        return {"sup_loss": sup.detach(), "inter": inter, "union": union}
+        sup, inter, union = _global_outputs(sup, inter, union)
+        return {"sup_loss": sup, "inter": inter, "union": union}
 
     return step

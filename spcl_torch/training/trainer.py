@@ -19,8 +19,22 @@ host batches copied to the device, then drains the metrics once, failing
 fast on a non-finite loss.
 
 Randomness inside the steps comes from one `torch.Generator` on the device,
-seeded from the config's RandomSeed. Not ported yet: `device_data`, `mesh`,
-`defer_reads`, `resume_from_path`, TensorBoard.
+seeded from the config's RandomSeed.
+
+`mesh=N|"auto"` (`Trainer.mesh`, spcl_tpu/training/trainer.py:93-99) makes the
+trainer one rank of an N-rank run (`parallel/mesh.py`; the entry points start
+the ranks). Every rank iterates the same seed-deterministic samplers, so all
+hold the same global batch, right-padded with `valid=0` entries to a rank
+multiple (a pad entry holds slice 0 as filler, as in the JAX package, and
+passes through the UNet and its BatchNorm statistics), and the steps compute
+on the rank's rows. The replicas start from rank 0's weights and stay equal
+because every rank applies the same summed gradient. Only rank 0 writes:
+`storage.csv`, checkpoints, `.success`, log lines; a barrier ends
+`start_training` so that no rank reads a checkpoint before it is written.
+One rank is the plain single-process path.
+
+Not ported yet: `device_data`, `defer_reads`, `resume_from_path`,
+TensorBoard, `grad_cache`.
 """
 from __future__ import annotations
 
@@ -43,6 +57,7 @@ from ..meters import (AverageValueMeter, MeterInterface, Storage, UniversalDice,
                       meter_display)
 from ..models.masking import set_trainable_stages
 from ..models.unet import UNet
+from ..parallel import mesh as mesh_lib
 from ..schedulers.lr import warmup_cosine_epoch_schedule
 from ..utils.utils import get_logger
 
@@ -57,7 +72,10 @@ class _TrainerBase:
 
     def __init__(self, *, model: UNet, save_dir: str, max_epoch: int = 100,
                  num_batches: int = 100, config: Optional[Dict] = None, seed: int = 10,
-                 crop: int = 224, data_name: str = "acdc", device="cuda"):
+                 crop: int = 224, data_name: str = "acdc", device="cuda", mesh=0):
+        self._n_shards = self._join_mesh(mesh, device)
+        self._is_master = mesh_lib.on_master()
+        self._device = mesh_lib.rank_device(device)
         self._model = model
         self._save_dir = str(save_dir)
         self._max_epoch = int(max_epoch)
@@ -66,12 +84,51 @@ class _TrainerBase:
         self._seed = int(seed)
         self._crop = int(crop)
         self._data_name = data_name
-        self._device = torch.device(device)
         self._hooks: List[TrainerHook] = []
         self._trainable_stages: Optional[List[str]] = None
         self._cur_epoch = 0
         self._initialized = False
         self.last_epoch_stats: Dict = {}
+
+    # ----------------------------------------------------------------- mesh
+    @staticmethod
+    def _join_mesh(spec, device) -> int:
+        """Join the run's process group when `mesh` asks for ranks; returns
+        the number of ranks. One rank (or `mesh` off) is the plain path."""
+        want = mesh_lib.requested_ranks(spec, device)
+        if want == 1:
+            return 1
+        world = mesh_lib.initialize_distributed(device=device)
+        if world != want:
+            raise RuntimeError(
+                f"Trainer.mesh={spec!r} asks for {want} ranks but this process is part of "
+                f"{world}: start the ranks through an entry point "
+                "(spcl_torch.main_pretrain_encoder), parallel.mesh.spawn_local, or one "
+                "process per rank with SPCL_COORDINATOR / SPCL_NUM_PROCESSES / "
+                "SPCL_PROCESS_ID set")
+        return world
+
+    @property
+    def n_shards(self) -> int:
+        return self._n_shards
+
+    def _host_batches(self, loader: HostLoader):
+        """The loader's host batches, index vectors right-padded with -1
+        (`valid=0`) to a rank multiple."""
+        for idx in loader.sampler:
+            yield loader.dataset.batch(mesh_lib.pad_multiple(np.asarray(idx), self._n_shards))
+
+    def _log(self, msg: str, *args) -> None:
+        if self._is_master:
+            logger.info(msg, *args, stacklevel=2)
+
+    def _finish(self) -> None:
+        """End of `start_training`: the success marker, then a barrier, so
+        that what rank 0 wrote is there for every rank that goes on."""
+        if self._is_master:
+            from .. import success
+            success(self._save_dir)
+        mesh_lib.host_barrier()
 
     # ----------------------------------------------------------------- registration
     def register_hooks(self, *hooks: TrainerHook) -> None:
@@ -105,15 +162,26 @@ class _TrainerBase:
 
     # ----------------------------------------------------------------- init
     def init(self) -> None:
+        if self._n_shards > 1 and self._model.small_c_layout == "pallas":
+            # as spcl_tpu refuses it (training/trainer.py:245-253): the fused
+            # stages compute single-device BatchNorm statistics
+            raise ValueError("Arch.small_c_layout='pallas' is incompatible with "
+                             "Trainer.mesh — use 'nhwc'")
         self._model.to(self._device)
         ckpt = (self._config.get("Arch") or {}).get("checkpoint")
         if ckpt:
             self._model.load_state_dict(load_model_state_dict(ckpt), strict=False)
-            logger.info("warm-started model weights from %s", ckpt)
+            self._log("warm-started model weights from %s", ckpt)
         if self._trainable_stages is not None:
             set_trainable_stages(self._model, self._trainable_stages)
         for h in self._hooks:
             h.build(self._model, self._device)
+        if self._n_shards > 1:
+            # the replicas start from rank 0's weights whatever seeded them
+            mesh_lib.broadcast_tensors(
+                list(self._model.state_dict().values())
+                + [t for h in self._hooks if h.projector is not None
+                   for t in h.projector.state_dict().values()])
 
         optim_cfg = dict(self._config.get("Optim", {}))
         base_lr = float(optim_cfg.get("lr", 1e-7))
@@ -170,6 +238,8 @@ class _TrainerBase:
                 "cur_epoch": self._cur_epoch}
 
     def save_to(self, save_name: str) -> None:
+        if not self._is_master:
+            return
         save_checkpoint(str(Path(self._save_dir) / save_name), self._checkpoint_state())
 
     @property
@@ -213,7 +283,7 @@ class PretrainEncoderTrainer(_TrainerBase):
             meters.register_meter("reg_loss", AverageValueMeter())
         scalars = self._hook_scalars()
         lr = self._set_epoch_lr()
-        it = iter(self._contrastive_loader)
+        it = self._host_batches(self._contrastive_loader)
         pending = []
         n_slices = 0
         self._synchronize()
@@ -266,10 +336,9 @@ class PretrainEncoderTrainer(_TrainerBase):
                 self.save_to("last.ckpt")
             for h in self._hooks:
                 h.on_epoch_end()
-            logger.info("pretrain epoch %03d | %s", self._cur_epoch,
-                        meter_display(train_stats))
-        from .. import success
-        success(self._save_dir)
+            self._log("pretrain epoch %03d | %s", self._cur_epoch,
+                      meter_display(train_stats))
+        self._finish()
         return 0.0
 
     def _checkpoint_state(self) -> Dict:
@@ -292,7 +361,7 @@ class FineTuneTrainer(_TrainerBase):
         self._val_loader = val_loader
         self._test_loader = test_loader
         self._best_score = -np.inf
-        self._storage = Storage(save_dir=self._save_dir)
+        self._storage = Storage(save_dir=self._save_dir if self._is_master else None)
         # one entry per train step, host floats: {"epoch", "sup_loss"}
         self.step_metrics: List[Dict] = []
 
@@ -338,7 +407,7 @@ class FineTuneTrainer(_TrainerBase):
             meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
         lr = self._set_epoch_lr()
         scans = self._labeled_loader.dataset.unique_scans
-        it = iter(self._labeled_loader)
+        it = self._host_batches(self._labeled_loader)
         pending = []
         n_slices = 0
         self._synchronize()
@@ -379,7 +448,7 @@ class FineTuneTrainer(_TrainerBase):
         dice = meters.register_meter("dice", UniversalDice(C, report_axises=list(range(1, C))))
         sampler = loader.sampler
         pending = []
-        for i, host in enumerate(loader):
+        for i, host in enumerate(self._host_batches(loader)):
             out = self._eval_step(batch_to_device(host, self._device))
             pending.append((out, host["valid"], sampler.scan_of_batch(i)))
         if pending:
@@ -411,10 +480,9 @@ class FineTuneTrainer(_TrainerBase):
             self._storage.put_epoch(self._cur_epoch, {**train_stats, "val": val_stats,
                                                       "test": test_stats})
             self._storage.flush()
-            logger.info("epoch %03d | val DSC %.4f (best %.4f) | %s", self._cur_epoch,
-                        cur_score, self._best_score, meter_display(train_stats))
-        from .. import success
-        success(self._save_dir)
+            self._log("epoch %03d | val DSC %.4f (best %.4f) | %s", self._cur_epoch,
+                      cur_score, self._best_score, meter_display(train_stats))
+        self._finish()
         return float(self._best_score)
 
     def _checkpoint_state(self) -> Dict:

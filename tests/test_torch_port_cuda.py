@@ -93,6 +93,58 @@ def test_autograd_on_card_matches_cpu(cuda, correct_grad):
         torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-6)
 
 
+@pytest.mark.parametrize("n2,world", [(128, 2), (64, 4), (1024, 8)])
+@pytest.mark.parametrize("mode,gamma,correct_grad", [("none", 1e9, False), ("soft", 8.0, True),
+                                                     ("hard", 30.0, False)])
+def test_strip_kernels_match_plain_and_square_form(cuda, n2, world, mode, gamma, correct_grad):
+    """rows != cols: every rank's strip of a virtual mesh (rows of that rank
+    against the columns of all) against the plain versions, and the
+    assembled loss, ratio and dz against the square-form kernels."""
+    z1, z2, labels, valid = _inputs(n2, seed=n2 + world, pad_rows=3)
+    before = dict(sc.LAUNCHES)
+    w = sc.walk_strips(z1, z2, labels, valid, world, gamma=gamma, weight_update=mode,
+                       correct_grad=correct_grad)
+    assert sc.LAUNCHES["supcon_fwd"] == before["supcon_fwd"] + world
+    assert sc.LAUNCHES["supcon_bwd"] == before["supcon_bwd"] + world
+    scale = (1.0 / w["m"]).reshape(1)
+    for rows, cols, stats_l, stats_g in w["strips"]:
+        assert rows[0].shape[0] < cols[0].shape[0]
+        ops = (rows[0], cols[0], rows[1], cols[1], rows[2], cols[2], rows[3], cols[3])
+        k = sc.fwd_stats_kernel(*ops, 1 / 0.07, gamma, mode)
+        p = sc.fwd_stats_plain(*ops, 1 / 0.07, gamma, mode)
+        torch.testing.assert_close(k[1], p[1], rtol=0, atol=0)
+        torch.testing.assert_close(torch.log(k[0] + 1e-16), torch.log(p[0] + 1e-16),
+                                   rtol=0, atol=2e-4)
+        c_safe = torch.clamp(p[1], min=1.0)
+        torch.testing.assert_close(k[2] / c_safe, p[2] / c_safe, rtol=0, atol=2e-4)
+        torch.testing.assert_close(k[3] / c_safe, p[3] / c_safe, rtol=0, atol=2e-4)
+        stats = (stats_l[0], stats_g[0], stats_l[1], stats_g[1], stats_l[2], stats_g[2])
+        dk = sc.bwd_dz_kernel(*ops, *stats, 1 / 0.07, gamma, scale, mode)
+        dp = sc.bwd_dz_plain(*ops, *stats, 1 / 0.07, gamma, scale, mode)
+        torch.testing.assert_close(dk, dp, rtol=0, atol=2e-4 * float(dp.abs().max()))
+    a, b = z1.clone().requires_grad_(True), z2.clone().requires_grad_(True)
+    loss, ratio = sc.FusedSupCon.apply(a, b, labels, valid, gamma, 1 / 0.07, mode, correct_grad)
+    loss.backward()
+    torch.testing.assert_close(w["loss"], loss.detach(), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(w["ratio"], ratio, rtol=0, atol=1e-5)
+    tol = 2e-4 * float(torch.cat([a.grad, b.grad]).abs().max())
+    torch.testing.assert_close(w["dz1"], a.grad, rtol=0, atol=tol)
+    torch.testing.assert_close(w["dz2"], b.grad, rtol=0, atol=tol)
+
+
+def test_sharded_fused_without_a_group_launches_the_kernels(cuda):
+    z1, z2, labels, valid = _inputs(60, seed=2)
+    a, b = z1.clone().requires_grad_(True), z2.clone().requires_grad_(True)
+    before = dict(sc.LAUNCHES)
+    loss, _ = sc.sharded_fused_self_paced_supcon(a, b, labels, valid, gamma=8.0)
+    loss.backward()
+    assert sc.LAUNCHES["supcon_fwd"] == before["supcon_fwd"] + 1
+    assert sc.LAUNCHES["supcon_bwd"] == before["supcon_bwd"] + 1
+    ref, _ = sc.fused_self_paced_supcon(z1, z2, gamma=8.0, target=labels, valid=valid,
+                                        weight_update="soft")
+    torch.testing.assert_close(loss.detach(), ref, rtol=2e-4, atol=2e-6)
+
+
 def test_kernel_rejects_malformed_operands(cuda):
     z = torch.zeros(40, D, device="cuda")
     v = torch.ones(40, device="cuda")
