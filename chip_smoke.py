@@ -90,9 +90,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# bytes/s and float32 FLOP/s (no tensor cores) of one H100 SXM (data sheet)
+# bytes/s, float32 FLOP/s (no tensor cores) and dense TF32 tensor-core FLOP/s
+# of one H100 SXM (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 SIZES = (60, 126, 1024, 3840)          # checked against the plain versions
 TIMING_SIZES = (60, 126, 256, 512, 1024, 3840)
 D = 256
@@ -158,7 +160,7 @@ def build_phase(*modules):
     for path, seconds, log in results:
         print(f"built {path.relative_to(ROOT)} in {seconds:.2f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)
     print(f"build wall time {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -393,10 +395,17 @@ def _hold(what, names, kernel_out, plain_out):
     return worst
 
 
+# the passes whose convolutions run on the tensor cores in 3xTF32
+TF32_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
+
+
 def _stage_bounds(b, h, w, ci, c):
     """Least ms for each pass on the H100: the larger of the bytes it must
     move (each input read once, each output written once) over the memory
-    rate and its float32 operations over the float32 peak."""
+    rate and its float32 operations over the float32 peak (`bound_f32_ms`).
+    For the 3xTF32 passes also the larger of the bytes and three times the
+    operations over the TF32 tensor-core peak (`bound_3xtf32_ms`), which is
+    their `bound_ms`; the others' `bound_ms` is the float32 one."""
     px, f = b * h * w, 4
 
     def conv_flops(i, o):
@@ -417,8 +426,44 @@ def _stage_bounds(b, h, w, ci, c):
     for name in bytes_:
         tb, tf = bytes_[name] / HBM_BYTES_PER_S, flops[name] / F32_FLOPS
         out[name] = {"bound_ms": max(tb, tf) * 1e3,
-                     "bound_by": "operations" if tf > tb else "bytes"}
+                     "bound_by": "operations" if tf > tb else "bytes",
+                     "bound_f32_ms": max(tb, tf) * 1e3,
+                     "bound_f32_by": "operations" if tf > tb else "bytes"}
+        if name in TF32_PASSES:
+            t3 = 3 * flops[name] / TF32_FLOPS
+            out[name].update({"bound_ms": max(tb, t3) * 1e3,
+                              "bound_by": "operations" if t3 > tb else "bytes",
+                              "bound_3xtf32_ms": max(tb, t3) * 1e3,
+                              "bound_3xtf32_by": "operations" if t3 > tb else "bytes"})
     return out
+
+
+def _library_calls(x, w0, z0, w1, dz1, dy0):
+    """One PyTorch call per convolution pass that computes its convolution
+    (not the BN, ReLU, mask or sums around it) on the same channels-last
+    inputs, float32 with TF32 off. Timed as yardsticks; the port never calls
+    them."""
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1).contiguous()
+
+    def conv_backward(grad, inp, w):
+        return torch.ops.aten.convolution_backward(
+            nchw(grad), nchw(inp), oihw(w), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+
+    calls = {"bnconv": ("F.conv2d Co=Ci", lambda: torch.nn.functional.conv2d(
+                 nchw(z0), oihw(w1), padding=1)),
+             "dwprev": ("aten.convolution_backward (d_in, dW)",
+                        lambda: conv_backward(dz1, z0, w1))}
+    if x is not None:
+        calls.update({"conv": ("F.conv2d", lambda: torch.nn.functional.conv2d(
+                          nchw(x), oihw(w0), padding=1)),
+                      "dwdx": ("aten.convolution_backward (d_in, dW)",
+                               lambda: conv_backward(dy0, x, w0))})
+    return calls
 
 
 def _best_of_turns(kernel_fn, plain_fn, reps):
@@ -483,6 +528,7 @@ def stage_kernel_phase(cs):
                      "poolsums": ("sums",), "dz1": ("dz1",), "dwprev": ("dy0", "dW1", "sums"),
                      "dwdx": ("dx", "dW0")}
         bounds = _stage_bounds(b, h, w, ci, c)
+        library = _library_calls(None if ext else x, w0, z0, w1, dz1, dy0)
         for name in cs.PASSES:
             if name not in pass_inputs:
                 continue
@@ -498,19 +544,23 @@ def stage_kernel_phase(cs):
                 continue
             ms, plain_ms = _best_of_turns(lambda: kernel_fn(*inputs),
                                           lambda: plain_fn(*inputs), 5)
-            results[name]["shapes"][shape_name] = {
-                "at": f"B={b} {h}x{w} C={'' if ext else f'{ci}->'}{c}", "ms": ms,
-                "plain_ms": plain_ms, **bounds[name]}
+            entry = {"at": f"B={b} {h}x{w} C={'' if ext else f'{ci}->'}{c}", "ms": ms,
+                     "plain_ms": plain_ms, **bounds[name]}
+            bd = bounds[name]
             print(f"  time {name}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
-                  f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']})", flush=True)
-            if name == "conv":
-                # one library call computes this pass's convolution (not its sums)
-                xc, wc = x.permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1).contiguous()
-                results[name]["library_ms"] = _time_ms(
-                    lambda: torch.nn.functional.conv2d(xc, wc, padding=1), 5)
-                print(f"  time {name}: library F.conv2d (float32, channels-last input) "
-                      f"{results[name]['library_ms']:.3f} ms", flush=True)
-        del res, bwd_k, out_k, dz1, dy0, args, dp, de
+                  f"(float32) {bd['bound_f32_ms']:.3f} ms ({bd['bound_f32_by']})"
+                  + (f" | bound (3xTF32) {bd['bound_3xtf32_ms']:.3f} ms "
+                     f"({bd['bound_3xtf32_by']})" if "bound_3xtf32_ms" in bd else ""),
+                  flush=True)
+            if name in library:
+                what, call = library[name]
+                entry["library_ms"] = _time_ms(call, 5)
+                entry["library_call"] = what
+                print(f"  time {name}: library {what} (float32, TF32 off, channels-last "
+                      f"inputs, without BN/ReLU/mask/sums) {entry['library_ms']:.3f} ms",
+                      flush=True)
+            results[name]["shapes"][shape_name] = entry
+        del res, bwd_k, out_k, dz1, dy0, args, dp, de, library
         torch.cuda.empty_cache()
     print("stage_timings " + json.dumps(results), flush=True)
     torch.backends.cudnn.allow_tf32 = True
@@ -1426,8 +1476,8 @@ def main():
                 "library_why": why, "at": f"2N={MAIN_2N}, D={D}",
                 "shapes": {at: v[name] for at, v in strip_shapes.items()}}
                for name in ("supcon_fwd", "supcon_bwd")]
-    stage_why = ("no single PyTorch call computes a pass: each fuses BatchNorm, ReLU or the "
-                 "pool with a convolution, its statistics or its weight gradient")
+    stage_why = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or "
+                 "the pool with its statistics")
     for name in cs.PASSES:
         shapes = stage[name]["shapes"]
         # the entry's own numbers are those of the larger shape the pass runs at
@@ -1439,9 +1489,11 @@ def main():
             "max_abs_err": stage[name]["max_abs_err"], "ms": shapes[at]["ms"],
             "plain_ms": shapes[at]["plain_ms"], "bound_ms": shapes[at]["bound_ms"],
             "bound_by": shapes[at]["bound_by"],
-            "library_ms": stage[name].get("library_ms"),
-            "library_why": ("F.conv2d computes this pass's convolution, not its statistics"
-                            if "library_ms" in stage[name] else stage_why),
+            **{k: shapes[at][k] for k in ("bound_f32_ms", "bound_3xtf32_ms") if k in shapes[at]},
+            "library_ms": shapes[at].get("library_ms"),
+            "library_why": (f"{shapes[at]['library_call']} computes this pass's convolution, "
+                            "not the BN, ReLU, mask or sums around it"
+                            if "library_ms" in shapes[at] else stage_why),
             "at": shapes[at]["at"], "shapes": shapes})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -17,53 +17,83 @@
 //
 // Design. The TPU kernels pack W*C into 128 lanes and turn each convolution
 // into nine banded 128x128 matmuls for the matrix unit; none of that is kept.
-// Here a convolution is direct: a block of 256 threads takes a 16x16 pixel
-// tile, stages the tile with its one-pixel halo (BN and ReLU applied while
-// loading, zeros outside the image) and the whole weight tensor (at most
-// 36 KB) in shared memory, and each thread computes every output channel of
-// one pixel in registers. Results go back through shared memory so that global
-// stores are whole 64/128-byte pixel rows. The backward kernels use the
-// identity dW[u,v] = sum_p a[p] (x) g[p-(u-1,v-1)] so that only the gradient
-// tile needs a halo; each thread owns a few (ci, co) pairs of all nine taps
-// and slides a 3x3 register window of g along the tile rows, keeping its dW
-// accumulators in registers across all tiles of the block. The pool passes
-// are elementwise over 2x2 windows; the backward routes dp to the FIRST
-// maximum in scan order (r0,c0),(r0,c1),(r1,c0),(r1,c1).
+// A block of 256 threads (8 warps) walks 16x16 pixel tiles and stages each in
+// shared memory with its one-pixel halo, zeros outside the image. The pool
+// passes are elementwise over 2x2 windows; the backward routes dp to the
+// FIRST maximum in scan order (r0,c0),(r0,c1),(r1,c0),(r1,c1).
+//
+// The convolutions run on the tensor cores in 3xTF32 (mma.sync.m16n8k8, TF32
+// in, float32 out): every operand x is split into hi = x with its low 13
+// mantissa bits cleared (a TF32 value) and lo = x - hi (exact), and each
+// product is accumulated as lo*hi + hi*lo + hi*hi. The MMA reads the top 11
+// significant bits of lo; with the dropped lo*lo term that leaves about 1e-6
+// relative per product, the float32 order (one TF32 pass would leave 5e-4).
+// A 16-pixel row of the tile is one m16 fragment:
+//   forward  (conv_fwd_kernel): implicit GEMM, M = pixels, N = Co, K = 9*Ci;
+//            warp w owns tile rows 2w, 2w+1 and every output channel.
+//   backward (conv_bwd_kernel), two products on one staged pair of tiles:
+//     d_in   implicit GEMM, M = pixels, N = Ci, K = 9*Co, with the weights
+//            transposed; warp w owns rows 2w, 2w+1;
+//     dW     nine GEMMs, M = Ci, N = Co, K = the tile's pixels, using
+//            dW[u,v] = sum_p a[p] (x) g[p-(u-1,v-1)] so that only the gradient
+//            tile needs a halo; warp w owns one (16 ci x 8 co) block of all nine
+//            taps over a share of the tile's rows, accumulated in registers
+//            across all tiles of the block (36 floats a thread).
+// What bounds these passes on the card is the instruction stream around the
+// MMAs (fragment loads from shared memory and operand splits), so the design
+// cuts it: the weights are staged once per block in fragment order, split
+// there for the forward (one 16-byte load per lane and fragment) and split at
+// use for d_in, whose tiles leave no room for both halves; an activation
+// fragment is loaded and split once for the three taps of a kernel column
+// that use it (the two rows of a warp read four halo rows across u); dW keeps
+// the split gradient fragments of three halo rows in registers as a window
+// that slides down the tile, so each tile row loads one new halo row instead
+// of three. Consecutive MMAs go to different accumulators. Shared-memory
+// rows are padded so that the fragment loads are free of bank conflicts (dW's
+// gradient loads have at most two-way conflicts). The next tile's halo tiles
+// are copied with cp.async into a second buffer while this tile computes
+// (where two fit beside the weights, else one); the thread that
+// copied a chunk then applies BN + ReLU (bnconv), keeps y0 = BN(z0) for the
+// mask (dwprev) or forms dz0 = c0*dy0 + c1 + c2*z0 (dwdx) in place, inside
+// the image only. Outputs go straight from the accumulator fragments to
+// global memory: the four lanes of a quad write 32 contiguous bytes of one
+// pixel. The grid is the resident block count (occupancy), at most one block
+// per tile.
 //
 // Reductions across blocks. The TPU grid is sequential and carries its sums
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
 // block walks a fixed set of tiles (tile t goes to block t mod gridDim), sums
-// in a fixed order, and writes its partial to a workspace; a second small
-// kernel (`reduce_kernel`) adds the partials in block order in float64. Two
-// runs on the same inputs give the same bits. BN statistics are accumulated
-// per block in float64 (the H100 runs float64 adds at half the float32 rate),
-// so E[z^2] - E[z]^2 over millions of elements keeps its digits.
+// in a fixed order (warp shuffles, then per-warp float64 slots), and writes
+// its partial to a workspace; a second small kernel (`reduce_kernel`) adds
+// the partials in block order in float64. Two runs on the same inputs give
+// the same bits. BN statistics are accumulated per block in float64, so
+// E[z^2] - E[z]^2 over millions of elements keeps its digits.
 //
 // Arithmetic kept from the TPU kernels: BN applied as z*inv + shift (product
 // and sum rounded separately, see bn_apply); ReLU mask y >= 0 in the backward;
-// BN backward as c0*dy + c1 + c2*z; float32 FMA in the convolutions (no TF32,
-// no tensor cores).
+// BN backward as c0*dy + c1 + c2*z.
 //
 // Bound on the H100. Each pass must read and write its stage tensors once
 // (193 MB each at 60x224x224x16), which at 3.35 TB/s is 0.06-0.25 ms per
-// pass; the convolutions need 2*9*Ci*Co FLOPs per pixel, 13.9 GFLOP for the
-// 16->16 convolution at 224^2, which at the float32 peak of 67 TFLOP/s is
-// 0.21 ms. The forward passes are close to balanced between the two; the
-// backward conv passes (two products) are bound by operations. This simple
-// version issues one shared-memory load per 4 FMAs (weights are re-read for
-// every pixel), so it runs well below the float32 peak: measured on an H100
-// 80GB HBM3 at 700 W by chip_smoke.py, the convolution passes take 2.7-3.4x
-// their bound and the elementwise pool passes 1.2-2.2x (PERF.md has the
-// table). Tensor cores (wgmma on TF32/bf16 tiles) and TMA loads are the
-// later step.
+// pass. A 3x3 convolution needs 2*9*Ci*Co FLOPs per pixel, 13.9 GFLOP for the
+// 16->16 convolution at 224^2: 0.21 ms at the float32 FMA peak of 67 TFLOP/s,
+// and, as three TF32 products, 0.084 ms at the TF32 tensor-core peak of 495
+// TFLOP/s. On the tensor cores the forward 16->16 pass at 224^2 is therefore
+// bound by its 385 MB (0.115 ms), the 32->32 pass at 112^2 by its operations
+// (0.084 ms), and the backward passes, two products each, are near balance
+// (0.17 ms). mma.sync reaches only part of the tensor-core peak (wgmma is the
+// way to all of it); the measured times against both bounds are in PERF.md
+// (chip_smoke.py).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int TH = 16;                 // tile height (pixels)
-constexpr int TW = 16;                 // tile width
-constexpr int NT = TH * TW;            // threads per block, one per tile pixel
+constexpr int TW = 16;                 // tile width = the M of one mma fragment
+constexpr int NT = TH * TW;            // threads per block
+constexpr int NWARP = NT / 32;         // 8 warps; warp w owns tile rows 2w, 2w+1
 constexpr int HALO_W = TW + 2;
 constexpr int HALO_N = (TH + 2) * (TW + 2);
 constexpr int PAD = 4;                 // floats of padding per shared-memory pixel row
@@ -83,130 +113,332 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// Fixed-order block reduction of per-thread float64 channel sums. Thread
-// `tid` holds the sums of channel tid % C over its own pixels; NT / C threads
-// share a channel. Writes partial[block][which][c].
-template <int C>
-__device__ __forceinline__ void write_channel_partials(double a0, double a1,
-                                                       double* __restrict__ partial) {
-  __shared__ double s_red[2 * NT];
-  const int tid = threadIdx.x;
-  s_red[tid] = a0;
-  s_red[NT + tid] = a1;
-  __syncthreads();
-  if (tid < C) {
-    double r0 = 0.0, r1 = 0.0;
-    for (int g = 0; g < NT / C; ++g) {
-      r0 += s_red[g * C + tid];
-      r1 += s_red[NT + g * C + tid];
+// ------------------------------------------------------------------ 3xTF32
+// x = hi + lo: hi = x with its low 13 mantissa bits cleared (a TF32 value),
+// lo = x - hi, exact in float32 and below 2^-10 |x|; the MMA reads the top 11
+// significant bits of lo, so what is lost is below 2^-21 |x|. Two
+// instructions an element.
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(__fsub_rn(x, __uint_as_float(hi)))};
+}
+
+// A fragment of m16n8k8 (row-major 16x8): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4) with g = lane/4, t = lane%4. B (8x8): b0 (t, g), b1 (t+4, g).
+// C/D (16x8): c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
+  const Split s0 = split(a0), s1 = split(a1), s2 = split(a2), s3 = split(a3);
+  return {{s0.hi, s1.hi, s2.hi, s3.hi}, {s0.lo, s1.lo, s2.lo, s3.lo}};
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  const Split s0 = split(b0), s1 = split(b1);
+  return {{s0.hi, s1.hi}, {s0.lo, s1.lo}};
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[i][j] += a[i]*b[j] in 3xTF32: the small terms first, then hi*hi, each
+// pass over all MI x NJ accumulators so that consecutive MMAs are independent
+template <int MI, int NJ>
+__device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const FragA* a, const FragB* b) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].lo, b[j].hi);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].lo);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].hi);
+}
+
+// ------------------------------------------------------------------ channel sums
+// Per-channel sums of one tile from the accumulator layout: each lane holds
+// s[nf][j] for channel nf*8 + 2t + j over its own pixels; the eight lanes of
+// one t are summed by shuffles (fixed order) and lane t of warp w adds the
+// result into its float64 slot s_tot[w][which][c]. No two lanes share a slot.
+template <int NF>
+__device__ __forceinline__ void add_tile_sums(const float (&s)[NF][2], int which,
+                                              double* s_tot, int C) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = s[nf][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) s_tot[(warp * 2 + which) * C + nf * 8 + 2 * lane + j] += (double)v;
     }
-    partial[((size_t)blockIdx.x * 2 + 0) * C + tid] = r0;
-    partial[((size_t)blockIdx.x * 2 + 1) * C + tid] = r1;
+}
+
+// partial[block][which][c] = sum over warps, in warp order, of s_tot[w][which][c]
+__device__ __forceinline__ void write_sum_partials(const double* s_tot, int C,
+                                                   double* __restrict__ partial) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += NT) {
+    double r = 0.0;
+    for (int w = 0; w < NWARP; ++w) r += s_tot[w * 2 * C + i];
+    partial[(size_t)blockIdx.x * 2 * C + i] = r;
   }
+}
+
+// Weights [3,3,Ci,Co] as B fragments in shared memory, one entry per lane:
+// entry ((tap*KC + kc)*NF + nf)*32 + lane holds {B(t, g), B(t+4, g)} of the
+// 8x8 block (k = kc*8.., n = nf*8..), where B(k, n) = w[tap][k][n] for the
+// forward (K = Ci, N = Co) and w[tap][n][k] for d_in (TRANS: K = Co, N = Ci).
+template <int CI, int CO, bool TRANS>
+__device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i) {
+  constexpr int KD = TRANS ? CO : CI, ND = TRANS ? CI : CO;
+  constexpr int KC = KD / 8, NF = ND / 8;
+  const int lane = i % 32, nf = (i / 32) % NF, kc = (i / (32 * NF)) % KC;
+  const int tap = i / (32 * NF * KC);
+  const int k0 = kc * 8 + lane % 4, n = nf * 8 + lane / 4;
+  const float* wt = w + tap * CI * CO;
+  return TRANS ? make_float2(wt[n * CO + k0], wt[n * CO + k0 + 4])
+               : make_float2(wt[k0 * CO + n], wt[(k0 + 4) * CO + n]);
+}
+
+// ------------------------------------------------------------------ tile staging
+// cp.async copies global -> shared without registers; a source size of 0
+// writes 16 zero bytes (pixels outside the image).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct Tile {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ Tile tile_at(int tile, int tiles_y, int tiles_x) {
+  const int r = tile % (tiles_y * tiles_x);
+  return {tile / (tiles_y * tiles_x), (r / tiles_x) * TH, (r % tiles_x) * TW};
+}
+
+// Chunk i (4 channels) of a staged tile of C channels: its pixel q, its
+// channel group c4 and its image position; HALO tiles are (TH+2) x (TW+2)
+// pixels from (y0-1, x0-1), the others TH x TW from (y0, x0).
+template <bool HALO, int C>
+struct Chunk {
+  static constexpr int C4 = C / 4, NPIX = HALO ? HALO_N : NT, TOTAL = NPIX * C4;
+  int q, c4, gy, gx;
+  bool inside;
+  __device__ __forceinline__ Chunk(int i, const Tile& T, int H, int W) {
+    q = i / C4;
+    c4 = i % C4;
+    constexpr int RW = HALO ? HALO_W : TW, OFF = HALO ? 1 : 0;
+    gy = T.y0 + q / RW - OFF;
+    gx = T.x0 + q % RW - OFF;
+    inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+  }
+};
+
+// Issue this thread's copies of a tile of `src` [B,H,W,C] into s [NPIX][S].
+template <bool HALO, int C, int S>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ src, float* s, const Tile& T,
+                                          int H, int W) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
+    const Chunk<HALO, C> k(i, T, H, W);
+    const float* from =
+        k.inside ? src + (((size_t)T.b * H + k.gy) * W + k.gx) * C + k.c4 * 4 : src;
+    cp_async16(s + k.q * S + k.c4 * 4, from, k.inside);
+  }
+}
+
+// After this thread's copies landed: v = f(v, offset, c4) on its own chunks
+// inside the image (those outside stay 0).
+template <bool HALO, int C, int S, class F>
+__device__ __forceinline__ void transform_tile(float* s, const Tile& T, int H, int W, F f) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
+    const Chunk<HALO, C> k(i, T, H, W);
+    if (!k.inside) continue;
+    const int off = k.q * S + k.c4 * 4;
+    st4(s + off, f(ld4(s + off), off, k.c4));
+  }
+}
+
+// relu(v*inv + shift) (RELU) or v*inv + shift, channels c4*4..c4*4+3
+template <bool RELU>
+__device__ __forceinline__ float4 bn4(float4 v, const float* inv, const float* shift) {
+  v.x = bn_apply(v.x, inv[0], shift[0]);
+  v.y = bn_apply(v.y, inv[1], shift[1]);
+  v.z = bn_apply(v.z, inv[2], shift[2]);
+  v.w = bn_apply(v.w, inv[3], shift[3]);
+  if (RELU) v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+  return v;
+}
+
+// Shared memory of the conv kernels, in floats. The backward double-buffers
+// its tiles where both copies fit beside the weights (and, for the dwdx
+// form, the single z tile).
+template <int CI, int CO>
+__host__ __device__ constexpr int fwd_smem_floats() {
+  return 2 * 9 * CI * CO + 2 * HALO_N * (CI + PAD);
+}
+
+template <int CI, int CO, bool PREV>
+__host__ __device__ constexpr int bwd_smem_floats(int buffers) {
+  return 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
+         (PREV ? 0 : HALO_N * (CO + PAD));
+}
+
+template <int CI, int CO, bool PREV>
+__host__ __device__ constexpr int bwd_buffers() {
+  return 4 * bwd_smem_floats<CI, CO, PREV>(2) <= 220 * 1024 ? 2 : 1;
+}
+
+// Blocks per SM to size registers for (__launch_bounds__): two where two
+// blocks' shared memory fits, else one, which leaves a thread 255 registers.
+__host__ __device__ constexpr int min_blocks(int smem_floats) {
+  return 4 * smem_floats <= 110 * 1024 ? 2 : 1;
 }
 
 // ------------------------------------------------------------------ forward conv
 // out = conv3x3(act(in), w), zero padding 1, plus per-block partial sums of
 // out and out^2 per channel. act = relu(in*inv+shift) when BN_IN, else identity.
 template <int CI, int CO, bool BN_IN>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, min_blocks(fwd_smem_floats<CI, CO>()))
 conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
                 const float* __restrict__ w, float* __restrict__ out,
                 double* __restrict__ partial, int B, int H, int W) {
-  constexpr int SI = CI + PAD;
-  constexpr int SO = CO + PAD;
+  constexpr int SI = CI + PAD;          // pixel stride: the A loads hit 32 distinct banks
+  constexpr int KC = CI / 8, NF = CO / 8;
   extern __shared__ __align__(16) float smem[];
-  float* s_w = smem;                    // [9][CI][CO]
-  float* s_buf = smem + 9 * CI * CO;    // input halo tile [HALO_N][SI], then output tile [NT][SO]
+  uint4* s_wf = reinterpret_cast<uint4*>(smem);     // [9][KC][NF][32] B fragments, split
+  float* const s_buf = smem + 2 * 9 * CI * CO;      // two input halo tiles [HALO_N][SI]
   __shared__ float s_coef[2 * CI];
+  __shared__ double s_tot[NWARP * 2 * CO];
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 9 * CI * CO; i += NT) s_w[i] = w[i];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 9 * CI * CO / 2; i += NT) {  // split once: {hi, hi, lo, lo}
+    const float2 p = weight_pair<CI, CO, false>(w, i);
+    const Split a = split(p.x), c = split(p.y);
+    s_wf[i] = make_uint4(a.hi, c.hi, a.lo, c.lo);
+  }
   if constexpr (BN_IN) {
     for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = coef[i];
   }
+  for (int i = tid; i < NWARP * 2 * CO; i += NT) s_tot[i] = 0.0;
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
-  const int py = tid / TW, px = tid % TW;
-  const int rc = tid % CO, rg = tid / CO;
-  constexpr int NG = NT / CO;
-  double tot0 = 0.0, tot1 = 0.0;
+  __syncthreads();  // s_coef is read by other threads' transforms
+  if ((int)blockIdx.x < ntiles)
+    copy_tile<true, CI, SI>(in, s_buf, tile_at(blockIdx.x, tiles_y, tiles_x), H, W);
+  cp_async_commit();
 
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int b = t / (tiles_y * tiles_x);
-    const int r = t % (tiles_y * tiles_x);
-    const int y0 = (r / tiles_x) * TH, x0 = (r % tiles_x) * TW;
-    __syncthreads();  // the previous tile's readers of s_buf are done
-    for (int i = tid; i < HALO_N * (CI / 4); i += NT) {
-      const int c4 = i % (CI / 4), hp = i / (CI / 4);
-      const int gy = y0 + hp / HALO_W - 1, gx = x0 + hp % HALO_W - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        v = ld4(in + (((size_t)b * H + gy) * W + gx) * CI + c4 * 4);
-        if constexpr (BN_IN) {
-          const float* iv = s_coef + c4 * 4;
-          const float* sh = s_coef + CI + c4 * 4;
-          v.x = fmaxf(bn_apply(v.x, iv[0], sh[0]), 0.f);
-          v.y = fmaxf(bn_apply(v.y, iv[1], sh[1]), 0.f);
-          v.z = fmaxf(bn_apply(v.z, iv[2], sh[2]), 0.f);
-          v.w = fmaxf(bn_apply(v.w, iv[3], sh[3]), 0.f);
-        }
-      }
-      st4(s_buf + hp * SI + c4 * 4, v);
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    const int b = T.b, y0 = T.y0, x0 = T.x0;
+    float* s_in = s_buf + buf * HALO_N * SI;
+    cp_async_wait_all();
+    if constexpr (BN_IN) {  // BN and ReLU inside the image; zeros outside stay 0
+      transform_tile<true, CI, SI>(s_in, T, H, W, [&](float4 v, int, int c4) {
+        return bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
+      });
     }
-    __syncthreads();
+    __syncthreads();  // this tile is staged; every thread is done with the other buffer
+    if (tile + (int)gridDim.x < ntiles)  // the next tile's copies run under this tile's MMAs
+      copy_tile<true, CI, SI>(in, s_buf + (buf ^ 1) * HALO_N * SI,
+                              tile_at(tile + gridDim.x, tiles_y, tiles_x), H, W);
+    cp_async_commit();
 
-    float acc[CO];
+    float acc[2][NF][4];
 #pragma unroll
-    for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nf][k] = 0.f;
+    // pixel (row 2*warp+mi, column g or g+8) reads halo (row+u, column+v):
+    // for one v the warp's two rows need halo rows 2*warp..2*warp+3, split
+    // once and used by all three u
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int u = tap / 3, v = tap % 3;
-      const float* ip = s_buf + ((py + u) * HALO_W + (px + v)) * SI;
-      const float* wp = s_w + tap * CI * CO;
+    for (int v = 0; v < 3; ++v) {
 #pragma unroll
-      for (int c4 = 0; c4 < CI / 4; ++c4) {
-        const float4 a4 = ld4(ip + c4 * 4);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      for (int kc = 0; kc < KC; ++kc) {
+        FragA ar[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int r = 0; r < 4; ++r) {
+          const float* p = s_in + ((2 * warp + r) * HALO_W + g + v) * SI + kc * 8 + t;
+          ar[r] = frag_a(p[0], p[8 * SI], p[4], p[8 * SI + 4]);
+        }
 #pragma unroll
-          for (int o4 = 0; o4 < CO / 4; ++o4) {
-            const float4 ww = ld4(wp + (c4 * 4 + k) * CO + o4 * 4);
-            acc[o4 * 4 + 0] = fmaf(av[k], ww.x, acc[o4 * 4 + 0]);
-            acc[o4 * 4 + 1] = fmaf(av[k], ww.y, acc[o4 * 4 + 1]);
-            acc[o4 * 4 + 2] = fmaf(av[k], ww.z, acc[o4 * 4 + 2]);
-            acc[o4 * 4 + 3] = fmaf(av[k], ww.w, acc[o4 * 4 + 3]);
+        for (int u = 0; u < 3; ++u) {
+          FragB bf[NF];
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf) {
+            const uint4 q = s_wf[(((3 * u + v) * KC + kc) * NF + nf) * 32 + lane];
+            bf[nf] = {{q.x, q.y}, {q.z, q.w}};
           }
+          mma3<2, NF>(acc, ar + u, bf);
         }
       }
     }
-    __syncthreads();  // every read of the input tile is done; reuse it for the output
-    const bool inside = (y0 + py < H) && (x0 + px < W);
+
+    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j
+    float s0[NF][2], s1[NF][2];
 #pragma unroll
-    for (int o4 = 0; o4 < CO / 4; ++o4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (inside) v = make_float4(acc[o4 * 4], acc[o4 * 4 + 1], acc[o4 * 4 + 2], acc[o4 * 4 + 3]);
-      st4(s_buf + tid * SO + o4 * 4, v);
-    }
-    __syncthreads();
-    for (int i = tid; i < NT * (CO / 4); i += NT) {
-      const int c4 = i % (CO / 4), p = i / (CO / 4);
-      const int gy = y0 + p / TW, gx = x0 + p % TW;
-      if (gy < H && gx < W)
-        st4(out + (((size_t)b * H + gy) * W + gx) * CO + c4 * 4, ld4(s_buf + p * SO + c4 * 4));
-    }
-    float s0 = 0.f, s1 = 0.f;  // pixels outside the image hold zeros
-    for (int p = rg; p < NT; p += NG) {
-      const float z = s_buf[p * SO + rc];
-      s0 += z;
-      s1 = fmaf(z, z, s1);
-    }
-    tot0 += (double)s0;
-    tot1 += (double)s1;
+    for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gy = y0 + 2 * warp + mi, gx = x0 + g + 8 * h;
+        if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
+        float* o = out + (((size_t)b * H + gy) * W + gx) * CO + 2 * t;
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          const float z0 = acc[mi][nf][2 * h], z1 = acc[mi][nf][2 * h + 1];
+          *reinterpret_cast<float2*>(o + nf * 8) = make_float2(z0, z1);
+          s0[nf][0] += z0;
+          s0[nf][1] += z1;
+          s1[nf][0] = fmaf(z0, z0, s1[nf][0]);
+          s1[nf][1] = fmaf(z1, z1, s1[nf][1]);
+        }
+      }
+    add_tile_sums<NF>(s0, 0, s_tot, CO);
+    add_tile_sums<NF>(s1, 1, s_tot, CO);
   }
-  write_channel_partials<CO>(tot0, tot1, partial);
+  cp_async_wait_all();
+  write_sum_partials(s_tot, CO, partial);
 }
 
 // ------------------------------------------------------------------ backward conv
@@ -217,201 +449,214 @@ conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
 //   g = g_src; d_in is masked by [y >= 0] and its sums with zprev are taken.
 // !PREV (the dwdx pass): a = a_src, g = c0*g_src + c1 + c2*g_z inside the image.
 template <int CI, int CO, bool PREV>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(
+    NT, min_blocks(bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>())))
 conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coef,
                 const float* __restrict__ g_src, const float* __restrict__ g_z,
                 const float* __restrict__ g_coef, const float* __restrict__ w,
                 float* __restrict__ d_in, float* __restrict__ dw_partial,
                 double* __restrict__ sum_partial, int B, int H, int W) {
-  constexpr int SA = CI + PAD;
-  constexpr int SG = CO + PAD;
-  constexpr int CPT = CI * CO / NT;     // consecutive co per thread in the dW phase
-  constexpr int NCG = CO / CPT;
-  static_assert(CPT >= 1 && CI * CO % NT == 0, "dW mapping needs CI*CO >= 256");
+  constexpr int SG = CO + PAD;          // d_in's A loads conflict-free, dW's B loads <= 2-way
+  constexpr int SA = CI + 2 * PAD;      // dW's A loads (pixel along t) conflict-free
+  constexpr int KCI = CO / 8, NFI = CI / 8;   // d_in: K chunks over co, N fragments over ci
+  // dW: warp -> (16-ci block mt, 8-co block nt) and a group of RPG tile rows
+  constexpr int MT = CI / 16, NTW = CO / 8, PAIRS = MT * NTW;
+  constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
+  static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
   static_assert(!PREV || CI == CO, "the dwprev pass has CI == CO");
+  constexpr int NBUF = bwd_buffers<CI, CO, PREV>();
+  constexpr int BUF = HALO_N * SG + NT * SA;        // one gradient halo tile + one activation tile
   extern __shared__ __align__(16) float smem[];
-  float* s_wt = smem;                        // [9][CO][CI] (transposed)
-  float* s_g = s_wt + 9 * CI * CO;           // [HALO_N][SG]; later d_in * zprev [NT][SG]
-  float* s_a = s_g + HALO_N * SG;            // [NT][SA]; later d_in [NT][SA]
+  float2* s_wf = reinterpret_cast<float2*>(smem);   // [9][KCI][NFI][32] B fragments of d_in
+  float* const s_buf = smem + 9 * CI * CO;          // NBUF x {g halo [HALO_N][SG], a [NT][SA]}
+  float* const s_z = s_buf + NBUF * BUF;            // !PREV: z0 halo [HALO_N][SG]
   __shared__ float s_coef[3 * CO];
+  __shared__ double s_tot[NWARP * 2 * CI];
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 9 * CI * CO; i += NT) {
-    const int tap = i / (CI * CO), ci = (i / CO) % CI, co = i % CO;
-    s_wt[(tap * CO + co) * CI + ci] = w[i];
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 9 * CI * CO / 2; i += NT) s_wf[i] = weight_pair<CI, CO, true>(w, i);
   if constexpr (PREV) {
     for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = a_coef[i];
   } else {
     for (int i = tid; i < 3 * CO; i += NT) s_coef[i] = g_coef[i];
   }
+  for (int i = tid; i < NWARP * 2 * CI; i += NT) s_tot[i] = 0.0;
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
-  const int py = tid / TW, px = tid % TW;
-  const int ci_w = tid / NCG, co_w = (tid % NCG) * CPT;
-  const int rc = tid % CI, rg = tid / CI;
-  constexpr int NG = NT / CI;
+  const int pair = warp % PAIRS, kg = warp / PAIRS;
+  const int mt = pair / NTW, nt = pair % NTW;
 
-  float dw[9][CPT];
+  // copies of one tile: g (halo) and a into buffer `into`; z0 (halo) for dwdx
+  auto copy = [&](int tile, int into) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
+    copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
+    if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
+  };
+
+  float dw[3][1][3][4];  // tap (u, v) at dw[u][0][v]: one mma3 block per kernel row
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-    for (int k = 0; k < CPT; ++k) dw[tap][k] = 0.f;
-  double tot0 = 0.0, tot1 = 0.0;
+    for (int k = 0; k < 4; ++k) dw[tap / 3][0][tap % 3][k] = 0.f;
+  __syncthreads();  // s_coef is read by other threads' transforms
+  if (NBUF == 2 && (int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
+  cp_async_commit();
 
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int b = t / (tiles_y * tiles_x);
-    const int r = t % (tiles_y * tiles_x);
-    const int y0 = (r / tiles_x) * TH, x0 = (r % tiles_x) * TW;
-    __syncthreads();  // the previous tile's readers of s_g / s_a are done
-    for (int i = tid; i < HALO_N * (CO / 4); i += NT) {
-      const int c4 = i % (CO / 4), hp = i / (CO / 4);
-      const int gy = y0 + hp / HALO_W - 1, gx = x0 + hp % HALO_W - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const size_t off = (((size_t)b * H + gy) * W + gx) * CO + c4 * 4;
-        v = ld4(g_src + off);
-        if constexpr (!PREV) {
-          const float4 z = ld4(g_z + off);
-          const float* k0 = s_coef + c4 * 4;
-          const float* k1 = s_coef + CO + c4 * 4;
-          const float* k2 = s_coef + 2 * CO + c4 * 4;
-          v.x = fmaf(k0[0], v.x, fmaf(k2[0], z.x, k1[0]));
-          v.y = fmaf(k0[1], v.y, fmaf(k2[1], z.y, k1[1]));
-          v.z = fmaf(k0[2], v.z, fmaf(k2[2], z.z, k1[2]));
-          v.w = fmaf(k0[3], v.w, fmaf(k2[3], z.w, k1[3]));
-        }
-      }
-      st4(s_g + hp * SG + c4 * 4, v);
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= NBUF - 1) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    const int b = T.b, y0 = T.y0, x0 = T.x0;
+    float* s_g = s_buf + buf * BUF;
+    float* s_a = s_g + HALO_N * SG;
+    if constexpr (NBUF == 1) {
+      __syncthreads();  // every thread is done with the previous tile
+      copy(tile, 0);
+      cp_async_commit();
     }
-    for (int i = tid; i < NT * (CI / 4); i += NT) {
-      const int c4 = i % (CI / 4), p = i / (CI / 4);
-      const int gy = y0 + p / TW, gx = x0 + p % TW;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy < H && gx < W) {
-        v = ld4(a_src + (((size_t)b * H + gy) * W + gx) * CI + c4 * 4);
-        if constexpr (PREV) {  // keep y before the ReLU: the mask needs its sign
-          const float* iv = s_coef + c4 * 4;
-          const float* sh = s_coef + CI + c4 * 4;
-          v.x = bn_apply(v.x, iv[0], sh[0]);
-          v.y = bn_apply(v.y, iv[1], sh[1]);
-          v.z = bn_apply(v.z, iv[2], sh[2]);
-          v.w = bn_apply(v.w, iv[3], sh[3]);
-        }
-      }
-      st4(s_a + p * SA + c4 * 4, v);
+    cp_async_wait_all();
+    if constexpr (PREV) {  // keep y0 before the ReLU: the mask needs its sign
+      transform_tile<false, CI, SA>(s_a, T, H, W, [&](float4 v, int, int c4) {
+        return bn4<false>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
+      });
+    } else {  // dz0 = c0*dy0 + c1 + c2*z0 inside the image
+      transform_tile<true, CO, SG>(s_g, T, H, W, [&](float4 v, int off, int c4) {
+        const float4 z = ld4(s_z + off);
+        const float* k0 = s_coef + c4 * 4;
+        const float* k1 = s_coef + CO + c4 * 4;
+        const float* k2 = s_coef + 2 * CO + c4 * 4;
+        return make_float4(fmaf(k0[0], v.x, fmaf(k2[0], z.x, k1[0])),
+                           fmaf(k0[1], v.y, fmaf(k2[1], z.y, k1[1])),
+                           fmaf(k0[2], v.z, fmaf(k2[2], z.z, k1[2])),
+                           fmaf(k0[3], v.w, fmaf(k2[3], z.w, k1[3])));
+      });
     }
-    __syncthreads();
+    __syncthreads();  // this tile is staged; every thread is done with the other buffer
+    if constexpr (NBUF == 2) {  // the next tile's copies run under this tile's MMAs
+      if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
+      cp_async_commit();
+    }
 
-    // ---- dW: thread (ci_w, co_w..co_w+CPT-1), all nine taps. For pixel
-    // (y, x) tap (u, v) reads g at halo position (y+2-u, x+2-v).
+    // ---- dW: rows y0g.., 8 pixels per k step; A(ci, p) = a[p][ci] is
+    // shared by the nine taps, B(p, co) = g at halo (y+2-u, x+2-v). Tile row
+    // y uses halo rows y..y+2, so the split B fragments of one halo row (its
+    // three v shifts) stay in a window of three rows and serve three tile rows.
+    const int y0g = kg * RPG;
 #pragma unroll 1
-    for (int y = 0; y < TH; ++y) {
-      float win[3][3][CPT];
+    for (int kh = 0; kh < 2; ++kh) {
+      FragB win[3][3];  // halo row h at win[(h - y0g) % 3], shift v
+      auto load_row = [&](int h, FragB(&dst)[3]) {
 #pragma unroll
-      for (int rr = 0; rr < 3; ++rr)
-#pragma unroll
-        for (int k = 0; k < CPT; ++k) {
-          win[rr][1][k] = s_g[((y + rr) * HALO_W + 0) * SG + co_w + k];
-          win[rr][2][k] = s_g[((y + rr) * HALO_W + 1) * SG + co_w + k];
+        for (int v = 0; v < 3; ++v) {
+          const float* pg = s_g + (h * HALO_W + kh * 8 + t + 2 - v) * SG + nt * 8 + g;
+          dst[v] = frag_b(pg[0], pg[4 * SG]);
         }
+      };
+      load_row(y0g, win[0]);
+      load_row(y0g + 1, win[1]);
 #pragma unroll
-      for (int x = 0; x < TW; ++x) {
+      for (int yy = 0; yy < RPG; ++yy) {
+        load_row(y0g + yy + 2, win[(yy + 2) % 3]);
+        const float* pa = s_a + ((y0g + yy) * TW + kh * 8 + t) * SA + mt * 16 + g;
+        float av[4] = {pa[0], pa[8], pa[4 * SA], pa[4 * SA + 8]};
+        if constexpr (PREV) {  // a = relu(y); pixels outside the image hold 0
 #pragma unroll
-        for (int rr = 0; rr < 3; ++rr)
+          for (int k = 0; k < 4; ++k) av[k] = fmaxf(av[k], 0.f);
+        }
+        const FragA af = frag_a(av[0], av[1], av[2], av[3]);
 #pragma unroll
-          for (int k = 0; k < CPT; ++k) {
-            win[rr][0][k] = win[rr][1][k];
-            win[rr][1][k] = win[rr][2][k];
-            win[rr][2][k] = s_g[((y + rr) * HALO_W + x + 2) * SG + co_w + k];
-          }
-        float a = s_a[(y * TW + x) * SA + ci_w];
-        if constexpr (PREV) a = fmaxf(a, 0.f);
-#pragma unroll
-        for (int u = 0; u < 3; ++u)
-#pragma unroll
-          for (int v = 0; v < 3; ++v)
-#pragma unroll
-            for (int k = 0; k < CPT; ++k)
-              dw[u * 3 + v][k] = fmaf(a, win[2 - u][2 - v][k], dw[u * 3 + v][k]);
+        for (int u = 0; u < 3; ++u) mma3<1, 3>(dw[u], &af, win[(yy + 2 - u) % 3]);
       }
     }
 
-    // ---- d_in: thread = pixel (py, px), every input channel
-    float acc[CI];
+    // ---- d_in: pixel (row 2*warp+mi, column g / g+8), every input channel
+    float acc[2][NFI][4];
 #pragma unroll
-    for (int i = 0; i < CI; ++i) acc[i] = 0.f;
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nf = 0; nf < NFI; ++nf)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nf][k] = 0.f;
+    // pixel (row 2*warp+mi, column g / g+8) reads halo (row+2-u, column+2-v):
+    // halo rows 2*warp..2*warp+3, split once per (v, kc) and used by all u
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int u = tap / 3, v = tap % 3;
-      const float* gp = s_g + ((py + 2 - u) * HALO_W + (px + 2 - v)) * SG;
-      const float* wp = s_wt + tap * CO * CI;
+    for (int v = 0; v < 3; ++v) {
 #pragma unroll
-      for (int o4 = 0; o4 < CO / 4; ++o4) {
-        const float4 g4 = ld4(gp + o4 * 4);
-        const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+      for (int kc = 0; kc < KCI; ++kc) {
+        FragA ar[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int r = 0; r < 4; ++r) {
+          const float* p = s_g + ((2 * warp + r) * HALO_W + g + 2 - v) * SG + kc * 8 + t;
+          ar[r] = frag_a(p[0], p[8 * SG], p[4], p[8 * SG + 4]);
+        }
 #pragma unroll
-          for (int i4 = 0; i4 < CI / 4; ++i4) {
-            const float4 ww = ld4(wp + (o4 * 4 + k) * CI + i4 * 4);
-            acc[i4 * 4 + 0] = fmaf(gv[k], ww.x, acc[i4 * 4 + 0]);
-            acc[i4 * 4 + 1] = fmaf(gv[k], ww.y, acc[i4 * 4 + 1]);
-            acc[i4 * 4 + 2] = fmaf(gv[k], ww.z, acc[i4 * 4 + 2]);
-            acc[i4 * 4 + 3] = fmaf(gv[k], ww.w, acc[i4 * 4 + 3]);
+        for (int u = 0; u < 3; ++u) {
+          FragB bf[NFI];
+#pragma unroll
+          for (int nf = 0; nf < NFI; ++nf) {
+            const float2 bw = s_wf[(((3 * u + v) * KCI + kc) * NFI + nf) * 32 + lane];
+            bf[nf] = frag_b(bw.x, bw.y);
           }
+          mma3<2, NFI>(acc, ar + 2 - u, bf);
         }
       }
     }
-    const bool inside = (y0 + py < H) && (x0 + px < W);
-    if constexpr (PREV) {  // ReLU mask from this pixel's own y, still in s_a
+
+    float s0[NFI][2], s1[NFI][2];
 #pragma unroll
-      for (int i4 = 0; i4 < CI / 4; ++i4) {
-        const float4 yv = ld4(s_a + tid * SA + i4 * 4);
-        if (!(yv.x >= 0.f)) acc[i4 * 4 + 0] = 0.f;
-        if (!(yv.y >= 0.f)) acc[i4 * 4 + 1] = 0.f;
-        if (!(yv.z >= 0.f)) acc[i4 * 4 + 2] = 0.f;
-        if (!(yv.w >= 0.f)) acc[i4 * 4 + 3] = 0.f;
-      }
-    }
-    __syncthreads();  // every read of s_a and s_g is done; reuse both
-    const size_t own = (((size_t)b * H + (y0 + py)) * W + (x0 + px)) * CI;
+    for (int nf = 0; nf < NFI; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
 #pragma unroll
-    for (int i4 = 0; i4 < CI / 4; ++i4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (inside) v = make_float4(acc[i4 * 4], acc[i4 * 4 + 1], acc[i4 * 4 + 2], acc[i4 * 4 + 3]);
-      st4(s_a + tid * SA + i4 * 4, v);
-      if constexpr (PREV) {
-        float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (inside) z = ld4(a_src + own + i4 * 4);
-        st4(s_g + tid * SG + i4 * 4, make_float4(v.x * z.x, v.y * z.y, v.z * z.z, v.w * z.w));
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int py = 2 * warp + mi, px = g + 8 * h;
+        const int gy = y0 + py, gx = x0 + px;
+        if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
+        const size_t own = (((size_t)b * H + gy) * W + gx) * CI + 2 * t;
+#pragma unroll
+        for (int nf = 0; nf < NFI; ++nf) {
+          float d0 = acc[mi][nf][2 * h], d1 = acc[mi][nf][2 * h + 1];
+          if constexpr (PREV) {  // ReLU mask from this pixel's own y; sums with zprev
+            const float2 yv =
+                *reinterpret_cast<const float2*>(s_a + (py * TW + px) * SA + nf * 8 + 2 * t);
+            const float2 z = *reinterpret_cast<const float2*>(a_src + own + nf * 8);
+            if (!(yv.x >= 0.f)) d0 = 0.f;
+            if (!(yv.y >= 0.f)) d1 = 0.f;
+            s0[nf][0] += d0;
+            s0[nf][1] += d1;
+            s1[nf][0] += d0 * z.x;
+            s1[nf][1] += d1 * z.y;
+          }
+          *reinterpret_cast<float2*>(d_in + own + nf * 8) = make_float2(d0, d1);
+        }
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < NT * (CI / 4); i += NT) {
-      const int c4 = i % (CI / 4), p = i / (CI / 4);
-      const int gy = y0 + p / TW, gx = x0 + p % TW;
-      if (gy < H && gx < W)
-        st4(d_in + (((size_t)b * H + gy) * W + gx) * CI + c4 * 4, ld4(s_a + p * SA + c4 * 4));
-    }
     if constexpr (PREV) {
-      float s0 = 0.f, s1 = 0.f;
-      for (int p = rg; p < NT; p += NG) {
-        s0 += s_a[p * SA + rc];
-        s1 += s_g[p * SG + rc];
-      }
-      tot0 += (double)s0;
-      tot1 += (double)s1;
+      add_tile_sums<NFI>(s0, 0, s_tot, CI);
+      add_tile_sums<NFI>(s1, 1, s_tot, CI);
     }
   }
 
+  // dW partial of this block: the KG row groups' accumulators added in group
+  // order through shared memory (the tiles' buffers are free now)
+  cp_async_wait_all();
+  __syncthreads();
+  float* s_dw = smem;  // [KG][9][CI][CO]
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-    for (int k = 0; k < CPT; ++k)
-      dw_partial[(((size_t)blockIdx.x * 9 + tap) * CI + ci_w) * CO + co_w + k] = dw[tap][k];
-  if constexpr (PREV) write_channel_partials<CI>(tot0, tot1, sum_partial);
+    for (int k = 0; k < 4; ++k) {
+      const int ci = mt * 16 + g + 8 * (k >> 1), co = nt * 8 + 2 * t + (k & 1);
+      s_dw[((kg * 9 + tap) * CI + ci) * CO + co] = dw[tap / 3][0][tap % 3][k];
+    }
+  __syncthreads();
+  for (int i = tid; i < 9 * CI * CO; i += NT) {
+    float s = 0.f;
+    for (int k = 0; k < KG; ++k) s += s_dw[k * 9 * CI * CO + i];
+    dw_partial[(size_t)blockIdx.x * 9 * CI * CO + i] = s;
+  }
+  if constexpr (PREV) write_sum_partials(s_tot, CI, sum_partial);
 }
 
 // ------------------------------------------------------------------ pool passes
@@ -595,18 +840,33 @@ cudaError_t reduce(const T* part, int nblocks, int n, double* out, cudaStream_t 
   return cudaGetLastError();
 }
 
+// Blocks for a persistent conv kernel: one per tile, at most max_blocks (the
+// size of the partials workspace) and at most what is resident at once, so
+// that every block starts together and the tiles spread evenly.
+template <typename K>
+cudaError_t conv_grid(K kernel, size_t dyn, int B, int H, int W, int max_blocks, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, dyn);
+  if (err != cudaSuccess) return err;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  *grid = grid_for_tiles(B, H, W, resident < max_blocks ? resident : max_blocks);
+  return cudaSuccess;
+}
+
 template <int CI, int CO, bool BN_IN>
 cudaError_t launch_conv_fwd(const float* in, const float* coef, const float* w, float* out,
                             double* partial, double* sums, int B, int H, int W,
                             int max_blocks, cudaStream_t stream) {
-  constexpr int in_floats = HALO_N * (CI + PAD), out_floats = NT * (CO + PAD);
-  constexpr size_t dyn =
-      sizeof(float) * (9 * CI * CO + (in_floats > out_floats ? in_floats : out_floats));
+  constexpr size_t dyn = sizeof(float) * fwd_smem_floats<CI, CO>();
   auto kernel = conv_fwd_kernel<CI, CO, BN_IN>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  int grid = 0;
+  cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const int grid = grid_for_tiles(B, H, W, max_blocks);
   kernel<<<grid, NT, dyn, stream>>>(in, coef, w, out, partial, B, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -620,12 +880,11 @@ cudaError_t launch_conv_bwd(const float* a_src, const float* a_coef, const float
                             double* sums, int B, int H, int W, int max_blocks,
                             cudaStream_t stream) {
   constexpr size_t dyn =
-      sizeof(float) * (9 * CI * CO + HALO_N * (CO + PAD) + NT * (CI + PAD));
+      sizeof(float) * bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>());
   auto kernel = conv_bwd_kernel<CI, CO, PREV>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  int grid = 0;
+  cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  const int grid = grid_for_tiles(B, H, W, max_blocks);
   kernel<<<grid, NT, dyn, stream>>>(a_src, a_coef, g_src, g_z, g_coef, w, d_in, dw_partial,
                                     sum_partial, B, H, W);
   err = cudaGetLastError();

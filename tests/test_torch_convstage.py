@@ -58,6 +58,13 @@ def _stage_arrays(external_first, c_in, c_out, b=2, h=8, w=16):
 @pytest.mark.parametrize("external_first", [True, False])
 @pytest.mark.parametrize("c_in,c_out", [(16, 16), (16, 32)], ids=["same16", "expand16to32"])
 def test_stage_matches_fused_packed_block(external_first, c_in, c_out):
+    check_stage_against_fused_packed_block(external_first, c_in, c_out)
+
+
+def check_stage_against_fused_packed_block(external_first, c_in, c_out):
+    """`cs.fused_conv_stage` on CPU tensors (whatever passes `cs._PLAIN_PASSES`
+    holds) against spcl_tpu's `fused_packed_block` in interpret mode:
+    outputs at FWD_TOL, every gradient at GRAD_TOL."""
     a = _stage_arrays(external_first, c_in, c_out)
     cw = a["x"].shape[3]
     names = ("x", "w0", "g0", "b0", "w1", "g1", "b1")

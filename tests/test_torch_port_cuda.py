@@ -183,7 +183,9 @@ def _assert_stage_close(got, want):
 
 @pytest.mark.parametrize("b,h,w,ci,c,external_first", [
     (3, 20, 36, 16, 16, True), (3, 20, 36, 16, 32, False), (2, 32, 32, 16, 16, False),
-    (2, 16, 48, 32, 32, False), (5, 64, 64, 16, 32, False)])
+    (2, 16, 48, 32, 32, False), (5, 64, 64, 16, 32, False),
+    # ragged: H and W no multiples of the 16x16 tile, one image
+    (1, 22, 38, 16, 32, False), (1, 18, 50, 32, 32, False), (1, 26, 14, 16, 16, True)])
 def test_stage_kernels_match_plain(cuda, b, h, w, ci, c, external_first):
     args, dp, de = _stage_args(b, h, w, ci, c, external_first, seed=b + h)
     out_k, res = cs.stage_forward(*args, external_first)
@@ -198,6 +200,49 @@ def test_stage_kernels_match_plain(cuda, b, h, w, ci, c, external_first):
     assert all(torch.equal(a, b2) for a, b2 in zip(cs.stage_backward(res, dp, de, external_first),
                                                    cs.stage_backward(res2, dp, de, external_first))
                if a is not None)
+
+
+def _wide(g, *shape):
+    """values of magnitude 1e-3..1e3 (log-uniform), random sign"""
+    mag = 10.0 ** (torch.rand(*shape, generator=g, device="cuda") * 6 - 3)
+    sign = torch.where(torch.rand(*shape, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    return mag * sign
+
+
+@pytest.mark.parametrize("name", ["conv", "bnconv", "dwprev", "dwdx"])
+def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name):
+    """Activations over six decades, where one TF32 pass misses the stage
+    tolerance (tests/test_torch_convstage_tf32.py shows it on the CPU): the
+    3xTF32 kernels hold 2e-4 x max|ref| against the plain version in
+    float64. BN is the identity (inv 1, shift 0), so the ReLU masks of the
+    float32 and float64 versions are the same."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, h, w, ci, c = 2, 40, 56, 16, 32
+    coef = torch.stack([torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")])
+    dcoef = torch.stack([torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"),
+                         torch.zeros(c, device="cuda")])
+    wt = torch.randn(3, 3, c if name in ("bnconv", "dwprev") else ci, c, generator=g,
+                     device="cuda") / 12
+    inputs = {"conv": (_wide(g, b, h, w, ci), wt),
+              "bnconv": (_wide(g, b, h, w, c), coef, wt),
+              "dwprev": (_wide(g, b, h, w, c), _wide(g, b, h, w, c), coef, wt),
+              "dwdx": (_wide(g, b, h, w, c), _wide(g, b, h, w, c), dcoef, _wide(g, b, h, w, ci),
+                       wt)}[name]
+    got = cs._KERNEL_PASSES[name](*inputs)
+    want = cs._PLAIN_PASSES[name](*(t.double() for t in inputs))
+    _assert_stage_close(got, want)
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_bnconv_and_dwprev_two_runs_bit_for_bit(cuda, c):
+    args, _, de = _stage_args(3, 40, 40, 16, c, True, seed=c)
+    z0, w1 = args[0], args[4]
+    coef = torch.stack([1 + 0.1 * de[0, 0, 0], 0.1 * de[0, 0, 1]]).contiguous()
+    dz1 = de.contiguous()
+    for fn, inputs in ((cs.bnconv_kernel, (z0, coef, w1)),
+                       (cs.dwprev_kernel, (dz1, z0, coef, w1))):
+        first, second = fn(*inputs), fn(*inputs)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_stage_autograd_on_card_matches_cpu(cuda):
