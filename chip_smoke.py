@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   3. kernels — hold the supcon kernels against their plain PyTorch versions
                (float32, TF32 off) at 2N in {60, 126, 1024, 3840}, D=256,
                in every weighting mode, correct_grad on and off, and with
-               padded (valid=0) rows; hold the seven stage kernels against
+               padded (valid=0) rows; two runs of each equal to the bit;
+               time them beside the plain versions, their float32 and
+               3xTF32 bounds and their products alone in float32 `torch.mm`
+               (the library yardstick), with the launch plan (cluster size,
+               resident clusters, kept s tiles); hold the seven stage kernels against
                theirs at the main path's two shapes (B=60: 224^2 x C16 fed by
                an ordinary first convolution, 112^2 x C16->32) and at a small
                odd-batch shape, with random dp and random non-zero de: the
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                correct_grad on and off, an invalid tail; each strip's
                statistics and dz against the plain versions, the assembled
                loss, ratio, dz1, dz2 against the square-form kernels; kernel
-               strip, plain strip and naive strip timed beside the bound.
+               strip, plain strip, library yardstick and naive strip timed
+               beside both bounds.
   9. nccl    — a process group of ONE rank on NCCL in this process: the
                row-sharded loss and the cross-rank BatchNorm, forward and
                backward, through the collectives on CUDA tensors, against
@@ -75,7 +80,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                {"ok": true, "device": {...}}.
 
 Development aids: `--stage-kernels-only` stops after the build and the stage
-kernel check, `--mesh-only` runs the build and phases 8-10.
+kernel check, `--supcon-kernels-only` runs the build and phases 3 (supcon
+part) and 8, `--mesh-only` the build and phases 8-10.
 """
 import copy
 import json
@@ -165,6 +171,21 @@ def build_phase(*modules):
     print(f"build wall time {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+# (rows, cols) the supcon kernels run at: the square form at 2N in SIZES and
+# the strips of the strips phase (and slice C's 64 x 128)
+PLAN_SHAPES = ((64, 64), (128, 128), (1024, 1024), (3840, 3840), (32, 64), (64, 128),
+               (480, 3840))
+
+
+def supcon_plans(sc):
+    """The launch plan of each supcon kernel at the path's shapes: the
+    cluster size chosen, and the clusters of that size the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    for rows, cols in PLAN_SHAPES:
+        for name in ("supcon_fwd", "supcon_bwd"):
+            print(f"plan {name} {rows}x{cols}: {sc.plan(name, rows, cols, D)}", flush=True)
+
+
 # ------------------------------------------------------------------ kernels
 def _inputs(n2, gen, pad_rows=0):
     """z [2N, D] L2-normalized with label-correlated structure, labels in 3
@@ -229,8 +250,76 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+SUPCON_LIBRARY_CALLS = {"supcon_fwd": "torch.mm(zr, zc.T)",
+                        "supcon_bwd": "torch.mm(zr, zc.T) + torch.mm(g, zc)"}
+
+
+def _supcon_library(zr, zc):
+    """The products of each supcon pass alone, one float32 `torch.mm` each
+    with TF32 off (the callers set it): s = zr @ zc.T for the forward, and
+    that plus G @ zc for the backward (G of s's shape). Timed as
+    yardsticks; the port never calls them."""
+    def bwd():
+        torch.mm(torch.mm(zr, zc.T), zc)
+    return {"supcon_fwd": lambda: torch.mm(zr, zc.T), "supcon_bwd": bwd}
+
+
+def _graph_ms(fn, reps):
+    """Device ms per call of `fn`: `reps` calls captured in one CUDA graph
+    and replayed (best of three replays), so that the host's time to issue
+    a call (the Python wrapper, the launch) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    return best
+
+
+def _time_supcon(sc, fargs, bargs, reps):
+    """Times (ms) of the forward stats and of dz on these operands: the
+    kernel (`ms`), the plain version and the library yardstick as device
+    time per call (`_graph_ms`, kernel and plain in turns plain, kernel,
+    kernel, plain), and the kernel called eagerly back to back (`eager_ms`:
+    CUDA events, the host's time per call included where it is the longer);
+    and the launch plan of each kernel."""
+    zr, zc = fargs[0], fargs[1]
+    library = _supcon_library(zr, zc)
+    out = {}
+    for name, kernel, plain, args in (
+            ("supcon_fwd", sc.fwd_stats_kernel, sc.fwd_stats_plain, fargs),
+            ("supcon_bwd", sc.bwd_dz_kernel, sc.bwd_dz_plain, bargs)):
+        p1 = _graph_ms(lambda: plain(*args), reps)
+        k1 = _graph_ms(lambda: kernel(*args), reps)
+        k2 = _graph_ms(lambda: kernel(*args), reps)
+        p2 = _graph_ms(lambda: plain(*args), reps)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "library_ms": _graph_ms(library[name], reps),
+                     "library_call": SUPCON_LIBRARY_CALLS[name],
+                     "eager_ms": _time_ms(lambda: kernel(*args), reps),
+                     "plan": sc.plan(name, zr.shape[0], zc.shape[0], zr.shape[1])}
+        torch.cuda.empty_cache()
+    return out
+
+
 def _time_pair(sc, n2, gen):
-    """kernel and plain times (ms) of the forward stats and of dz at 2N=n2."""
+    """Times of the forward stats and of dz at 2N=n2 (`_time_supcon`), after
+    checking that two runs of each kernel give the same bits."""
     z1, z2, labels, valid = _inputs(n2, gen)
     z, t2, v2, n_pad = sc._prepare(z1, z2, labels, valid)
     gid = torch.arange(n_pad, dtype=torch.float32, device=DEVICE)
@@ -240,39 +329,56 @@ def _time_pair(sc, n2, gen):
     scale = torch.full((1,), 1.0 / n2, device=DEVICE)
     bargs = (z, z, t2, t2, v2, v2, gid, gid, c, c, denom, denom, a, a, inv_t, gamma,
              scale, "hard")
-    reps = 200 if n2 <= 1024 else 20
+    same = all(torch.equal(x, y) for x, y in zip(sc.fwd_stats_kernel(*fargs),
+                                                 sc.fwd_stats_kernel(*fargs)))
+    check(same and torch.equal(sc.bwd_dz_kernel(*bargs), sc.bwd_dz_kernel(*bargs)),
+          f"two runs of the supcon kernels differ at 2N={n2}")
+    return _time_supcon(sc, fargs, bargs, 200 if n2 <= 1024 else 20)
+
+
+def _supcon_bounds(rows, cols, fwd_bytes, bwd_bytes):
+    """Least ms for the supcon kernels on a rows x cols rectangle at D=256:
+    the larger of the bytes over the memory rate and the operations over the
+    peak for their type. Operations: the forward one [rows, D] x [D, cols]
+    product (2 rows cols D FLOPs), the backward that and G @ z (twice).
+    `bound_f32_*`: float32 outside the tensor cores; `bound_3xtf32_*`: the
+    kernels' own arithmetic, three TF32 products on the tensor cores, which
+    is their `bound_ms`."""
     out = {}
-    # turns: plain, kernel, kernel, plain
-    p1 = _time_ms(lambda: sc.fwd_stats_plain(*fargs), reps)
-    k1 = _time_ms(lambda: sc.fwd_stats_kernel(*fargs), reps)
-    k2 = _time_ms(lambda: sc.fwd_stats_kernel(*fargs), reps)
-    p2 = _time_ms(lambda: sc.fwd_stats_plain(*fargs), reps)
-    out["supcon_fwd"] = (min(k1, k2), min(p1, p2))
-    p1 = _time_ms(lambda: sc.bwd_dz_plain(*bargs), reps)
-    k1 = _time_ms(lambda: sc.bwd_dz_kernel(*bargs), reps)
-    k2 = _time_ms(lambda: sc.bwd_dz_kernel(*bargs), reps)
-    p2 = _time_ms(lambda: sc.bwd_dz_plain(*bargs), reps)
-    out["supcon_bwd"] = (min(k1, k2), min(p1, p2))
+    for name, nbytes, flops in (("supcon_fwd", fwd_bytes, 2.0 * rows * cols * D),
+                                ("supcon_bwd", bwd_bytes, 4.0 * rows * cols * D)):
+        tb = nbytes / HBM_BYTES_PER_S
+        tf, t3 = flops / F32_FLOPS, 3 * flops / TF32_FLOPS
+        out[name] = {"bound_ms": max(tb, t3) * 1e3,
+                     "bound_by": "operations" if t3 > tb else "bytes",
+                     "bound_3xtf32_ms": max(tb, t3) * 1e3,
+                     "bound_3xtf32_by": "operations" if t3 > tb else "bytes",
+                     "bound_f32_ms": max(tb, tf) * 1e3,
+                     "bound_f32_by": "operations" if tf > tb else "bytes"}
     return out
 
 
 def _bound_ms(n2):
-    """Least time for the work at 2N=n2, D=256 on the H100: the larger of
-    bytes / HBM rate and float32 operations / float32 peak. Bytes: z read
-    once, 3 [2N] row vectors read, outputs written once. Operations: the
-    forward needs one [2N, D] x [D, 2N] product (2 * 2N^2 * D FLOPs); the
-    backward the product for s and G @ z (4 * 2N^2 * D)."""
-    z_bytes = n2 * D * 4
-    vec = n2 * 4
-    fwd = max((z_bytes + 3 * vec + 4 * vec) / HBM_BYTES_PER_S,
-              2.0 * n2 * n2 * D / F32_FLOPS)
-    bwd = max((z_bytes + 3 * vec + 6 * vec + z_bytes) / HBM_BYTES_PER_S,
-              4.0 * n2 * n2 * D / F32_FLOPS)
-    bound_by = {"supcon_fwd": "operations" if 2.0 * n2 * n2 * D / F32_FLOPS
-                > (z_bytes + 7 * vec) / HBM_BYTES_PER_S else "bytes",
-                "supcon_bwd": "operations" if 4.0 * n2 * n2 * D / F32_FLOPS
-                > (2 * z_bytes + 9 * vec) / HBM_BYTES_PER_S else "bytes"}
-    return {"supcon_fwd": fwd * 1e3, "supcon_bwd": bwd * 1e3}, bound_by
+    """`_supcon_bounds` of the square form at 2N=n2. Bytes: z read once, 3
+    [2N] row vectors read, outputs written once (4 vectors forward, dz
+    backward, which also reads 3 statistics per row)."""
+    z_bytes, vec = n2 * D * 4, n2 * 4
+    return _supcon_bounds(n2, n2, z_bytes + 7 * vec, 2 * z_bytes + 9 * vec)
+
+
+def _print_supcon_times(what, t):
+    for name, v in t.items():
+        pl = v["plan"]
+        print(f"time {what} {name}: kernel {v['ms']:.4f} ms (eager {v['eager_ms']:.4f}) | "
+              f"plain {v['plain_ms']:.4f} ms | "
+              f"library {v['library_call']} (float32, TF32 off) {v['library_ms']:.4f} ms | "
+              f"bound (3xTF32) {v['bound_3xtf32_ms']:.6f} ms ({v['bound_3xtf32_by']}) | "
+              f"bound (float32) {v['bound_f32_ms']:.6f} ms ({v['bound_f32_by']}) | plan: "
+              f"cluster {pl['cluster']} x {pl['row_tiles']} row tiles, {pl['tiles_per_block']} "
+              f"column tiles a block" + (f", s of {pl['kept']} kept (room for "
+                                        f"{pl['keep_max']})" if name == "supcon_fwd" else "")
+              + f", {pl['active_clusters']} clusters resident, {pl['smem_bytes']} B shared",
+              flush=True)
 
 
 def kernel_phase(sc):
@@ -324,14 +430,10 @@ def kernel_phase(sc):
     timings = {}
     for n2 in TIMING_SIZES:
         t = _time_pair(sc, n2, gen)
-        bound, bound_by = _bound_ms(n2)
-        timings[n2] = {name: {"ms": t[name][0], "plain_ms": t[name][1],
-                              "bound_ms": bound[name], "bound_by": bound_by[name]}
-                       for name in t}
-        for name, v in timings[n2].items():
-            print(f"time 2N={n2:5d} {name}: kernel {v['ms']:.4f} ms | plain "
-                  f"{v['plain_ms']:.4f} ms | bound {v['bound_ms']:.6f} ms "
-                  f"({v['bound_by']})", flush=True)
+        bound = _bound_ms(n2)
+        timings[n2] = {name: {**t[name], **bound[name]} for name in t}
+        _print_supcon_times(f"2N={n2:5d}", timings[n2])
+    print("two runs of each supcon kernel equal to the bit at every timing size", flush=True)
     print("timings " + json.dumps({str(k): v for k, v in timings.items()}), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults again
     torch.backends.cudnn.allow_tf32 = True
@@ -987,20 +1089,12 @@ def _strip_inputs(n2, world, invalid_tail, gen):
 
 
 def _strip_bound_ms(rows, cols):
-    """Least ms for one strip, rows x cols at D=256: bytes (row and column z
-    read once, 3 vectors per row and column, outputs written once; the
-    backward also reads 3 statistics per row and column and writes dz) over
-    the memory rate against float32 operations (2 * rows * cols * D forward,
-    twice that backward) over the float32 peak."""
+    """`_supcon_bounds` of one strip, rows x cols at D=256. Bytes: row and
+    column z read once, 3 vectors per row and column, outputs written once;
+    the backward also reads 3 statistics per row and column and writes dz."""
     fwd_bytes = (rows + cols) * D * 4 + 3 * (rows + cols) * 4 + 4 * rows * 4
     bwd_bytes = (rows + cols) * D * 4 + 6 * (rows + cols) * 4 + rows * D * 4
-    out = {}
-    for name, nbytes, flops in (("supcon_fwd", fwd_bytes, 2.0 * rows * cols * D),
-                                ("supcon_bwd", bwd_bytes, 4.0 * rows * cols * D)):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        out[name] = {"bound_ms": max(tb, tf) * 1e3,
-                     "bound_by": "operations" if tf > tb else "bytes"}
-    return out
+    return _supcon_bounds(rows, cols, fwd_bytes, bwd_bytes)
 
 
 def _strip_ops(strip):
@@ -1075,10 +1169,8 @@ def strip_kernel_phase(sc):
         fargs = (*ops, inv_t, 3.0, "hard")
         bargs = (*ops, *stats, inv_t, 3.0, scale, "hard")
         reps = 200 if n2 <= 1024 else 20
-        fk, fp = _best_of_turns(lambda: sc.fwd_stats_kernel(*fargs),
-                                lambda: sc.fwd_stats_plain(*fargs), reps)
-        bk, bp = _best_of_turns(lambda: sc.bwd_dz_kernel(*bargs),
-                                lambda: sc.bwd_dz_plain(*bargs), reps)
+        t = _time_supcon(sc, fargs, bargs, reps)
+        fk, bk = t["supcon_fwd"]["ms"], t["supcon_bwd"]["ms"]
         n_l = z1.shape[0] // world
         a = z1[:n_l].clone().requires_grad_(True)
         b = z2[:n_l].clone().requires_grad_(True)
@@ -1092,18 +1184,13 @@ def strip_kernel_phase(sc):
         naive_ms = _time_ms(naive, reps)
         bound = _strip_bound_ms(rows_pad, cols_pad)
         at = f"{rows_pad}x{cols_pad}"
-        shapes[at] = {"supcon_fwd": {"at": f"2N={n2}, R={world}, strip {at}, D={D}", "ms": fk,
-                                     "plain_ms": fp, **bound["supcon_fwd"]},
-                      "supcon_bwd": {"at": f"2N={n2}, R={world}, strip {at}, D={D}", "ms": bk,
-                                     "plain_ms": bp, **bound["supcon_bwd"]},
-                      "naive_strip_fwd_bwd_ms": naive_ms}
-        print(f"time strip {at} (2N={n2}, R={world}): supcon_fwd kernel {fk:.4f} ms | plain "
-              f"{fp:.4f} ms | bound {bound['supcon_fwd']['bound_ms']:.6f} ms "
-              f"({bound['supcon_fwd']['bound_by']}) || supcon_bwd kernel {bk:.4f} ms | plain "
-              f"{bp:.4f} ms | bound {bound['supcon_bwd']['bound_ms']:.6f} ms "
-              f"({bound['supcon_bwd']['bound_by']}) || kernel strip forward + backward "
-              f"{fk + bk:.4f} ms | naive strip forward + backward (autograd) {naive_ms:.4f} ms",
-              flush=True)
+        shapes[at] = {name: {"at": f"2N={n2}, R={world}, strip {at}, D={D}", **t[name],
+                             **bound[name]} for name in t}
+        shapes[at]["naive_strip_fwd_bwd_ms"] = naive_ms
+        _print_supcon_times(f"strip {at} (2N={n2}, R={world})",
+                            {name: shapes[at][name] for name in t})
+        print(f"time strip {at}: kernel strip forward + backward {fk + bk:.4f} ms | naive "
+              f"strip forward + backward (autograd) {naive_ms:.4f} ms", flush=True)
     print(f"{cases} strip cases agree (stats tol 2e-4 abs; dz tol 2e-4 x max|dz|)", flush=True)
     print("strip_timings " + json.dumps(shapes), flush=True)
     torch.backends.cudnn.allow_tf32 = True
@@ -1436,8 +1523,13 @@ def main():
     from spcl_torch.ops import supcon_cuda as sc
 
     build_phase(sc, cs)
+    supcon_plans(sc)
     if "--stage-kernels-only" in sys.argv[1:]:  # development aids: one phase
         stage_kernel_phase(cs)
+        return
+    if "--supcon-kernels-only" in sys.argv[1:]:
+        kernel_phase(sc)
+        strip_kernel_phase(sc)
         return
     if "--mesh-only" in sys.argv[1:]:
         strip_kernel_phase(sc)
@@ -1459,8 +1551,6 @@ def main():
     launches_c, steps_c = slice_c_phase(sc)
 
     main_t = timings[MAIN_2N]
-    why = ("no single PyTorch call computes the self-paced SupCon per-row "
-           "statistics or their dz")
     replaces = {
         "supcon_fwd": "spcl_tpu/ops/supcon_pallas.py:121 _denom_kernel + :142 _loss_kernel",
         "supcon_bwd": "spcl_tpu/ops/supcon_pallas.py:167 _bwd_kernel",
@@ -1470,10 +1560,15 @@ def main():
                 "launches_by_path": {"slice_a": launches[name],
                                      "slice_c_rank_0": launches_c[name]},
                 "max_abs_err": max(max_err[name], strip_err[name]), "ms": main_t[name]["ms"],
-                "kernel_ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
-                "bound_by": main_t[name]["bound_by"], "library_ms": None,
-                "library_why": why, "at": f"2N={MAIN_2N}, D={D}",
+                "bound_by": main_t[name]["bound_by"],
+                **{k: main_t[name][k] for k in ("bound_f32_ms", "bound_3xtf32_ms")},
+                "library_ms": main_t[name]["library_ms"],
+                "library_call": main_t[name]["library_call"],
+                "library_why": (f"{main_t[name]['library_call']} computes the pass's products "
+                                "only, not the masks, exp, weights or row sums around them"),
+                "plan": main_t[name]["plan"], "at": f"2N={MAIN_2N}, D={D}",
+                "sizes": {str(n2): v[name] for n2, v in timings.items()},
                 "shapes": {at: v[name] for at, v in strip_shapes.items()}}
                for name in ("supcon_fwd", "supcon_bwd")]
     stage_why = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or "

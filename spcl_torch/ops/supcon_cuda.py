@@ -5,8 +5,11 @@ Replaces `spcl_tpu/ops/supcon_pallas.py`:
   `supcon_fwd` (one kernel) <- `_denom_kernel` (:121) + `_loss_kernel` (:142)
   `supcon_bwd`              <- `_bwd_kernel` (:167)
 The source note in `csrc/supcon.cu` says what they compute, what bounds them
-on the H100 (float32 operations at large 2N, launch latency at the paper's
-2N = 60) and how the design handles that.
+on the H100 (3 x the product's operations over the TF32 tensor-core rate at
+large 2N, launch latency at the paper's 2N = 60) and how the design handles
+that: one thread-block cluster per 64 rows whose blocks split the column
+sweep, products in 3xTF32 on the tensor cores, sums across the cluster in a
+fixed order. `plan` reports the cluster size the kernels choose per shape.
 
 Interface kept from the TPU module: `fwd_stats` / `bwd_dz` take independent
 row and column operands (z, label, valid, global row id), so the row-strip
@@ -37,7 +40,8 @@ import torch
 from . import _build
 from ..parallel import mesh
 
-_TILE = 32          # rows/cols per kernel tile (supcon_tile() in the source)
+_TILE = 32          # rows/cols padding of the operands (supcon_tile() in the source)
+MAX_D = 256         # the largest depth the kernels take (DP in the source)
 _EPS = 1e-16
 _NEG_BIG = -1e30
 _MODES = {"none": 0, "hard": 1, "soft": 2}
@@ -66,21 +70,27 @@ def build(verbose: bool = False) -> Tuple[Path, float, str]:
     return _build.build_library(SOURCE, "spcl_supcon", verbose)
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from `csrc/supcon.cu` and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.supcon_tile.argtypes = []
+    lib.supcon_tile.restype = i
+    lib.supcon_fwd.argtypes = [p] * 8 + [i, i, i, f, f, i] + [p] * 4 + [p]
+    lib.supcon_fwd.restype = i
+    lib.supcon_bwd.argtypes = [p] * 14 + [i, i, i, f, f, p, i, p, p]
+    lib.supcon_bwd.restype = i
+    lib.supcon_plan.argtypes = [i, i, i, i, p]
+    lib.supcon_plan.restype = i
+    if lib.supcon_tile() != _TILE:
+        raise RuntimeError(f"kernel tile {lib.supcon_tile()} != {_TILE}")
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.supcon_tile.argtypes = []
-        lib.supcon_tile.restype = i
-        lib.supcon_fwd.argtypes = [p] * 8 + [i, i, i, f, f, i] + [p] * 4 + [p]
-        lib.supcon_fwd.restype = i
-        lib.supcon_bwd.argtypes = [p] * 14 + [i, i, i, f, f, p, i, p, p]
-        lib.supcon_bwd.restype = i
-        if lib.supcon_tile() != _TILE:
-            raise RuntimeError(f"kernel tile {lib.supcon_tile()} != {_TILE}")
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
 
 
@@ -88,8 +98,9 @@ def _check_operands(zr, zc, row_vecs, col_vecs, extra=()):
     """Checks before pointers reach a kernel: contiguous float32 tensors on
     one CUDA device; z [rows, D] and [cols, D] padded to the tile; one value
     per row (column) in every row (column) vector. Returns (rows, cols, D)."""
+    dev = zr.get_device()  # -1 on the CPU
     for t in (zr, zc) + tuple(row_vecs) + tuple(col_vecs) + tuple(extra):
-        if (not t.is_cuda or t.device != zr.device or t.dtype != torch.float32
+        if (dev < 0 or t.get_device() != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError("supcon kernels take contiguous float32 tensors on one "
                              f"CUDA device; got {t.dtype} {t.device} "
@@ -100,11 +111,28 @@ def _check_operands(zr, zc, row_vecs, col_vecs, extra=()):
     cols = zc.shape[0]
     if rows % _TILE or cols % _TILE:
         raise ValueError(f"rows/cols must be padded to {_TILE}: {rows} x {cols}")
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"the kernels take 0 < D <= {MAX_D}, got D = {d}")
     for n, vecs in ((rows, row_vecs), (cols, col_vecs)):
         for v in vecs:
             if tuple(v.shape) != (n,):
                 raise ValueError(f"per-row vector of shape {tuple(v.shape)}, expected ({n},)")
     return rows, cols, d
+
+
+def plan(kernel: str, rows: int, cols: int, d: int) -> Dict[str, int]:
+    """The launch plan the kernel `kernel` ("supcon_fwd" or "supcon_bwd")
+    takes at this shape on the current card: cluster size, row tiles of 64,
+    column tiles per block, tiles whose s the forward keeps for pass B, the
+    clusters the card holds at once, and the dynamic shared memory."""
+    lib = _load()
+    out = (ctypes.c_int * 7)()
+    err = lib.supcon_plan({"supcon_fwd": 0, "supcon_bwd": 1}[kernel], rows, cols, d,
+                          ctypes.cast(out, ctypes.c_void_p))
+    _build.raise_on(err, f"{kernel} plan")
+    keys = ("cluster", "row_tiles", "tiles_per_block", "kept", "active_clusters",
+            "smem_bytes", "keep_max")
+    return dict(zip(keys, list(out)))
 
 
 # ------------------------------------------------------------------ plain versions
@@ -155,20 +183,32 @@ def bwd_dz_plain(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
 
 
 # ------------------------------------------------------------------ kernel launches
+def _kernel_z(z: torch.Tensor) -> torch.Tensor:
+    """z as the kernels read it: a depth that is a multiple of 4 (zero columns
+    added, which change no dot product) and 16-byte aligned rows."""
+    pad = -z.shape[1] % 4
+    if pad:
+        return torch.nn.functional.pad(z, (0, pad))
+    return z.clone() if z.data_ptr() % 16 else z
+
+
 def fwd_stats_kernel(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
                      inv_t: float, gamma: float, mode: str):
     """`fwd_stats_plain` on the card: one launch of supcon_fwd."""
     ops = (zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c)
-    rows, cols, d = _check_operands(zr, zc, (lab_r, val_r, gid_r), (lab_c, val_c, gid_c))
+    rows, cols, _ = _check_operands(zr, zc, (lab_r, val_r, gid_r), (lab_c, val_c, gid_c))
+    ops = (_kernel_z(zr), _kernel_z(zc)) + ops[2:]
+    d = ops[0].shape[1]
     lib = _load()
     out = torch.empty((4, rows), dtype=torch.float32, device=zr.device)
     stream = torch.cuda.current_stream(zr.device).cuda_stream
+    base = out.data_ptr()
     err = lib.supcon_fwd(*(t.data_ptr() for t in ops), rows, cols, d,
                          float(inv_t), float(gamma), _MODES[mode],
-                         *(out[k].data_ptr() for k in range(4)), stream)
+                         *(base + 4 * rows * k for k in range(4)), stream)
     _build.raise_on(err, "supcon_fwd")
     LAUNCHES["supcon_fwd"] += 1
-    return out[0], out[1], out[2], out[3]
+    return out.unbind(0)
 
 
 def bwd_dz_kernel(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
@@ -182,15 +222,17 @@ def bwd_dz_kernel(zr, zc, lab_r, lab_c, val_r, val_c, gid_r, gid_c,
     rows, cols, d = _check_operands(
         zr, zc, (lab_r, val_r, gid_r, c_r, denom_r, a_r),
         (lab_c, val_c, gid_c, c_c, denom_c, a_c), extra=(scale,))
+    ops = (_kernel_z(zr), _kernel_z(zc)) + ops[2:]
+    d_k = ops[0].shape[1]
     lib = _load()
-    dz = torch.empty((rows, d), dtype=torch.float32, device=zr.device)
+    dz = torch.empty((rows, d_k), dtype=torch.float32, device=zr.device)
     stream = torch.cuda.current_stream(zr.device).cuda_stream
-    err = lib.supcon_bwd(*(t.data_ptr() for t in ops), rows, cols, d,
+    err = lib.supcon_bwd(*(t.data_ptr() for t in ops), rows, cols, d_k,
                          float(inv_t), float(gamma), scale.data_ptr(), _MODES[mode],
                          dz.data_ptr(), stream)
     _build.raise_on(err, "supcon_bwd")
     LAUNCHES["supcon_bwd"] += 1
-    return dz
+    return dz if d_k == d else dz[:, :d]
 
 
 # ------------------------------------------------------------------ dispatch

@@ -6,7 +6,8 @@ versions, on the card. Marked `gpu`: skipped where torch sees no CUDA device
 
 Tolerance: 2e-4 absolute on the per-row statistics (rowloss, c, log denom,
 a — all O(1..10)) and on the loss; 2e-4 x max|dz| on dz. float32 sums run in
-another order, and s carries 1/T = 14.3x the dot-product rounding. The
+another order, the products in 3xTF32 (float32 accuracy), and s carries
+1/T = 14.3x the dot-product rounding. The
 stage kernels of `convstage_cuda`: 2e-4 x max|plain| on every tensor.
 """
 import pytest
@@ -156,6 +157,113 @@ def test_kernel_rejects_malformed_operands(cuda):
         sc.fwd_stats_kernel(z, z, short, v, v, v, v, v, 1.0, 1.0, "hard")
     with pytest.raises(ValueError):  # float64 operands
         sc.fwd_stats_kernel(z.double(), z, v, v, v, v, v, v, 1.0, 1.0, "hard")
+
+
+def _strip_operands(rows, cols, seed, invalid_tail=3):
+    """Rows = the first `rows` entries of the columns (rank 0's strip of a
+    row-sharded batch), labels in 3 partitions, an invalid tail of columns."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    zc = torch.nn.functional.normalize(torch.randn(cols, D, generator=g, device="cuda"), dim=1)
+    lab = (torch.arange(cols, device="cuda") % 3).float()
+    val = torch.ones(cols, device="cuda")
+    val[cols - invalid_tail:] = 0.0
+    gid = torch.arange(cols, dtype=torch.float32, device="cuda")
+    return (zc[:rows].contiguous(), zc, lab[:rows].contiguous(), lab, val[:rows].contiguous(),
+            val, gid[:rows].contiguous(), gid)
+
+
+@pytest.mark.parametrize("rows,cols", [(32, 3840), (480, 3840), (96, 224)])
+@pytest.mark.parametrize("mode,gamma", [("none", 1e9), ("soft", 8.0), ("hard", 30.0)])
+def test_strip_shapes_match_plain(cuda, rows, cols, mode, gamma):
+    """rows != cols at the strips of the bigbatch loss (480 x 3840), of one
+    row tile against many columns (32 x 3840) and of 7 column tiles, which
+    no cluster larger than 1 divides evenly (96 x 224)."""
+    ops = _strip_operands(rows, cols, seed=rows + cols)
+    k = sc.fwd_stats_kernel(*ops, 1 / 0.07, gamma, mode)
+    p = sc.fwd_stats_plain(*ops, 1 / 0.07, gamma, mode)
+    torch.testing.assert_close(k[1], p[1], rtol=0, atol=0)
+    torch.testing.assert_close(torch.log(k[0] + 1e-16), torch.log(p[0] + 1e-16),
+                               rtol=0, atol=2e-4)
+    c_safe = torch.clamp(p[1], min=1.0)
+    torch.testing.assert_close(k[2] / c_safe, p[2] / c_safe, rtol=0, atol=2e-4)
+    torch.testing.assert_close(k[3] / c_safe, p[3] / c_safe, rtol=0, atol=2e-4)
+    zc, lab, val, gid = ops[1], ops[3], ops[5], ops[7]
+    den_c, c_c, _, sps_c = sc.fwd_stats_plain(zc, zc, lab, lab, val, val, gid, gid, 1 / 0.07,
+                                              gamma, mode)
+    a_c = sps_c / torch.clamp(c_c, min=1.0)
+    stats = (c_c[:rows].contiguous(), c_c, den_c[:rows].contiguous(), den_c,
+             a_c[:rows].contiguous(), a_c)
+    scale = torch.full((1,), 1.0 / cols, device="cuda")
+    dk = sc.bwd_dz_kernel(*ops, *stats, 1 / 0.07, gamma, scale, mode)
+    dp = sc.bwd_dz_plain(*ops, *stats, 1 / 0.07, gamma, scale, mode)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=2e-4 * float(dp.abs().max()))
+
+
+def test_two_runs_bit_for_bit_at_3840(cuda):
+    """No atomics: the sums across the blocks of a cluster run in a fixed
+    order, so two runs of the same inputs give the same bits."""
+    z1, z2, labels, valid = _inputs(3840, seed=5)
+    z, t2, v2, gid = _operands(z1, z2, labels, valid)
+    fargs = (z, z, t2, t2, v2, v2, gid, gid, 1 / 0.07, 8.0, "soft")
+    first, second = sc.fwd_stats_kernel(*fargs), sc.fwd_stats_kernel(*fargs)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    c_safe = torch.clamp(first[1], min=1.0)
+    bargs = (z, z, t2, t2, v2, v2, gid, gid, first[1], first[1], first[0], first[0],
+             first[3] / c_safe, first[3] / c_safe, 1 / 0.07, 8.0,
+             torch.full((1,), 1 / 3840, device="cuda"), "soft")
+    assert torch.equal(sc.bwd_dz_kernel(*bargs), sc.bwd_dz_kernel(*bargs))
+
+
+def test_one_launch_per_call_at_2n_60(cuda):
+    """At the paper's 2N=60 each kernel is one launch per call, through the
+    wrappers and through the loss's forward and backward."""
+    z1, z2, labels, valid = _inputs(60, seed=6)
+    z, t2, v2, gid = _operands(z1, z2, labels, valid)
+    sc.reset_launch_counts()
+    stats = sc.fwd_stats_kernel(z, z, t2, t2, v2, v2, gid, gid, 1 / 0.07, 3.0, "hard")
+    assert sc.LAUNCHES == {"supcon_fwd": 1, "supcon_bwd": 0}
+    c_safe = torch.clamp(stats[1], min=1.0)
+    sc.bwd_dz_kernel(z, z, t2, t2, v2, v2, gid, gid, stats[1], stats[1], stats[0], stats[0],
+                     stats[3] / c_safe, stats[3] / c_safe, 1 / 0.07, 3.0,
+                     torch.full((1,), 1 / 60, device="cuda"), "hard")
+    assert sc.LAUNCHES == {"supcon_fwd": 1, "supcon_bwd": 1}
+    a, b = z1.clone().requires_grad_(True), z2.clone().requires_grad_(True)
+    sc.reset_launch_counts()
+    loss, _ = sc.fused_self_paced_supcon(a, b, gamma=3.0, target=labels, valid=valid)
+    loss.backward()
+    assert sc.LAUNCHES == {"supcon_fwd": 1, "supcon_bwd": 1}
+    assert sc.plan("supcon_fwd", 64, 64, D)["row_tiles"] == 1
+
+
+@pytest.mark.parametrize("d,offset", [(102, 0), (256, 1)])
+def test_ragged_depth_and_unaligned_rows_match_plain(cuda, d, offset):
+    """A depth that is no multiple of 4, and z rows that start 4 bytes off a
+    16-byte boundary: the wrappers hand the kernels padded, aligned copies."""
+    g = torch.Generator(device="cuda").manual_seed(d + offset)
+    unit = torch.nn.functional.normalize(torch.randn(96, d, generator=g, device="cuda"), dim=1)
+    z = torch.empty(96 * d + offset, device="cuda")[offset:].view(96, d)
+    z.copy_(unit)
+    assert z.is_contiguous() and (z.data_ptr() % 16 != 0) == bool(offset)
+    lab = (torch.arange(96, device="cuda") % 3).float()
+    val, gid = torch.ones(96, device="cuda"), torch.arange(96, dtype=torch.float32, device="cuda")
+    fargs = (z, z, lab, lab, val, val, gid, gid, 1 / 0.07, 8.0, "soft")
+    k, p = sc.fwd_stats_kernel(*fargs), sc.fwd_stats_plain(*fargs)
+    torch.testing.assert_close(torch.log(k[0] + 1e-16), torch.log(p[0] + 1e-16), rtol=0, atol=2e-4)
+    torch.testing.assert_close(k[2] / torch.clamp(p[1], min=1.0), p[2] / torch.clamp(p[1], min=1.0),
+                               rtol=0, atol=2e-4)
+    a = p[3] / torch.clamp(p[1], min=1.0)
+    bargs = (z, z, lab, lab, val, val, gid, gid, p[1], p[1], p[0], p[0], a, a, 1 / 0.07, 8.0,
+             torch.full((1,), 1 / 96, device="cuda"), "soft")
+    dk, dp = sc.bwd_dz_kernel(*bargs), sc.bwd_dz_plain(*bargs)
+    assert dk.shape == (96, d)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=2e-4 * float(dp.abs().max()))
+
+
+def test_kernel_rejects_depth_beyond_its_limit(cuda):
+    z = torch.zeros(32, sc.MAX_D + 8, device="cuda")
+    v = torch.ones(32, device="cuda")
+    with pytest.raises(ValueError):
+        sc.fwd_stats_kernel(z, z, v, v, v, v, v, v, 1.0, 1.0, "hard")
 
 
 # ------------------------------------------------------------------ stage kernels
