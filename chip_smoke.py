@@ -20,7 +20,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                an ordinary first convolution, 112^2 x C16->32) and at a small
                odd-batch shape, with random dp and random non-zero de: the
                forward and the backward as wholes, each pass alone, and two
-               runs bit for bit; time kernel vs plain with CUDA events.
+               runs bit for bit; time kernel vs plain with CUDA events; the
+               pool passes (poolsums, dz1) also with de absent, as the
+               pretrain path runs them, against their own byte bounds, and
+               poolsums also by CUDA-graph replay and at the fine-tune step's
+               shapes (B=5), with its launch plan.
   4. slice A — the encoder-pretrain path of main_pretrain_encoder.py at the
                paper's configuration (UNet max_channel=256 to Conv5, crop
                224 of a 256 canvas, 2N=60, self-paced SupCon hard 3->14,
@@ -40,8 +44,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                times the fine-tune step and the eval step after a warm-up.
   6. profile — the pretrain step under `pallas` beside `nhwc`: 20 timed
                steps each (twice, in turns), 5 under torch.profiler (kernel
-               time by kernel, the stage kernels' share); and the two
-               stages alone, forward + backward, fused beside cuDNN.
+               time by kernel, the stage kernels' share and launches, matched
+               by their own names: none under `nhwc`, no reduce after
+               poolsums under `pallas`); and the two stages alone, forward +
+               backward, fused beside cuDNN.
   7. parity  — one small pretrain step, and one small fine-tune step under
                `pallas`, on the card (kernels) against the same step on the
                CPU (plain versions) from the same weights and draws.
@@ -86,6 +92,7 @@ part) and 8, `--mesh-only` the build and phases 8-10.
 import copy
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -501,14 +508,17 @@ def _hold(what, names, kernel_out, plain_out):
 TF32_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
 
 
-def _stage_bounds(b, h, w, ci, c):
+def _stage_bounds(b, h, w, ci, c, de=True):
     """Least ms for each pass on the H100: the larger of the bytes it must
     move (each input read once, each output written once) over the memory
     rate and its float32 operations over the float32 peak (`bound_f32_ms`).
     For the 3xTF32 passes also the larger of the bytes and three times the
     operations over the TF32 tensor-core peak (`bound_3xtf32_ms`), which is
-    their `bound_ms`; the others' `bound_ms` is the float32 one."""
+    their `bound_ms`; the others' `bound_ms` is the float32 one. `de=False`:
+    the pool passes without the skip cotangent, as the pretrain path runs
+    them (z1 and dp read; dz1 written by dz1)."""
     px, f = b * h * w, 4
+    skip = 1.0 if de else 0.0
 
     def conv_flops(i, o):
         return 2.0 * 9 * i * o * px
@@ -516,8 +526,8 @@ def _stage_bounds(b, h, w, ci, c):
     bytes_ = {"conv": px * (ci + c) * f + 9 * ci * c * f,
               "bnconv": px * 2 * c * f + 9 * c * c * f,
               "bnpool": px * c * f * 2.25,              # z1 -> e, p
-              "poolsums": px * c * f * 2.25,            # z1, de, dp
-              "dz1": px * c * f * 3.25,                 # z1, de, dp -> dz1
+              "poolsums": px * c * f * (1.25 + skip),   # z1, de, dp
+              "dz1": px * c * f * (2.25 + skip),        # z1, de, dp -> dz1
               "dwprev": px * c * f * 3 + 2 * 9 * c * c * f,   # dz1, z0 -> dy0, dW1
               "dwdx": px * f * (2 * c + 2 * ci) + 2 * 9 * ci * c * f}  # z0, dy0, x -> dx, dW0
     flops = {"conv": conv_flops(ci, c), "bnconv": conv_flops(c, c) + 3.0 * px * c,
@@ -568,13 +578,30 @@ def _library_calls(x, w0, z0, w1, dz1, dy0):
     return calls
 
 
-def _best_of_turns(kernel_fn, plain_fn, reps):
-    """min over the turns plain, kernel, kernel, plain (ms)."""
-    p1 = _time_ms(plain_fn, reps)
-    k1 = _time_ms(kernel_fn, reps)
-    k2 = _time_ms(kernel_fn, reps)
-    p2 = _time_ms(plain_fn, reps)
+def _best_of_turns(kernel_fn, plain_fn, reps, timer=None):
+    """min over the turns plain, kernel, kernel, plain (ms), by CUDA events
+    around eager calls (`_time_ms`) or another timer (`_graph_ms`)."""
+    timer = timer or _time_ms
+    p1 = timer(plain_fn, reps)
+    k1 = timer(kernel_fn, reps)
+    k2 = timer(kernel_fn, reps)
+    p2 = timer(plain_fn, reps)
     return min(k1, k2), min(p1, p2)
+
+
+L2_BYTES = 50e6  # the H100's L2
+
+
+def _cycling(fn, input_sets):
+    """fn over the input sets in turn: timed calls whose inputs would fit in
+    the L2 cycle through enough copies that each finds its inputs in device
+    memory."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] += 1
+        return fn(*input_sets[state["i"] % len(input_sets)])
+    return call
 
 
 def stage_kernel_phase(cs):
@@ -662,11 +689,82 @@ def stage_kernel_phase(cs):
                       f"inputs, without BN/ReLU/mask/sums) {entry['library_ms']:.3f} ms",
                       flush=True)
             results[name]["shapes"][shape_name] = entry
+            if name in POOL_PASSES:
+                _time_pool_pass(cs, name, entry, inputs, (b, h, w, c), results, shape_name)
         del res, bwd_k, out_k, dz1, dy0, args, dp, de, library
         torch.cuda.empty_cache()
+    finetune_poolsums(cs, gen, results)
     print("stage_timings " + json.dumps(results), flush=True)
     torch.backends.cudnn.allow_tf32 = True
     return results
+
+
+# the pool passes whose skip cotangent de is absent on the pretrain path
+# (it stops at Conv5); de is the last input of both
+POOL_PASSES = ("poolsums", "dz1")
+# the stages of a fine-tune step: batch 5 (LabeledLoader), the whole UNet
+FINETUNE_SHAPES = (("finetune stage1", 5, 224, 224, 16), ("finetune stage2", 5, 112, 112, 32))
+
+
+def _pool_entry(cs, name, inputs, shape, de, reps):
+    """Times of a pool pass on `inputs` (kernel against plain, in turns), by
+    CUDA events around eager calls (`ms`) and by CUDA-graph replay
+    (`graph_ms`: device time, without the host's time to launch a call);
+    with its byte bound. Inputs that fit in the L2 are cycled through copies."""
+    b, h, w, c = shape
+    bd = _stage_bounds(b, h, w, c, c, de=de)[name]
+    nbytes = bd["bound_ms"] * 1e-3 * HBM_BYTES_PER_S
+    sets = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
+                       for _ in range(math.ceil(3 * L2_BYTES / nbytes) - 1)]
+    kernel_fn = _cycling(cs._KERNEL_PASSES[name], sets)
+    plain_fn = _cycling(cs._PLAIN_PASSES[name], sets)
+    ms, plain_ms = _best_of_turns(kernel_fn, plain_fn, reps)
+    graph_ms, plain_graph_ms = _best_of_turns(kernel_fn, plain_fn, reps, timer=_graph_ms)
+    entry = {"at": f"B={b} {h}x{w} C={c} de {'present' if de else 'absent'}", "ms": ms,
+             "plain_ms": plain_ms, "graph_ms": graph_ms, "plain_graph_ms": plain_graph_ms,
+             "input_copies": len(sets), **bd}
+    print(f"  time {name} B={b} {h}x{w} C={c}, de {'present' if de else 'absent'}: kernel "
+          f"{ms:.4f} ms (graph replay {graph_ms:.4f}) | plain {plain_ms:.3f} ms (graph "
+          f"{plain_graph_ms:.3f}) | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
+          f"{100 * bd['bound_ms'] / graph_ms:.0f}% of the bound by graph replay"
+          + (f" | {len(sets)} input copies" if len(sets) > 1 else ""), flush=True)
+    return entry
+
+
+def _time_pool_pass(cs, name, entry, inputs, shape, results, shape_name):
+    """At a main-path stage shape: the graph-replay time of the pool pass with
+    de (poolsums only), and both times with de absent, as the pretrain path
+    runs it (entry "<shape> de absent")."""
+    if name == "poolsums":
+        timed = _pool_entry(cs, name, inputs, shape, True, 5)
+        entry.update({k: timed[k] for k in ("graph_ms", "plain_graph_ms")})
+    absent = inputs[:-1] + (None,)
+    k_out, p_out = cs._KERNEL_PASSES[name](*absent), cs._PLAIN_PASSES[name](*absent)
+    err = _hold(f"pass {name}, de absent", ("out",), (k_out,), (p_out,))
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    del k_out, p_out
+    results[name]["shapes"][f"{shape_name} de absent"] = _pool_entry(cs, name, absent, shape,
+                                                                     False, 5)
+
+
+def finetune_poolsums(cs, gen, results):
+    """poolsums at the fine-tune step's stage shapes (batch 5, de present):
+    held against plain, then timed."""
+    for shape_name, b, h, w, c in FINETUNE_SHAPES:
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE)
+        coef = torch.stack([1 + 0.1 * rn(c), 0.1 * rn(c)]).contiguous()
+        inputs = (rn(b, h, w, c), coef, rn(b, h // 2, w // 2, c), rn(b, h, w, c))
+        err = _hold(f"{shape_name}: pass poolsums B={b} {h}x{w} C={c}", ("sums",),
+                    (cs.poolsums_kernel(*inputs),), (cs.poolsums_plain(*inputs),))
+        results["poolsums"]["max_abs_err"] = max(results["poolsums"]["max_abs_err"], err)
+        results["poolsums"]["shapes"][shape_name] = _pool_entry(cs, "poolsums", inputs,
+                                                                (b, h, w, c), True, 20)
+    print("poolsums plan: " + " | ".join(
+        f"{n}, de {'present' if de else 'absent'} {cs.poolsums_plan(b, h, w, c, True, de)}"
+        for n, b, h, w, c in
+        (("stage1", 60, 224, 224, 16), ("stage2", 60, 112, 112, 32)) + FINETUNE_SHAPES
+        for de in (True, False)), flush=True)
 
 
 # ------------------------------------------------------------------ slice
@@ -790,7 +888,7 @@ def slice_b_phase(sc, cs):
           f"{float(rows[0]['val/loss/mean']):.5f} | val DSC {scores[1]:.5f} | test DSC "
           f"{float(rows[0]['test/dice/DSC_mean']):.5f} | best.ckpt reloads strictly into a "
           f"plain UNet", flush=True)
-    launches = {k: pre_launches[k] + ft_launches[k] for k in cs.LAUNCHES}
+    launches = {k: pre_launches[k] + ft_launches[k] for k in {**sc.LAUNCHES, **cs.LAUNCHES}}
     _time_finetune_and_eval(ft_config, ckpt, save_dir / "timing")
     return launches, trainer
 
@@ -817,8 +915,16 @@ def _time_finetune_and_eval(ft_config, ckpt, save_dir):
           f"per scan over {batches} val scans ({eval_ms:.1f} ms per eval epoch)", flush=True)
 
 
+# the kernels of csrc/convstage.cu by their own names, whole, as the profiler
+# demangles them ("(anonymous namespace)::poolsums_kernel<16>(...)"), so that
+# PyTorch's at::native::reduce_kernel is none of them
 STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnpool_kernel",
-                      "poolsums_kernel", "dz1_kernel", "reduce_kernel")
+                      "poolsums_kernel", "dz1_kernel", "convstage_reduce_kernel")
+STAGE_KERNEL_RE = re.compile(r"(?:^|[\s:])(%s)\b" % "|".join(STAGE_KERNEL_NAMES))
+# launches of convstage_reduce_kernel in one train step: one after each
+# forward convolution (conv, 2 x bnconv), two after each dwprev, one after
+# dwdx; poolsums launches none
+STAGE_REDUCES_PER_STEP = 8
 
 
 def _pretrain_steps(trainer):
@@ -861,14 +967,18 @@ def _profiled(run, steps):
 
 
 def _print_profile(title, kernels, wall_ms, top=12):
+    """Print kernel time per step, the supcon and stage kernels' shares, the
+    largest kernels and every stage kernel. Returns (total, stage kernels'
+    ms/step, stage kernels' launches per step by name), or None when the
+    profiler recorded no device time."""
     total = sum(ms for ms, _ in kernels.values())
     if total <= 0:
         print(f"profile {title}: the profiler recorded no device time (not measured)",
               flush=True)
         return None
     supcon = sum(ms for k, (ms, _) in kernels.items() if "supcon" in k)
-    stage = sum(ms for k, (ms, _) in kernels.items()
-                if any(n in k for n in STAGE_KERNEL_NAMES))
+    stage_keys = [k for k in kernels if STAGE_KERNEL_RE.search(k)]
+    stage = sum(kernels[k][0] for k in stage_keys)
     print(f"profile {title}: {total:.3f} ms of kernel time per step = "
           f"{100 * total / wall_ms:.1f}% of the unprofiled wall time; supcon kernels "
           f"{supcon:.4f} ms/step = {100 * supcon / total:.2f}%; stage kernels "
@@ -876,7 +986,13 @@ def _print_profile(title, kernels, wall_ms, top=12):
     for key, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:8.3f} ms/step {100 * ms / total:5.1f}%  x{count:<4d} {key[:80]}",
               flush=True)
-    return total
+    launches = {}
+    for key in sorted(stage_keys, key=lambda k: -kernels[k][0]):
+        ms, count = kernels[key]
+        name = STAGE_KERNEL_RE.search(key).group(1)
+        launches[name] = launches.get(name, 0) + count
+        print(f"  stage kernel {ms:8.4f} ms/step x{count:<3d} {key[:80]}", flush=True)
+    return total, stage, launches
 
 
 def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
@@ -899,10 +1015,20 @@ def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
               f"{VIEWS * 1e3 / w:.1f} slices/s (host batch + copy included; turns "
               f"{turns[0]:.3f}, {turns[1]:.3f})", flush=True)
     print(f"pallas / nhwc step time: {wall_b / wall_a:.3f}", flush=True)
-    total_a = _print_profile("nhwc", _profiled(run_a, steps), wall_a)
-    total_b = _print_profile("pallas", _profiled(run_b, steps), wall_b)
-    return {"nhwc_ms": wall_a, "pallas_ms": wall_b, "nhwc_kernel_ms": total_a,
-            "pallas_kernel_ms": total_b}
+    prof_a = _print_profile("nhwc", _profiled(run_a, steps), wall_a)
+    prof_b = _print_profile("pallas", _profiled(run_b, steps), wall_b)
+    out = {"nhwc_ms": wall_a, "pallas_ms": wall_b}
+    if prof_a is not None and prof_b is not None:
+        (total_a, stage_a, _), (total_b, stage_b, launched) = prof_a, prof_b
+        print(f"stage kernels: nhwc {stage_a:.4f} ms/step, pallas {stage_b:.4f} ms/step; "
+              f"pallas stage launches per step {launched}", flush=True)
+        check(stage_a == 0, f"the nhwc step ran stage kernels: {stage_a} ms/step")
+        check(launched.get("poolsums_kernel") == STAGE_LAUNCHES_PER_STEP["convstage_poolsums"]
+              and launched.get("convstage_reduce_kernel") == STAGE_REDUCES_PER_STEP,
+              f"pallas step: poolsums and reduce launches per step {launched}")
+        out.update({"nhwc_kernel_ms": total_a, "pallas_kernel_ms": total_b,
+                    "nhwc_stage_ms": stage_a, "pallas_stage_ms": stage_b})
+    return out
 
 
 def stage_region_phase():
@@ -1556,8 +1682,9 @@ def main():
         "supcon_bwd": "spcl_tpu/ops/supcon_pallas.py:167 _bwd_kernel",
     }
     kernels = [{"name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/supcon.cu",
-                "replaces": replaces[name], "launches": launches[name] + launches_c[name],
-                "launches_by_path": {"slice_a": launches[name],
+                "replaces": replaces[name],
+                "launches": launches[name] + stage_launches[name] + launches_c[name],
+                "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name]},
                 "max_abs_err": max(max_err[name], strip_err[name]), "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
@@ -1589,6 +1716,10 @@ def main():
             "library_why": (f"{shapes[at]['library_call']} computes this pass's convolution, "
                             "not the BN, ReLU, mask or sums around it"
                             if "library_ms" in shapes[at] else stage_why),
+            **({"graph_ms": shapes[at]["graph_ms"],
+                "plan": {f"de {'present' if de else 'absent'}":
+                         cs.poolsums_plan(60, 224, 224, 16, True, de) for de in (True, False)}}
+               if name == "poolsums" else {}),
             "at": shapes[at]["at"], "shapes": shapes})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

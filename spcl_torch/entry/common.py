@@ -86,6 +86,30 @@ def load_datasets_from_config(config: Dict) -> Tuple[SliceDataset, SliceDataset]
             load_packed(str(Path(root) / f"{name}_val.npz")))
 
 
+def refuse_unported_trainer_keys(trainer_cfg: Dict, name: str) -> None:
+    """Raise NotImplementedError for a `Trainer` key that spcl_tpu honours
+    and the port does not yet, set to anything but its default, instead of
+    training a different function without a word. spcl_tpu reads
+    `grad_cache` and `dump_matrices` in its pretrain trainer only
+    (training/trainer.py:1131-1159), `profile_dir` and `defer_reads` in every
+    trainer (:897-909, entry/common.py:151). `device_data` and `packed_eval`
+    change no number and stay accepted."""
+    refused = []
+    if name.startswith("pretrain"):
+        if int(trainer_cfg.get("grad_cache") or 0):
+            refused.append(("grad_cache", "A13"))
+        if trainer_cfg.get("dump_matrices"):
+            refused.append(("dump_matrices", "A7"))
+    if trainer_cfg.get("profile_dir"):
+        refused.append(("profile_dir", "A7"))
+    if trainer_cfg.get("defer_reads"):
+        refused.append(("defer_reads", "A7"))
+    if refused:
+        raise NotImplementedError("; ".join(
+            f"Trainer.{key}={trainer_cfg[key]!r} is not ported yet (ROADMAP {item})"
+            for key, item in refused))
+
+
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
@@ -99,6 +123,7 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     if name not in trainer_zoo:
         raise NotImplementedError(
             f"trainer {name!r} is not ported yet (ported: {sorted(trainer_zoo)})")
+    refuse_unported_trainer_keys(trainer_cfg, name)
     data_name = data_cfg.get("name", "acdc")
     default_crop = POLICY_ZOO.get(data_name, {"val": None})["val"]
     crop = int(data_cfg.get("crop", default_crop.crop if default_crop else 224))

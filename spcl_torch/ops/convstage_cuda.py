@@ -33,7 +33,10 @@ the four statistics outputs are dropped.
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor takes
 the plain versions. The kernels are built with nvcc at first use into
 `build/spcl_torch/` (see `build`, `_build.py`). `LAUNCHES` counts each kernel
-launch; `reset_launch_counts` zeroes it.
+launch; `reset_launch_counts` zeroes it. The wrappers allocate outputs and
+scratch with torch.empty per call; the one state kept across calls is the
+poolsums kernel's arrival counter, one int32 per device (`_ticket`), which
+every launch leaves zero.
 """
 from __future__ import annotations
 
@@ -85,11 +88,13 @@ def _load() -> ctypes.CDLL:
         lib.convstage_tile.argtypes = []
         lib.convstage_tile.restype = i
         for name, n_ptr, n_int in (("conv", 5, 6), ("bnconv", 6, 5), ("bnpool", 4, 5),
-                                   ("poolsums", 6, 5), ("dz1", 6, 5), ("dwprev", 9, 5),
+                                   ("poolsums", 7, 5), ("dz1", 6, 5), ("dwprev", 9, 5),
                                    ("dwdx", 8, 6)):
             fn = getattr(lib, f"convstage_{name}")
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = i
+        lib.convstage_poolsums_plan.argtypes = [i] * 6 + [p]
+        lib.convstage_poolsums_plan.restype = i
         if lib.convstage_tile() != _TILE:
             raise RuntimeError(f"kernel tile {lib.convstage_tile()} != {_TILE}")
         _lib = lib
@@ -337,14 +342,49 @@ def _check_cotangents(z1, dp, de):
     return b, h, wd, c
 
 
+# device index -> the poolsums kernel's arrival counter (one int32)
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    """The arrival counter of convstage_poolsums on `device`: made zero once
+    with torch.zeros, and zero again at the end of every launch (the block
+    that adds the clusters' partials resets it), so back-to-back calls and
+    CUDA graph replays find it zero. Launches on one device share it, so they
+    must not run at the same time on two streams."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ticket = _TICKETS.get(index)
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("poolsums_kernel: call it once outside CUDA graph capture "
+                               "first; its counter is made at the first call on a device")
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        torch.cuda.current_stream(device).synchronize()
+        _TICKETS[index] = ticket
+    return ticket
+
+
+def poolsums_plan(b: int, h: int, w: int, c: int, dp: bool, de: bool) -> Dict[str, int]:
+    """The launch of convstage_poolsums at [b, h, w, c] with dp / de present
+    or absent, on the current card: clusters, blocks a cluster, clusters
+    resident at once, and the chunks (a pixel's 4 channels, two terms each) a
+    float32 run holds before it is added to float64."""
+    out = (ctypes.c_int * 4)()
+    err = _load().convstage_poolsums_plan(b, h, w, c, int(dp), int(de),
+                                          ctypes.cast(out, ctypes.c_void_p))
+    _build.raise_on(err, "convstage_poolsums_plan")
+    return dict(zip(("clusters", "cluster", "resident", "run"), out))
+
+
 def poolsums_kernel(z1, coef, dp, de):
     """`poolsums_plain` on the card: one launch of convstage_poolsums."""
     b, h, wd, c = _check_cotangents(z1, dp, de)
     _check_small(coef, (2, c), z1, "coef (inv, shift)")
-    blocks = _max_blocks(z1.device) * 2
-    partial, sums = _conv_workspace(blocks, c, z1.device)
+    clusters = poolsums_plan(b, h, wd, c, dp is not None, de is not None)["clusters"]
+    partial, sums = _conv_workspace(clusters, c, z1.device)
     _launch("poolsums", z1.data_ptr(), coef.data_ptr(), _ptr(dp), _ptr(de),
-            partial.data_ptr(), sums.data_ptr(), b, h, wd, c, blocks, _stream(z1))
+            partial.data_ptr(), sums.data_ptr(), _ticket(z1.device).data_ptr(), b, h, wd, c,
+            clusters, _stream(z1))
     return sums
 
 

@@ -64,10 +64,12 @@
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
 // block walks a fixed set of tiles (tile t goes to block t mod gridDim), sums
 // in a fixed order (warp shuffles, then per-warp float64 slots), and writes
-// its partial to a workspace; a second small kernel (`reduce_kernel`) adds
-// the partials in block order in float64. Two runs on the same inputs give
-// the same bits. BN statistics are accumulated per block in float64, so
-// E[z^2] - E[z]^2 over millions of elements keeps its digits.
+// its partial to a workspace; a second small kernel
+// (`convstage_reduce_kernel`) adds the partials in block order in float64.
+// poolsums instead adds them inside its one launch (see its note below).
+// Two runs on the same inputs give the same bits. BN statistics are
+// accumulated per block in float64, so E[z^2] - E[z]^2 over millions of
+// elements keeps its digits.
 //
 // Arithmetic kept from the TPU kernels: BN applied as z*inv + shift (product
 // and sum rounded separately, see bn_apply); ReLU mask y >= 0 in the backward;
@@ -85,8 +87,11 @@
 // way to all of it); the measured times against both bounds are in PERF.md
 // (chip_smoke.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -757,41 +762,215 @@ __device__ __forceinline__ void window_dy(const Window& wd, const float* __restr
   }
 }
 
-__global__ void __launch_bounds__(NT)
+// poolsums <- _k_poolsums (spcl_tpu/experimental/packed_block_pallas.py:346):
+// (sum dy1, sum dy1*z1) per channel, dy1 = (poolbwd(dp) + de) * [y1 >= 0],
+// in float64, in ONE launch.
+//
+// Bound: the bytes. z1 and de are read once, dp once per window: 2.25 x
+// px x C x 4 B with de (0.129 ms at 60x224x224x16, 0.065 ms at
+// 60x112x112x32) and 1.25 x px x C x 4 B without it, as on the pretrain path
+// (0.072 / 0.036 ms); about 9 operations an element, far below the
+// float32 peak.
+//
+// What set the pace before: a grid of 4 x 2 blocks an SM ended with a serial
+// pass over shared memory in every block and a second launch in which one
+// block of 2C threads added ~1000 float64 partials each, one L2 load after
+// another (0.04-0.06 ms whatever the shape). Here:
+//   - Streaming. A lane owns one 16-byte chunk (a pixel, 4 channels) of the
+//     upper row of a row pair and the chunk below it; neighbouring lanes hold
+//     neighbouring chunks, so every warp load is 512 contiguous bytes. The
+//     two columns of a 2x2 window are lanes l and l ^ C/4: one shuffle of the
+//     pair's column maxima and one of eight mask bits route dp to the first
+//     maximum in scan order (r0,c0),(r0,c1),(r1,c0),(r1,c1). Both lanes of a
+//     pair load the window's dp chunk in the same instruction (one request).
+//     One kernel per (C, dp present, de present): an absent cotangent's
+//     loads, registers and routing are compiled out (the de-absent kernel
+//     keeps fewer registers, so more blocks stay resident), and the float64
+//     sums of a thread's runs live in shared memory, not in registers. The
+//     blocks are persistent: the grid is the clusters resident at once
+//     (cudaOccupancyMaxActiveClusters), fewer where that would leave threads
+//     without a chunk, and the chunks go round-robin so that a thread keeps
+//     its 4 channels.
+//   - Order. A thread adds in float32 over at most PS_RUN = 8 of its chunks
+//     (16 terms a channel and sum), then adds that run to float64; every
+//     later sum is float64 in a fixed order: a shuffle butterfly over the
+//     lanes that share channels, the 8 warps in order, the 8 blocks of a
+//     cluster in block-rank order through distributed shared memory, and the
+//     clusters by a fixed tree (thread t adds clusters t / 2C, t / 2C + K,
+//     ... for sum t % 2C, K = 256 / 2C; then the K slots in order).
+//   - One launch. The cluster's rank-0 block writes its cluster's partial,
+//     fences, and takes a ticket from a counter; the block that takes the
+//     last ticket adds every cluster's partial in the order above and sets
+//     the counter back to 0. The atomic only elects who adds, never the
+//     order, so two runs give the same bits; the counter is zero before and
+//     after every launch (and every CUDA graph replay), and the wrapper
+//     makes it once per device with torch.zeros. Launches that share a
+//     counter must not run at the same time (one stream). Chosen over a
+//     cooperative launch with a grid-wide barrier: that holds every block
+//     until the slowest has streamed its last chunk, and cluster launches
+//     (cudaLaunchKernelEx, as supcon.cu) are captured in CUDA graphs like
+//     any kernel; here all blocks but one leave as soon as their cluster's
+//     partial is written.
+constexpr int PS_CLUSTER = 8;  // blocks of a cluster (the portable most)
+constexpr int PS_RUN = 8;      // chunks a float32 run holds before it goes to float64
+
+template <int C, bool DP, bool DE>
+__global__ void __launch_bounds__(NT, 3)
 poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
                 const float* __restrict__ dp, const float* __restrict__ de,
-                double* __restrict__ partial, int B, int H, int W, int C) {
-  // gridDim.x * NT is a multiple of C / 4, so a thread keeps its channels
-  const size_t total = (size_t)B * (H / 2) * (W / 2) * (C / 4);
-  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-  for (size_t item = (size_t)blockIdx.x * NT + threadIdx.x; item < total;
-       item += (size_t)gridDim.x * NT) {
-    const Window wd = window_of(item, H, W, C);
-    float z[4][4], dy[4][4];
-    window_dy(wd, z1, coef, dp, de, C, z, dy);
+                double* __restrict__ cluster_part, unsigned int* __restrict__ ticket,
+                double* __restrict__ sums, int B, int H, int W) {
+  constexpr int C4 = C / 4;        // chunks of one pixel
+  constexpr int S = 2 * C;         // the sums: [sum dy | sum dy*z] x C
+  constexpr int K = NT / S;        // slots of the final tree
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ double s_acc[8][NT];  // this thread's float64 sums of its runs
+  __shared__ double s_warp[NWARP][S];
+  __shared__ double s_block[S];
+  __shared__ double s_tree[NT];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c4 = lane % C4;                 // the grid stride keeps a thread's channels
+  const bool right = (lane / C4) & 1;       // column 1 of its window (W is even)
+  const unsigned wc4 = (unsigned)W * C4;    // chunks of one pixel row
+  const unsigned total = (unsigned)B * (unsigned)(H / 2) * wc4;
+  const float4* z4 = reinterpret_cast<const float4*>(z1);
+  const float4* de4 = reinterpret_cast<const float4*>(de);
+  const float4* dp4 = reinterpret_cast<const float4*>(dp);
+  float inv[4], sh[4];
+  unpack4(ld4(coef + c4 * 4), inv);
+  unpack4(ld4(coef + C + c4 * 4), sh);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 8; ++j) s_acc[j][tid] = 0.0;
+
+  float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
+  int run = 0;
+  for (unsigned base = blockIdx.x * NT + warp * 32; base < total; base += gridDim.x * NT) {
+    // pairs are whole (total is a multiple of 2 * C4): a lane and its partner
+    // are live together; dead lanes hold zeros and still shuffle
+    const unsigned i = base + lane;
+    float z[2][4], dy[2][4], g[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) z[0][k] = z[1][k] = dy[0][k] = dy[1][k] = g[k] = 0.f;
+    if (i < total) {
+      const unsigned rp = i / wc4, rem = i - rp * wc4;   // row pair, chunk in the row
+      const size_t q = (size_t)i + (size_t)rp * wc4;     // upper chunk (row 2 rp)
+      unpack4(__ldcs(z4 + q), z[0]);
+      unpack4(__ldcs(z4 + q + wc4), z[1]);
+      if (DE) {
+        unpack4(__ldcs(de4 + q), dy[0]);
+        unpack4(__ldcs(de4 + q + wc4), dy[1]);
+      }
+      if (DP) unpack4(__ldg(dp4 + (size_t)rp * (wc4 / 2) + (rem / (2 * C4)) * C4 + c4), g);
+    }
+    float y[2][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      y[0][k] = bn_apply(z[0][k], inv[k], sh[k]);
+      y[1][k] = bn_apply(z[1][k], inv[k], sh[k]);
+    }
+    if (DP) {
+      unsigned bits = 0;   // bit 2k + r: this column's row r holds the window maximum
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        s0[k] += dy[j][k];
-        s1[k] = fmaf(dy[j][k], z[j][k], s1[k]);
+        const float e0 = fmaxf(y[0][k], 0.f), e1 = fmaxf(y[1][k], 0.f);
+        const float mine = fmaxf(e0, e1);
+        const float m = fmaxf(mine, __shfl_xor_sync(FULL, mine, C4));
+        bits |= (unsigned)(e0 == m) << (2 * k) | (unsigned)(e1 == m) << (2 * k + 1);
       }
+      const unsigned other = __shfl_xor_sync(FULL, bits, C4);
+      const unsigned lb = right ? other : bits, rb = right ? bits : other;
+      const int col = right ? 1 : 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // first maximum in scan order: left r0, right r0, left r1, else right r1
+        const int first = (lb >> (2 * k)) & 1 ? 0
+                          : (rb >> (2 * k)) & 1 ? 1
+                          : (lb >> (2 * k + 1)) & 1 ? 2 : 3;
+        dy[0][k] += first == col ? g[k] : 0.f;
+        dy[1][k] += first == 2 + col ? g[k] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float d = y[r][k] >= 0.f ? dy[r][k] : 0.f;
+        f0[k] += d;
+        f1[k] = fmaf(d, z[r][k], f1[k]);
+      }
+    }
+    if (++run == PS_RUN) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s_acc[k][tid] += (double)f0[k];
+        s_acc[4 + k][tid] += (double)f1[k];
+        f0[k] = f1[k] = 0.f;
+      }
+      run = 0;
+    }
   }
-  __shared__ double s_red[NT][8];
-  const int tid = threadIdx.x;
+  double d0[4], d1[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    s_red[tid][k] = (double)s0[k];
-    s_red[tid][4 + k] = (double)s1[k];
+    d0[k] = s_acc[k][tid] + (double)f0[k];
+    d1[k] = s_acc[4 + k][tid] + (double)f1[k];
+  }
+  // lanes that share channels: a butterfly over the lane bits above C4
+#pragma unroll
+  for (int off = 16; off >= C4; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d0[k] += __shfl_xor_sync(FULL, d0[k], off);
+      d1[k] += __shfl_xor_sync(FULL, d1[k], off);
+    }
+  if (lane < C4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s_warp[warp][lane * 4 + k] = d0[k];
+      s_warp[warp][C + lane * 4 + k] = d1[k];
+    }
   }
   __syncthreads();
-  const int c4n = C / 4;
-  for (int j = tid; j < 2 * C; j += NT) {
-    const int which = j / C, c = j % C;
-    double r = 0.0;
-    for (int t = c / 4; t < NT; t += c4n) r += s_red[t][which * 4 + c % 4];
-    partial[((size_t)blockIdx.x * 2 + which) * C + c] = r;
+  if (tid < S) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) v += s_warp[w][tid];
+    s_block[tid] = v;
   }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const bool lead = cluster.block_rank() == 0;
+  const unsigned clusters = gridDim.x / PS_CLUSTER;
+  if (lead && tid < S) {  // the cluster's partial, in block-rank order
+    double v = 0.0;
+#pragma unroll
+    for (int b = 0; b < PS_CLUSTER; ++b) v += cluster.map_shared_rank(s_block, b)[tid];
+    cluster_part[(size_t)(blockIdx.x / PS_CLUSTER) * S + tid] = v;
+    __threadfence();
+  }
+  cluster.sync();  // no block leaves while the lead reads its partial
+  if (!lead) return;
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket, 1u) == clusters - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  {
+    double v = 0.0;
+    for (unsigned p = tid / S; p < clusters; p += K)
+      v += __ldcg(cluster_part + (size_t)p * S + tid % S);
+    s_tree[tid] = v;
+  }
+  __syncthreads();
+  if (tid < S) {
+    double v = 0.0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v += s_tree[k * S + tid];
+    sums[tid] = v;
+  }
+  if (tid == 0) *ticket = 0u;
 }
 
 __global__ void __launch_bounds__(NT)
@@ -819,7 +998,7 @@ dz1_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
 
 // out[j] = sum over blocks of part[block][j], in block order, in float64
 template <typename T>
-__global__ void reduce_kernel(const T* __restrict__ part, int nblocks, int n,
+__global__ void convstage_reduce_kernel(const T* __restrict__ part, int nblocks, int n,
                               double* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
@@ -836,7 +1015,7 @@ int grid_for_tiles(int B, int H, int W, int max_blocks) {
 
 template <typename T>
 cudaError_t reduce(const T* part, int nblocks, int n, double* out, cudaStream_t stream) {
-  reduce_kernel<T><<<(n + 127) / 128, 128, 0, stream>>>(part, nblocks, n, out);
+  convstage_reduce_kernel<T><<<(n + 127) / 128, 128, 0, stream>>>(part, nblocks, n, out);
   return cudaGetLastError();
 }
 
@@ -909,6 +1088,91 @@ int grid_for_windows(int B, int H, int W, int C, int max_blocks) {
   return (int)(blocks < max_blocks ? blocks : max_blocks);
 }
 
+// poolsums: clusters of PS_CLUSTER blocks the card holds at once, per
+// kernel variant, found once per process.
+template <int C, bool DP, bool DE>
+cudaError_t poolsums_resident(int* clusters) {
+  static int resident = -1;
+  if (resident < 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(PS_CLUSTER, 1, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = PS_CLUSTER;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, poolsums_kernel<C, DP, DE>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (n <= 0) return cudaErrorInvalidConfiguration;
+    resident = n;
+  }
+  *clusters = resident;
+  return cudaSuccess;
+}
+
+// Calls fn.template run<C, DP, DE>() for the kernel variant of the operands.
+template <class Fn>
+cudaError_t poolsums_variant(int c, bool dp, bool de, Fn& fn) {
+  if (c == 16) {
+    if (dp) return de ? fn.template run<16, true, true>() : fn.template run<16, true, false>();
+    return de ? fn.template run<16, false, true>() : fn.template run<16, false, false>();
+  }
+  if (dp) return de ? fn.template run<32, true, true>() : fn.template run<32, true, false>();
+  return de ? fn.template run<32, false, true>() : fn.template run<32, false, false>();
+}
+
+struct PoolsumsResident {
+  int* out;
+  template <int C, bool DP, bool DE>
+  cudaError_t run() { return poolsums_resident<C, DP, DE>(out); }
+};
+
+// The clusters of a poolsums launch: those resident at once, fewer where
+// that would leave threads without a chunk. The chunk index and the grid
+// stride stay below 2^31.
+cudaError_t poolsums_clusters(int B, int H, int W, int C, bool dp, bool de, int* clusters,
+                              int* resident) {
+  PoolsumsResident fn{resident};
+  cudaError_t err = poolsums_variant(C, dp, de, fn);
+  if (err != cudaSuccess) return err;
+  const long chunks = (long)B * (H / 2) * W * (C / 4);
+  const long per_cluster = (long)PS_CLUSTER * NT;
+  const long need = (chunks + per_cluster - 1) / per_cluster;
+  if (chunks + (long)*resident * per_cluster >= (1L << 31)) return cudaErrorInvalidValue;
+  *clusters = (int)(need < *resident ? need : *resident);
+  return cudaSuccess;
+}
+
+struct PoolsumsLaunch {
+  const float *z1, *coef, *dp, *de;
+  double* cluster_part;
+  unsigned int* ticket;
+  double* sums;
+  int B, H, W, clusters;
+  cudaStream_t stream;
+  template <int C, bool DP, bool DE>
+  cudaError_t run() {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(clusters * PS_CLUSTER, 1, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = PS_CLUSTER;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, poolsums_kernel<C, DP, DE>, z1, coef, dp, de,
+                                         cluster_part, ticket, sums, B, H, W);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -955,15 +1219,33 @@ int convstage_bnpool(const float* z1, const float* coef, float* e, float* p, int
   return (int)cudaGetLastError();
 }
 
-int convstage_poolsums(const float* z1, const float* coef, const float* dp, const float* de,
-                       double* partial, double* sums, int B, int H, int W, int c,
-                       int max_blocks, void* stream) {
+// The launch plan of convstage_poolsums at this shape, with dp and de
+// present (1) or absent (0): out = {clusters, blocks a cluster, clusters
+// resident at once, chunks a float32 run holds}. Returns a cudaError_t.
+int convstage_poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int* out) {
   if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for_windows(B, H, W, c, max_blocks);
-  poolsums_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(z1, coef, dp, de, partial, B, H, W, c);
-  cudaError_t err = cudaGetLastError();
+  int clusters = 0, resident = 0;
+  cudaError_t err = poolsums_clusters(B, H, W, c, has_dp, has_de, &clusters, &resident);
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce<double>(partial, grid, 2 * c, sums, (cudaStream_t)stream);
+  const int v[4] = {clusters, PS_CLUSTER, resident, PS_RUN};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
+// `cluster_part` float64 [max_clusters, 2, C] scratch; `ticket` one unsigned
+// int that is 0 before the call and is 0 again after it.
+int convstage_poolsums(const float* z1, const float* coef, const float* dp, const float* de,
+                       double* cluster_part, double* sums, unsigned int* ticket, int B,
+                       int H, int W, int c, int max_clusters, void* stream) {
+  if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
+  int clusters = 0, resident = 0;
+  cudaError_t err = poolsums_clusters(B, H, W, c, dp != nullptr, de != nullptr, &clusters,
+                                      &resident);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters > max_clusters) return (int)cudaErrorInvalidValue;
+  PoolsumsLaunch fn{z1, coef, dp, de, cluster_part, ticket, sums, B, H, W, clusters,
+                    (cudaStream_t)stream};
+  return (int)poolsums_variant(c, dp != nullptr, de != nullptr, fn);
 }
 
 int convstage_dz1(const float* z1, const float* coef, const float* dcoef, const float* dp,

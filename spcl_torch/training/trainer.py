@@ -33,8 +33,10 @@ because every rank applies the same summed gradient. Only rank 0 writes:
 `start_training` so that no rank reads a checkpoint before it is written.
 One rank is the plain single-process path.
 
-Not ported yet: `device_data`, `defer_reads`, `resume_from_path`,
-TensorBoard, `grad_cache`.
+Not ported yet: `resume_from_path` and TensorBoard; `Trainer.grad_cache`,
+`dump_matrices`, `profile_dir` and `defer_reads` are refused by
+`entry.common.build_trainer` when set. `device_data` (batches are built on
+the host) and `packed_eval` change no number and are accepted.
 """
 from __future__ import annotations
 

@@ -383,3 +383,97 @@ def test_stage_kernels_reject_malformed_operands(cuda):
         cs.bnconv_kernel(z, coef, torch.zeros(3, 3, 16, 32, device="cuda"))
     with pytest.raises(ValueError):  # dp of the wrong size
         cs.poolsums_kernel(z, coef, torch.zeros(2, 8, 8, 16, device="cuda"), None)
+
+
+# ------------------------------------------------------------------ poolsums in one launch
+def _pool_inputs(b, h, w, c, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    coef = torch.stack([1 + 0.1 * rn(c), 0.1 * rn(c)]).contiguous()
+    return rn(b, h, w, c), coef, rn(b, h // 2, w // 2, c), rn(b, h, w, c)
+
+
+POOL_SHAPES = [(60, 224, 224, 16), (60, 112, 112, 32), (5, 224, 224, 16), (5, 112, 112, 32),
+               (3, 20, 36, 16), (3, 20, 36, 32)]
+
+
+@pytest.mark.parametrize("cotangents", ["dp and de", "de absent", "dp absent"])
+@pytest.mark.parametrize("b,h,w,c", POOL_SHAPES)
+def test_poolsums_kernel_matches_plain(cuda, b, h, w, c, cotangents):
+    """The main path's stage shapes (B=60 pretrain, B=5 fine-tune) and a small
+    odd batch whose rows are no multiple of a warp, within the stage
+    tolerance; one launch a call; two runs give the same bits."""
+    z1, coef, dp, de = _pool_inputs(b, h, w, c, seed=b + h + c)
+    dp = None if cotangents == "dp absent" else dp
+    de = None if cotangents == "de absent" else de
+    before = cs.LAUNCHES["convstage_poolsums"]
+    got = cs.poolsums_kernel(z1, coef, dp, de)
+    assert cs.LAUNCHES["convstage_poolsums"] == before + 1
+    _assert_stage_close((got,), (cs.poolsums_plain(z1, coef, dp, de),))
+    assert torch.equal(got, cs.poolsums_kernel(z1, coef, dp, de))
+
+
+def test_poolsums_back_to_back_calls_equal_the_first(cuda):
+    """The arrival counter is zero again after every launch: 100 calls in a
+    row on one stream give the first call's bits."""
+    z1, coef, dp, de = _pool_inputs(60, 112, 112, 32, seed=3)
+    first = cs.poolsums_kernel(z1, coef, dp, de)
+    outs = [cs.poolsums_kernel(z1, coef, dp, de) for _ in range(100)]
+    assert all(torch.equal(first, o) for o in outs)
+    assert int(cs._ticket(z1.device).item()) == 0
+
+
+def test_poolsums_graph_replays_equal_the_eager_call(cuda):
+    z1, coef, dp, de = _pool_inputs(5, 224, 224, 16, seed=4)
+    eager = cs.poolsums_kernel(z1, coef, dp, None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cs.poolsums_kernel(z1, coef, dp, None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cs.poolsums_kernel(z1, coef, dp, None)
+    for _ in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.equal(cs.poolsums_kernel(z1, coef, dp, None), eager)
+
+
+def test_poolsums_is_one_kernel_launch(cuda):
+    """No second pass: the profiler sees one kernel for one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    z1, coef, dp, de = _pool_inputs(3, 20, 36, 32, seed=5)
+    cs.poolsums_kernel(z1, coef, dp, de)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cs.poolsums_kernel(z1, coef, dp, de)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "poolsums_kernel" in names[0], names
+
+
+def test_poolsums_rejects_malformed_operands(cuda):
+    z1, coef, dp, de = _pool_inputs(2, 8, 8, 16, seed=6)
+    with pytest.raises(ValueError):  # odd width
+        cs.poolsums_kernel(torch.zeros(2, 8, 7, 16, device="cuda"), coef, None, None)
+    with pytest.raises(ValueError):  # channels the kernel is not built for
+        cs.poolsums_kernel(torch.zeros(2, 8, 8, 8, device="cuda"), coef[:, :8].contiguous(),
+                           None, None)
+    with pytest.raises(ValueError):  # de of another shape
+        cs.poolsums_kernel(z1, coef, dp, de[:, :6].contiguous())
+    with pytest.raises(ValueError):  # dp of another shape
+        cs.poolsums_kernel(z1, coef, dp[:, :3].contiguous(), de)
+    with pytest.raises(ValueError):  # not contiguous
+        cs.poolsums_kernel(z1.permute(0, 2, 1, 3), coef, dp, de)
+    with pytest.raises(ValueError):  # float64
+        cs.poolsums_kernel(z1.double(), coef, dp, de)
+    with pytest.raises(ValueError):  # coefficients of another size
+        cs.poolsums_kernel(z1, coef[:, :8].contiguous(), dp, de)
+    with pytest.raises(ValueError):  # on the CPU
+        cs.poolsums_kernel(z1.cpu(), coef, dp, de)
