@@ -28,7 +28,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   4. slice A — the encoder-pretrain path of main_pretrain_encoder.py at the
                paper's configuration (UNet max_channel=256 to Conv5, crop
                224 of a 256 canvas, 2N=60, self-paced SupCon hard 3->14,
-               RAdam, `small_c_layout: nhwc`) on synthetic data: 1 epoch x 5
+               RAdam, `small_c_layout: nhwc`, `device_data: true`: the
+               dataset lives on the card and each step gathers its batch
+               there) on synthetic data: 1 epoch x 5
                steps through spcl_torch.entry.build_trainer; checks the
                kernel launch counts, finite losses, sp_weight in [0, 1],
                gamma following PScheduler, and a last.ckpt that reloads
@@ -42,12 +44,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                (none during eval), finite losses, a DSC in [0, 1], and a
                best.ckpt that reloads strictly into a plain UNet; then
                times the fine-tune step and the eval step after a warm-up.
-  6. profile — the pretrain step under `pallas` beside `nhwc`: 20 timed
-               steps each (twice, in turns), 5 under torch.profiler (kernel
-               time by kernel, the stage kernels' share and launches, matched
-               by their own names: none under `nhwc`, no reduce after
-               poolsums under `pallas`); and the two stages alone, forward +
-               backward, fused beside cuDNN.
+  6. profile — the pretrain step under `pallas` and `nhwc`, each with
+               `device_data` true beside false (host batches through the
+               pinned prefetch), through the trainers' own epochs: 20 timed
+               steps a turn in the turns true, false, false, true (no true
+               epoch may build a host batch), 5 under torch.profiler each
+               (kernel time by kernel, device busy share, the stage kernels'
+               share and launches, matched by their own names: none under
+               `nhwc`, no reduce after poolsums under `pallas`); RAdam alone,
+               the multi-tensor update beside the per-parameter loop it
+               replaced (wall time, launches and kernel time a step); and the
+               two stages alone, forward + backward, fused beside cuDNN.
   7. parity  — one small pretrain step, and one small fine-tune step under
                `pallas`, on the card (kernels) against the same step on the
                CPU (plain versions) from the same weights and draws.
@@ -73,7 +80,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                then `val()` at one labeled ratio under the mesh, then 5 steps
                with `replicated`. With two or more cards the ranks take one
                each over NCCL; on one card both compute on it and the
-               collectives go through gloo, staged through host memory. This
+               collectives go through gloo, staged through host memory. Then
+               5 more steps with `Trainer.grad_cache: 2` (each rank's 32
+               slices in 2 chunks): finite losses, parameters that moved,
+               replicas that agree, 64 x 128 strips. This
                process runs the same padded batches (63 slices + one valid=0
                entry) alone and checks: per rank and step one supcon_fwd and
                one supcon_bwd launch at 64 x 128; losses, sp_weight, Conv5
@@ -81,13 +91,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                process's and row_sharded equal to replicated (tolerance
                stated there); files from rank 0 only; last.ckpt reloads
                strictly; the fine-tune DSC in [0, 1].
- 11. report  — the `kernels` JSON line, the nvidia-smi line, a device line
+ 11. slice D — config/specific/bigbatch_pretrain.yaml (160 scans x 3
+               partitions x 4 slices = 2N=3840, `grad_cache: 30`, 30 chunks
+               of 128 views, `global_contrast: row_sharded`, inert on one
+               card) at full width, `nhwc`, `device_data: true`, cut in depth
+               to 1 epoch of 1 warm-up + 2 timed steps, on a synthetic
+               dataset of 160 scans of 13-16 slices handed to build_trainer:
+               ms/step, peak memory, the store's bytes, 3840 valid views a
+               step, one supcon_fwd and one supcon_bwd a step at 3840 x 3840,
+               no host batch, finite losses, a last.ckpt that reloads
+               strictly; then the cached gradient against direct autograd at
+               2N=240 in 4 chunks on the card.
+ 12. report  — the `kernels` JSON line, the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
 
 Development aids: `--stage-kernels-only` stops after the build and the stage
 kernel check, `--supcon-kernels-only` runs the build and phases 3 (supcon
-part) and 8, `--mesh-only` the build and phases 8-10.
+part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
+build and phase 11.
 """
 import copy
 import json
@@ -128,7 +150,7 @@ CONFIG = {
     "LabeledLoader": {"batch_size": 5},
     "UnlabeledLoader": {"batch_size": 5},
     "Trainer": {"save_dir": "runs/chip_smoke", "num_batches": 5, "max_epoch": 1,
-                "name": "pretrain_encoder", "save_every": 1},
+                "name": "pretrain_encoder", "save_every": 1, "device_data": True},
     "ContrastiveLoaderParams": {"scan_sample_num": 10, "partition_sample_num": 1},
     "SPInfonceParams": {"feature_names": "Conv5", "weights": 0.1,
                         "contrast_ons": "partition", "temperature": 0.07,
@@ -927,16 +949,34 @@ STAGE_KERNEL_RE = re.compile(r"(?:^|[\s:])(%s)\b" % "|".join(STAGE_KERNEL_NAMES)
 STAGE_REDUCES_PER_STEP = 8
 
 
-def _pretrain_steps(trainer):
-    from spcl_torch.training import batch_to_device
-    it = trainer._host_batches(trainer._contrastive_loader)
-    scalars = trainer._hook_scalars()
-
+def _pretrain_epochs(trainer, device_data=True):
+    """run(n): one pretrain epoch of n steps through the trainer's own data
+    path (`device_data` true: index rows gathered from the device store;
+    false: host batches through device_prefetch); returns its ms per step,
+    as the trainer measures it (synchronised, host work included)."""
     def run(n):
-        for _ in range(n):
-            trainer._train_step(batch_to_device(next(it), trainer._device),
-                                trainer._generator, scalars)
+        trainer._device_data = device_data
+        trainer._num_batches = n
+        thr = trainer._run_train_epoch()[trainer.train_meter_focus]["throughput"]
+        return 1e3 / thr["steps_per_sec"]
     return run
+
+
+class _CountHostBatches:
+    """Counts `SliceDataset.batch` calls (host batches) inside the block."""
+
+    def __enter__(self):
+        from spcl_torch.data.dataset import SliceDataset
+        self._cls, self._orig, self.calls = SliceDataset, SliceDataset.batch, 0
+
+        def counted(ds, indices):
+            self.calls += 1
+            return self._orig(ds, indices)
+        SliceDataset.batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.batch = self._orig
 
 
 def _wall_ms(run, n):
@@ -979,8 +1019,9 @@ def _print_profile(title, kernels, wall_ms, top=12):
     supcon = sum(ms for k, (ms, _) in kernels.items() if "supcon" in k)
     stage_keys = [k for k in kernels if STAGE_KERNEL_RE.search(k)]
     stage = sum(kernels[k][0] for k in stage_keys)
-    print(f"profile {title}: {total:.3f} ms of kernel time per step = "
-          f"{100 * total / wall_ms:.1f}% of the unprofiled wall time; supcon kernels "
+    n_launches = sum(count for _, count in kernels.values())
+    print(f"profile {title}: {total:.3f} ms of kernel time per step in {n_launches} kernel "
+          f"launches = {100 * total / wall_ms:.1f}% of the unprofiled wall time; supcon kernels "
           f"{supcon:.4f} ms/step = {100 * supcon / total:.2f}%; stage kernels "
           f"{stage:.3f} ms/step = {100 * stage / total:.1f}% of kernel time", flush=True)
     for key, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
@@ -996,38 +1037,145 @@ def _print_profile(title, kernels, wall_ms, top=12):
 
 
 def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
-    """More pretrain steps of both slices after the launch counts were read:
-    `timed_steps` steps timed on the host clock (host batch gather and copy
-    included, as in the trainer) in the turns nhwc, pallas, pallas, nhwc,
-    then `steps` steps of each under torch.profiler."""
-    phase(f"profile: pretrain step, nhwc beside pallas: {timed_steps} timed steps x 2 each, "
-          f"then {steps} profiled steps each")
-    run_a, run_b = _pretrain_steps(trainer_a), _pretrain_steps(trainer_b)
-    run_a(2)
-    run_b(2)  # warm-up
-    a1 = _wall_ms(run_a, timed_steps)
-    b1 = _wall_ms(run_b, timed_steps)
-    b2 = _wall_ms(run_b, timed_steps)
-    a2 = _wall_ms(run_a, timed_steps)
-    wall_a, wall_b = min(a1, a2), min(b1, b2)
-    for name, w, turns in (("nhwc", wall_a, (a1, a2)), ("pallas", wall_b, (b1, b2))):
-        print(f"steady state {name}: {w:.3f} ms/step wall = {1e3 / w:.2f} steps/s, "
-              f"{VIEWS * 1e3 / w:.1f} slices/s (host batch + copy included; turns "
-              f"{turns[0]:.3f}, {turns[1]:.3f})", flush=True)
-    print(f"pallas / nhwc step time: {wall_b / wall_a:.3f}", flush=True)
-    prof_a = _print_profile("nhwc", _profiled(run_a, steps), wall_a)
-    prof_b = _print_profile("pallas", _profiled(run_b, steps), wall_b)
-    out = {"nhwc_ms": wall_a, "pallas_ms": wall_b}
-    if prof_a is not None and prof_b is not None:
-        (total_a, stage_a, _), (total_b, stage_b, launched) = prof_a, prof_b
-        print(f"stage kernels: nhwc {stage_a:.4f} ms/step, pallas {stage_b:.4f} ms/step; "
-              f"pallas stage launches per step {launched}", flush=True)
-        check(stage_a == 0, f"the nhwc step ran stage kernels: {stage_a} ms/step")
-        check(launched.get("poolsums_kernel") == STAGE_LAUNCHES_PER_STEP["convstage_poolsums"]
-              and launched.get("convstage_reduce_kernel") == STAGE_REDUCES_PER_STEP,
-              f"pallas step: poolsums and reduce launches per step {launched}")
-        out.update({"nhwc_kernel_ms": total_a, "pallas_kernel_ms": total_b,
-                    "nhwc_stage_ms": stage_a, "pallas_stage_ms": stage_b})
+    """More pretrain epochs of both slices after the launch counts were read,
+    through the trainers' own data path: per layout, `timed_steps` steps with
+    `device_data` true and false in the turns true, false, false, true (the
+    trainer's own timing: synchronised, host work included), then `steps`
+    steps of each under torch.profiler (kernel time by kernel, device busy
+    share). No `device_data: true` epoch may build a host batch."""
+    phase(f"profile: pretrain step, nhwc and pallas, device_data true beside false: "
+          f"{timed_steps} timed steps x 2 turns each, then {steps} profiled steps each")
+    out = {}
+    for name, trainer in (("nhwc", trainer_a), ("pallas", trainer_b)):
+        on, off = _pretrain_epochs(trainer, True), _pretrain_epochs(trainer, False)
+        on(2)
+        off(2)  # warm-up
+        turns = {True: [], False: []}
+        for device_data in (True, False, False, True):
+            with _CountHostBatches() as counter:
+                turns[device_data].append((on if device_data else off)(timed_steps))
+            if device_data:
+                check(counter.calls == 0, f"{name}: a device_data step built "
+                                          f"{counter.calls} host batches")
+            else:
+                check(counter.calls == timed_steps, f"{name}: {counter.calls} host batches")
+        for device_data in (True, False):
+            wall = min(turns[device_data])
+            label = f"{name} device_data {str(device_data).lower()}"
+            print(f"steady state {label}: {wall:.3f} ms/step wall = {1e3 / wall:.2f} steps/s, "
+                  f"{VIEWS * 1e3 / wall:.1f} slices/s (turns "
+                  f"{', '.join(f'{t:.3f}' for t in turns[device_data])})", flush=True)
+            prof = _print_profile(label, _profiled(on if device_data else off, steps), wall)
+            out[f"{name}_{str(device_data).lower()}"] = {"ms": wall, "turns": turns[device_data]}
+            if prof is not None:
+                total, stage, launched = prof
+                out[f"{name}_{str(device_data).lower()}"].update(
+                    {"kernel_ms": total, "busy": total / wall, "stage_ms": stage})
+                if name == "nhwc":
+                    check(stage == 0, f"the nhwc step ran stage kernels: {stage} ms/step")
+                else:
+                    check(launched.get("poolsums_kernel")
+                          == STAGE_LAUNCHES_PER_STEP["convstage_poolsums"]
+                          and launched.get("convstage_reduce_kernel") == STAGE_REDUCES_PER_STEP,
+                          f"pallas step: poolsums and reduce launches per step {launched}")
+        print(f"{name}: device_data true / false step time "
+              f"{out[name + '_true']['ms'] / out[name + '_false']['ms']:.3f}", flush=True)
+    out["nhwc_ms"], out["pallas_ms"] = out["nhwc_true"]["ms"], out["pallas_true"]["ms"]
+    print("profile " + json.dumps(out), flush=True)
+    out["radam"] = radam_phase(trainer_b)
+    return out
+
+
+class _LoopRAdam(torch.optim.Optimizer):
+    """The per-parameter RAdam loop that training/optim.py's multi-tensor
+    update replaced (optax semantics, the same arithmetic), kept here to time
+    the two side by side."""
+
+    def __init__(self, params, lr, weight_decay, betas=(0.9, 0.999), eps=1e-8, threshold=5.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self):
+        f32 = np.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                mu, nu = state["mu"], state["nu"]
+                mu.mul_(b1).add_((1 - b1) * g)
+                nu.mul_(b2).add_((1 - b2) * (g * g))
+                state["step"] += 1
+                t = state["step"]
+                ro_inf = f32(2.0 / (1.0 - b2) - 1.0)
+                b2t = f32(b2) ** f32(t)
+                ro = ro_inf - f32(2) * f32(t) * b2t / (f32(1) - b2t)
+                mu_hat = mu / float(f32(1) - f32(b1) ** f32(t))
+                if ro >= group["threshold"]:
+                    nu_hat = nu / float(f32(1) - b2t)
+                    r = np.sqrt((ro - f32(4)) * (ro - f32(2)) * ro_inf
+                                / ((ro_inf - f32(4)) * (ro_inf - f32(2)) * ro))
+                    update = float(r) * mu_hat / (torch.sqrt(nu_hat) + group["eps"])
+                else:
+                    update = mu_hat
+                p.add_(-group["lr"] * update)
+
+
+def radam_phase(trainer, steps=50, profiled=10):
+    """RAdam alone over the pretrain trainer's parameters (UNet to Conv5 and
+    the projector): the multi-tensor update beside the per-parameter loop,
+    wall ms per step (host clock, synchronised) in the turns foreach, loop,
+    loop, foreach, and kernel launches per step under torch.profiler, past
+    the rectification threshold (step > 5). The two are held equal to the
+    bit after the same steps."""
+    phase(f"RAdam alone: multi-tensor update beside the per-parameter loop, {steps} steps "
+          "x 2 turns")
+    from spcl_torch.training import RAdam
+    params = [p for g in trainer._optimizer.param_groups for p in g["params"]]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    grads = [torch.randn(p.shape, generator=gen, device=DEVICE) * 1e-3 for p in params]
+    sets = {}
+    for name, cls in (("foreach", RAdam), ("loop", _LoopRAdam)):
+        ps = [p.detach().clone().requires_grad_(True) for p in params]
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        opt = cls(ps, lr=1e-3, weight_decay=1e-5)
+        sets[name] = (opt, ps)
+    runs = {name: (lambda n, o=opt: [o.step() for _ in range(n)])
+            for name, (opt, _) in sets.items()}
+    for run in runs.values():
+        run(6)  # past the threshold: the rectified branch from here on
+    turns = {"foreach": [], "loop": []}
+    for name in ("foreach", "loop", "loop", "foreach"):
+        turns[name].append(_wall_ms(runs[name], steps))
+    # on the CPU the two are equal to the bit (tests/test_torch_optim.py); on
+    # the card a scalar division may take another rounding path (x * (1/s)
+    # in one, x / s in the other): held to 1e-6 of the largest parameter
+    new, old = ([p.detach() for p in sets[name][1]] for name in ("foreach", "loop"))
+    diff = max(float((a - b).abs().max()) for a, b in zip(new, old))
+    scale = max(float(p.abs().max()) for p in old)
+    bits = all(torch.equal(a, b) for a, b in zip(new, old))
+    print(f"after {6 + 2 * steps} steps: max |foreach - loop| {diff:.3e} (largest parameter "
+          f"{scale:.3f}); equal to the bit: {bits}", flush=True)
+    check(diff <= 1e-6 * scale, "the multi-tensor RAdam and the loop disagree")
+    out = {"params": len(params), "max_abs_diff": diff, "bit_equal": bits}
+    for name, run in runs.items():
+        kernels = _profiled(run, profiled)
+        launches = sum(count for _, count in kernels.values())
+        out[name] = {"ms": min(turns[name]), "turns": turns[name], "launches": launches,
+                     "kernel_ms": sum(ms for ms, _ in kernels.values())}
+        print(f"RAdam {name}: {out[name]['ms']:.3f} ms/step wall (turns "
+              f"{', '.join(f'{t:.3f}' for t in turns[name])}), {launches} kernel launches "
+              f"and {out[name]['kernel_ms']:.4f} ms of kernel time per step over "
+              f"{len(params)} parameters", flush=True)
+    print("radam " + json.dumps(out), flush=True)
     return out
 
 
@@ -1443,12 +1591,16 @@ def _pretrain_c(sc, config, save_dir, mesh_ranks, recorder):
                                                  _PaddedSampler(loader.sampler, RANKS_C))
     trainer.init()
     before = _conv5(trainer).detach().cpu().clone()
+    trainable = [p for p in trainer.model.parameters() if p.requires_grad]
+    before_all = [p.detach().clone() for p in trainable]
     sc.reset_launch_counts()
     recorder.clear()
     trainer.start_training()
     torch.cuda.synchronize()
     name = "spinfonce/Conv5/partition"
     return trainer, {
+        "params_moved": sum(int(not torch.equal(a, p)) for a, p in zip(before_all, trainable)),
+        "params": len(trainable),
         "n_shards": trainer.n_shards, "launches": dict(sc.LAUNCHES), "shapes": list(recorder),
         "reg_loss": [m["reg_loss"] for m in trainer.step_metrics],
         "sp_weight": [m["hooks"][name]["sp_weight"] for m in trainer.step_metrics],
@@ -1478,12 +1630,13 @@ def _record_launch_shapes(sc):
 
 
 def _timed_pretrain_steps(trainer, steps):
-    """ms per pretrain step, steady state, host batch and copy included."""
+    """ms per pretrain step, steady state, through the trainer's own data
+    path (host work included)."""
     from spcl_torch.parallel import mesh
-    run = _pretrain_steps(trainer)
+    run = _pretrain_epochs(trainer)
     run(2)
     mesh.host_barrier()
-    return _wall_ms(run, steps)
+    return run(steps)
 
 
 def slice_c_rank(root, base_dir, device, base_config):
@@ -1516,6 +1669,10 @@ def slice_c_rank(root, base_dir, device, base_config):
     _, out["replicated"] = _pretrain_c(
         sc, _config_c("replicated"), str(Path(my_dir) / "pre_replicated"), RANKS_C,
         recorder)
+    gc_config = _config_c("row_sharded")
+    gc_config["Trainer"]["grad_cache"] = 2  # 32 slices a rank: 2 chunks of 16
+    _, out["grad_cache"] = _pretrain_c(sc, gc_config, str(Path(my_dir) / "pre_grad_cache"),
+                                       RANKS_C, recorder)
     out["ms_per_step"] = _timed_pretrain_steps(trainer, SLICE_C_TIMED_STEPS)
     return out
 
@@ -1569,6 +1726,22 @@ def slice_c_phase(sc):
         check(r["val_launches"] == {"supcon_fwd": 0, "supcon_bwd": 0}, r["val_launches"])
         check(list(r["scores"]) == [1] and 0.0 <= r["scores"][1] <= 1.0, r["scores"])
     check(ranks[0]["scores"] == ranks[1]["scores"], "the ranks' DSC differ")
+    for r in ranks:  # Trainer.grad_cache=2 under the mesh: chunks of the rank's rows
+        gc = r["grad_cache"]
+        print(f"rank {r['rank']} grad_cache=2: reg_loss "
+              f"{', '.join(f'{v:.6f}' for v in gc['reg_loss'])} | launches {gc['launches']} | "
+              f"{gc['params_moved']} of {gc['params']} trainable tensors moved", flush=True)
+        check(all(math.isfinite(v) for v in gc["reg_loss"]), "grad_cache: non-finite loss")
+        # at lr 1e-7 a step moves a weight of O(0.1) by less than its last bit;
+        # the BatchNorm shifts near 0 move
+        grad = float(np.linalg.norm(gc["conv5_grad"]))
+        check(gc["params_moved"] > 0 and math.isfinite(grad) and grad > 0,
+              f"grad_cache: parameters did not move (Conv5 gradient norm {grad})")
+        check(gc["shapes"] == [("supcon_fwd", 64, 128), ("supcon_bwd", 64, 128)] * steps,
+              f"grad_cache strip operands: {gc['shapes']}")
+    check(ranks[0]["grad_cache"]["reg_loss"] == ranks[1]["grad_cache"]["reg_loss"]
+          and np.array_equal(ranks[0]["grad_cache"]["conv5"], ranks[1]["grad_cache"]["conv5"]),
+          "grad_cache: the ranks' losses or Conv5 weights differ")
 
     # ---- agreement. Tolerance: the ranks convolve 64 rows each and the single
     # process 128, so cuDNN may pick other TF32 algorithms (TF32 keeps ~3
@@ -1636,10 +1809,203 @@ def slice_c_phase(sc):
              "this is no speed-up figure" if shared else ""), flush=True)
     print(f"fine-tune under the mesh: val DSC {ranks[0]['scores'][1]:.5f}; last.ckpt and "
           f"best.ckpt of rank 0 reload strictly", flush=True)
-    launches = {k: ranks[0]["row_sharded"]["launches"][k] + ranks[0]["replicated"]["launches"][k]
+    launches = {k: sum(ranks[0][run]["launches"][k]
+                       for run in ("row_sharded", "replicated", "grad_cache"))
                 for k in sc.LAUNCHES}
     return launches, {"mesh_ms": mesh_ms, "single_ms": single_ms,
                       "backend": ranks[0]["backend"], "shared_card": shared}
+
+
+# ------------------------------------------------------------------ slice D
+# 160 scans x 3 ACDC partitions x 4 slices = 1920 slices, 2N = 3840 views. A
+# scan of 12 slices has only 3 in its last partition (cut 4: 4 + 5 + 3), so
+# the sampler would skip that partition: every scan gets 13 to 16
+BIGBATCH_SCANS = 160
+BIGBATCH_SLICES = (13, 16)
+BIGBATCH_VIEWS = 3840
+
+
+def _config_d():
+    """base.yaml + pretrain.yaml + specific/bigbatch_pretrain.yaml, cut in
+    depth to 1 epoch of 3 steps (1 warm-up + 2 timed)."""
+    config = copy.deepcopy(CONFIG)
+    config["Trainer"].update(num_batches=3, max_epoch=1, grad_cache=30,
+                             save_dir="runs/chip_smoke_d")
+    config["ContrastiveLoaderParams"] = {"scan_sample_num": BIGBATCH_SCANS,
+                                         "partition_sample_num": 4}
+    config["SPInfonceParams"]["global_contrast"] = "row_sharded"
+    return config
+
+
+class _Datasets:
+    """`build_trainer` loads these (train, test) datasets in place of the
+    config's synthetic ones inside the block."""
+
+    def __init__(self, tra, test):
+        self._data = (tra, test)
+
+    def __enter__(self):
+        from spcl_torch.entry import common
+        self._orig = common.load_datasets_from_config
+        common.load_datasets_from_config = lambda config: self._data
+
+    def __exit__(self, *exc):
+        from spcl_torch.entry import common
+        common.load_datasets_from_config = self._orig
+
+
+def slice_d_phase(sc):
+    phase(f"slice D: bigbatch_pretrain.yaml, UNet-256, 224^2, 2N={BIGBATCH_VIEWS}, grad_cache "
+          "30 (30 chunks of 128 views), device_data, nhwc, 1 warm-up + 2 timed steps")
+    from spcl_torch.data import synthetic_dataset
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.models import UNet
+    from spcl_torch.training import load_model_state_dict
+    t_phase = time.perf_counter()
+    tra = synthetic_dataset("acdc", num_scans=BIGBATCH_SCANS, slices_per_scan=BIGBATCH_SLICES,
+                            canvas=CONFIG["Data"]["canvas"], seed=0)
+    test = synthetic_dataset("acdc", num_scans=4, canvas=CONFIG["Data"]["canvas"], seed=1,
+                             mode="val")
+    data_s = time.perf_counter() - t_phase
+    config = _config_d()
+    save_dir = ROOT / config["Trainer"]["save_dir"]
+    shutil.rmtree(save_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with _Datasets(tra, test):
+        trainer = build_trainer(config, save_dir=str(save_dir), pretrain=True, device=DEVICE)
+    check(trainer._forward_until == "Conv5" and trainer.model.small_c_layout == "nhwc",
+          "slice D: not the nhwc encoder pretrain")
+    trainer.init()
+    store = trainer._store(trainer._contrastive_loader)
+    check(trainer._train_step.num_chunks == 30, "slice D: not the gradient-cache step")
+
+    times, views, indexed = [], [], []
+    step = trainer._train_step
+
+    def timed_step(batch, *args, **kwargs):  # synchronised: one step takes seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch, *args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        indexed.append(torch.is_tensor(batch))
+        views.append(2 * int((batch >= 0).sum()) if torch.is_tensor(batch) else -1)
+        return out
+
+    trainer._train_step = timed_step
+    kernels = sc.fwd_stats_kernel, sc.bwd_dz_kernel
+    recorder = _record_launch_shapes(sc)
+    steps = config["Trainer"]["num_batches"]
+    sc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _CountHostBatches() as counter:
+        trainer.start_training()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    sc.fwd_stats_kernel, sc.bwd_dz_kernel = kernels
+    trainer._train_step = step
+    peak = torch.cuda.max_memory_allocated()
+    print(f"launches in {steps} steps: {launches}; operands {sorted(set(recorder))}", flush=True)
+    check(launches == {"supcon_fwd": steps, "supcon_bwd": steps},
+          f"expected one forward and one dz launch per step, got {launches}")
+    check(recorder == [("supcon_fwd", BIGBATCH_VIEWS, BIGBATCH_VIEWS),
+                       ("supcon_bwd", BIGBATCH_VIEWS, BIGBATCH_VIEWS)] * steps,
+          f"supcon operands: {recorder}")
+    check(all(indexed) and counter.calls == 0,
+          f"slice D built {counter.calls} host batches (steps fed an index: {indexed})")
+    check(views == [BIGBATCH_VIEWS] * steps, f"valid views per step {views}")
+    check(len(trainer.step_metrics) == steps, len(trainer.step_metrics))
+    for rec in trainer.step_metrics:
+        hm = rec["hooks"]["spinfonce/Conv5/partition"]
+        check(math.isfinite(rec["reg_loss"]) and 0.0 <= hm["sp_weight"] <= 1.0, rec)
+        check(abs(hm["age_param"] - 3.0) < 1e-6, rec)  # gamma 3 -> 14 starts at 3
+        print(f"reg_loss {rec['reg_loss']:.6f} sp_weight {hm['sp_weight']:.4f} "
+              f"gamma {hm['age_param']:.1f}", flush=True)
+    ckpt = save_dir / "last.ckpt"
+    check(ckpt.exists(), f"{ckpt} missing")
+    UNet(input_dim=1, num_classes=4, max_channel=CONFIG["Arch"]["max_channel"]).load_state_dict(
+        load_model_state_dict(str(ckpt)), strict=True)
+    ms = 1e3 * sum(times[1:]) / len(times[1:])
+    out = {"ms": ms, "warmup_ms": 1e3 * times[0], "step_ms": [1e3 * t for t in times],
+           "views": views[0], "peak_bytes": peak, "live_before_bytes": live_before,
+           "store_bytes": store.nbytes(), "slices": len(tra), "launches": launches,
+           "data_s": data_s}
+    print(f"slice D: {views[0]} valid views a step ({views[0] // 2} slices of {len(tra)} in the "
+          f"store); "
+          f"{ms:.1f} ms/step over {steps - 1} timed steps (warm-up step {1e3 * times[0]:.1f} "
+          f"ms) = {1e3 / ms:.3f} steps/s, {views[0] * 1e3 / ms:.1f} slices/s | peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated; "
+          f"{live_before / 2**30:.2f} GiB of it held by earlier phases) | store "
+          f"{store.nbytes() / 2**20:.1f} MiB | 0 host batches | last.ckpt reloads strictly",
+          flush=True)
+    kernels = _profiled(_pretrain_epochs(trainer), 1)  # one more step, after last.ckpt
+    kernel_ms = sum(v for v, _ in kernels.values())
+    supcon = {k: v for k, v in kernels.items() if "supcon" in k}
+    out.update(kernel_ms=kernel_ms, busy=kernel_ms / ms if kernel_ms else None)
+    print(f"slice D step under torch.profiler: {kernel_ms:.1f} ms of kernel time = "
+          f"{100 * kernel_ms / ms:.1f}% of the unprofiled step; supcon kernels "
+          f"{', '.join(f'{k[:40]} {v:.4f} ms x{c}' for k, (v, c) in supcon.items())}",
+          flush=True)
+    out["equivalence"] = gradcache_equivalence_phase(trainer)
+    del trainer, store
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"slice D took {out['phase_s']:.1f} s of this script (dataset {data_s:.1f} s, "
+          f"{steps} steps {wall:.1f} s, the equivalence check included)", flush=True)
+    print("slice_d " + json.dumps({k: v for k, v in out.items() if k != "launches"}),
+          flush=True)
+    return out
+
+
+GRADCACHE_CHECK_SLICES = 120  # 2N = 240 views in 4 chunks of 60
+
+
+def gradcache_equivalence_phase(trainer):
+    """The cached gradient against direct autograd through the same chunked
+    computation (`direct_value_and_grad`) on the card, from slice D's
+    weights, store and hooks at 2N=240 in 4 chunks (gamma 14), with the same
+    draws and the trainer's own settings (cuDNN TF32 convolutions). Both run the same
+    convolutions on the same inputs; what differs is the order in which the
+    chunks' gradients are added (and cuDNN's own reductions). Tolerance:
+    loss and sp_weight rtol 1e-5, every gradient relative L2 1e-4."""
+    phase(f"grad_cache equivalence on the card: cached vs direct, 2N="
+          f"{2 * GRADCACHE_CHECK_SLICES}, 4 chunks")
+    from spcl_torch.training import build_gradcache_pretrain_step
+    from spcl_torch.training.steps import draw_pretrain_params
+    store = trainer._store(trainer._contrastive_loader)
+    step = build_gradcache_pretrain_step(
+        trainer.model, trainer.hooks, trainer._optimizer, policy=trainer.train_policy,
+        total_freedom=True, until=trainer._forward_until, num_chunks=4, store=store)
+    idx = torch.arange(GRADCACHE_CHECK_SLICES, device=DEVICE)
+    params = draw_pretrain_params(torch.Generator(device=DEVICE).manual_seed(5), idx, store,
+                                  policy=trainer.train_policy, total_freedom=True)
+    # at the ramp's start (gamma 3) hard weights drop every pair of the batch
+    # (each pair's loss is near log(2N - 1) > 3): loss and gradient are 0.
+    # Held at its end value, 14, where every pair counts
+    gamma = CONFIG["SPInfonceParams"]["end_values"]
+    scalars = {h.name: {"gamma": float(gamma)} for h in trainer.hooks}
+    direct = step.direct_value_and_grad(idx, None, scalars, params=params)
+    cached = step.cached_value_and_grad(idx, None, scalars, params=params)
+    name = "spinfonce/Conv5/partition"
+    check(float(direct["loss"]) > 0, f"gamma {gamma}: the loss is {float(direct['loss'])}")
+    loss = abs(float(cached["loss"]) - float(direct["loss"])) / abs(float(direct["loss"]))
+    ratio = abs(float(cached["hooks"][name]["sp_weight"]) - float(direct["hooks"][name]["sp_weight"]))
+    rel = [float((c - d).norm() / d.norm()) for c, d in zip(cached["grads"], direct["grads"])
+           if d is not None and float(d.norm()) > 0]
+    stats = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(cached["buffers"], direct["buffers"]))
+    print(f"loss {float(cached['loss']):.7f} vs {float(direct['loss']):.7f} (rel {loss:.2e}) | "
+          f"sp_weight diff {ratio:.2e} | gradients rel L2: max {max(rel):.2e}, median "
+          f"{sorted(rel)[len(rel) // 2]:.2e} over {len(rel)} tensors | running statistics max "
+          f"|diff| {stats:.2e}", flush=True)
+    check(len(rel) == len(cached["grads"]), "a parameter got no gradient")
+    check(loss <= 1e-5 and ratio <= 1e-5 and max(rel) <= 1e-4,
+          "grad_cache: cached and direct gradients disagree on the card")
+    return {"loss_rel": loss, "sp_weight_abs": ratio, "grad_rel_max": max(rel),
+            "stats_abs_max": stats}
 
 
 def main():
@@ -1662,6 +2028,9 @@ def main():
         nccl_phase(sc)
         slice_c_phase(sc)
         return
+    if "--bigbatch-only" in sys.argv[1:]:
+        slice_d_phase(sc)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     launches, thr, trainer_a = slice_phase(sc)
@@ -1675,6 +2044,8 @@ def main():
     strip_err, strip_shapes = strip_kernel_phase(sc)
     nccl_phase(sc)
     launches_c, steps_c = slice_c_phase(sc)
+    torch.cuda.empty_cache()
+    slice_d = slice_d_phase(sc)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -1683,9 +2054,11 @@ def main():
     }
     kernels = [{"name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/supcon.cu",
                 "replaces": replaces[name],
-                "launches": launches[name] + stage_launches[name] + launches_c[name],
+                "launches": (launches[name] + stage_launches[name] + launches_c[name]
+                             + slice_d["launches"][name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
-                                     "slice_c_rank_0": launches_c[name]},
+                                     "slice_c_rank_0": launches_c[name],
+                                     "slice_d": slice_d["launches"][name]},
                 "max_abs_err": max(max_err[name], strip_err[name]), "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -1731,7 +2104,10 @@ def main():
           f"{', one shared card' if steps_c['shared_card'] else ''}) "
           f"{1e3 / steps_c['mesh_ms']:.3f} steps/s ({steps_c['mesh_ms']:.3f} ms/step) beside "
           f"the single process {1e3 / steps_c['single_ms']:.3f} steps/s "
-          f"({steps_c['single_ms']:.3f} ms/step)", flush=True)
+          f"({steps_c['single_ms']:.3f} ms/step) | slice D (2N={slice_d['views']}, grad_cache "
+          f"30) {slice_d['ms']:.1f} ms/step, {slice_d['views'] * 1e3 / slice_d['ms']:.1f} "
+          f"slices/s, peak {slice_d['peak_bytes'] / 2**30:.2f} GiB, store "
+          f"{slice_d['store_bytes'] / 2**20:.1f} MiB", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -2,7 +2,8 @@ from .dataset import (SliceDataset, compute_partition,
                       extract_sub_dataset_based_on_scan_names, scan_name_from_stem)
 from .samplers import (ContrastBatchSampler, InfiniteRandomSampler,
                        LimitedIterationSampler, ScanBatchSampler, SequentialBatchSampler)
-from .loader import HostLoader
+from .device_store import DeviceStore, gather_from
+from .loader import HostLoader, device_prefetch
 from .packing import (corrupt_meta_labels, load_packed, pack_png_folder, save_packed,
                       synthetic_dataset, synthetic_dataset_hard)
 from .creator import (create_contrastive_loader, get_data, split_dataset,
@@ -12,7 +13,7 @@ __all__ = [
     "SliceDataset", "compute_partition", "extract_sub_dataset_based_on_scan_names",
     "scan_name_from_stem", "ContrastBatchSampler", "InfiniteRandomSampler",
     "LimitedIterationSampler", "ScanBatchSampler", "SequentialBatchSampler",
-    "HostLoader", "corrupt_meta_labels", "load_packed", "pack_png_folder",
+    "DeviceStore", "gather_from", "HostLoader", "device_prefetch", "corrupt_meta_labels", "load_packed", "pack_png_folder",
     "save_packed", "synthetic_dataset", "synthetic_dataset_hard",
     "create_contrastive_loader", "get_data", "split_dataset",
     "split_dataset_with_predefined_filenames",

@@ -59,12 +59,27 @@ def build_model_from_config(config: Dict) -> UNet:
         momentum=float(arch.get("momentum", 0.1)))
 
 
+# (train, test) per Data block, as spcl_tpu keeps them (entry/common.py:56-94)
+_DATASET_CACHE: Dict[tuple, Tuple[SliceDataset, SliceDataset]] = {}
+
+
 def load_datasets_from_config(config: Dict) -> Tuple[SliceDataset, SliceDataset]:
-    """(train, test) datasets of the config's Data block."""
+    """(train, test) datasets of the config's Data block, loaded once per
+    process: the runs of a fine-tune sweep share the same ROOT datasets and
+    so one device store each (`data/device_store.py`)."""
     data = config.get("Data", {})
     name = data.get("name", "acdc")
     canvas = int(data.get("canvas", 256))
     synthetic = data.get("synthetic")
+    key = (name, canvas, str(synthetic), int(data.get("synthetic_scans", 20)),
+           int(data.get("synthetic_test_scans", 8)), data.get("root"),
+           float(data.get("meta_corrupt", 0) or 0))
+    if key not in _DATASET_CACHE:
+        _DATASET_CACHE[key] = _load_datasets(data, name, canvas, synthetic)
+    return _DATASET_CACHE[key]
+
+
+def _load_datasets(data: Dict, name: str, canvas: int, synthetic):
     if synthetic:
         # synthetic: true -> the easy blob fixture; "hard" -> the regime that
         # does not saturate from scratch at low labels (data/packing.py)
@@ -90,16 +105,18 @@ def refuse_unported_trainer_keys(trainer_cfg: Dict, name: str) -> None:
     """Raise NotImplementedError for a `Trainer` key that spcl_tpu honours
     and the port does not yet, set to anything but its default, instead of
     training a different function without a word. spcl_tpu reads
-    `grad_cache` and `dump_matrices` in its pretrain trainer only
-    (training/trainer.py:1131-1159), `profile_dir` and `defer_reads` in every
-    trainer (:897-909, entry/common.py:151). `device_data` and `packed_eval`
-    change no number and stay accepted."""
+    `dump_matrices` in its pretrain trainer only (training/trainer.py:
+    1152-1159), `profile_dir` and `defer_reads` in every trainer (:897-909,
+    entry/common.py:151). `dump_matrices` together with `grad_cache` is
+    spcl_tpu's ValueError (trainer.py:1152-1158): the probe's whole-batch
+    [2N, 2N] matrices bring back the memory wall that grad_cache removes."""
+    pretrain = name.startswith("pretrain")
+    if pretrain and int(trainer_cfg.get("grad_cache") or 0) and trainer_cfg.get("dump_matrices"):
+        raise ValueError("Trainer.dump_matrices is incompatible with "
+                         "Trainer.grad_cache — disable one")
     refused = []
-    if name.startswith("pretrain"):
-        if int(trainer_cfg.get("grad_cache") or 0):
-            refused.append(("grad_cache", "A13"))
-        if trainer_cfg.get("dump_matrices"):
-            refused.append(("dump_matrices", "A7"))
+    if pretrain and trainer_cfg.get("dump_matrices"):
+        refused.append(("dump_matrices", "A7"))
     if trainer_cfg.get("profile_dir"):
         refused.append(("profile_dir", "A7"))
     if trainer_cfg.get("defer_reads"):
@@ -114,6 +131,9 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
     encoder-pretrain trainer, or the fine-tune trainer (`Trainer.name: ft`).
+    The trainer reads `Optim` (name, lr, weight_decay, momentum, nesterov, as
+    spcl_tpu's does), `Trainer.grad_cache` and `Trainer.packed_eval` from the
+    config; `Trainer.device_data` (default true) picks the data path.
     `Trainer.mesh: N|auto` makes it one rank of an N-rank run; the calling
     process must then be one of N ranks (see `spcl_torch.main_pretrain_encoder`
     and `parallel.mesh.spawn_local`)."""
@@ -136,7 +156,8 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   save_dir=save_dir or trainer_cfg.get("save_dir", "runs/tmp"),
                   max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
                   config=config, seed=seed, crop=crop, data_name=data_name, device=device,
-                  mesh=trainer_cfg.get("mesh", 0))
+                  mesh=trainer_cfg.get("mesh", 0),
+                  device_data=bool(trainer_cfg.get("device_data", True)))
 
     if name.startswith("pretrain"):
         hooks = create_hook_from_config(config, max_epoch=max_epoch)

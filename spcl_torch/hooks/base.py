@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel import mesh
+
 
 def label_from_contrast_on(ctx: Dict, contrast_on: str) -> torch.Tensor:
     """Meta-label vector for the contrastive loss (reference
@@ -33,9 +35,13 @@ def label_from_contrast_on(ctx: Dict, contrast_on: str) -> torch.Tensor:
     if contrast_on == "cycle":
         return ctx["cycle"]
     if contrast_on in ("self", None):
-        # SimCLR: each sample only matches its own second view
+        # SimCLR: each sample only matches its own second view. In a
+        # multi-rank run ctx holds this rank's rows: the ids stay unique
+        # over the global batch (spcl_tpu gradcache.py `_target`)
         part = ctx["partition"]
-        return torch.arange(part.shape[0], dtype=torch.int32, device=part.device)
+        n = part.shape[0]
+        return torch.arange(mesh.rank() * n, (mesh.rank() + 1) * n, dtype=torch.int32,
+                            device=part.device)
     raise NotImplementedError(contrast_on)
 
 

@@ -15,8 +15,15 @@ with the GLOBAL count. The averages go through the differentiable sum of
 is not used: it has no CPU path, and one code path serves gloo on the CPU and
 NCCL on the card. Parameters, buffers and state_dict keys are those of
 `nn.BatchNorm2d`.
+
+`rank_local_statistics(model)` turns the cross-rank statistics off for a
+block: the gradient-cache step (`training/gradcache.py`) normalises each
+chunk with the rank's own statistics, as spcl_tpu's does (its UNet runs
+without an `axis_name` inside the step's `shard_map`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -28,10 +35,13 @@ BN_EPS = 1e-5  # TorchBatchNorm.epsilon
 
 class CrossRankBatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train-mode batch statistics span the ranks of
-    the process group; without a group, and in eval mode, it is its parent."""
+    the process group; without a group, in eval mode, and while
+    `rank_local` is set, it is its parent."""
+
+    rank_local = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and mesh.active()):
+        if not (self.training and mesh.active()) or self.rank_local:
             return super().forward(x)
         world = mesh.world_size()
         xf = x.float()
@@ -52,3 +62,17 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
 
 def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:
     return CrossRankBatchNorm2d(channels, eps=BN_EPS, momentum=momentum)
+
+
+@contextlib.contextmanager
+def rank_local_statistics(model: nn.Module):
+    """Within the block every `CrossRankBatchNorm2d` of `model` computes its
+    train-mode statistics over this rank's rows only."""
+    norms = [m for m in model.modules() if isinstance(m, CrossRankBatchNorm2d)]
+    for m in norms:
+        m.rank_local = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.rank_local = False

@@ -14,6 +14,12 @@ The semantics of `spcl_tpu/training/steps.py`:
 - `build_eval_step` (reference EvalEpocher, new_epocher.py:56-97): val
   transform, eval-mode forward, masked cross-entropy and Dice statistics.
 
+Every step takes a host-made batch dict (`batch_to_device`, or
+`data/loader.py::device_prefetch`) or, when it was built with a
+`DeviceStore` (`Trainer.device_data`), a [B] index tensor on the device whose
+batch is gathered from the store there (spcl_tpu steps.py:45-52
+`_resolve_batch`); images stay uint8 until `_as_float_image`.
+
 Randomness comes from the step's `torch.Generator`. A caller may instead
 inject the drawn values — `params={"aug": <sample_twice dict>, "flip":
 <flip_params dict>}` for the pretrain step, `params={"aug": <sample_once
@@ -22,8 +28,9 @@ exactly.
 
 In a multi-rank run (`parallel/mesh.py`) the steps keep global-batch
 semantics, as `spcl_tpu/training/steps.py:12` states them: every rank is
-handed the same GLOBAL batch and makes (or is handed) the same global draws,
-computes on its own rows of both (`shard_rows`), writes its loss so that the
+handed the same GLOBAL batch (or index vector) and makes (or is handed) the
+same global draws, computes on its own rows of both (`shard_rows`; an index
+vector is cut before its rows are gathered), writes its loss so that the
 ranks' gradients sum to the global gradient (a mean over the global count;
 `grad_share` inside the contrastive losses), and sums the parameter gradients
 over ranks before the optimizer step. BatchNorm statistics span the ranks
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 from ..data.augment import (AugmentPolicy, apply_flip, apply_geometric, augment_once,
                             augment_twice, center_geometric, flip_params, frame_pixel_mask,
                             sample_once, sample_twice)
+from ..data.device_store import DeviceStore
 from ..hooks.base import TrainerHook
 from ..losses.functional import class2one_hot
 from ..meters.dice import dice_stats_from_labels
@@ -56,6 +64,39 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def _global_view(store: Optional[DeviceStore], batch):
+    """(rows, canvas size, stored slice extents [B, 2], device) of a global
+    batch dict or index vector: what the step's random draws depend on."""
+    if isinstance(batch, dict):
+        image = batch["image"]
+        return image.shape[0], image.shape[-1], batch.get("size"), image.device
+    if store is None:
+        raise ValueError("an index batch needs the step's DeviceStore (store=...)")
+    return (batch.shape[0], store.arrays["image"].shape[-1], store.sizes_of(batch),
+            batch.device)
+
+
+def _rows(batch) -> int:
+    return (batch["image"] if isinstance(batch, dict) else batch).shape[0]
+
+
+def _resolve_batch(store: Optional[DeviceStore], batch) -> Dict[str, torch.Tensor]:
+    """The batch dict of a host-made batch (unchanged) or of an index vector
+    (gathered from `store` on the device)."""
+    return batch if isinstance(batch, dict) else store.gather(batch)
+
+
+def draw_pretrain_params(generator: torch.Generator, batch, store: Optional[DeviceStore], *,
+                         policy: AugmentPolicy, total_freedom: bool,
+                         flip_threshold: float = 0.8) -> Dict:
+    """The pretrain step's draws for a global batch: {"aug": <sample_twice
+    dict>, "flip": <flip_params dict>}."""
+    n, in_size, sizes, device = _global_view(store, batch)
+    return {"aug": sample_twice(generator, n, policy, in_size, total_freedom=total_freedom,
+                                sizes=sizes, device=device),
+            "flip": flip_params(generator, n, threshold=flip_threshold, device=device)}
+
+
 def _as_float_image(img: torch.Tensor) -> torch.Tensor:
     """Batches ship images as packed uint8; scale to [0, 1] float on the
     device. Float inputs pass through."""
@@ -67,26 +108,24 @@ def _as_float_image(img: torch.Tensor) -> torch.Tensor:
 def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
                         optimizer: torch.optim.Optimizer, *, policy: AugmentPolicy,
                         total_freedom: bool, until: Optional[str],
-                        flip_threshold: float = 0.8) -> Callable:
+                        flip_threshold: float = 0.8,
+                        store: Optional[DeviceStore] = None) -> Callable:
     """Returns step(batch, generator, hook_scalars, params=None) -> metrics.
 
-    `batch` holds device tensors (`batch_to_device`); metrics are detached
-    device tensors — {"reg_loss": ..., "hooks": {name: {...}}} — so the
-    caller decides when to synchronise."""
+    `batch` holds device tensors (`batch_to_device`), or is an index vector
+    into `store`; metrics are detached device tensors — {"reg_loss": ...,
+    "hooks": {name: {...}}} — so the caller decides when to synchronise."""
     hooks = tuple(hooks)
 
-    def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+    def step(batch, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
-        n_global, device = batch["image"].shape[0], batch["image"].device
+        n_global = _rows(batch)
         if params is None:
-            params = {
-                "aug": sample_twice(generator, n_global, policy, batch["image"].shape[-1],
-                                    total_freedom=total_freedom,
-                                    sizes=batch.get("size"), device=device),
-                "flip": flip_params(generator, n_global, threshold=flip_threshold,
-                                    device=device),
-            }
+            params = draw_pretrain_params(generator, batch, store, policy=policy,
+                                          total_freedom=total_freedom,
+                                          flip_threshold=flip_threshold)
         batch, params = mesh.shard_rows((batch, params), n_global)
+        batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
         n = image.shape[0]
         (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
@@ -96,7 +135,7 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         acts = model(torch.cat([v1, v2], dim=0), until=until)
         ctx = {"acts": acts, "n_unl": n, "flip": fp}
         ctx.update({k: batch[k] for k in _META_KEYS})
-        total = torch.zeros((), dtype=torch.float32, device=device)
+        total = torch.zeros((), dtype=torch.float32, device=image.device)
         hook_metrics = {}
         for h in hooks:
             loss, m = h.loss_fn(ctx, hook_scalars.get(h.name, {}))
@@ -143,7 +182,8 @@ def _global_outputs(loss_share: torch.Tensor, inter: torch.Tensor, union: torch.
 
 def build_eval_step(model: UNet, *, num_classes: int, crop: int,
                     val_policy: Optional[AugmentPolicy] = None,
-                    out_size: Optional[int] = None) -> Callable:
+                    out_size: Optional[int] = None,
+                    store: Optional[DeviceStore] = None) -> Callable:
     """Returns eval_step(batch) -> {"loss", "inter", "union"} (device
     tensors): val transform (center crop, or plain resize for the
     resize-based datasets) -> eval-mode forward -> masked CE + per-slice dice
@@ -156,8 +196,8 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
     pol = val_policy if val_policy is not None else AugmentPolicy(crop=crop)
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor]):
-        batch = mesh.shard_rows(batch, batch["image"].shape[0])
+    def eval_step(batch):
+        batch = _resolve_batch(store, mesh.shard_rows(batch, _rows(batch)))
         image = _as_float_image(batch["image"])
         geo = center_geometric(image.shape[0], pol, image.shape[-1], batch.get("size"), out,
                                device=image.device)
@@ -176,18 +216,18 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
 
 
 def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_classes: int,
-                        policy: AugmentPolicy) -> Callable:
+                        policy: AugmentPolicy, store: Optional[DeviceStore] = None) -> Callable:
     """Returns step(batch, generator, params=None) -> {"sup_loss", "inter",
     "union"} (detached device tensors): the labeled-only step."""
 
-    def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
-             params: Optional[Dict] = None):
-        n_global = batch["image"].shape[0]
+    def step(batch, generator: Optional[torch.Generator], params: Optional[Dict] = None):
+        n_global = _rows(batch)
         if params is None:
-            params = {"aug": sample_once(generator, n_global, policy,
-                                         batch["image"].shape[-1], sizes=batch.get("size"),
-                                         device=batch["image"].device)}
+            _, in_size, sizes, device = _global_view(store, batch)
+            params = {"aug": sample_once(generator, n_global, policy, in_size, sizes=sizes,
+                                         device=device)}
         batch, params = mesh.shard_rows((batch, params), n_global)
+        batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
         img, lab = augment_once(image, batch["label"].long(), policy, params["aug"])
         model.train()

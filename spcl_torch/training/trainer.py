@@ -1,10 +1,11 @@
 """Trainers of the main path: the outer epoch loops around the steps.
 
-The counterparts of `spcl_tpu/training/trainer.py` on the host-batch path:
+The counterparts of `spcl_tpu/training/trainer.py`:
 
 - `PretrainEncoderTrainer` (trainer.py:1110-1265; reference
   new_pretrain.py:18-110): loss = hook regularizers only, no eval,
-  `last.ckpt` per `save_every` epochs;
+  `last.ckpt` per `save_every` epochs; with `Trainer.grad_cache: N` the
+  step is the chunked two-pass one of `training/gradcache.py`;
 - `FineTuneTrainer` (trainer.py:1006-1031 with what it inherits from
   `Trainer`; reference new_trainer.py:59-76): labeled-only training of the
   whole UNet, per-scan 3D Dice on the val and test loaders after every
@@ -12,11 +13,26 @@ The counterparts of `spcl_tpu/training/trainer.py` on the host-batch path:
 
 Both share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
 to the device, warm-starts from `Arch.checkpoint`, freezes the stages outside
-`set_trainable_stages` (no update, no weight decay), and builds RAdam over
-the trainable parameters and the projectors; each epoch sets the learning
-rate (warmup x multiplier -> cosine, per epoch), runs `num_batches` steps on
-host batches copied to the device, then drains the metrics once, failing
-fast on a non-finite loss.
+`set_trainable_stages` (no update, no weight decay), and builds the `Optim`
+block's optimizer (`training/optim.py`) over the trainable parameters and the
+projectors; each epoch sets the learning rate (warmup x multiplier -> cosine,
+per epoch), draws the epoch's `num_batches` index vectors from the loader's
+sampler, runs the steps, then drains the metrics once, failing fast on a
+non-finite loss.
+
+Data path (`device_data`, spcl_tpu trainer.py:76-83, true as
+`config/base.yaml` sets it): `init()` uploads each loader's root dataset
+once (`data/device_store.py`); an epoch uploads its [num_batches, B] matrix
+of global indices (spcl_tpu `_index_matrix`, trainer.py:520-525) and step b
+gathers row b on the device, so no step builds a host batch. Fine-tune Dice
+groups by `root.scan_names` of the global indices (`_groups_and_valid`,
+:581-588); eval runs per-scan index vectors, or with `Trainer.packed_eval:
+N` fixed batches of N slices across scan boundaries (`_packed_eval_batches`,
+:648-676): the per-scan Dice is the same, the logged eval loss becomes a
+mean over chunks instead of scans. `device_data: false` builds host batches
+and copies them through `data/loader.py::device_prefetch` (pinned buffers,
+side stream, depth 3); `packed_eval` then changes nothing, as in spcl_tpu.
+Throughput counts real slices (index >= 0).
 
 Randomness inside the steps comes from one `torch.Generator` on the device,
 seeded from the config's RandomSeed.
@@ -33,10 +49,9 @@ because every rank applies the same summed gradient. Only rank 0 writes:
 `start_training` so that no rank reads a checkpoint before it is written.
 One rank is the plain single-process path.
 
-Not ported yet: `resume_from_path` and TensorBoard; `Trainer.grad_cache`,
-`dump_matrices`, `profile_dir` and `defer_reads` are refused by
-`entry.common.build_trainer` when set. `device_data` (batches are built on
-the host) and `packed_eval` change no number and are accepted.
+Not ported yet: `resume_from_path` and TensorBoard; `Trainer.dump_matrices`,
+`profile_dir` and `defer_reads` are refused by `entry.common.build_trainer`
+when set.
 """
 from __future__ import annotations
 
@@ -49,11 +64,12 @@ import numpy as np
 import torch
 
 from .checkpoint import load_model_state_dict, save_checkpoint
+from .gradcache import build_gradcache_pretrain_step
 from .optim import build_optimizer
-from .steps import (batch_to_device, build_eval_step, build_finetune_step,
-                    build_pretrain_step)
+from .steps import build_eval_step, build_finetune_step, build_pretrain_step
 from ..data.augment import POLICY_ZOO, AugmentPolicy
-from ..data.loader import HostLoader
+from ..data.device_store import DeviceStore
+from ..data.loader import HostLoader, device_prefetch
 from ..hooks.base import TrainerHook, get_individual_hooks
 from ..meters import (AverageValueMeter, MeterInterface, Storage, UniversalDice,
                       meter_display)
@@ -74,8 +90,10 @@ class _TrainerBase:
 
     def __init__(self, *, model: UNet, save_dir: str, max_epoch: int = 100,
                  num_batches: int = 100, config: Optional[Dict] = None, seed: int = 10,
-                 crop: int = 224, data_name: str = "acdc", device="cuda", mesh=0):
+                 crop: int = 224, data_name: str = "acdc", device="cuda", mesh=0,
+                 device_data: bool = True):
         self._n_shards = self._join_mesh(mesh, device)
+        self._device_data = bool(device_data)
         self._is_master = mesh_lib.on_master()
         self._device = mesh_lib.rank_device(device)
         self._model = model
@@ -114,11 +132,41 @@ class _TrainerBase:
     def n_shards(self) -> int:
         return self._n_shards
 
-    def _host_batches(self, loader: HostLoader):
-        """The loader's host batches, index vectors right-padded with -1
-        (`valid=0`) to a rank multiple."""
-        for idx in loader.sampler:
-            yield loader.dataset.batch(mesh_lib.pad_multiple(np.asarray(idx), self._n_shards))
+    # ----------------------------------------------------------------- data
+    def _loaders(self) -> List[HostLoader]:
+        raise NotImplementedError
+
+    def _store(self, loader: HostLoader) -> Optional[DeviceStore]:
+        """The store of the loader's root dataset on this rank's device
+        (`device_data`), or None on the host path."""
+        if not self._device_data:
+            return None
+        return DeviceStore.for_dataset(loader.dataset, self._device)
+
+    def _index_rows(self, loader: HostLoader, n: int) -> np.ndarray:
+        """The next `n` index vectors of the loader's sampler (indices into
+        its dataset), right-padded with -1 (`valid=0`) to a rank multiple."""
+        it = iter(loader.sampler)
+        return np.stack([mesh_lib.pad_multiple(np.asarray(next(it)), self._n_shards)
+                         for _ in range(n)])
+
+    def _upload_rows(self, rows: Sequence[np.ndarray]) -> Sequence[torch.Tensor]:
+        """Index vectors on the device, uploaded in one copy (pinned on a card)."""
+        if not len(rows):
+            return []
+        flat = torch.from_numpy(np.ascontiguousarray(np.concatenate(rows), dtype=np.int64))
+        if self._device.type == "cuda":
+            flat = flat.pin_memory()
+        return torch.split(flat.to(self._device, non_blocking=True), [len(r) for r in rows])
+
+    def _step_inputs(self, loader: HostLoader, rows: Sequence[np.ndarray]):
+        """What the steps take for these local index vectors: their global
+        indices on the device (`device_data`), or host batches copied through
+        `device_prefetch`."""
+        ds = loader.dataset
+        if self._device_data:
+            return self._upload_rows([ds.to_global(r) for r in rows])
+        return device_prefetch((ds.batch(r) for r in rows), self._device)
 
     def _log(self, msg: str, *args) -> None:
         if self._is_master:
@@ -178,6 +226,8 @@ class _TrainerBase:
             set_trainable_stages(self._model, self._trainable_stages)
         for h in self._hooks:
             h.build(self._model, self._device)
+        for loader in self._loaders():
+            self._store(loader)  # one upload per root dataset, before the first epoch
         if self._n_shards > 1:
             # the replicas start from rank 0's weights whatever seeded them
             mesh_lib.broadcast_tensors(
@@ -200,7 +250,9 @@ class _TrainerBase:
             params.extend(h.parameters())
         self._optimizer = build_optimizer(
             params, name=optim_cfg.get("name", "RAdam"), lr=self._lr_schedule(0),
-            weight_decay=float(optim_cfg.get("weight_decay", 0.0)))
+            weight_decay=float(optim_cfg.get("weight_decay", 0.0)),
+            momentum=float(optim_cfg.get("momentum", 0.9)),
+            nesterov=bool(optim_cfg.get("nesterov", False)))
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(self._seed)
         self._build_steps()
@@ -273,10 +325,19 @@ class PretrainEncoderTrainer(_TrainerBase):
         # one entry per step, host floats: {"epoch", "reg_loss", "hooks"}
         self.step_metrics: List[Dict] = []
 
+    def _loaders(self) -> List[HostLoader]:
+        return [self._contrastive_loader]
+
     def _build_steps(self) -> None:
-        self._train_step = build_pretrain_step(
-            self._model, self._hooks, self._optimizer, policy=self.train_policy,
-            total_freedom=self.total_freedom, until=self._forward_until)
+        grad_cache = int((self._config.get("Trainer") or {}).get("grad_cache") or 0)
+        kwargs = dict(policy=self.train_policy, total_freedom=self.total_freedom,
+                      until=self._forward_until, store=self._store(self._contrastive_loader))
+        if grad_cache:
+            self._train_step = build_gradcache_pretrain_step(
+                self._model, self._hooks, self._optimizer, num_chunks=grad_cache, **kwargs)
+        else:
+            self._train_step = build_pretrain_step(self._model, self._hooks, self._optimizer,
+                                                   **kwargs)
 
     def _run_train_epoch(self) -> Dict:
         meters = MeterInterface(default_focus=self.train_meter_focus)
@@ -285,14 +346,14 @@ class PretrainEncoderTrainer(_TrainerBase):
             meters.register_meter("reg_loss", AverageValueMeter())
         scalars = self._hook_scalars()
         lr = self._set_epoch_lr()
-        it = self._host_batches(self._contrastive_loader)
+        rows = self._index_rows(self._contrastive_loader, self._num_batches)
+        # real views: the contrast sampler and the rank padding add -1 entries
+        n_slices = 2 * int((rows >= 0).sum())
+        inputs = self._step_inputs(self._contrastive_loader, rows)
         pending = []
-        n_slices = 0
         self._synchronize()
         t0 = time.perf_counter()
-        for _ in range(self._num_batches):
-            batch = batch_to_device(next(it), self._device)
-            n_slices += 2 * batch["image"].shape[0]
+        for batch in inputs:
             pending.append(self._train_step(batch, self._generator, scalars))
         self._synchronize()
         elapsed = time.perf_counter() - t0
@@ -391,13 +452,24 @@ class FineTuneTrainer(_TrainerBase):
         # even (4 pool levels -> multiple of 16); extra padding is masked
         return ((out + 15) // 16) * 16
 
+    def _loaders(self) -> List[HostLoader]:
+        return [loader for loader in (self._labeled_loader, self._val_loader,
+                                      self._test_loader) if loader is not None]
+
     def _build_steps(self) -> None:
-        num_classes = self._model.num_classes
         self._train_step = build_finetune_step(
-            self._model, self._optimizer, num_classes=num_classes, policy=self.train_policy)
-        self._eval_step = build_eval_step(
-            self._model, num_classes=num_classes, crop=self._crop,
-            val_policy=self.val_policy, out_size=self._eval_out_size())
+            self._model, self._optimizer, num_classes=self._model.num_classes,
+            policy=self.train_policy, store=self._store(self._labeled_loader))
+        self._eval_steps = {}
+
+    def _eval_step_for(self, loader: HostLoader):
+        """The eval step over the loader's store (one per root dataset)."""
+        store = self._store(loader)
+        if id(store) not in self._eval_steps:
+            self._eval_steps[id(store)] = build_eval_step(
+                self._model, num_classes=self._model.num_classes, crop=self._crop,
+                val_policy=self.val_policy, out_size=self._eval_out_size(), store=store)
+        return self._eval_steps[id(store)]
 
     # ----------------------------------------------------------------- epochs
     def _run_train_epoch(self) -> Dict:
@@ -408,34 +480,35 @@ class FineTuneTrainer(_TrainerBase):
             meters.register_meter("sup_loss", AverageValueMeter())
             meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
         lr = self._set_epoch_lr()
-        scans = self._labeled_loader.dataset.unique_scans
-        it = self._host_batches(self._labeled_loader)
+        loader = self._labeled_loader
+        rows = self._index_rows(loader, self._num_batches)
+        n_slices = int((rows >= 0).sum())
+        # Dice groups by scan name through the root (a subset's scan_idx is
+        # its own numbering, the store's the root's)
+        names = loader.dataset.root.scan_names
+        global_rows = loader.dataset.to_global(rows)
+        inputs = self._step_inputs(loader, rows)
         pending = []
-        n_slices = 0
         self._synchronize()
         t0 = time.perf_counter()
-        for _ in range(self._num_batches):
-            host = next(it)
-            n_slices += host["image"].shape[0]
-            metrics = self._train_step(batch_to_device(host, self._device), self._generator)
-            pending.append((metrics, host["scan_idx"], host["valid"]))
+        for batch in inputs:
+            pending.append(self._train_step(batch, self._generator))
         self._synchronize()
         elapsed = time.perf_counter() - t0
         # one device -> host copy per metric per epoch: no per-step synchronisation
-        stacked = {k: torch.stack([m[k] for m, _, _ in pending]).cpu().numpy()
+        stacked = {k: torch.stack([m[k] for m in pending]).cpu().numpy()
                    for k in ("sup_loss", "inter", "union")}
         with meters.focus_on(self.train_meter_focus):
-            for b, (_, scan_idx, valid) in enumerate(pending):
+            for b, gidx in enumerate(global_rows):
                 sup = float(stacked["sup_loss"][b])
                 # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
                 if not np.isfinite(sup):
                     raise RuntimeError(f"non-finite sup_loss at batch {b}: {sup}")
                 self.step_metrics.append({"epoch": self._cur_epoch, "sup_loss": sup})
                 meters["sup_loss"].add(sup)
-                keep = np.asarray(valid).astype(bool)
-                meters["sup_dice"].add(
-                    stacked["inter"][b][keep], stacked["union"][b][keep],
-                    group_name=[scans[i] for i, k in zip(np.asarray(scan_idx), keep) if k])
+                keep = gidx >= 0
+                meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
+                                       group_name=[names[i] for i in gidx[keep]])
             meters["lr"].add(lr)
         stats = meters.statistics()
         stats.setdefault(self.train_meter_focus, {})["throughput"] = {
@@ -448,20 +521,49 @@ class FineTuneTrainer(_TrainerBase):
         meters = MeterInterface(default_focus="eval")
         meters.register_meter("loss", AverageValueMeter())
         dice = meters.register_meter("dice", UniversalDice(C, report_axises=list(range(1, C))))
-        sampler = loader.sampler
-        pending = []
-        for i, host in enumerate(self._host_batches(loader)):
-            out = self._eval_step(batch_to_device(host, self._device))
-            pending.append((out, host["valid"], sampler.scan_of_batch(i)))
+        packed = int((self._config.get("Trainer") or {}).get("packed_eval") or 0)
+        if self._device_data and packed > 0:
+            rows, groups = self._packed_eval_rows(loader, packed)
+            inputs = self._upload_rows(rows)
+        else:
+            sampler = loader.sampler
+            rows = [mesh_lib.pad_multiple(np.asarray(idx), self._n_shards) for idx in sampler]
+            groups = [sampler.scan_of_batch(i) for i in range(len(rows))]
+            inputs = self._step_inputs(loader, rows)
+        step = self._eval_step_for(loader)
+        pending = [step(batch) for batch in inputs]
         if pending:
-            stacked = {k: torch.stack([o[k] for o, _, _ in pending]).cpu().numpy()
+            stacked = {k: torch.stack([o[k] for o in pending]).cpu().numpy()
                        for k in ("loss", "inter", "union")}
-        for b, (_, valid, scan) in enumerate(pending):
+        for b, (row, group) in enumerate(zip(rows, groups)):
             meters["loss"].add(float(stacked["loss"][b]))
-            keep = np.asarray(valid).astype(bool)
-            dice.add(stacked["inter"][b][keep], stacked["union"][b][keep], group_name=scan)
+            keep = np.asarray(row) >= 0
+            if isinstance(group, list):  # packed_eval: a scan name per slice
+                group = [g for g, k in zip(group, keep) if k]
+            dice.add(stacked["inter"][b][keep], stacked["union"][b][keep], group_name=group)
         stats = meters.statistics("eval")
         return stats, float(stats["dice"]["DSC_mean"])
+
+    def _packed_eval_rows(self, loader: HostLoader, packed: int):
+        """(global index rows, per-slice scan names) of `Trainer.packed_eval`
+        (spcl_tpu `_packed_eval_batches`, trainer.py:648-676): every scan's
+        slices in scan order, cut into batches of `packed` (at least one per
+        rank), -1 padding named ""."""
+        ds = loader.dataset
+        flats, names = [], []
+        for scan, idx in sorted(ds.scan_to_indices().items()):
+            flats.append(ds.to_global(idx))
+            names.extend([scan] * len(idx))
+        flat = np.concatenate(flats) if flats else np.zeros((0,), np.int64)
+        size = max(int(packed), self._n_shards)
+        rows, groups = [], []
+        for start in range(0, len(flat), size):
+            chunk = flat[start:start + size]
+            chunk = np.concatenate([chunk, np.full(size - len(chunk), -1, np.int64)])
+            rows.append(mesh_lib.pad_multiple(chunk, self._n_shards))
+            chunk_names = names[start:start + size]
+            groups.append(chunk_names + [""] * (len(rows[-1]) - len(chunk_names)))
+        return rows, groups
 
     def start_training(self) -> float:
         if not self._initialized:

@@ -9,6 +9,15 @@ a — all O(1..10)) and on the loss; 2e-4 x max|dz| on dz. float32 sums run in
 another order, the products in 3xTF32 (float32 accuracy), and s carries
 1/T = 14.3x the dot-product rounding. The
 stage kernels of `convstage_cuda`: 2e-4 x max|plain| on every tensor.
+
+The data path, the optimizers and the gradient cache on the card (plain
+PyTorch there, around the kernels): the device store's gather equals the
+host batch to the bit; the multi-tensor optimizers on CUDA tensors equal
+the same steps on the CPU to rtol 1e-6 + atol 1e-7 (a scalar division may
+round through x * (1/s) on one and x / s on the other); the cached gradient
+equals `direct_value_and_grad` at 2N=240 in 4 chunks (TF32 off) to relative
+L2 1e-4 per tensor, the loss to rtol 1e-5 (the chunks' gradients are added
+in another order).
 """
 import pytest
 import torch
@@ -477,3 +486,73 @@ def test_poolsums_rejects_malformed_operands(cuda):
         cs.poolsums_kernel(z1, coef[:, :8].contiguous(), dp, de)
     with pytest.raises(ValueError):  # on the CPU
         cs.poolsums_kernel(z1.cpu(), coef, dp, de)
+
+
+# ------------------------------------------------------------------ data, optimizers, grad_cache
+def test_store_gather_on_card_equals_host_batch(cuda):
+    import numpy as np
+    from spcl_torch.data import DeviceStore, synthetic_dataset
+    root = synthetic_dataset("acdc", num_scans=4, slices_per_scan=(6, 8), canvas=64, seed=2)
+    idx = np.array([5, -1, 0, 11, 11, -1, 2], np.int64)
+    got = DeviceStore(root, "cuda").gather(torch.from_numpy(idx).cuda())
+    want = root.batch(idx)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+
+
+@pytest.mark.parametrize("chain", [dict(name="RAdam", weight_decay=1e-5),
+                                   dict(name="adam", weight_decay=1e-2),
+                                   dict(name="adamw", weight_decay=1e-2),
+                                   dict(name="sgd", momentum=0.9, nesterov=True),
+                                   dict(name="adam", grad_clip=0.02)],
+                         ids=lambda c: c["name"] + ("-clip" if "grad_clip" in c else ""))
+def test_foreach_optimizers_on_card_match_cpu(cuda, chain):
+    from spcl_torch.training import build_optimizer
+    g = torch.Generator().manual_seed(3)
+    shapes = [(16, 1, 3, 3), (16,), (256, 256), (7,)]
+    init = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * 1e-2 for s in shapes] for _ in range(10)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.clone().to(dev)) for t in init]
+        opt = build_optimizer(ps, lr=1e-3, **chain)
+        for step in grads:
+            for p, gr in zip(ps, step):
+                p.grad = gr.to(dev)
+            opt.step()
+        out[dev] = [p.detach().cpu() for p in ps]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_gradcache_cached_equals_direct_on_card(cuda):
+    from spcl_torch.data import DeviceStore, synthetic_dataset
+    from spcl_torch.data.augment import AugmentPolicy
+    from spcl_torch.hooks import SelfPacedINFONCEHook
+    from spcl_torch.models import UNet, set_trainable_stages, stages_from_range
+    from spcl_torch.training import build_gradcache_pretrain_step, build_optimizer
+    from spcl_torch.training.steps import draw_pretrain_params
+    torch.manual_seed(0)
+    root = synthetic_dataset("acdc", num_scans=12, slices_per_scan=(10, 12), canvas=48, seed=0)
+    store = DeviceStore(root, "cuda")
+    net = UNet(max_channel=128).cuda()
+    set_trainable_stages(net, stages_from_range(None, "Conv5"))
+    hook = SelfPacedINFONCEHook(name="sp", feature_name="Conv5", mode="soft", begin_value=50.0,
+                                end_value=5.0, max_epoch=2)
+    hook.build(net, "cuda")
+    opt = build_optimizer([p for p in net.parameters() if p.requires_grad] + hook.parameters(),
+                          name="RAdam", lr=1e-4)
+    policy = AugmentPolicy(crop=32, rot_degrees=10.0)
+    step = build_gradcache_pretrain_step(net, [hook], opt, policy=policy, total_freedom=True,
+                                         until="Conv5", num_chunks=4, store=store)
+    idx = torch.arange(120, device="cuda")
+    draws = draw_pretrain_params(torch.Generator(device="cuda").manual_seed(1), idx, store,
+                                 policy=policy, total_freedom=True)
+    scalars = {"sp": hook.epoch_scalars(0)}
+    direct = step.direct_value_and_grad(idx, None, scalars, params=draws)
+    cached = step.cached_value_and_grad(idx, None, scalars, params=draws)
+    torch.testing.assert_close(cached["loss"], direct["loss"], rtol=1e-5, atol=0)
+    assert len(cached["grads"]) == len(direct["grads"]) > 30
+    for c, d in zip(cached["grads"], direct["grads"]):
+        assert float((c - d).norm() / d.norm()) <= 1e-4

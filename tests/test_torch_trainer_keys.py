@@ -1,9 +1,12 @@
 """Trainer keys that spcl_tpu honours and spcl_torch does not port yet are
-refused, not ignored: a non-default value of `Trainer.grad_cache`,
-`dump_matrices`, `profile_dir` or `defer_reads` raises NotImplementedError
-naming the key and its ROADMAP item, while the paper's configuration
-(base.yaml + pretrain.yaml + specific/selfpaced_infonce.yaml) still builds.
-CPU only; the refused cases raise before any data is loaded."""
+refused, not ignored: a non-default value of `Trainer.dump_matrices`,
+`profile_dir` or `defer_reads` raises NotImplementedError naming the key and
+its ROADMAP item, while the paper's configuration (base.yaml + pretrain.yaml
++ specific/selfpaced_infonce.yaml) still builds, and so does it with
+`Trainer.grad_cache=30` (ported: the trainer's step is then the gradient
+cache's, with 30 chunks). `dump_matrices` together with `grad_cache` raises
+spcl_tpu's ValueError. CPU only; the refused cases raise before any data is
+loaded."""
 from pathlib import Path
 
 import pytest
@@ -15,8 +18,16 @@ from spcl_torch.entry import build_trainer
 PAPER = str(Path(CONFIG_PATH) / "specific" / "selfpaced_infonce.yaml")
 
 
+def _config(*overrides):
+    config = ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"),
+                           str(Path(CONFIG_PATH) / "pretrain.yaml"), strict=False).parse_args(
+        ["Data.synthetic=true", *overrides, "--opt-path", PAPER]).merged_config
+    config["Trainer"]["name"] = "pretrain_encoder"
+    return config
+
+
 @pytest.mark.parametrize("override,refused", [
-    ("Trainer.grad_cache=30", "Trainer.grad_cache=30 is not ported yet (ROADMAP A13)"),
+    ("Trainer.grad_cache=30", None),  # bigbatch_pretrain.yaml's chunk count
     ("Trainer.dump_matrices=true", "Trainer.dump_matrices=True is not ported yet (ROADMAP A7)"),
     ("Trainer.profile_dir=runs/prof",
      "Trainer.profile_dir='runs/prof' is not ported yet (ROADMAP A7)"),
@@ -24,10 +35,7 @@ PAPER = str(Path(CONFIG_PATH) / "specific" / "selfpaced_infonce.yaml")
     ("Trainer.device_data=true", None),  # the paper's configuration as base.yaml sets it
 ])
 def test_unported_trainer_keys_are_refused(tmp_path, override, refused):
-    config = ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"),
-                           str(Path(CONFIG_PATH) / "pretrain.yaml"), strict=False).parse_args(
-        ["Data.synthetic=true", override, "--opt-path", PAPER]).merged_config
-    config["Trainer"]["name"] = "pretrain_encoder"
+    config = _config(override)
     if refused is not None:
         with pytest.raises(NotImplementedError) as err:
             build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
@@ -35,4 +43,13 @@ def test_unported_trainer_keys_are_refused(tmp_path, override, refused):
         return
     trainer = build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
     assert trainer._forward_until == "Conv5"
-    assert config["Trainer"]["grad_cache"] == 0 and config["Trainer"]["profile_dir"] is None
+    assert config["Trainer"]["profile_dir"] is None
+    trainer.init()
+    chunks = getattr(trainer._train_step, "num_chunks", None)
+    assert chunks == (30 if override == "Trainer.grad_cache=30" else None)
+
+
+def test_dump_matrices_with_grad_cache_raises(tmp_path):
+    config = _config("Trainer.grad_cache=30", "Trainer.dump_matrices=true")
+    with pytest.raises(ValueError, match="incompatible with Trainer.grad_cache"):
+        build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")

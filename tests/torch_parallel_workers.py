@@ -21,7 +21,7 @@ from spcl_torch.parallel import mesh
 from spcl_torch.parallel.contrastive import (global_self_paced_supcon,
                                              sharded_self_paced_supcon)
 from spcl_torch.training import (FineTuneTrainer, PretrainEncoderTrainer, build_optimizer,
-                                 build_pretrain_step)
+                                 build_gradcache_pretrain_step, build_pretrain_step)
 
 CANVAS, CROP, MAXC = 48, 32, 64
 OPTIM = {"Optim": {"name": "RAdam", "lr": 1e-4, "weight_decay": 1e-5}}
@@ -203,6 +203,36 @@ def pretrain_step_worker(state_dict, head_state, batch, draws, gamma, lr, wd, gl
                        if v.requires_grad},
             "grads": {k: v.grad.numpy().copy() for k, v in named.items()
                       if v.grad is not None}}
+
+
+def gradcache_worker(state_dict, head_state, batch, num_chunks):
+    """The cached value and gradient of one gradient-cache pretrain step in
+    deterministic geometry (crop = canvas, no rotation, flips or jitter) on
+    this rank's rows of a fixed global batch, from the given weights: loss,
+    sp_weight and every parameter gradient, summed over ranks."""
+    torch.set_num_threads(1)
+    net = UNet(input_dim=1, num_classes=4, max_channel=128)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()}, strict=False)
+    set_trainable_stages(net, stages_from_range(None, "Conv5"))
+    hook = SelfPacedINFONCEHook(name="sp", feature_name="Conv5", contrast_on="partition",
+                                begin_value=50.0, end_value=5.0, mode="soft", max_epoch=2,
+                                global_contrast="row_sharded")
+    hook.build(net, "cpu")
+    hook.projector.load_state_dict({k: torch.from_numpy(v) for k, v in head_state.items()})
+    named = {k: v for k, v in net.named_parameters() if v.requires_grad}
+    named.update({f"head.{k}": v for k, v in hook.projector.named_parameters()})
+    opt = build_optimizer(list(named.values()), name="adam", lr=1e-3)
+    canvas = batch["image"].shape[-1]
+    policy = AugmentPolicy(crop=canvas, rot_degrees=0.0, hflip=False, vflip=False,
+                           jitter=False)
+    step = build_gradcache_pretrain_step(net, [hook], opt, policy=policy, total_freedom=True,
+                                         until="Conv5", num_chunks=num_chunks,
+                                         flip_threshold=0.0)
+    out = step.cached_value_and_grad({k: torch.from_numpy(v) for k, v in batch.items()},
+                                     torch.Generator().manual_seed(0),
+                                     {"sp": hook.epoch_scalars(0)})
+    return {"loss": float(out["loss"]), "sp_weight": float(out["hooks"]["sp"]["sp_weight"]),
+            "grads": {k: g.numpy() for k, g in zip(named, out["grads"])}}
 
 
 def _to_torch(tree):
