@@ -9,16 +9,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build   — compile spcl_torch/ops/csrc/supcon.cu and convstage.cu with
                nvcc for sm_90a, one nvcc per source, started together.
   3. kernels — hold the supcon kernels against their plain PyTorch versions
-               (float32, TF32 off) at 2N in {60, 126, 1024, 3840}, D=256,
+               (float32, TF32 off) at 2N in {10, 60, 126, 1024, 3840}, D=256,
                in every weighting mode, correct_grad on and off, and with
-               padded (valid=0) rows; two runs of each equal to the bit;
+               padded (valid=0) rows at 10 and 126; two runs of each equal to the bit;
                time them beside the plain versions, their float32 and
                3xTF32 bounds and their products alone in float32 `torch.mm`
                (the library yardstick), with the launch plan (cluster size,
                resident clusters, kept s tiles); hold the seven stage kernels against
                theirs at the main path's two shapes (B=60: 224^2 x C16 fed by
-               an ordinary first convolution, 112^2 x C16->32) and at a small
-               odd-batch shape, with random dp and random non-zero de: the
+               an ordinary first convolution, 112^2 x C16->32), at a small
+               odd-batch shape, at the semi path's (B=96 student, B=32
+               teacher), with random dp and random non-zero de: the
                forward and the backward as wholes, each pass alone, and two
                runs bit for bit; time kernel vs plain with CUDA events; the
                pool passes (poolsums, dz1) also with de absent, as the
@@ -102,14 +103,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                no host batch, finite losses, a last.ckpt that reloads
                strictly; then the cached gradient against direct autograd at
                2N=240 in 4 chunks on the card.
- 12. report  — the `kernels` JSON line, the nvidia-smi line, a device line
+ 12. slice E — the semi-supervised path of main.py (base.yaml +
+               specific/production_semi.yaml + mt.yaml + uda.yaml: UNet-256,
+               crop 224 of 256, 32 labeled + 32 unlabeled slices a step,
+               mean teacher at weight 10 + consistency at 5, RAdam,
+               `packed_eval: 96`, `device_data: true`) under `pallas` on
+               synthetic data through `spcl_torch.main.run`, cut to 1 epoch
+               of 1 warm-up + 5 timed steps and one eval epoch: the stage
+               kernels' launches, the student's and the EMA teacher's apart;
+               finite losses; the teacher after step 1 equal to 0.5 t0 +
+               0.5 s1; BatchNorm statistics moved by the student's forward
+               only; a DSC in [0, 1]; last.ckpt (student and teacher)
+               reloading strictly; ms/step, slices/s and a profile; then
+               `trainer_checkpoint` resume into epoch 2 (teacher and RAdam
+               state restored); the same steps under `nhwc`. Then every
+               legacy preset name, main_mixup and `two_stage` +
+               `disable_bn` at base.yaml's 5 + 5 slices, 2 steps each
+               (`infonce` / `infoncemt`: one supcon_fwd and one supcon_bwd a
+               step at 2N=10, each call held to its plain version on its own
+               operands), and one semi step under `pallas` on the card
+               against the CPU: losses, every parameter's gradient, the
+               updated student and teacher, running statistics.
+ 13. report  — the `kernels` JSON line, the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
 
 Development aids: `--stage-kernels-only` stops after the build and the stage
 kernel check, `--supcon-kernels-only` runs the build and phases 3 (supcon
 part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
-build and phase 11.
+build and phase 11, `--semi-only` the build and phase 12.
 """
 import copy
 import json
@@ -130,7 +152,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-SIZES = (60, 126, 1024, 3840)          # checked against the plain versions
+# checked against the plain versions; 10 is the infonce presets' 2N (5 + 5 views)
+SIZES = (10, 60, 126, 1024, 3840)
 TIMING_SIZES = (60, 126, 256, 512, 1024, 3840)
 D = 256
 MAIN_2N = 60
@@ -419,7 +442,7 @@ def kernel_phase(sc):
     max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
     cases = 0
     for n2 in SIZES:
-        for pad_rows in ((0, 5) if n2 == 126 else (0,)):
+        for pad_rows in {10: (0, 1), 126: (0, 5)}.get(n2, (0,)):
             z1, z2, labels, valid = _inputs(n2, gen, pad_rows)
             hard_gamma, gap = _hard_gamma(sc, z1, z2, labels, valid)
             for mode, correct_grad in (("none", False), ("soft", False), ("soft", True),
@@ -471,12 +494,19 @@ def kernel_phase(sc):
 
 # ------------------------------------------------------------------ stage kernels
 # (name, B, H, W, Ci, C, external_first): the two shapes of the main path at
-# 2N = 60, and a small odd-batch shape whose H and W are no tile multiples
+# 2N = 60, a small odd-batch shape whose H and W are no tile multiples, and
+# the semi path's shapes
 STAGE_SHAPES = (
     ("stage1", 60, 224, 224, 16, 16, True),
     ("stage2", 60, 112, 112, 16, 32, False),
     ("small-ext", 3, 20, 36, 16, 16, True),
     ("small", 3, 20, 36, 16, 32, False),
+    # slice E: the semi step's student (32 labeled + 2 x 32 unlabeled) and
+    # its EMA teacher (32 unlabeled, forward only); checked, not timed
+    ("semi student 1", 96, 224, 224, 16, 16, True),
+    ("semi student 2", 96, 112, 112, 16, 32, False),
+    ("semi teacher 1", 32, 224, 224, 16, 16, True),
+    ("semi teacher 2", 32, 112, 112, 16, 32, False),
 )
 STAGE_TOL = 2e-4  # x max|plain value| of each tensor
 STAGE_REPLACES = {
@@ -950,10 +980,11 @@ STAGE_REDUCES_PER_STEP = 8
 
 
 def _pretrain_epochs(trainer, device_data=True):
-    """run(n): one pretrain epoch of n steps through the trainer's own data
-    path (`device_data` true: index rows gathered from the device store;
-    false: host batches through device_prefetch); returns its ms per step,
-    as the trainer measures it (synchronised, host work included)."""
+    """run(n): one train epoch of n steps (pretrain, or slice E's semi
+    trainer) through the trainer's own data path (`device_data` true: index
+    rows gathered from the device store; false: host batches through
+    device_prefetch); returns its ms per step, as the trainer measures it
+    (synchronised, host work included)."""
     def run(n):
         trainer._device_data = device_data
         trainer._num_batches = n
@@ -2008,6 +2039,460 @@ def gradcache_equivalence_phase(trainer):
             "stats_abs_max": stats}
 
 
+# ------------------------------------------------------------------ slice E
+# The semi-supervised path of main.py. The GPU machine has no pyyaml, so the
+# config files are transcribed here (tests/test_torch_semi_trainer.py holds
+# each dict to its file) and merged as spcl_torch.main merges them; the runs
+# go through spcl_torch.main.run, which main() calls with the parsed config.
+BASE_YAML = {
+    "RandomSeed": 10, "trainer_checkpoint": None,
+    "Arch": {"input_dim": 1, "num_classes": 4, "checkpoint": None, "max_channel": 256,
+             "momentum": 0.1, "dtype": "float32", "small_c_layout": "nhwc"},
+    "Optim": {"name": "RAdam", "lr": 1e-07, "weight_decay": 1e-05},
+    "Scheduler": {"multiplier": 300, "warmup_max": 10},
+    "Data": {"name": "acdc", "labeled_scan_num": 1, "canvas": 256, "crop": 224,
+             "synthetic": False, "synthetic_scans": 20, "synthetic_test_scans": 8,
+             "root": None, "ratios": None},
+    "LabeledLoader": {"batch_size": 5}, "UnlabeledLoader": {"batch_size": 5},
+    "Trainer": {"save_dir": "tmp", "num_batches": 200, "max_epoch": 75, "two_stage": False,
+                "disable_bn": False, "name": None, "profile_dir": None, "save_every": 1,
+                "device_data": True, "defer_reads": False, "mesh": 0, "packed_eval": 0,
+                "grad_cache": 0, "reg_weight": 0.01, "dis_consider_image": False},
+}
+CONFIG_FILES = {
+    "base.yaml": BASE_YAML,
+    "specific/production_semi.yaml": {
+        "Trainer": {"name": "semi", "num_batches": 31, "packed_eval": 96},
+        "LabeledLoader": {"batch_size": 32}, "UnlabeledLoader": {"batch_size": 32}},
+    "specific/mt.yaml": {"MeanTeacherParams": {"weight": 10, "alpha": 0.999}},
+    "specific/uda.yaml": {"ConsistencyParams": {"weight": 5.0}},
+    "hooks/mixup.yaml": {"MixUpParams": {"weight": 0.01, "enable_bn": True}},
+}
+SEMI_FILES = ("base.yaml", "specific/production_semi.yaml", "specific/mt.yaml",
+              "specific/uda.yaml")
+SEMI_STEPS = 6              # 1 warm-up + 5 timed, one epoch
+SEMI_PROFILED_STEPS = 3
+PRESET_STEPS = 2
+# the stage kernels of the EMA teacher's forward (train mode, statistics
+# frozen) in one semi step; the student's forward and backward launch
+# STAGE_LAUNCHES_PER_STEP
+TEACHER_LAUNCHES_PER_STEP = {"convstage_conv": 1, "convstage_bnconv": 2,
+                             "convstage_bnpool": 2}
+
+
+def _merged(*files, **cuts):
+    """The config files merged in order (as ConfigManager merges them), then
+    `cuts`: {block: {key: value}} overrides."""
+    from spcl_torch.configure.dictionary_utils import dictionary_merge_by_hierachy
+    config = {}
+    for f in files:
+        config = dictionary_merge_by_hierachy(config, copy.deepcopy(CONFIG_FILES[f]))
+    return dictionary_merge_by_hierachy(config, cuts)
+
+
+class _SemiRun:
+    """Instruments the runs inside the block: the trainers `init()` made, an
+    event after each train step (`_call_step`), the stage kernels launched
+    inside the EMA teacher's forwards, the first EMA update held to
+    0.5 t0 + 0.5 s1 (alpha of step 0), and `resume_from_path` held to the
+    checkpoint it read (teacher and RAdam state)."""
+
+    def __enter__(self):
+        from spcl_torch.models.ema import EMATeacher
+        from spcl_torch.ops import convstage_cuda as cs
+        from spcl_torch.training import load_checkpoint
+        from spcl_torch.training.trainer import FineTuneTrainer, SemiTrainer, _TrainerBase
+        self.trainers, self.events, self.first_update, self.resumed = [], [], None, None
+        self.teacher_launches = {k: 0 for k in cs.LAUNCHES}
+        run = self
+
+        def init(orig):
+            def wrapped(trainer):
+                run.trainers.append(trainer)
+                return orig(trainer)
+            return wrapped
+
+        def call_step(orig):
+            def wrapped(trainer, batches, scalars):
+                out = orig(trainer, batches, scalars)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                run.events.append(ev)
+                return out
+            return wrapped
+
+        def resume(orig):
+            def wrapped(trainer, path):
+                orig(trainer, path)
+                saved = load_checkpoint(path)
+                teacher = trainer.teacher.state_dict()
+                run.resumed = {
+                    "teacher_step": teacher["step"],
+                    "teacher_equal": all(torch.equal(v.cpu(), saved["_teacher"]["model"][k])
+                                         for k, v in teacher["model"].items()),
+                    "radam_steps": sorted({s["step"] for s in trainer._optimizer.state.values()}),
+                    "radam_equal": all(
+                        torch.equal(s["mu"].cpu(), saved["_optimizer"]["state"][i]["mu"])
+                        for i, s in trainer._optimizer.state_dict()["state"].items())}
+            return wrapped
+
+        def logits(orig):
+            def wrapped(teacher, images):
+                before = dict(cs.LAUNCHES)
+                out = orig(teacher, images)
+                for k in run.teacher_launches:
+                    run.teacher_launches[k] += cs.LAUNCHES[k] - before[k]
+                return out
+            return wrapped
+
+        def update(orig):
+            def wrapped(teacher, student):
+                if teacher.step or run.first_update is not None:
+                    return orig(teacher, student)
+                t0 = [p.detach().clone() for p in teacher.model.parameters()]
+                s1 = [p.detach().clone() for p in student.parameters()]
+                alpha = orig(teacher, student)
+                run.first_update = (alpha, all(torch.equal(t, 0.5 * a + 0.5 * b) for t, a, b
+                                               in zip(teacher.model.parameters(), t0, s1)))
+                return alpha
+            return wrapped
+
+        self._saved = [(cls, name, getattr(cls, name), wrap) for cls, name, wrap in (
+            (_TrainerBase, "init", init), (FineTuneTrainer, "_call_step", call_step),
+            (SemiTrainer, "_call_step", call_step), (_TrainerBase, "resume_from_path", resume),
+            (EMATeacher, "logits", logits), (EMATeacher, "update", update))]
+        for cls, name, fn, wrap in self._saved:
+            setattr(cls, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn, _ in self._saved:
+            setattr(cls, name, fn)
+
+    def timed_ms(self, skip=1):
+        """ms per step between the end of step `skip` and the last step's
+        end, on the card's clock (host gaps included)."""
+        torch.cuda.synchronize()
+        n = len(self.events) - skip
+        return self.events[skip - 1].elapsed_time(self.events[-1]) / n
+
+
+def _check_semi_metrics(trainer, hooks, what):
+    for rec in trainer.step_metrics:
+        check(math.isfinite(rec["sup_loss"]) and math.isfinite(rec.get("reg_loss", 0.0)),
+              f"{what}: non-finite loss {rec}")
+        check(sorted(rec["hooks"]) == sorted(hooks), f"{what}: hooks {sorted(rec['hooks'])}")
+        for name, m in rec["hooks"].items():
+            check(m and all(math.isfinite(v) for v in m.values()), f"{what}: {name} {m}")
+
+
+def slice_e_phase(cs):
+    phase(f"slice E: main.py's semi path (base + production_semi + mt + uda), UNet-256, 224^2, "
+          f"32 labeled + 2 x 32 unlabeled slices a step, small_c_layout pallas, 1 epoch of "
+          f"1 + {SEMI_STEPS - 1} steps and one eval epoch; resume; the same under nhwc")
+    from spcl_torch.main import run
+    from spcl_torch.models import UNet
+    from spcl_torch.training import load_checkpoint
+    base_dir = ROOT / "runs" / "chip_smoke_e"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    per_step = 32 + 2 * 32
+    out = {}
+
+    # ---- the pallas run, then its resume
+    config = _merged(*SEMI_FILES, Arch={"small_c_layout": "pallas"},
+                     Data={"synthetic": True},
+                     Trainer={"save_dir": str(base_dir / "pallas"), "max_epoch": 1,
+                              "num_batches": SEMI_STEPS})
+    check(config["Trainer"]["name"] == "semi" and config["Trainer"]["packed_eval"] == 96
+          and config["LabeledLoader"]["batch_size"] == 32, "slice E configuration")
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _SemiRun() as rec:
+        score = run(config, DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cs.LAUNCHES)
+        ms = rec.timed_ms()
+    trainer = rec.trainers[0]
+    teacher = {k: v for k, v in rec.teacher_launches.items() if v}
+    student = {k: launches[k] - rec.teacher_launches[k] for k in launches}
+    want_student = {k: v * SEMI_STEPS for k, v in STAGE_LAUNCHES_PER_STEP.items()}
+    want_teacher = {k: v * SEMI_STEPS for k, v in TEACHER_LAUNCHES_PER_STEP.items()}
+    print(f"stage kernel launches in {SEMI_STEPS} steps + eval: student {student}, "
+          f"teacher {teacher}", flush=True)
+    check(student == want_student, f"student launches: expected {want_student}")
+    check(teacher == want_teacher, f"teacher launches: expected {want_teacher}")
+    check(len(trainer.step_metrics) == SEMI_STEPS, len(trainer.step_metrics))
+    _check_semi_metrics(trainer, ["consistency", "mt"], "slice E")
+    for r in trainer.step_metrics:
+        print(f"sup_loss {r['sup_loss']:.6f} reg_loss {r['reg_loss']:.6f} | mt "
+              f"{r['hooks']['mt']['loss']:.3e} consistency "
+              f"{r['hooks']['consistency']['loss']:.3e}", flush=True)
+    alpha, ema_ok = rec.first_update
+    check(alpha == 0.5 and ema_ok, f"the teacher after step 1 is not 0.5 t0 + 0.5 s1 "
+                                   f"(alpha {alpha})")
+    counts = {int(m.num_batches_tracked) for m in trainer.model.modules()
+              if isinstance(m, torch.nn.BatchNorm2d)}
+    tbn = [m for m in trainer.teacher.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    check(counts == {SEMI_STEPS}, f"student BatchNorm counts {counts}: one update a step")
+    check(all(int(m.num_batches_tracked) == 0 and not m.running_mean.any()
+              and bool((m.running_var == 1).all()) for m in tbn),
+          "the teacher's running statistics moved")
+    check(0.0 <= score <= 1.0, f"DSC {score}")
+    ckpt = base_dir / "pallas" / "last.ckpt"
+    state = load_checkpoint(str(ckpt))
+    UNet(max_channel=256).load_state_dict(state["_model"], strict=True)
+    UNet(max_channel=256).load_state_dict(state["_teacher"]["model"], strict=True)
+    check(state["_teacher"]["step"] == SEMI_STEPS, state["_teacher"]["step"])
+    print(f"ema: alpha {alpha} at step 0, teacher = 0.5 t0 + 0.5 s1 to the bit | student "
+          f"BatchNorm counts {counts}, teacher's untouched | val DSC {score:.5f} | last.ckpt "
+          f"(student and teacher) reloads strictly | {wall:.1f} s incl. set-up and eval",
+          flush=True)
+    out["pallas"] = {"ms": ms, "launches": launches, "student": student, "teacher": teacher}
+    print(f"slice E pallas: {ms:.3f} ms/step over {SEMI_STEPS - 1} steps after 1 warm-up = "
+          f"{per_step * 1e3 / ms:.1f} slices/s ({per_step} a step)", flush=True)
+    prof = _print_profile("slice E pallas", _profiled(_pretrain_epochs(trainer),
+                                                       SEMI_PROFILED_STEPS), ms, top=15)
+    if prof is not None:
+        out["pallas"].update(kernel_ms=prof[0], busy=prof[0] / ms, stage_ms=prof[1])
+    del trainer, rec
+    torch.cuda.empty_cache()
+
+    resume = _merged(*SEMI_FILES, Arch={"small_c_layout": "pallas"},
+                     Data={"synthetic": True}, trainer_checkpoint=str(ckpt),
+                     Trainer={"save_dir": str(base_dir / "resume"), "max_epoch": 2,
+                              "num_batches": SEMI_STEPS})
+    cs.reset_launch_counts()
+    with _SemiRun() as rec:
+        run(resume, DEVICE)
+        torch.cuda.synchronize()
+    trainer = rec.trainers[0]
+    r = rec.resumed
+    check(r is not None and r["teacher_step"] == SEMI_STEPS and r["teacher_equal"]
+          and r["radam_steps"] == [SEMI_STEPS] and r["radam_equal"],
+          f"resume restored {r}")
+    check([m["epoch"] for m in trainer.step_metrics] == [2] * SEMI_STEPS,
+          f"resume ran epochs {[m['epoch'] for m in trainer.step_metrics]}")
+    check(trainer.teacher.step == 2 * SEMI_STEPS, trainer.teacher.step)
+    check(sum(cs.LAUNCHES.values()) == SEMI_STEPS * (sum(STAGE_LAUNCHES_PER_STEP.values())
+                                                    + sum(TEACHER_LAUNCHES_PER_STEP.values())),
+          f"resume launches {cs.LAUNCHES}")
+    rows = sorted(load_checkpoint(str(base_dir / "resume" / "last.ckpt"))["storage"]["history"])
+    check(rows == [1, 2], f"storage rows {rows}")
+    print(f"resume from {ckpt.name}: epoch 2 only ({SEMI_STEPS} steps), teacher step "
+          f"{r['teacher_step']} and its weights, RAdam step {r['radam_steps']} and its moments "
+          f"restored; teacher step {trainer.teacher.step} after; storage rows {rows}", flush=True)
+    del trainer, rec
+    torch.cuda.empty_cache()
+
+    # ---- the same 1 + 5 steps under nhwc
+    config = _merged(*SEMI_FILES, Data={"synthetic": True},
+                     Trainer={"save_dir": str(base_dir / "nhwc"), "max_epoch": 1,
+                              "num_batches": SEMI_STEPS})
+    cs.reset_launch_counts()
+    with _SemiRun() as rec:
+        run(config, DEVICE)
+        torch.cuda.synchronize()
+        ms_nhwc = rec.timed_ms()
+    check(sum(cs.LAUNCHES.values()) == 0, f"nhwc launched stage kernels {cs.LAUNCHES}")
+    _check_semi_metrics(rec.trainers[0], ["consistency", "mt"], "slice E nhwc")
+    out["nhwc"] = {"ms": ms_nhwc}
+    print(f"slice E nhwc: {ms_nhwc:.3f} ms/step = {per_step * 1e3 / ms_nhwc:.1f} slices/s | "
+          f"pallas / nhwc {ms / ms_nhwc:.3f}", flush=True)
+    prof = _print_profile("slice E nhwc", _profiled(_pretrain_epochs(rec.trainers[0]),
+                                                     SEMI_PROFILED_STEPS), ms_nhwc, top=15)
+    if prof is not None:
+        out["nhwc"].update(kernel_ms=prof[0], busy=prof[0] / ms_nhwc)
+    del rec
+    torch.cuda.empty_cache()
+    print("slice_e " + json.dumps(out), flush=True)
+    return out
+
+
+def preset_phase(sc):
+    """Every legacy preset name and main_mixup at base.yaml's 5 + 5 slices,
+    full width, nhwc, 2 steps each, and the semi trainer once with
+    `two_stage` and `disable_bn`."""
+    phase(f"slice E presets: the 11 legacy trainer names, main_mixup and two_stage + "
+          f"disable_bn, UNet-256, 224^2, 5 + 5 slices, nhwc, {PRESET_STEPS} steps each")
+    from spcl_torch.hooks import LEGACY_TRAINER_PRESETS
+    from spcl_torch.main import run
+    from spcl_torch.main_mixup import mixup_config
+    base_dir = ROOT / "runs" / "chip_smoke_presets"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    recorder = []
+    fwd, bwd = sc.fwd_stats_kernel, sc.bwd_dz_kernel
+
+    plain = {"supcon_fwd": sc.fwd_stats_plain, "supcon_bwd": sc.bwd_dz_plain}
+    max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
+
+    def noted(kernel, fn):
+        """The kernel's wrapper, recording (kernel, operand rows, real views:
+        label != the pad's -7) and holding each call to the plain version on
+        the same operands, at the kernels phase's tolerances."""
+        def run(zr, zc, lab_r, *rest):
+            recorder.append((kernel, zr.shape[0], int((lab_r != -7).sum())))
+            out = fn(zr, zc, lab_r, *rest)
+            ref = plain[kernel](zr, zc, lab_r, *rest)
+            if kernel == "supcon_fwd":  # (denom, c, rawloss, spsum); per row / c as rowloss, a
+                c = torch.clamp(ref[1], min=1.0)
+                err = max(float((torch.log(out[0] + 1e-16) - torch.log(ref[0] + 1e-16))
+                                .abs().max()),
+                          float((out[1] - ref[1]).abs().max()),
+                          float(((out[2] - ref[2]) / c).abs().max()),
+                          float(((out[3] - ref[3]) / c).abs().max()))
+                tol = 2e-4
+            else:
+                err = float((out - ref).abs().max())
+                tol = 2e-4 * float(ref.abs().max())
+            check(err <= tol, f"preset {kernel} at {zr.shape[0]} rows: err {err:.2e} > {tol:.2e}")
+            max_err[kernel] = max(max_err[kernel], err)
+            return out
+        return run
+
+    sc.fwd_stats_kernel, sc.bwd_dz_kernel = noted("supcon_fwd", fwd), noted("supcon_bwd", bwd)
+
+    def cuts(**trainer):
+        return dict(Data={"synthetic": True},
+                    Trainer={"max_epoch": 1, "num_batches": PRESET_STEPS, **trainer})
+
+    runs = [(name, _merged("base.yaml", **cuts(name=name)))
+            for name in sorted(LEGACY_TRAINER_PRESETS)]
+    runs.append(("main_mixup", mixup_config(_merged("base.yaml", "hooks/mixup.yaml",
+                                                    **cuts()))))
+    runs.append(("two_stage + disable_bn", _merged(
+        "base.yaml", "specific/mt.yaml", "specific/uda.yaml",
+        **cuts(name="semi", two_stage=True, disable_bn=True))))
+    launches = {"supcon_fwd": 0, "supcon_bwd": 0}
+    for name, config in runs:
+        config["Trainer"]["save_dir"] = str(base_dir / name.replace(" ", ""))
+        sc.reset_launch_counts()
+        recorder.clear()
+        t0 = time.perf_counter()
+        with _SemiRun() as rec:
+            score = run(config, DEVICE)
+            torch.cuda.synchronize()
+        trainer = rec.trainers[0]
+        hooks = [h.name for h in trainer.hooks]
+        check(len(trainer.step_metrics) == PRESET_STEPS and hooks, f"{name}: {hooks}")
+        _check_semi_metrics(trainer, hooks, name)
+        check(0.0 <= score <= 1.0, f"{name}: DSC {score}")
+        if name in ("infonce", "infoncemt"):
+            views = [(k, real) for k, _, real in recorder]
+            want = [(k, 10) for _ in range(PRESET_STEPS) for k in ("supcon_fwd", "supcon_bwd")]
+            check(sorted(views) == sorted(want), f"{name}: supcon launches {recorder}")
+            print(f"{name}: supcon launches (kernel, operand rows, real views) {recorder}",
+                  flush=True)
+            for k in launches:
+                launches[k] += sc.LAUNCHES[k]
+        else:
+            check(sum(sc.LAUNCHES.values()) == 0, f"{name}: supcon launches {sc.LAUNCHES}")
+        if name == "two_stage + disable_bn":
+            counts = {int(m.num_batches_tracked) for m in trainer.model.modules()
+                      if isinstance(m, torch.nn.BatchNorm2d)}
+            check(counts == {PRESET_STEPS}, f"two_stage + disable_bn BatchNorm counts {counts}")
+        last = trainer.step_metrics[-1]
+        print(f"{name:24s} hooks {hooks} | sup_loss {last['sup_loss']:.5f} reg_loss "
+              f"{last.get('reg_loss', 0.0):.5f} | "
+              + " ".join(f"{h}:{','.join(f'{k}={v:.3g}' for k, v in m.items())}"
+                         for h, m in last["hooks"].items())
+              + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+        del trainer, rec
+    sc.fwd_stats_kernel, sc.bwd_dz_kernel = fwd, bwd
+    print(f"presets' supcon calls agree with the plain versions on their own operands: max "
+          f"err fwd stats {max_err['supcon_fwd']:.2e} (tol 2e-4), dz "
+          f"{max_err['supcon_bwd']:.2e} (tol 2e-4 x max|dz|)", flush=True)
+    torch.cuda.empty_cache()
+    return launches, max_err
+
+
+# gradient tolerance of the semi parity step: |card - cpu| / |cpu| (L2) of
+# each parameter's gradient. The step's gradients are not smooth at float32's
+# scale (max-pool and ReLU route by comparisons): weights moved by 1e-7 of
+# themselves move the CPU's by up to 1.7e-2, and card and CPU differ by up to
+# 1.6e-2 (H100). 5e-2 is 3x that; a dropped skip cotangent (0.40) or a dW
+# off by 10% (0.10) exceeds it (scripts/measure_semi_grad_sensitivity.py).
+SEMI_GRAD_TOL = 5e-2
+
+
+def semi_parity_phase(cs):
+    """One semi step (mean teacher + consistency) of a UNet-256 under
+    `small_c_layout="pallas"` at crop 32, 4 labeled + 4 unlabeled slices: on
+    the card through the stage kernels, and on the CPU through their plain
+    versions, from the same weights, teacher and draws."""
+    phase("semi step parity under pallas: card (kernels) vs CPU (plain)")
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_LABEL
+    from spcl_torch.hooks import creator
+    from spcl_torch.models import EMATeacher, UNet
+    from spcl_torch.training import build_optimizer, build_semi_step, draw_semi_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(6)
+    policy = dataclasses.replace(ACDC_LABEL, crop=32)
+    rng = np.random.default_rng(12)
+    n = 4
+    lab_np = {"image": rng.integers(0, 255, (n, 1, 48, 48), dtype=np.uint8),
+              "label": rng.integers(0, 4, (n, 48, 48), dtype=np.uint8),
+              "valid": np.ones(n, np.float32)}
+    unl_np = {"image": rng.integers(0, 255, (n, 1, 48, 48), dtype=np.uint8),
+              "label": np.zeros((n, 48, 48), np.uint8),
+              "partition": np.arange(n, dtype=np.int32) % 3, "patient": np.zeros(n, np.int32),
+              "cycle": np.zeros(n, np.int32), "scan_idx": np.zeros(n, np.int32),
+              "valid": np.array([1, 1, 1, 0], np.float32)}
+    draws = draw_semi_params(torch.Generator().manual_seed(14),
+                             *[{k: torch.as_tensor(v) for k, v in b.items()}
+                               for b in (lab_np, unl_np)], None, policy=policy)
+    base = UNet(max_channel=256, small_c_layout="pallas")
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        params = list(model.parameters())
+        teacher = EMATeacher(model)
+        hooks = [creator.create_consistency_hook(5.0), creator.create_mt_hook(10.0)]
+        opt = build_optimizer(params, lr=1e-4, weight_decay=1e-5)
+        step = build_semi_step(model, hooks, opt, num_classes=4, policy=policy,
+                               teacher=teacher)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                   for b in (lab_np, unl_np)]
+        cs.reset_launch_counts()
+        m = step(*batches, None, {}, params=_to(draws, dev))
+        launched = sum(cs.LAUNCHES.values())
+        want = sum(STAGE_LAUNCHES_PER_STEP.values()) + sum(TEACHER_LAUNCHES_PER_STEP.values())
+        check(launched == (want if dev != "cpu" else 0), f"{dev}: {launched} stage launches")
+        stats = torch.cat([b.detach().float().cpu().flatten() for name, b in
+                           model.named_buffers() if "running" in name])
+        # the step leaves each parameter's gradient in .grad (zeroed before
+        # its backward, read, not changed, by the optimizer)
+        grads = {name: p.grad.detach().cpu().double() for name, p in model.named_parameters()}
+        results[dev] = (float(m["sup_loss"]), float(m["reg_loss"]), stats,
+                        torch.cat([p.detach().cpu().flatten() for p in params]),
+                        torch.cat([p.detach().cpu().flatten()
+                                   for p in teacher.model.parameters()]), grads)
+    (lk, rk, sk, pk, tk, gk), (lp, rp, sp_, pp, tp, gp) = results[DEVICE], results["cpu"]
+    perr, terr = float((pk - pp).abs().max()), float((tk - tp).abs().max())
+    serr = float((sk - sp_).abs().max())
+    gerr = {name: float((gk[name] - g).abs().max()) / float(g.abs().max())
+            for name, g in gp.items()}
+    gl2 = {name: float((gk[name] - g).norm() / g.norm()) for name, g in gp.items()}
+    worst = sorted(gl2, key=gl2.get)[-3:]
+    print(f"sup_loss card {lk:.7f} cpu {lp:.7f} | reg_loss card {rk:.7f} cpu {rp:.7f} | max "
+          f"|running stat diff| {serr:.2e} | max |param diff| after one RAdam step {perr:.2e} "
+          f"| max |teacher diff| {terr:.2e}", flush=True)
+    print(f"gradients over {len(gl2)} tensors, |card - cpu| / |cpu| (L2): max "
+          f"{max(gl2.values()):.2e}, median {sorted(gl2.values())[len(gl2) // 2]:.2e}, largest "
+          + ", ".join(f"{n} {gl2[n]:.2e}" for n in worst) + f" (tol {SEMI_GRAD_TOL:g}); "
+          f"max|card - cpu| / max|cpu|: max {max(gerr.values()):.2e}, median "
+          f"{sorted(gerr.values())[len(gerr) // 2]:.2e}", flush=True)
+    check(abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)), "semi sup_loss differs card vs CPU")
+    check(abs(rk - rp) <= 1e-4 * max(1.0, abs(rp)), "semi reg_loss differs card vs CPU")
+    check(serr <= 1e-5, "running statistics differ card vs CPU")
+    check(max(gl2.values()) <= SEMI_GRAD_TOL, f"gradients differ card vs CPU: {worst[-1]}")
+    check(perr <= 1e-5 and terr <= 1e-5, "updated student or teacher differs card vs CPU")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -2031,6 +2516,11 @@ def main():
     if "--bigbatch-only" in sys.argv[1:]:
         slice_d_phase(sc)
         return
+    if "--semi-only" in sys.argv[1:]:
+        slice_e_phase(cs)
+        preset_phase(sc)
+        semi_parity_phase(cs)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     launches, thr, trainer_a = slice_phase(sc)
@@ -2046,6 +2536,10 @@ def main():
     launches_c, steps_c = slice_c_phase(sc)
     torch.cuda.empty_cache()
     slice_d = slice_d_phase(sc)
+    torch.cuda.empty_cache()
+    slice_e = slice_e_phase(cs)
+    preset_launches, preset_err = preset_phase(sc)
+    semi_parity_phase(cs)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -2055,11 +2549,13 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/supcon.cu",
                 "replaces": replaces[name],
                 "launches": (launches[name] + stage_launches[name] + launches_c[name]
-                             + slice_d["launches"][name]),
+                             + slice_d["launches"][name] + preset_launches[name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
-                                     "slice_d": slice_d["launches"][name]},
-                "max_abs_err": max(max_err[name], strip_err[name]), "ms": main_t[name]["ms"],
+                                     "slice_d": slice_d["launches"][name],
+                                     "slice_e": preset_launches[name]},
+                "max_abs_err": max(max_err[name], strip_err[name], preset_err[name]),
+                "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
                 **{k: main_t[name][k] for k in ("bound_f32_ms", "bound_3xtf32_ms")},
@@ -2080,7 +2576,12 @@ def main():
         kernels.append({
             "name": f"convstage_{name}", "route": "cuda",
             "source": "spcl_torch/ops/csrc/convstage.cu", "replaces": STAGE_REPLACES[name],
-            "launches": stage_launches[f"convstage_{name}"],
+            "launches": (stage_launches[f"convstage_{name}"]
+                         + slice_e["pallas"]["launches"][f"convstage_{name}"]),
+            "launches_by_path": {"slice_b": stage_launches[f"convstage_{name}"],
+                                 "slice_e": slice_e["pallas"]["launches"][f"convstage_{name}"],
+                                 "slice_e_teacher": slice_e["pallas"]["teacher"].get(
+                                     f"convstage_{name}", 0)},
             "max_abs_err": stage[name]["max_abs_err"], "ms": shapes[at]["ms"],
             "plain_ms": shapes[at]["plain_ms"], "bound_ms": shapes[at]["bound_ms"],
             "bound_by": shapes[at]["bound_by"],
@@ -2107,7 +2608,11 @@ def main():
           f"({steps_c['single_ms']:.3f} ms/step) | slice D (2N={slice_d['views']}, grad_cache "
           f"30) {slice_d['ms']:.1f} ms/step, {slice_d['views'] * 1e3 / slice_d['ms']:.1f} "
           f"slices/s, peak {slice_d['peak_bytes'] / 2**30:.2f} GiB, store "
-          f"{slice_d['store_bytes'] / 2**20:.1f} MiB", flush=True)
+          f"{slice_d['store_bytes'] / 2**20:.1f} MiB | slice E semi step (32 + 2 x 32 "
+          f"slices) pallas {slice_e['pallas']['ms']:.3f} ms/step, "
+          f"{96e3 / slice_e['pallas']['ms']:.1f} slices/s, nhwc "
+          f"{slice_e['nhwc']['ms']:.3f} ms/step, {96e3 / slice_e['nhwc']['ms']:.1f} slices/s",
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,11 +1,12 @@
 """Entry-point plumbing: config -> model/data/trainer.
 
-The pretrain and fine-tune branches of `spcl_tpu/entry/common.py` (reference
-main.py:18-83, utils.py:7-34, semi_seg/data/creator.py): trainer dispatch by
-`Trainer.name`, hook activation by config-block presence, `pre_`/`ft_` config
-splitting for the two-phase pipeline, the encoder-pretrain trainer wired to
-the contrastive loader and the fine-tune trainer to the labeled, val and test
-loaders.
+The counterpart of `spcl_tpu/entry/common.py` (reference main.py:18-83,
+utils.py:7-34, semi_seg/data/creator.py): trainer dispatch by `Trainer.name`
+(the legacy preset names become the semi trainer with their hook blocks),
+hook activation by config-block presence, `pre_`/`ft_` config splitting for
+the two-phase pipeline, the encoder-pretrain trainer wired to the
+contrastive loader, and the fine-tune, mixup and semi trainers to the
+labeled (and unlabeled), val and test loaders.
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from ..constants import data2class_numbers, data2input_dim
 from ..data import (SliceDataset, corrupt_meta_labels, create_contrastive_loader, get_data,
                     load_packed, synthetic_dataset, synthetic_dataset_hard)
 from ..data.augment import POLICY_ZOO
-from ..hooks import create_hook_from_config, feature_until_from_hooks
+from ..hooks import LEGACY_TRAINER_PRESETS, create_hook_from_config, feature_until_from_hooks
 from ..models import UNet
 from ..models.masking import stages_from_range
+from ..parallel import mesh
 from ..training import trainer_zoo
 from ..utils.utils import get_logger
 
@@ -130,20 +132,33 @@ def refuse_unported_trainer_keys(trainer_cfg: Dict, name: str) -> None:
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
-    encoder-pretrain trainer, or the fine-tune trainer (`Trainer.name: ft`).
-    The trainer reads `Optim` (name, lr, weight_decay, momentum, nesterov, as
-    spcl_tpu's does), `Trainer.grad_cache` and `Trainer.packed_eval` from the
-    config; `Trainer.device_data` (default true) picks the data path.
-    `Trainer.mesh: N|auto` makes it one rank of an N-rank run; the calling
-    process must then be one of N ranks (see `spcl_torch.main_pretrain_encoder`
-    and `parallel.mesh.spawn_local`)."""
+    encoder-pretrain trainer, the fine-tune trainer (`Trainer.name: ft`), the
+    mixup trainer (`mixup`) or the semi trainer (`semi`, the default, and
+    every name of `LEGACY_TRAINER_PRESETS`: the preset's hook blocks under
+    the config's, explicit blocks winning). The trainer reads `Optim` (name,
+    lr, weight_decay, momentum, nesterov, as spcl_tpu's does),
+    `Trainer.grad_cache`, `Trainer.packed_eval`, `Trainer.two_stage` and
+    `Trainer.disable_bn` from the config; `Trainer.device_data` (default
+    true) picks the data path. `Trainer.mesh: N|auto` makes the pretrain or
+    fine-tune trainer one rank of an N-rank run; the calling process must
+    then be one of N ranks (see `spcl_torch.main_pretrain_encoder` and
+    `parallel.mesh.spawn_local`)."""
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
+    if name in LEGACY_TRAINER_PRESETS:
+        # legacy trainer zoo (reference semi_seg/trainers/__init__.py:5-23)
+        config = dictionary_merge_by_hierachy(LEGACY_TRAINER_PRESETS[name], config)
+        name = "semi"
     if name not in trainer_zoo:
         raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (ported: {sorted(trainer_zoo)})")
+            f"trainer {name!r} is not ported yet (ported: {sorted(trainer_zoo)}; "
+            "the adversarial trainer is ROADMAP A10)")
     refuse_unported_trainer_keys(trainer_cfg, name)
+    if name in ("semi", "mixup") and mesh.requested_ranks(trainer_cfg.get("mesh", 0),
+                                                          device) > 1:
+        raise NotImplementedError(f"Trainer.mesh with the {name} trainer is not ported yet "
+                                  "(ROADMAP A12 rest)")
     data_name = data_cfg.get("name", "acdc")
     default_crop = POLICY_ZOO.get(data_name, {"val": None})["val"]
     crop = int(data_cfg.get("crop", default_crop.crop if default_crop else 224))
@@ -174,13 +189,21 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
         logger.info("pretrain trainer %s: forward_until=%s", name, until)
         return trainer
 
-    # fine-tuning activates no hooks (reference FineTuneTrainer.activate_hooks)
-    lab, _, val_loader, test_loader = get_data(
+    lab, unlab, val_loader, test_loader = get_data(
         tra_set=tra_set, test_set=test_set,
         labeled_scan_num=int(data_cfg.get("labeled_scan_num", 1)),
         labeled_batch_size=int((config.get("LabeledLoader") or {}).get("batch_size", 5)),
         unlabeled_batch_size=int((config.get("UnlabeledLoader") or {}).get("batch_size", 5)),
         pretrain=pretrain, seed=1,
         load_predefined_list=not bool(data_cfg.get("synthetic", False)))
-    return trainer_zoo[name](labeled_loader=lab, val_loader=val_loader,
-                             test_loader=test_loader, **kwargs)
+    trainer_cls = trainer_zoo[name]
+    if name == "semi":
+        kwargs.update(unlabeled_loader=unlab,
+                      two_stage=bool(trainer_cfg.get("two_stage", False)),
+                      disable_bn=bool(trainer_cfg.get("disable_bn", False)))
+    trainer = trainer_cls(labeled_loader=lab, val_loader=val_loader, test_loader=test_loader,
+                          **kwargs)
+    # fine-tuning activates no hooks (reference FineTuneTrainer.activate_hooks)
+    if trainer.activate_hooks:
+        trainer.register_hooks(*create_hook_from_config(config, max_epoch=max_epoch))
+    return trainer

@@ -13,7 +13,8 @@ max_channel 256); on the card another packable width raises, on the CPU the
 plain versions take any. After the stage it updates the BatchNorm running statistics
 as the JAX `pallas` path does (`_BNVars`, :253-256): with the **biased**
 batch variance, where `nn.BatchNorm2d` on the plain path uses the unbiased
-one.
+one; not while the BatchNorm's statistics are frozen
+(`models/norm.py::frozen_statistics`, spcl_tpu's `update_stats=False`).
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ def _hwio(conv: nn.Conv2d) -> torch.Tensor:
 
 @torch.no_grad()
 def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    if getattr(bn, "frozen_statistics", False):
+        return
     m = bn.momentum
     bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
     bn.running_var.mul_(1.0 - m).add_(var, alpha=m)  # biased, as in spcl_tpu

@@ -8,12 +8,32 @@ parameters are optimized together with the model's), exposes
 and keeps per-epoch host state (the self-paced gamma) that enters the step
 as plain floats through `epoch_scalars()`.
 
-The pretrain step provides a `ctx` dict with:
-  acts        {stage: activation} of the step's model forward (NCHW); the
-              last 2*n_unl rows are [view 1, view 2]
-  n_unl       int — batch size N (slices per view)
+A hook that draws random numbers inside the step (mixup's lambda and
+permutation, UC-MT's noise) does so in `sample(generator, ctx)`; the step
+calls it once per step, or takes the draws the caller injected, and hands
+them to `loss_fn` as `ctx["draws"][hook.name]`.
+
+The steps provide a `ctx` dict with (the keys of spcl_tpu/hooks/base.py:
+21-35; all tensors NCHW, the class axis second):
+  acts        {stage: activation} of the step's model forward; the last
+              2*n_unl rows are [view 1, view 2] (pretrain) or [unlabeled,
+              unlabeled_tf] (semi)
+  n_unl       int — unlabeled batch size N (slices per view)
   flip        replayable flip params of this step (data/augment.py)
   partition / patient / cycle / scan_idx / valid   [N] meta labels
+  draws       {hook name: what its `sample` drew}
+semi and mixup steps also:
+  unlabeled_tf_logits, unlabeled_logits_tf    [N, C, h, w]: the student on
+              the transformed batch, and its prediction on the plain batch
+              flipped into the transformed frame
+  unlabeled_image, unlabeled_image_tf
+  apply_student      fn(images) -> logits, the student in train mode with its
+                     BatchNorm statistics frozen (gradients flow)
+  teacher_logits_tf  the EMA teacher on the plain batch, flipped (if any
+                     hook needs_teacher), and apply_teacher(images) -> logits
+  labeled_image, labeled_onehot (+ labeled_image_tf, labeled_onehot_tf
+                     with a mixup hook)
+  num_classes        int
 """
 from __future__ import annotations
 
@@ -48,6 +68,7 @@ def label_from_contrast_on(ctx: Dict, contrast_on: str) -> torch.Tensor:
 class TrainerHook:
     """Base. Subclasses override build/loss_fn and the declarations."""
 
+    needs_teacher: bool = False  # the step keeps an EMA teacher for this hook
     feature_name: Optional[str] = None  # deepest UNet stage this hook taps
 
     def __init__(self, name: str, weight: float = 1.0):
@@ -71,6 +92,10 @@ class TrainerHook:
         pass
 
     # -- per-step -------------------------------------------------------------
+    def sample(self, generator: Optional[torch.Generator], ctx: Dict) -> Optional[Dict]:
+        """This step's random draws (None: the hook draws nothing)."""
+        return None
+
     def loss_fn(self, ctx: Dict, scalars: Dict[str, float]) -> Tuple[torch.Tensor, Dict]:
         raise NotImplementedError
 

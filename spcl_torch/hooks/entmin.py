@@ -1,0 +1,24 @@
+"""Entropy-minimisation hook.
+
+The counterpart of `spcl_tpu/hooks/entmin.py` (reference
+semi_seg/hooks/entmin.py:8-34): the mean Shannon entropy of
+softmax(unlabeled_logits_tf) over the pixels of valid slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import TrainerHook
+
+
+class EntropyMinTrainerHook(TrainerHook):
+    def __init__(self, name: str = "entmin", weight: float = 1.0):
+        super().__init__(name, weight)
+
+    def loss_fn(self, ctx, scalars):
+        probs = torch.softmax(ctx["unlabeled_logits_tf"], dim=1)
+        ent = -(probs * torch.log(probs + 1e-16)).sum(dim=1)  # [N, h, w]
+        mask = ctx["valid"][:, None, None]
+        loss = (ent * mask).sum() / torch.clamp(mask.sum() * ent.shape[1] * ent.shape[2],
+                                                min=1.0)
+        return loss * self.weight, {"loss": loss.detach()}

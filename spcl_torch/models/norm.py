@@ -20,12 +20,21 @@ NCCL on the card. Parameters, buffers and state_dict keys are those of
 block: the gradient-cache step (`training/gradcache.py`) normalises each
 chunk with the rank's own statistics, as spcl_tpu's does (its UNet runs
 without an `axis_name` inside the step's `shard_map`).
+
+`frozen_statistics(model)` keeps the running statistics where they are for
+a block: a train-mode forward still normalises with the batch statistics but
+updates no running mean, variance or count. It is spcl_tpu's `train=True,
+update_stats=False` (training/steps.py:63-69), which the semi step uses for
+its auxiliary forwards (the mixup forward, the `two_stage` + `disable_bn`
+second pass); `freeze_statistics(model)` sets it for good (the EMA teacher).
+The fused stages (`experimental/packed_stage.py`) read the same flag.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
@@ -36,39 +45,53 @@ BN_EPS = 1e-5  # TorchBatchNorm.epsilon
 class CrossRankBatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train-mode batch statistics span the ranks of
     the process group; without a group, in eval mode, and while
-    `rank_local` is set, it is its parent."""
+    `rank_local` is set, it is its parent. While `frozen_statistics` is set
+    a train-mode forward updates no running statistic."""
 
     rank_local = False
+    frozen_statistics = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and mesh.active()) or self.rank_local:
+        if not self.training:
+            return super().forward(x)
+        if not mesh.active() or self.rank_local:
+            if self.frozen_statistics:
+                return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             return super().forward(x)
         world = mesh.world_size()
         xf = x.float()
         local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
         mean, mean2 = mesh.all_reduce_sum(local) / world
         var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if not self.frozen_statistics:
+            self._update_running(x, world, mean, var)
+        w = self.weight * torch.rsqrt(var + self.eps)
+        shape = (1, -1, 1, 1)
+        return ((x - mean.to(x.dtype).reshape(shape)) * w.to(x.dtype).reshape(shape)
+                + self.bias.to(x.dtype).reshape(shape))
+
+    def _update_running(self, x, world, mean, var) -> None:
         with torch.no_grad():
             n = world * x.numel() // x.shape[1]
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
             self.num_batches_tracked += 1
-        w = self.weight * torch.rsqrt(var + self.eps)
-        shape = (1, -1, 1, 1)
-        return ((x - mean.to(x.dtype).reshape(shape)) * w.to(x.dtype).reshape(shape)
-                + self.bias.to(x.dtype).reshape(shape))
 
 
 def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:
     return CrossRankBatchNorm2d(channels, eps=BN_EPS, momentum=momentum)
 
 
+def _norms(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, CrossRankBatchNorm2d)]
+
+
 @contextlib.contextmanager
 def rank_local_statistics(model: nn.Module):
     """Within the block every `CrossRankBatchNorm2d` of `model` computes its
     train-mode statistics over this rank's rows only."""
-    norms = [m for m in model.modules() if isinstance(m, CrossRankBatchNorm2d)]
+    norms = _norms(model)
     for m in norms:
         m.rank_local = True
     try:
@@ -76,3 +99,24 @@ def rank_local_statistics(model: nn.Module):
     finally:
         for m in norms:
             m.rank_local = False
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module):
+    """Within the block no train-mode forward of `model` moves a running
+    statistic; the previous setting comes back after it."""
+    norms = _norms(model)
+    before = [m.frozen_statistics for m in norms]
+    for m in norms:
+        m.frozen_statistics = True
+    try:
+        yield
+    finally:
+        for m, b in zip(norms, before):
+            m.frozen_statistics = b
+
+
+def freeze_statistics(model: nn.Module) -> None:
+    """No train-mode forward of `model` moves a running statistic again."""
+    for m in _norms(model):
+        m.frozen_statistics = True

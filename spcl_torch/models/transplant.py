@@ -9,11 +9,16 @@ never imports `spcl_tpu`). Pure numpy in, numpy out; load the result with
     flax Up{k}/conv, bn                  -> _Up{k}.up.1, .up.2
     flax Deconv_1x1 kernel, bias         -> _Deconv_1x1.weight, .bias
     flax head fc0/fc1 kernel, bias       -> fc0/fc1 .weight, .bias
+    flax ClusterHead sub{s}_fc0/1        -> sub{s}_fc0/1 .weight, .bias
+    flax DenseClusterHead sub{s}_conv0/1 -> sub{s}_conv0/1 .weight, .bias
+    flax MINE net conv0, gn0, conv1, gn1, fc -> the same names
 
 Tensor transforms: conv kernels HWIO -> OIHW; Dense kernels [in, out] ->
 Linear weights [out, in]; BN scale/bias/mean/var -> weight/bias/
 running_mean/running_var, with num_batches_tracked = 0 (torch reads it only
-when momentum=None).
+when momentum=None); GroupNorm scale/bias -> weight/bias. The EMA teacher
+(`TrainState.teacher_params`, parameters only) goes through
+`unet_state_dict_from_flax` with the student's batch_stats.
 """
 from __future__ import annotations
 
@@ -79,11 +84,16 @@ def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
 
 
 def head_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
-    """flax ProjectionHead variables (`{"params": {...}}` or the bare params)
-    -> this package's ProjectionHead state_dict."""
+    """The variables of a flat flax module (`{"params": {...}}` or the bare
+    params) -> the state_dict of its counterpart here: ProjectionHead,
+    ClusterHead, DenseClusterHead, the MINE statistics net."""
     params = variables.get("params", variables)
     sd: Dict[str, np.ndarray] = {}
     for name, layer in params.items():
-        sd[f"{name}.weight"] = _f32(np.asarray(layer["kernel"]).T)
+        if "kernel" in layer:
+            kernel = np.asarray(layer["kernel"])
+            sd[f"{name}.weight"] = _hwio_to_oihw(kernel) if kernel.ndim == 4 else _f32(kernel.T)
+        else:  # a norm layer
+            sd[f"{name}.weight"] = _f32(layer["scale"])
         sd[f"{name}.bias"] = _f32(layer["bias"])
     return sd

@@ -33,12 +33,15 @@
 //            warp w owns tile rows 2w, 2w+1 and every output channel.
 //   backward (conv_bwd_kernel), two products on one staged pair of tiles:
 //     d_in   implicit GEMM, M = pixels, N = Ci, K = 9*Co, with the weights
-//            transposed; warp w owns rows 2w, 2w+1;
+//            transposed; warp w owns rows 2w, 2w+1; each (v, k chunk)
+//            accumulates its three u afresh and is added on the CUDA cores
+//            (add_rn);
 //     dW     nine GEMMs, M = Ci, N = Co, K = the tile's pixels, using
 //            dW[u,v] = sum_p a[p] (x) g[p-(u-1,v-1)] so that only the gradient
 //            tile needs a halo; warp w owns one (16 ci x 8 co) block of all nine
 //            taps over a share of the tile's rows, accumulated in registers
-//            across all tiles of the block (36 floats a thread).
+//            per tile and added to the block's sum after each tile (2 x 36
+//            floats a thread).
 // What bounds these passes on the card is the instruction stream around the
 // MMAs (fragment loads from shared memory and operand splits), so the design
 // cuts it: the weights are staged once per block in fragment order, split
@@ -178,6 +181,24 @@ __device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const FragA* a, cons
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].hi);
+}
+
+// d[i][j] += p[i][j] on the CUDA cores (round to nearest). The tensor cores
+// do not round their float32 accumulation to nearest: an error of each MMA
+// follows the accumulator it adds into, and over a long chain that is the
+// running partial sum, not the products. Where the outputs' sum over pixels
+// cancels (d_in of a BatchNorm-projected gradient, whose sums feed the BN
+// backward), a chain's error does not cancel with it; short chains into
+// fresh accumulators, added here, keep each MMA's error near its own
+// products (scripts/measure_stage_accuracy.py holds both passes to float64).
+template <int MI, int NJ>
+__device__ __forceinline__ void add_rn(float (&d)[MI][NJ][4], const float (&p)[MI][NJ][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[i][j][k] = __fadd_rn(d[i][j][k], p[i][j][k]);
 }
 
 // ------------------------------------------------------------------ channel sums
@@ -501,7 +522,12 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
     if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
   };
 
-  float dw[3][1][3][4];  // tap (u, v) at dw[u][0][v]: one mma3 block per kernel row
+  // tap (u, v) at dw[u][0][v]: one mma3 block per kernel row. The MMAs of one
+  // tile accumulate into dwt, which is then added to the block's running sum
+  // dw on the CUDA cores: one tensor-core chain through every tile of the
+  // block (hundreds at B=96) lost accuracy in proportion to the batch
+  // (scripts/measure_stage_accuracy.py).
+  float dw[3][1][3][4], dwt[3][1][3][4];
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
@@ -549,6 +575,10 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
     // y uses halo rows y..y+2, so the split B fragments of one halo row (its
     // three v shifts) stay in a window of three rows and serve three tile rows.
     const int y0g = kg * RPG;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dwt[tap / 3][0][tap % 3][k] = 0.f;
 #pragma unroll 1
     for (int kh = 0; kh < 2; ++kh) {
       FragB win[3][3];  // halo row h at win[(h - y0g) % 3], shift v
@@ -572,9 +602,13 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
         }
         const FragA af = frag_a(av[0], av[1], av[2], av[3]);
 #pragma unroll
-        for (int u = 0; u < 3; ++u) mma3<1, 3>(dw[u], &af, win[(yy + 2 - u) % 3]);
+        for (int u = 0; u < 3; ++u) mma3<1, 3>(dwt[u], &af, win[(yy + 2 - u) % 3]);
       }
     }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dw[tap / 3][0][tap % 3][k] += dwt[tap / 3][0][tap % 3][k];
 
     // ---- d_in: pixel (row 2*warp+mi, column g / g+8), every input channel
     float acc[2][NFI][4];
@@ -596,6 +630,7 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
           const float* p = s_g + ((2 * warp + r) * HALO_W + g + 2 - v) * SG + kc * 8 + t;
           ar[r] = frag_a(p[0], p[8 * SG], p[4], p[8 * SG + 4]);
         }
+        float part[2][NFI][4] = {};  // one chain over the three u, then added
 #pragma unroll
         for (int u = 0; u < 3; ++u) {
           FragB bf[NFI];
@@ -604,8 +639,9 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
             const float2 bw = s_wf[(((3 * u + v) * KCI + kc) * NFI + nf) * 32 + lane];
             bf[nf] = frag_b(bw.x, bw.y);
           }
-          mma3<2, NFI>(acc, ar + 2 - u, bf);
+          mma3<2, NFI>(part, ar + 2 - u, bf);
         }
+        add_rn<2, NFI>(acc, part);
       }
     }
 

@@ -26,7 +26,8 @@
 // its low 13 mantissa bits cleared (a TF32 value) and lo = x - hi (exact),
 // and each product is accumulated in float32 by mma.sync.m16n8k8 TF32 as
 // lo*hi + hi*lo + hi*hi (the MMA reads the top 11 significant bits of lo;
-// the dropped terms leave about 1e-6 relative). The bound is therefore the
+// the dropped terms leave about 1e-6 relative), in short chains whose sums
+// are added on the CUDA cores (add_rn below). The bound is therefore the
 // larger of the bytes (z read once, the vectors, the outputs written once)
 // over 3.35 TB/s and 3 x the product's FLOPs over 495 TFLOP/s TF32: at
 // 2N = 3840, D = 256, 0.046 ms forward and 0.092 ms backward; at the paper's
@@ -137,15 +138,17 @@ static_assert(4 * FWD_FLOATS <= SMEM_OPTIN && 4 * BWD_FLOATS <= SMEM_OPTIN, "sha
 static_assert(KEEP_MAX >= 1 && BM * DP <= BM * SD, "layout");
 
 // ------------------------------------------------------------------ 3xTF32
-// x = hi + lo: hi = x with its low 13 mantissa bits cleared (a TF32 value),
-// lo = x - hi, exact in float32; the MMA reads the top 11 significant bits
-// of lo. (The same split as convstage.cu.)
+// x = hi + lo: hi = x rounded to the nearest TF32 value (ties away from zero:
+// add half of the 13 low mantissa bits' unit, then clear them), lo = x - hi,
+// exact in float32; the MMA reads the top 11 significant bits of lo. Rounding
+// hi to nearest gives lo either sign, so the truncation of lo and the
+// dropped lo*lo term do not all lean one way. (convstage.cu clears the bits.)
 struct Split {
   uint32_t hi, lo;
 };
 
 __device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   return {hi, __float_as_uint(__fsub_rn(x, __uint_as_float(hi)))};
 }
 
@@ -195,6 +198,24 @@ __device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const FragA* a, cons
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].hi);
+}
+
+// d[i][j] += p[i][j] on the CUDA cores (round to nearest). The tensor cores
+// do not round their float32 accumulation to nearest but toward zero: over a
+// chain of MMAs the error follows the running partial sum, and where every
+// product has one sign (the dot products of features that all point one way,
+// as an untrained network's do) it adds up, 50-70x plain float32's in denom
+// and dz (scripts/measure_supcon_accuracy.py). So the products run in short
+// chains into fresh accumulators, added here: s one k-step at a time, dz one
+// column tile at a time.
+template <int MI, int NJ>
+__device__ __forceinline__ void add_rn(float (&d)[MI][NJ][4], const float (&p)[MI][NJ][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[i][j][k] = __fadd_rn(d[i][j][k], p[i][j][k]);
 }
 
 // ------------------------------------------------------------------ staging
@@ -420,7 +441,9 @@ __device__ __forceinline__ void s_partial(const float (&a)[2][KSW][4], const flo
         const float(&x)[4] = a[mi][2 * p + h];
         fa[mi] = frag_a(x[0], x[1], x[2], x[3]);
       }
-      mma3<2, 4>(acc, fa, fb);
+      float step[2][4][4] = {};  // one k-step afresh
+      mma3<2, 4>(step, fa, fb);
+      add_rn<2, 4>(acc, step);
     }
   }
   const int row = (w >> 1) * BM + 32 * (w & 1) + g;
@@ -477,6 +500,7 @@ __device__ __forceinline__ void vec8(const float* v, float (&out)[8]) {
 __device__ __forceinline__ void gz_tile(const float* gt, const float* ct,
                                         float (&acc)[4][NJ_DZ][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, w = threadIdx.x >> 5;
+  float part[4][NJ_DZ][4] = {};  // this tile afresh, added to acc at its end
 #pragma unroll
   for (int kk = 0; kk < BN / 8; ++kk) {
     FragA a[4];
@@ -491,8 +515,9 @@ __device__ __forceinline__ void gz_tile(const float* gt, const float* ct,
       const int col = 8 * (w + NWARP * nj) + g;
       b[nj] = frag_b(ct[z_at(8 * kk + t, col)], ct[z_at(8 * kk + t + 4, col)]);
     }
-    mma3<4, NJ_DZ>(acc, a, b);
+    mma3<4, NJ_DZ>(part, a, b);
   }
+  add_rn<4, NJ_DZ>(acc, part);
 }
 
 // ------------------------------------------------------------------ elementwise

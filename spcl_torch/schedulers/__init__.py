@@ -1,4 +1,4 @@
-from .gamma import PScheduler
+from .gamma import PScheduler, RampScheduler
 from .lr import warmup_cosine_epoch_schedule
 
-__all__ = ["PScheduler", "warmup_cosine_epoch_schedule"]
+__all__ = ["PScheduler", "RampScheduler", "warmup_cosine_epoch_schedule"]

@@ -1,9 +1,10 @@
-"""The self-paced age-parameter schedule (host-side, per-epoch).
+"""Per-epoch schedules (host-side), copies of `spcl_tpu/schedulers/gamma.py`'s:
 
-`PScheduler`: gamma(t) = begin + (end-begin) * (t/T)^p (reference
-semi_seg/hooks/infonce.py:34-53), a copy of `spcl_tpu/schedulers/gamma.py`'s.
-Its value enters the step as a plain float. The deepclustering2 family
-(Ramp/Linear/Exp/InverseExp) waits for the semi-supervised slice.
+- `PScheduler`: gamma(t) = begin + (end-begin) * (t/T)^p, the self-paced age
+  schedule (reference semi_seg/hooks/infonce.py:34-53);
+- `RampScheduler`: the deepclustering2 sigmoid-style ramp, UC-MT's threshold.
+
+Their values enter the step as plain floats.
 """
 from __future__ import annotations
 
@@ -47,3 +48,26 @@ class PScheduler(_EpochScheduler):
         # otherwise poison gamma for the whole run
         frac = np.power(min(max(epoch, 0), self.max_epoch) / self.max_epoch, self.p)
         return self.begin_value + (self.end_value - self.begin_value) * float(frac)
+
+
+class RampScheduler(_EpochScheduler):
+    """Ramp between the begin and max epochs, flat after them."""
+
+    def __init__(self, begin_epoch: int, max_epoch: int, min_value: float, max_value: float,
+                 ramp_mult: float = -5.0):
+        super().__init__()
+        self.begin_epoch = int(begin_epoch)
+        self.max_epoch = int(max_epoch)
+        self.min_value = float(min_value)
+        self.max_value = float(max_value)
+        self.ramp_mult = float(ramp_mult)
+
+    def get_value(self, epoch: int) -> float:
+        if epoch < self.begin_epoch:
+            return self.min_value
+        if epoch >= self.max_epoch:
+            return self.max_value
+        frac = (epoch - self.begin_epoch) / max(self.max_epoch - self.begin_epoch, 1)
+        # sigmoid-style ramp (deepclustering2 convention)
+        return self.min_value + (self.max_value - self.min_value) * float(
+            np.exp(self.ramp_mult * (1.0 - frac) ** 2))

@@ -1,4 +1,4 @@
-"""The steps of the main path: contrastive pretrain, fine-tune, eval.
+"""The training and eval steps: contrastive pretrain, fine-tune, semi, eval.
 
 The semantics of `spcl_tpu/training/steps.py`:
 
@@ -7,10 +7,19 @@ The semantics of `spcl_tpu/training/steps.py`:
   additionally flipped with replayable params, one partial forward of both
   views to `until` (train-mode BN), loss = sum of the hooks' losses, one
   optimizer step;
-- `build_finetune_step` (reference FineTuneEpocher, new_epocher.py:241-289),
-  without hooks: one augmented labeled view, whole UNet in train mode,
-  pixel-mean cross-entropy over valid slices, one optimizer step, per-slice
-  Dice statistics of the prediction;
+- `build_finetune_step` (reference FineTuneEpocher, new_epocher.py:241-289):
+  one augmented labeled view, whole UNet in train mode, pixel-mean
+  cross-entropy over valid slices, one optimizer step, per-slice Dice
+  statistics of the prediction; with hooks (the MixUp trainer, reference
+  MixUpEpocher, new_comparable.py:18-86) two labeled views and the hooks'
+  losses added;
+- `build_semi_step` (reference SemiSupervisedEpocher._run_semi,
+  new_epocher.py:145-238; spcl_tpu steps.py:233-368): the cross-entropy of
+  the labeled view plus the hooks' regularisers on the unlabeled pair, one
+  forward of [labeled, unlabeled, unlabeled_tf] (or, with `two_stage`, the
+  labeled batch first and the unlabeled pair second, its BatchNorm
+  statistics frozen with `disable_bn`), one backward, one optimizer step,
+  then the EMA teacher's update when a hook needs the teacher;
 - `build_eval_step` (reference EvalEpocher, new_epocher.py:56-97): val
   transform, eval-mode forward, masked cross-entropy and Dice statistics.
 
@@ -23,10 +32,19 @@ batch is gathered from the store there (spcl_tpu steps.py:45-52
 Randomness comes from the step's `torch.Generator`. A caller may instead
 inject the drawn values — `params={"aug": <sample_twice dict>, "flip":
 <flip_params dict>}` for the pretrain step, `params={"aug": <sample_once
-dict>}` for the fine-tune step — so a test can replay the JAX step's draws
+dict>}` for the fine-tune step (<sample_twice dict> with hooks), and
+`params={"lab": ..., "unl": ..., "flip": ...}` (`draw_semi_params`) for the
+semi step, each optionally with `"hooks": {name: draws}` for the hooks that
+draw (`TrainerHook.sample`) — so a test can replay the JAX step's draws
 exactly.
 
-In a multi-rank run (`parallel/mesh.py`) the steps keep global-batch
+Auxiliary forwards (the EMA teacher, the mixup forward, UC-MT's noisy
+teacher passes, the `disable_bn` second pass) run in train mode with the
+BatchNorm statistics frozen (`models/norm.py::frozen_statistics`), as
+spcl_tpu's `update_stats=False` does; on the fused stages too.
+
+In a multi-rank run (`parallel/mesh.py`) the pretrain, fine-tune (without
+hooks) and eval steps keep global-batch
 semantics, as `spcl_tpu/training/steps.py:12` states them: every rank is
 handed the same GLOBAL batch (or index vector) and makes (or is handed) the
 same global draws, computes on its own rows of both (`shard_rows`; an index
@@ -40,6 +58,7 @@ process all of this is the identity.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -51,8 +70,11 @@ from ..data.augment import (AugmentPolicy, apply_flip, apply_geometric, augment_
                             sample_once, sample_twice)
 from ..data.device_store import DeviceStore
 from ..hooks.base import TrainerHook
+from ..hooks.mixup import MixUpHook
 from ..losses.functional import class2one_hot
 from ..meters.dice import dice_stats_from_labels
+from ..models.ema import EMATeacher
+from ..models.norm import frozen_statistics
 from ..models.unet import UNet
 from ..parallel import mesh
 
@@ -135,13 +157,8 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         acts = model(torch.cat([v1, v2], dim=0), until=until)
         ctx = {"acts": acts, "n_unl": n, "flip": fp}
         ctx.update({k: batch[k] for k in _META_KEYS})
-        total = torch.zeros((), dtype=torch.float32, device=image.device)
-        hook_metrics = {}
-        for h in hooks:
-            loss, m = h.loss_fn(ctx, hook_scalars.get(h.name, {}))
-            total = total + loss
-            hook_metrics[h.name] = {k: v.detach() if torch.is_tensor(v) else v
-                                    for k, v in m.items()}
+        total, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
+                                           image.device)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         _reduce_gradients(optimizer)
@@ -215,31 +232,188 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
     return eval_step
 
 
-def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_classes: int,
-                        policy: AugmentPolicy, store: Optional[DeviceStore] = None) -> Callable:
-    """Returns step(batch, generator, params=None) -> {"sup_loss", "inter",
-    "union"} (detached device tensors): the labeled-only step."""
+def _hook_losses(hooks: Sequence[TrainerHook], ctx: Dict, generator, params: Dict,
+                 hook_scalars: Dict, device):
+    """(sum of the hooks' weighted losses, {name: detached metrics}). Each
+    hook's draws are the injected `params["hooks"][name]` or its own
+    `sample` from `generator`, made in hook order before any loss."""
+    injected = params.get("hooks") or {}
+    ctx["draws"] = {h.name: injected[h.name] if h.name in injected
+                    else h.sample(generator, ctx) for h in hooks}
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    metrics = {}
+    for h in hooks:
+        loss, m = h.loss_fn(ctx, hook_scalars.get(h.name, {}))
+        total = total + loss
+        metrics[h.name] = {k: v.detach() if torch.is_tensor(v) else v for k, v in m.items()}
+    return total, metrics
 
-    def step(batch, generator: Optional[torch.Generator], params: Optional[Dict] = None):
+
+def _student_fn(model: UNet) -> Callable:
+    """apply_student: the student's logits in train mode with its BatchNorm
+    statistics frozen; gradients flow."""
+    def apply_student(images: torch.Tensor) -> torch.Tensor:
+        with frozen_statistics(model):
+            return model(images)["logits"]
+    return apply_student
+
+
+def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_classes: int,
+                        policy: AugmentPolicy, store: Optional[DeviceStore] = None,
+                        hooks: Sequence[TrainerHook] = ()) -> Callable:
+    """Returns step(batch, generator, params=None, hook_scalars=None) ->
+    {"sup_loss", "inter", "union"} (detached device tensors; "hooks" too
+    with hooks): the labeled-only step. With hooks (single process only) it
+    makes two labeled views (spcl_tpu steps.py:163-200) and adds the hooks'
+    losses."""
+    hooks = tuple(hooks)
+
+    def step(batch, generator: Optional[torch.Generator], params: Optional[Dict] = None,
+             hook_scalars: Optional[Dict] = None):
         n_global = _rows(batch)
         if params is None:
             _, in_size, sizes, device = _global_view(store, batch)
-            params = {"aug": sample_once(generator, n_global, policy, in_size, sizes=sizes,
-                                         device=device)}
+            draw = (sample_twice(generator, n_global, policy, in_size, total_freedom=True,
+                                 sizes=sizes, device=device) if hooks else
+                    sample_once(generator, n_global, policy, in_size, sizes=sizes,
+                                device=device))
+            params = {"aug": draw}
+        if hooks and mesh.active():
+            raise NotImplementedError("a fine-tune step with hooks runs in one process")
         batch, params = mesh.shard_rows((batch, params), n_global)
         batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
-        img, lab = augment_once(image, batch["label"].long(), policy, params["aug"])
+        label = batch["label"].long()
+        if hooks:
+            (img, lab), (img2, lab2) = augment_twice(image, label, policy, params["aug"])
+        else:
+            img, lab = augment_once(image, label, policy, params["aug"])
         model.train()
-        logits = model(img)["logits"]
-        sup = _masked_ce(logits, class2one_hot(lab, num_classes), batch["valid"])
+        acts = model(img)
+        logits = acts["logits"]
+        onehot = class2one_hot(lab, num_classes)
+        sup = _masked_ce(logits, onehot, batch["valid"])
+        total = sup
+        if hooks:
+            ctx = {"acts": acts, "num_classes": num_classes, "valid": batch["valid"],
+                   "apply_student": _student_fn(model), "labeled_image": img,
+                   "labeled_onehot": onehot, "labeled_image_tf": img2,
+                   "labeled_onehot_tf": class2one_hot(lab2, num_classes)}
+            reg, hook_metrics = _hook_losses(hooks, ctx, generator, params,
+                                             hook_scalars or {}, image.device)
+            total = sup + reg
         optimizer.zero_grad(set_to_none=True)
-        sup.backward()
+        total.backward()
         _reduce_gradients(optimizer)
         optimizer.step()
         inter, union = dice_stats_from_labels(logits.detach().argmax(dim=1), lab,
                                               num_classes, batch["valid"])
         sup, inter, union = _global_outputs(sup, inter, union)
-        return {"sup_loss": sup, "inter": inter, "union": union}
+        out = {"sup_loss": sup, "inter": inter, "union": union}
+        if hooks:
+            out["hooks"] = hook_metrics
+        return out
+
+    return step
+
+
+def draw_semi_params(generator: torch.Generator, batch_l, batch_u,
+                     store: Optional[DeviceStore], *, policy: AugmentPolicy,
+                     two_labeled_views: bool = False, flip_threshold: float = 0.8) -> Dict:
+    """The semi step's draws (spcl_tpu steps.py:246-261): {"lab": one view's
+    draws of the labeled batch (two views' with a mixup hook), "unl": two
+    views of the unlabeled batch sharing one geometry, "flip": the flips of
+    the unlabeled pair}."""
+    n_l, in_l, sizes_l, device = _global_view(store, batch_l)
+    n_u, in_u, sizes_u, _ = _global_view(store, batch_u)
+    lab = (sample_twice(generator, n_l, policy, in_l, total_freedom=True, sizes=sizes_l,
+                        device=device) if two_labeled_views else
+           sample_once(generator, n_l, policy, in_l, sizes=sizes_l, device=device))
+    return {"lab": lab,
+            "unl": sample_twice(generator, n_u, policy, in_u, total_freedom=False,
+                                sizes=sizes_u, device=device),
+            "flip": flip_params(generator, n_u, threshold=flip_threshold, device=device)}
+
+
+def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
+                    optimizer: torch.optim.Optimizer, *, num_classes: int,
+                    policy: AugmentPolicy, flip_threshold: float = 0.8,
+                    two_stage: bool = False, disable_bn: bool = False,
+                    teacher: Optional[EMATeacher] = None,
+                    store: Optional[DeviceStore] = None) -> Callable:
+    """Returns step(batch_l, batch_u, generator, hook_scalars, params=None)
+    -> {"sup_loss", "reg_loss", "inter", "union", "hooks"} (detached device
+    tensors). `teacher` (required when a hook needs_teacher) predicts the
+    plain unlabeled batch before the update and takes its EMA step after
+    the optimizer's. One process only: the semi trainer refuses a mesh."""
+    hooks = tuple(hooks)
+    needs_teacher = any(h.needs_teacher for h in hooks)
+    needs_mixup = any(isinstance(h, MixUpHook) for h in hooks)
+    if needs_teacher and teacher is None:
+        raise ValueError("a hook needs the EMA teacher: pass teacher=EMATeacher(model)")
+    apply_student = _student_fn(model)
+
+    def step(batch_l, batch_u, generator: Optional[torch.Generator],
+             hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
+        if mesh.active():
+            raise NotImplementedError("the semi step runs in one process")
+        if params is None:
+            params = draw_semi_params(generator, batch_l, batch_u, store, policy=policy,
+                                      two_labeled_views=needs_mixup,
+                                      flip_threshold=flip_threshold)
+        batch_l = _resolve_batch(store, batch_l)
+        batch_u = _resolve_batch(store, batch_u)
+        image_l = _as_float_image(batch_l["image"])
+        label_l = batch_l["label"].long()
+        if needs_mixup:
+            (img_l, lab_l), (img_l2, lab_l2) = augment_twice(image_l, label_l, policy,
+                                                             params["lab"])
+        else:
+            img_l, lab_l = augment_once(image_l, label_l, policy, params["lab"])
+        (img_u, _), (img_u_cf, _) = augment_twice(_as_float_image(batch_u["image"]), None,
+                                                  policy, params["unl"])
+        n_l, n_u = img_l.shape[0], img_u.shape[0]
+        fp = params["flip"]
+        img_u_tf = apply_flip(img_u_cf, fp)
+
+        model.train()
+        if not two_stage:
+            acts = model(torch.cat([img_l, img_u, img_u_tf], dim=0))
+            logits = acts["logits"]
+            logits_l = logits[:n_l]
+            logits_u, logits_u_tf = logits[n_l:n_l + n_u], logits[n_l + n_u:]
+        else:
+            logits_l = model(img_l)["logits"]
+            with frozen_statistics(model) if disable_bn else contextlib.nullcontext():
+                acts = model(torch.cat([img_u, img_u_tf], dim=0))
+            logits_u, logits_u_tf = acts["logits"][:n_u], acts["logits"][n_u:]
+
+        onehot_l = class2one_hot(lab_l, num_classes)
+        sup = _masked_ce(logits_l, onehot_l, batch_l["valid"])
+        ctx = {"acts": acts, "n_unl": n_u, "flip": fp,
+               "unlabeled_tf_logits": logits_u_tf,
+               # the same flips replayed on the plain batch's prediction (reference :169-170)
+               "unlabeled_logits_tf": apply_flip(logits_u, fp),
+               "unlabeled_image": img_u, "unlabeled_image_tf": img_u_tf,
+               "apply_student": apply_student, "num_classes": num_classes,
+               "labeled_image": img_l, "labeled_onehot": onehot_l}
+        ctx.update({k: batch_u[k] for k in _META_KEYS})
+        if needs_teacher:
+            ctx["teacher_logits_tf"] = apply_flip(teacher.logits(img_u), fp)
+            ctx["apply_teacher"] = teacher.logits
+        if needs_mixup:
+            ctx["labeled_image_tf"] = img_l2
+            ctx["labeled_onehot_tf"] = class2one_hot(lab_l2, num_classes)
+        reg, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
+                                         image_l.device)
+        optimizer.zero_grad(set_to_none=True)
+        (sup + reg).backward()
+        optimizer.step()
+        if needs_teacher:
+            teacher.update(model)
+        inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
+                                              num_classes, batch_l["valid"])
+        return {"sup_loss": sup.detach(), "reg_loss": reg.detach(), "inter": inter,
+                "union": union, "hooks": hook_metrics}
 
     return step

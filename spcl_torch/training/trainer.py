@@ -9,9 +9,15 @@ The counterparts of `spcl_tpu/training/trainer.py`:
 - `FineTuneTrainer` (trainer.py:1006-1031 with what it inherits from
   `Trainer`; reference new_trainer.py:59-76): labeled-only training of the
   whole UNet, per-scan 3D Dice on the val and test loaders after every
-  epoch, `best.ckpt` at every improvement of the val DSC, `storage.csv`.
+  epoch, `best.ckpt` at every improvement of the val DSC, `storage.csv`;
+- `SemiTrainer` (`Trainer` itself, trainer.py:64-1003; reference
+  new_trainer.py:17-56): the same loop around `build_semi_step`, over the
+  labeled and the unlabeled streams, with the hooks' regularisers and, when
+  a hook needs it, the EMA teacher (`models/ema.py`), whose alpha_max is the
+  hooks' `alpha` (spcl_tpu's trainer leaves it at 0.999: ROADMAP C);
+- `MixUpTrainer` (trainer.py:1034-1048): labeled-only with the MixUp hook.
 
-Both share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
+All share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
 to the device, warm-starts from `Arch.checkpoint`, freezes the stages outside
 `set_trainable_stages` (no update, no weight decay), and builds the `Optim`
 block's optimizer (`training/optim.py`) over the trainable parameters and the
@@ -49,9 +55,16 @@ because every rank applies the same summed gradient. Only rank 0 writes:
 `start_training` so that no rank reads a checkpoint before it is written.
 One rank is the plain single-process path.
 
-Not ported yet: `resume_from_path` and TensorBoard; `Trainer.dump_matrices`,
-`profile_dir` and `defer_reads` are refused by `entry.common.build_trainer`
-when set.
+`resume_from_path` (trainer.py:972-987; `trainer_checkpoint` in the entry
+points) restores everything `last.ckpt` holds — the model, the optimizer
+state, the projectors, the hooks' schedulers, the EMA teacher and its step
+count, the epoch, the best score and the storage — and, beyond spcl_tpu,
+the step generator's state and the samplers' numpy generators, so that a
+resumed run continues the uninterrupted one to the bit.
+
+Not ported yet: TensorBoard; `Trainer.dump_matrices`, `profile_dir` and
+`defer_reads` are refused by `entry.common.build_trainer` when set, and so is
+a mesh with the semi or mixup trainer, and resume under a mesh.
 """
 from __future__ import annotations
 
@@ -63,16 +76,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .checkpoint import load_model_state_dict, save_checkpoint
+from .checkpoint import load_checkpoint, load_model_state_dict, save_checkpoint
 from .gradcache import build_gradcache_pretrain_step
 from .optim import build_optimizer
-from .steps import build_eval_step, build_finetune_step, build_pretrain_step
+from .steps import build_eval_step, build_finetune_step, build_pretrain_step, build_semi_step
 from ..data.augment import POLICY_ZOO, AugmentPolicy
 from ..data.device_store import DeviceStore
 from ..data.loader import HostLoader, device_prefetch
 from ..hooks.base import TrainerHook, get_individual_hooks
 from ..meters import (AverageValueMeter, MeterInterface, Storage, UniversalDice,
                       meter_display)
+from ..models.ema import EMATeacher
 from ..models.masking import set_trainable_stages
 from ..models.unet import UNet
 from ..parallel import mesh as mesh_lib
@@ -106,6 +120,7 @@ class _TrainerBase:
         self._data_name = data_name
         self._hooks: List[TrainerHook] = []
         self._trainable_stages: Optional[List[str]] = None
+        self._teacher: Optional[EMATeacher] = None
         self._cur_epoch = 0
         self._initialized = False
         self.last_epoch_stats: Dict = {}
@@ -285,16 +300,75 @@ class _TrainerBase:
         return (self._cur_epoch % max(save_every, 1) == 0
                 or self._cur_epoch == self._max_epoch)
 
+    def _hook_metric_arrays(self, pending: List[Dict]) -> Dict[str, Dict[str, np.ndarray]]:
+        """{hook: {metric: [steps] numpy}} of an epoch's step outputs, one
+        device -> host copy per metric."""
+        if not pending or "hooks" not in pending[0]:
+            return {}
+        return {name: {k: torch.stack([torch.as_tensor(m["hooks"][name][k],
+                                                       device=self._device)
+                                       for m in pending]).cpu().numpy()
+                       for k in pending[0]["hooks"][name]}
+                for name in pending[0]["hooks"]}
+
+    @staticmethod
+    def _add_hook_meters(meters: MeterInterface, hooks: Dict[str, Dict[str, float]]) -> None:
+        for name, hm in hooks.items():
+            with meters.focus_on(name):
+                for k, v in hm.items():
+                    if k not in meters:  # hook meters register on first use
+                        meters.register_meter(k, AverageValueMeter())
+                    meters[k].add(v)
+
     # ----------------------------------------------------------------- io
+    def _sampler_rngs(self) -> List:
+        return [getattr(loader.sampler, "_rng", None) for loader in self._loaders()]
+
     def _checkpoint_state(self) -> Dict:
-        return {"_model": self._model.state_dict(),
-                "_optimizer": self._optimizer.state_dict(),
-                "cur_epoch": self._cur_epoch}
+        state = {"_model": self._model.state_dict(),
+                 "_optimizer": self._optimizer.state_dict(),
+                 "cur_epoch": self._cur_epoch,
+                 "_hooks": {h.name: h.projector.state_dict() for h in self._hooks
+                            if h.projector is not None},
+                 "_hook_states": {h.name: h.state_dict() for h in self._hooks},
+                 "_generator": self._generator.get_state(),
+                 "_samplers": [None if rng is None else rng.bit_generator.state
+                               for rng in self._sampler_rngs()]}
+        if self._teacher is not None:
+            state["_teacher"] = self._teacher.state_dict()
+        return state
 
     def save_to(self, save_name: str) -> None:
         if not self._is_master:
             return
         save_checkpoint(str(Path(self._save_dir) / save_name), self._checkpoint_state())
+
+    def resume_from_path(self, path: str) -> None:
+        """Continue the run that wrote checkpoint `path` (after `init()`)."""
+        if not self._initialized:
+            raise RuntimeError("call init() before resume_from_path")
+        if self._n_shards > 1:
+            raise NotImplementedError("resume under Trainer.mesh is not ported yet "
+                                      "(ROADMAP A12 rest)")
+        state = load_checkpoint(path)
+        self._model.load_state_dict(state["_model"], strict=True)
+        for h in self._hooks:
+            if h.projector is not None:
+                h.projector.load_state_dict(state["_hooks"][h.name], strict=True)
+            h.load_state_dict(state["_hook_states"][h.name])
+        if self._teacher is not None:
+            self._teacher.load_state_dict(state["_teacher"])
+        self._optimizer.load_state_dict(state["_optimizer"])
+        self._generator.set_state(state["_generator"])
+        for rng, saved in zip(self._sampler_rngs(), state["_samplers"]):
+            if rng is not None:
+                rng.bit_generator.state = saved
+        self._cur_epoch = int(state["cur_epoch"])
+        self._restore_extra(state)
+        self._log("resumed from %s at epoch %d", path, self._cur_epoch)
+
+    def _restore_extra(self, state: Dict) -> None:
+        """What a subclass adds to `_checkpoint_state`."""
 
     @property
     def save_dir(self) -> str:
@@ -307,6 +381,11 @@ class _TrainerBase:
     @property
     def hooks(self) -> List[TrainerHook]:
         return list(self._hooks)
+
+    @property
+    def teacher(self) -> Optional[EMATeacher]:
+        """The EMA teacher (semi trainer with a teacher hook), else None."""
+        return self._teacher
 
 
 class PretrainEncoderTrainer(_TrainerBase):
@@ -359,11 +438,7 @@ class PretrainEncoderTrainer(_TrainerBase):
         elapsed = time.perf_counter() - t0
         # one device -> host copy per epoch: no per-step synchronisation
         reg = torch.stack([m["reg_loss"] for m in pending]).cpu().numpy()
-        hook_vals = {name: {k: torch.stack([torch.as_tensor(m["hooks"][name][k],
-                                                            device=self._device)
-                                            for m in pending]).cpu().numpy()
-                            for k in pending[0]["hooks"][name]}
-                     for name in pending[0]["hooks"]}
+        hook_vals = self._hook_metric_arrays(pending)
         for b in range(len(pending)):
             # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
             if not np.isfinite(reg[b]):
@@ -374,12 +449,7 @@ class PretrainEncoderTrainer(_TrainerBase):
             self.step_metrics.append(record)
             with meters.focus_on(self.train_meter_focus):
                 meters["reg_loss"].add(record["reg_loss"])
-            for name, hm in record["hooks"].items():
-                with meters.focus_on(name):
-                    for k, v in hm.items():
-                        if k not in meters:
-                            meters.register_meter(k, AverageValueMeter())
-                        meters[k].add(v)
+            self._add_hook_meters(meters, record["hooks"])
         with meters.focus_on(self.train_meter_focus):
             meters["lr"].add(lr)
         stats = meters.statistics()
@@ -395,27 +465,23 @@ class PretrainEncoderTrainer(_TrainerBase):
         for self._cur_epoch in range(start, self._max_epoch + 1):
             train_stats = self._run_train_epoch()
             self.last_epoch_stats = train_stats
-            if self._save_now():
-                self.save_to("last.ckpt")
+            # the hooks' schedulers step before the checkpoint, so that it
+            # holds the state a resumed run continues from
             for h in self._hooks:
                 h.on_epoch_end()
+            if self._save_now():
+                self.save_to("last.ckpt")
             self._log("pretrain epoch %03d | %s", self._cur_epoch,
                       meter_display(train_stats))
         self._finish()
         return 0.0
-
-    def _checkpoint_state(self) -> Dict:
-        state = super()._checkpoint_state()
-        state["_hooks"] = {h.name: h.projector.state_dict() for h in self._hooks
-                           if h.projector is not None}
-        state["_hook_states"] = {h.name: h.state_dict() for h in self._hooks}
-        return state
 
 
 class FineTuneTrainer(_TrainerBase):
     """Labeled-only training of the whole UNet (reference new_trainer.py:59-76,
     no hooks) with per-scan Dice on the val and test loaders after every
     epoch; `start_training` returns the best val DSC."""
+    activate_hooks = False
 
     def __init__(self, *, labeled_loader: HostLoader, val_loader: HostLoader,
                  test_loader: Optional[HostLoader] = None, **kwargs):
@@ -425,13 +491,15 @@ class FineTuneTrainer(_TrainerBase):
         self._test_loader = test_loader
         self._best_score = -np.inf
         self._storage = Storage(save_dir=self._save_dir if self._is_master else None)
-        # one entry per train step, host floats: {"epoch", "sup_loss"}
+        # one entry per train step, host floats: {"epoch", "sup_loss"} (+ the
+        # semi trainer's "reg_loss", and "hooks" for trainers with hooks)
         self.step_metrics: List[Dict] = []
 
     def register_hooks(self, *hooks: TrainerHook) -> None:
-        if hooks:
+        if hooks and not self.activate_hooks:
             raise NotImplementedError("fine-tuning runs without hooks "
-                                      "(the MixUp trainer is not ported yet)")
+                                      "(reference FineTuneTrainer.activate_hooks)")
+        super().register_hooks(*hooks)
 
     def _eval_out_size(self) -> int:
         """The eval canvas. Shortest-side val policies (Resize(int)) can
@@ -459,7 +527,8 @@ class FineTuneTrainer(_TrainerBase):
     def _build_steps(self) -> None:
         self._train_step = build_finetune_step(
             self._model, self._optimizer, num_classes=self._model.num_classes,
-            policy=self.train_policy, store=self._store(self._labeled_loader))
+            policy=self.train_policy, store=self._store(self._labeled_loader),
+            hooks=self._hooks)
         self._eval_steps = {}
 
     def _eval_step_for(self, loader: HostLoader):
@@ -472,43 +541,67 @@ class FineTuneTrainer(_TrainerBase):
         return self._eval_steps[id(store)]
 
     # ----------------------------------------------------------------- epochs
+    def _epoch_inputs(self):
+        """(the labeled batches' global index rows, an iterable of the steps'
+        batch arguments, the real slices the epoch trains on)."""
+        loader = self._labeled_loader
+        rows = self._index_rows(loader, self._num_batches)
+        return (loader.dataset.to_global(rows),
+                ((b,) for b in self._step_inputs(loader, rows)), int((rows >= 0).sum()))
+
+    def _call_step(self, batches, scalars: Dict) -> Dict:
+        if self._hooks:
+            return self._train_step(*batches, self._generator, hook_scalars=scalars)
+        return self._train_step(*batches, self._generator)
+
+    def _loss_keys(self) -> Tuple[str, ...]:
+        return ("sup_loss",)
+
     def _run_train_epoch(self) -> Dict:
         C = self._model.num_classes
+        keys = self._loss_keys()
         meters = MeterInterface(default_focus=self.train_meter_focus)
         with meters.focus_on(self.train_meter_focus):
             meters.register_meter("lr", AverageValueMeter())
-            meters.register_meter("sup_loss", AverageValueMeter())
+            for k in keys:
+                meters.register_meter(k, AverageValueMeter())
             meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
+        scalars = self._hook_scalars()
         lr = self._set_epoch_lr()
-        loader = self._labeled_loader
-        rows = self._index_rows(loader, self._num_batches)
-        n_slices = int((rows >= 0).sum())
         # Dice groups by scan name through the root (a subset's scan_idx is
         # its own numbering, the store's the root's)
-        names = loader.dataset.root.scan_names
-        global_rows = loader.dataset.to_global(rows)
-        inputs = self._step_inputs(loader, rows)
+        names = self._labeled_loader.dataset.root.scan_names
+        global_rows, inputs, n_slices = self._epoch_inputs()
         pending = []
         self._synchronize()
         t0 = time.perf_counter()
-        for batch in inputs:
-            pending.append(self._train_step(batch, self._generator))
+        for batches in inputs:
+            pending.append(self._call_step(batches, scalars))
         self._synchronize()
         elapsed = time.perf_counter() - t0
         # one device -> host copy per metric per epoch: no per-step synchronisation
         stacked = {k: torch.stack([m[k] for m in pending]).cpu().numpy()
-                   for k in ("sup_loss", "inter", "union")}
-        with meters.focus_on(self.train_meter_focus):
-            for b, gidx in enumerate(global_rows):
-                sup = float(stacked["sup_loss"][b])
+                   for k in keys + ("inter", "union")}
+        hook_vals = self._hook_metric_arrays(pending)
+        for b, gidx in enumerate(global_rows):
+            record = {"epoch": self._cur_epoch}
+            for k in keys:
+                record[k] = float(stacked[k][b])
                 # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
-                if not np.isfinite(sup):
-                    raise RuntimeError(f"non-finite sup_loss at batch {b}: {sup}")
-                self.step_metrics.append({"epoch": self._cur_epoch, "sup_loss": sup})
-                meters["sup_loss"].add(sup)
+                if not np.isfinite(record[k]):
+                    raise RuntimeError(f"non-finite {k} at batch {b}: {record[k]}")
+            if hook_vals:
+                record["hooks"] = {n: {k: float(v[b]) for k, v in hv.items()}
+                                   for n, hv in hook_vals.items()}
+                self._add_hook_meters(meters, record["hooks"])
+            self.step_metrics.append(record)
+            with meters.focus_on(self.train_meter_focus):
+                for k in keys:
+                    meters[k].add(record[k])
                 keep = gidx >= 0
                 meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
                                        group_name=[names[i] for i in gidx[keep]])
+        with meters.focus_on(self.train_meter_focus):
             meters["lr"].add(lr)
         stats = meters.statistics()
         stats.setdefault(self.train_meter_focus, {})["throughput"] = {
@@ -575,15 +668,20 @@ class FineTuneTrainer(_TrainerBase):
             val_stats, cur_score = self._run_eval_epoch(self._val_loader)
             test_stats, _ = (self._run_eval_epoch(self._test_loader)
                              if self._test_loader is not None else ({}, 0.0))
+            # the epoch's row and the hooks' scheduler steps go in before the
+            # checkpoints, so that they hold the state a resumed run continues
+            # from (spcl_tpu writes them after, and its checkpoints lag by one)
+            self._storage.put_epoch(self._cur_epoch, {**train_stats, "val": val_stats,
+                                                      "test": test_stats})
+            self._storage.flush()
+            for h in self._hooks:
+                h.on_epoch_end()
             is_best = cur_score > self._best_score
             if is_best:
                 self._best_score = cur_score
                 self.save_to("best.ckpt")
             if self._save_now():
                 self.save_to("last.ckpt")
-            self._storage.put_epoch(self._cur_epoch, {**train_stats, "val": val_stats,
-                                                      "test": test_stats})
-            self._storage.flush()
             self._log("epoch %03d | val DSC %.4f (best %.4f) | %s", self._cur_epoch,
                       cur_score, self._best_score, meter_display(train_stats))
         self._finish()
@@ -595,12 +693,69 @@ class FineTuneTrainer(_TrainerBase):
         state["storage"] = self._storage.state_dict()
         return state
 
+    def _restore_extra(self, state: Dict) -> None:
+        self._best_score = float(state["best_score"])
+        self._storage.load_state_dict(state["storage"])
+
     @property
     def best_score(self) -> float:
         return float(self._best_score)
 
 
+class MixUpTrainer(FineTuneTrainer):
+    """Labeled-only training with the MixUp hook (reference new_trainer.py
+    MixUpTrainer + MixUpEpocher, new_comparable.py:18-86): two labeled views
+    a step, the hooks' losses added to the cross-entropy."""
+    activate_hooks = True
+
+
+class SemiTrainer(FineTuneTrainer):
+    """Semi-supervised training (reference new_trainer.py:17-56): each step
+    takes a labeled batch and an unlabeled batch (`build_semi_step`); the
+    hooks regularise the unlabeled pair. An EMA teacher is made at `init()`
+    when a hook needs it. Throughput counts the labeled slices and the two
+    views of each unlabeled one."""
+    activate_hooks = True
+
+    def __init__(self, *, unlabeled_loader: HostLoader, two_stage: bool = False,
+                 disable_bn: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        self._unlabeled_loader = unlabeled_loader
+        self._two_stage = bool(two_stage)
+        self._disable_bn = bool(disable_bn)
+
+    def _loaders(self) -> List[HostLoader]:
+        return super()._loaders() + [self._unlabeled_loader]
+
+    def _build_steps(self) -> None:
+        alphas = sorted({h.alpha for h in self._hooks if h.needs_teacher})
+        if len(alphas) > 1:
+            raise ValueError(f"the teacher hooks ask for different EMA alphas: {alphas}")
+        self._teacher = EMATeacher(self._model, alphas[0]) if alphas else None
+        self._train_step = build_semi_step(
+            self._model, self._hooks, self._optimizer, num_classes=self._model.num_classes,
+            policy=self.train_policy, two_stage=self._two_stage, disable_bn=self._disable_bn,
+            teacher=self._teacher, store=self._store(self._labeled_loader))
+        self._eval_steps = {}
+
+    def _epoch_inputs(self):
+        lab, unl = self._labeled_loader, self._unlabeled_loader
+        rows_l = self._index_rows(lab, self._num_batches)
+        rows_u = self._index_rows(unl, self._num_batches)
+        n_slices = int((rows_l >= 0).sum()) + 2 * int((rows_u >= 0).sum())
+        inputs = zip(self._step_inputs(lab, rows_l), self._step_inputs(unl, rows_u))
+        return lab.dataset.to_global(rows_l), inputs, n_slices
+
+    def _call_step(self, batches, scalars: Dict) -> Dict:
+        return self._train_step(*batches, self._generator, scalars)
+
+    def _loss_keys(self) -> Tuple[str, ...]:
+        return ("sup_loss", "reg_loss")
+
+
 trainer_zoo = {
+    "semi": SemiTrainer,
+    "mixup": MixUpTrainer,
     "ft": FineTuneTrainer,
     "finetune": FineTuneTrainer,
     "pretrain": PretrainEncoderTrainer,

@@ -556,3 +556,126 @@ def test_gradcache_cached_equals_direct_on_card(cuda):
     assert len(cached["grads"]) == len(direct["grads"]) > 30
     for c, d in zip(cached["grads"], direct["grads"]):
         assert float((c - d).norm() / d.norm()) <= 1e-4
+
+
+# ------------------------------------------------------------------ the semi path (slice E)
+# the stage kernels at the semi step's shapes: the student at 32 labeled + 2 x
+# 32 unlabeled slices, the EMA teacher at 32 (forward only on the path; the
+# backward is held too)
+@pytest.mark.parametrize("b,h,w,ci,c,external_first", [
+    (96, 224, 224, 16, 16, True), (96, 112, 112, 16, 32, False),
+    (32, 224, 224, 16, 16, True), (32, 112, 112, 16, 32, False)])
+def test_stage_kernels_at_the_semi_shapes_match_plain(cuda, b, h, w, ci, c, external_first):
+    args, dp, de = _stage_args(b, h, w, ci, c, external_first, seed=b + c)
+    out_k, res = cs.stage_forward(*args, external_first)
+    out_p, _ = cs.stage_forward(*args, external_first, plain=True)
+    _assert_stage_close(out_k, out_p)
+    del out_p
+    _assert_stage_close(cs.stage_backward(res, dp, de, external_first),
+                        cs.stage_backward(res, dp, de, external_first, plain=True))
+
+
+@pytest.mark.parametrize("pad_rows", [0, 1])
+def test_supcon_kernels_at_the_infonce_presets_size(cuda, pad_rows):
+    """2N = 10 (5 unlabeled slices, two views), weighting `none`, as the
+    `infonce` / `infoncemt` presets run the kernels; with a padded row too."""
+    test_fwd_stats_and_dz_match_plain(cuda, 10, pad_rows, "none", 1e9)
+
+
+def _semi_run(dev, base, draws, batches):
+    import copy
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_LABEL
+    from spcl_torch.hooks import creator
+    from spcl_torch.models import EMATeacher
+    from spcl_torch.training import build_optimizer, build_semi_step
+    model = copy.deepcopy(base).to(dev)
+    teacher = EMATeacher(model)
+    opt = build_optimizer(list(model.parameters()), lr=1e-4, weight_decay=1e-5)
+    step = build_semi_step(model, [creator.create_consistency_hook(5.0),
+                                   creator.create_mt_hook(10.0)], opt, num_classes=4,
+                           policy=dataclasses.replace(ACDC_LABEL, crop=32), teacher=teacher)
+    on_dev = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(to(v) for v in tree)
+        return tree.to(dev)
+
+    cs.reset_launch_counts()
+    m = step(*on_dev, None, {}, params=to(draws))
+    return m, dict(cs.LAUNCHES), model, teacher
+
+
+# |card - cpu| / |cpu| (L2) of each parameter's gradient: chip_smoke.py's
+# SEMI_GRAD_TOL (max-pool and ReLU routing sets the floor; see there)
+SEMI_GRAD_TOL = 5e-2
+
+
+def test_semi_step_on_card_matches_cpu(cuda):
+    """One semi step (mean teacher + consistency) of a UNet-256 under
+    `pallas` at crop 32: the card (stage kernels) against the CPU (plain
+    versions), from the same weights and draws. Losses rtol 1e-4, student
+    and teacher parameters and running statistics atol 1e-5, each
+    parameter's gradient to SEMI_GRAD_TOL of its L2 norm (TF32 off)."""
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_LABEL
+    from spcl_torch.models import UNet
+    from spcl_torch.training import draw_semi_params
+    g = torch.Generator().manual_seed(3)
+    n = 4
+    lab = {"image": torch.randint(0, 255, (n, 1, 48, 48), generator=g, dtype=torch.uint8),
+           "label": torch.randint(0, 4, (n, 48, 48), generator=g, dtype=torch.uint8),
+           "valid": torch.ones(n)}
+    unl = {"image": torch.randint(0, 255, (n, 1, 48, 48), generator=g, dtype=torch.uint8),
+           "label": torch.zeros(n, 48, 48, dtype=torch.uint8),
+           "partition": torch.arange(n, dtype=torch.int32) % 3,
+           "patient": torch.zeros(n, dtype=torch.int32), "cycle": torch.zeros(n, dtype=torch.int32),
+           "scan_idx": torch.zeros(n, dtype=torch.int32), "valid": torch.tensor([1., 1, 1, 0])}
+    draws = draw_semi_params(g, lab, unl, None, policy=dataclasses.replace(ACDC_LABEL, crop=32))
+    torch.manual_seed(4)
+    base = UNet(max_channel=256, small_c_layout="pallas")
+    runs = {dev: _semi_run(dev, base, draws, (lab, unl)) for dev in ("cuda", "cpu")}
+    (mk, lk, sk, tk), (mp, lp, sp, tp) = runs["cuda"], runs["cpu"]
+    assert lk == {"convstage_conv": 2, "convstage_bnconv": 4, "convstage_bnpool": 4,
+                  "convstage_poolsums": 2, "convstage_dz1": 2, "convstage_dwprev": 2,
+                  "convstage_dwdx": 1}
+    assert sum(lp.values()) == 0
+    for k in ("sup_loss", "reg_loss"):
+        torch.testing.assert_close(mk[k].cpu(), mp[k], rtol=1e-4, atol=0)
+    for a, b in ((sk.state_dict(), sp.state_dict()), (tk.model.state_dict(),
+                                                        tp.model.state_dict())):
+        for key in a:
+            torch.testing.assert_close(a[key].cpu().double(), b[key].double(), rtol=0,
+                                       atol=1e-5, msg=key)
+    # the step's gradients, left in .grad: one RAdam step moves a parameter
+    # by lr x g only, so the parameters alone hold g loosely
+    gp = dict(sp.named_parameters())
+    for name, p in sk.named_parameters():
+        ref = gp[name].grad.double()
+        err = float((p.grad.cpu().double() - ref).norm() / ref.norm())
+        assert err <= SEMI_GRAD_TOL, (name, err)
+
+
+def test_teacher_forward_under_pallas_leaves_running_statistics(cuda):
+    """The EMA teacher's forward at the semi path's shape (32 slices, 224^2)
+    launches the fused stages' forward passes and moves no running
+    statistic; the student's own train-mode forward moves them."""
+    from spcl_torch.models import EMATeacher, UNet
+    student = UNet(max_channel=256, small_c_layout="pallas").cuda()
+    teacher = EMATeacher(student)
+    before = {k: v.clone() for k, v in teacher.model.state_dict().items()}
+    cs.reset_launch_counts()
+    x = torch.rand(32, 1, 224, 224, device="cuda")
+    logits = teacher.logits(x)
+    assert logits.shape == (32, 4, 224, 224) and bool(torch.isfinite(logits).all())
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "convstage_conv": 1, "convstage_bnconv": 2, "convstage_bnpool": 2}
+    for k, v in teacher.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    with torch.no_grad():
+        student.train()
+        student(x)
+    assert int(student._Conv1.conv[1].num_batches_tracked) == 1

@@ -1,14 +1,15 @@
 """The arithmetic of the supcon kernels, emulated on the CPU.
 
 `spcl_torch/ops/csrc/supcon.cu` computes its two products on the tensor cores
-in 3xTF32 (hi = x with its low 13 mantissa bits cleared, lo = x - hi read
-truncated by the MMA; lo*hi + hi*lo + hi*hi accumulated in float32), the s
-product over the depth held in shared memory (D zero-padded to 256) in four
-quarters that are added in order, and it splits the column sweep of each row
-tile over the S blocks of a cluster: block b sums its own contiguous column
-tiles of 32, and the per-row partials (pass A, pass B) and the partial dz are
-added in block-rank order. Here the same arithmetic runs in torch on float32
-tensors, and it is held
+in 3xTF32 (hi = x rounded to the nearest TF32 value, lo = x - hi read
+truncated by the MMA; lo*hi + hi*lo + hi*hi accumulated in float32, in
+short chains added on the CUDA cores, which a CPU sum in float32 stands for
+here), the s product over the depth held in shared memory (D zero-padded to
+256) in four quarters that are added in order, and it splits the column
+sweep of each row tile over the S blocks of a cluster: block b sums its own
+contiguous column tiles of 32, and the per-row partials (pass A, pass B) and
+the partial dz are added in block-rank order. Here the same arithmetic runs
+in torch on float32 tensors, and it is held
 
 - against spcl_tpu's `_fwd_stats` / `_bwd_dz` (Pallas, interpret mode) and
   against the port's plain versions, at 2N = 60, 2N = 126 and a strip with
@@ -27,7 +28,7 @@ import torch
 
 from spcl_tpu.ops import supcon_pallas as jax_fused
 from spcl_torch.ops import supcon_cuda as sc
-from test_torch_convstage_tf32 import split3, tf32_rna
+from test_torch_convstage_tf32 import tf32_rna, tf32_trunc
 
 D = 256
 DP = 256          # depth the kernels hold in shared memory
@@ -38,9 +39,17 @@ STAT_TOL = 2e-4   # absolute, on rowloss, c, log denom and a
 DZ_TOL = 2e-4     # x max|dz|
 
 
+def split_rn(x):
+    """(hi, lo) as supcon.cu's `split` makes them and the MMA reads them: hi
+    = x rounded to the nearest TF32 value, lo = x - hi read truncated."""
+    x = x.float()
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
+
+
 def _three(a, b):
     """a @ b in 3xTF32: lo*hi + hi*lo + hi*hi, each product in float32."""
-    (ah, al), (bh, bl) = split3(a), split3(b)
+    (ah, al), (bh, bl) = split_rn(a), split_rn(b)
     return al @ bh + ah @ bl + ah @ bh
 
 

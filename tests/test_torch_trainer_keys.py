@@ -5,8 +5,11 @@ its ROADMAP item, while the paper's configuration (base.yaml + pretrain.yaml
 + specific/selfpaced_infonce.yaml) still builds, and so does it with
 `Trainer.grad_cache=30` (ported: the trainer's step is then the gradient
 cache's, with 30 chunks). `dump_matrices` together with `grad_cache` raises
-spcl_tpu's ValueError. CPU only; the refused cases raise before any data is
-loaded."""
+spcl_tpu's ValueError. The semi and mixup trainers build (`semi` with
+production_semi.yaml + mt.yaml + uda.yaml, as `chip_smoke.py` runs it);
+`Trainer.mesh` with either raises NotImplementedError until ROADMAP A12
+(rest), and so does the adversarial trainer (A10). CPU only; the refused
+cases raise before any data is loaded."""
 from pathlib import Path
 
 import pytest
@@ -53,3 +56,35 @@ def test_dump_matrices_with_grad_cache_raises(tmp_path):
     config = _config("Trainer.grad_cache=30", "Trainer.dump_matrices=true")
     with pytest.raises(ValueError, match="incompatible with Trainer.grad_cache"):
         build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
+
+
+def _semi_config(*overrides):
+    specific = Path(CONFIG_PATH) / "specific"
+    return ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"), strict=False).parse_args(
+        ["Data.synthetic=true", *overrides, "--opt-path",
+         str(specific / "production_semi.yaml"), str(specific / "mt.yaml"),
+         str(specific / "uda.yaml")]).merged_config
+
+
+@pytest.mark.parametrize("name,hooks", [("semi", ["consistency", "mt"]),
+                                        ("mixup", ["mix_reg"])])
+def test_semi_and_mixup_trainers_build(tmp_path, name, hooks):
+    config = _semi_config(f"Trainer.name={name}")
+    if name == "mixup":
+        config["MixUpParams"] = {"weight": 0.01, "enable_bn": True}
+        del config["MeanTeacherParams"], config["ConsistencyParams"]
+    trainer = build_trainer(config, save_dir=str(tmp_path), device="cpu")
+    assert type(trainer).__name__ == {"semi": "SemiTrainer", "mixup": "MixUpTrainer"}[name]
+    assert [h.name for h in trainer.hooks] == hooks
+
+
+@pytest.mark.parametrize("name", ["semi", "mixup", "meanteacher"])
+def test_semi_trainers_under_a_mesh_are_refused(tmp_path, name):
+    config = _semi_config(f"Trainer.name={name}", "Trainer.mesh=2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12 rest"):
+        build_trainer(config, save_dir=str(tmp_path), device="cpu")
+
+
+def test_adversarial_trainer_is_refused(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        build_trainer(_semi_config("Trainer.name=adv"), save_dir=str(tmp_path), device="cpu")

@@ -1,6 +1,7 @@
-"""Shared helpers of the tests/test_torch_port_*.py files: the random draws of
-spcl_tpu's pretrain step, replayed with the JAX package's own functions so
-that spcl_torch can be handed the very same values."""
+"""Shared helpers of the tests/test_torch_*.py files: the random draws of
+spcl_tpu's pretrain, fine-tune and semi steps, replayed with the JAX
+package's own functions so that spcl_torch can be handed the very same
+values."""
 import jax
 import numpy as np
 import torch
@@ -51,7 +52,41 @@ def jax_finetune_draws(key, batch, policy, in_size, sizes=None):
     augment.py:392-397 `augment_once`): {"aug": <sample_once dict>} for
     spcl_torch's step `params`."""
     k_aug, _ = jax.random.split(key)
-    kg, kj = jax.random.split(k_aug)
+    return {"aug": jax_once_draws(k_aug, batch, policy, in_size, sizes)}
+
+
+def jax_semi_draws(key, n_l, n_u, policy, in_size, sizes_l=None, sizes_u=None,
+                   mixup=False, flip_threshold=0.8, hooks=()):
+    """The draws of spcl_tpu's semi step for `key` (steps.py:246-261, and the
+    hooks' own draws from the hook key, hooks/ucmt.py:47-50 and
+    hooks/mixup.py:29-31) as spcl_torch's semi step `params`. `hooks`:
+    spcl_tpu hook objects whose draws to replay."""
+    k_lab, k_unl, k_flip, k_hooks = jax.random.split(key, 4)
+    lab = (jax_view_draws(k_lab, n_l, policy, in_size, sizes_l) if mixup
+           else jax_once_draws(k_lab, n_l, policy, in_size, sizes_l))
+    out = {"lab": lab,
+           "unl": jax_view_draws(k_unl, n_u, policy, in_size, sizes_u, total_freedom=False),
+           "flip": to_torch(jaug.flip_params(k_flip, n_u, threshold=flip_threshold)),
+           "hooks": {}}
+    crop = policy.crop
+    for h in hooks:
+        if h.name == "ucmt":
+            keys = jax.random.split(jax.random.fold_in(k_hooks, 41), h.num_noise_samples)
+            noise = np.stack([nchw(jax.random.normal(k, (n_u, crop, crop, 1))) for k in keys])
+            out["hooks"][h.name] = {"noise": torch.from_numpy(noise)}
+        elif h.name == "mix_reg":
+            k_lam, k_perm = jax.random.split(jax.random.fold_in(k_hooks, 29))
+            out["hooks"][h.name] = {
+                "lam": torch.tensor(float(jax.random.beta(k_lam, h.alpha, h.alpha))),
+                "perm": torch.from_numpy(np.array(jax.random.permutation(k_perm, 2 * n_l)))}
+    return out
+
+
+def jax_once_draws(key, batch, policy, in_size, sizes=None):
+    """The draws of `spcl_tpu.data.augment.augment_once(key, ...)`
+    (augment.py:389-398) as the `sample_once` dict spcl_torch's
+    `augment_once` takes."""
+    kg, kj = jax.random.split(key)
     out = {"geo": to_torch(jaug.sample_geometric(kg, batch, policy, in_size, sizes))}
     if policy.jitter:
         kb, kc = jax.random.split(kj)
@@ -60,4 +95,4 @@ def jax_finetune_draws(key, batch, policy, in_size, sizes=None):
         ct = jax.random.uniform(kc, (batch, 1, 1, 1), minval=policy.contrast[0],
                                 maxval=policy.contrast[1])
         out["jitter"] = (to_torch(br).reshape(-1), to_torch(ct).reshape(-1))
-    return {"aug": out}
+    return out
