@@ -9,9 +9,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build   — compile spcl_torch/ops/csrc/supcon.cu and convstage.cu with
                nvcc for sm_90a, one nvcc per source, started together.
   3. kernels — hold the supcon kernels against their plain PyTorch versions
-               (float32, TF32 off) at 2N in {10, 60, 126, 1024, 3840}, D=256,
+               (float32, TF32 off) at 2N in {10, 60, 90, 126, 1024, 3840}, D=256,
                in every weighting mode, correct_grad on and off, and with
-               padded (valid=0) rows at 10 and 126; two runs of each equal to the bit;
+               padded (valid=0) rows at 10, 90 and 126 (at 90 with the dense
+               InfoNCE's SimCLR-pair labels: each row's only positive is its
+               other view, -1 on padding); two runs of each equal to the bit;
                time them beside the plain versions, their float32 and
                3xTF32 bounds and their products alone in float32 `torch.mm`
                (the library yardstick), with the launch plan (cluster size,
@@ -124,14 +126,40 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                operands), and one semi step under `pallas` on the card
                against the CPU: losses, every parameter's gradient, the
                updated student and teacher, running statistics.
- 13. report  — the `kernels` JSON line, the nvidia-smi line, a device line
+ 13. slice F — decoder pretraining, both phases of main_pretrain_decoder.py
+               (base.yaml + pretrain.yaml + hooks/infonce_dense.yaml: dense
+               InfoNCE at Up_conv3, `contrast_on: self`, 3 scans x 3
+               partitions = 9 slices, 18 views x 5 points = 2N 90) under
+               `pallas` through `spcl_torch.main_pretrain_decoder.run`, warm-
+               started from slice B's encoder last.ckpt: 1 warm-up + 5 steps,
+               then `val()` at one ratio (5 fine-tune steps, one eval epoch).
+               Checks: one supcon_fwd and one supcon_bwd a step at 90 views,
+               each call held to its plain version on its own operands; the
+               stage kernels forward only (conv 1, bnconv 2, bnpool 2 a step,
+               no backward pass), 12 a fine-tune step; Conv1-Conv4 and the
+               stages past Up_conv3 bit-equal, Conv5..Up_conv3 moved; finite
+               losses, a DSC in [0, 1], pre/last.ckpt reloading strictly;
+               ms/step, slices/s, a profile. Then the same pretraining under
+               `nhwc` and 2 steps with SPInfonceParams at Up_conv3 (soft).
+ 14. slice G — the adversarial baseline of main_adv.py (base.yaml +
+               hooks/adv.yaml: 5 + 5 slices, reg_weight 0.01) under `pallas`,
+               1 warm-up + 5 steps and one eval epoch, then
+               `trainer_checkpoint` resume into epoch 2: the stage kernels
+               twice a step (labeled and unlabeled forward and backward),
+               every discriminator tensor moved, finite gen/dis losses, the
+               discriminator and its Adam state restored; ms/step, slices/s,
+               a profile. Then one adversarial step on the card against the
+               CPU: losses, every gradient, the updated student and
+               discriminator, the running statistics.
+ 15. report  — the `kernels` JSON line, the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
 
 Development aids: `--stage-kernels-only` stops after the build and the stage
 kernel check, `--supcon-kernels-only` runs the build and phases 3 (supcon
 part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
-build and phase 11, `--semi-only` the build and phase 12.
+build and phase 11, `--semi-only` the build and phase 12,
+`--decoder-adv-only` the build and phases 13 (without the warm start) and 14.
 """
 import copy
 import json
@@ -153,10 +181,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 # checked against the plain versions; 10 is the infonce presets' 2N (5 + 5 views)
-SIZES = (10, 60, 126, 1024, 3840)
-TIMING_SIZES = (60, 126, 256, 512, 1024, 3840)
+# and 90 the dense InfoNCE's of decoder pretraining (9 slices x 5 points, two views)
+SIZES = (10, 60, 90, 126, 1024, 3840)
+TIMING_SIZES = (60, 90, 126, 256, 512, 1024, 3840)
 D = 256
 MAIN_2N = 60
+DENSE_2N = 90
+DECODER_VIEWS = 2 * 3 * 3   # two views of 3 scans x 3 ACDC partitions
 DEVICE = "cuda"
 
 # base.yaml + pretrain.yaml + specific/selfpaced_infonce.yaml, with
@@ -239,19 +270,27 @@ def supcon_plans(sc):
 
 
 # ------------------------------------------------------------------ kernels
-def _inputs(n2, gen, pad_rows=0):
+def _inputs(n2, gen, pad_rows=0, simclr=False):
     """z [2N, D] L2-normalized with label-correlated structure, labels in 3
     partitions (as the batch sampler gives them), valid with `pad_rows`
-    zeros at the end of each view."""
+    zeros at the end of each view. `simclr`: the dense InfoNCE's targets
+    instead, each row's only positive its other view (labels 0..N-1, -1 on
+    the padded rows), the two views of a row close."""
     n = n2 // 2
-    labels = torch.arange(n, device=DEVICE) % 3
-    centers = torch.randn(3, D, generator=gen, device=DEVICE)
-    z = torch.cat([centers[labels], centers[labels]]) * 0.3 \
-        + torch.randn(n2, D, generator=gen, device=DEVICE)
-    z = torch.nn.functional.normalize(z, dim=1)
     valid = torch.ones(n, device=DEVICE)
     if pad_rows:
         valid[-pad_rows:] = 0.0
+    if simclr:
+        labels = torch.arange(n, device=DEVICE)
+        labels[valid == 0] = -1
+        base = torch.randn(n, D, generator=gen, device=DEVICE)
+        z = torch.cat([base, base]) + 0.7 * torch.randn(n2, D, generator=gen, device=DEVICE)
+    else:
+        labels = torch.arange(n, device=DEVICE) % 3
+        centers = torch.randn(3, D, generator=gen, device=DEVICE)
+        z = torch.cat([centers[labels], centers[labels]]) * 0.3 \
+            + torch.randn(n2, D, generator=gen, device=DEVICE)
+    z = torch.nn.functional.normalize(z, dim=1)
     return z[:n].contiguous(), z[n:].contiguous(), labels.int(), valid
 
 
@@ -442,8 +481,8 @@ def kernel_phase(sc):
     max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
     cases = 0
     for n2 in SIZES:
-        for pad_rows in {10: (0, 1), 126: (0, 5)}.get(n2, (0,)):
-            z1, z2, labels, valid = _inputs(n2, gen, pad_rows)
+        for pad_rows in {10: (0, 1), DENSE_2N: (0, 5), 126: (0, 5)}.get(n2, (0,)):
+            z1, z2, labels, valid = _inputs(n2, gen, pad_rows, simclr=n2 == DENSE_2N)
             hard_gamma, gap = _hard_gamma(sc, z1, z2, labels, valid)
             for mode, correct_grad in (("none", False), ("soft", False), ("soft", True),
                                        ("hard", False), ("hard", True)):
@@ -467,7 +506,8 @@ def kernel_phase(sc):
                 ok = (fwd_err <= tol_fwd and dz_err <= tol_dz
                       and loss_err <= 2e-4 * max(1.0, abs(float(p[0])))
                       and ratio_err <= 1e-5)
-                print(f"2N={n2:5d} pad={pad_rows} {mode:4s} cg={int(correct_grad)} "
+                print(f"2N={n2:5d}{' simclr' if n2 == DENSE_2N else ''} pad={pad_rows} "
+                      f"{mode:4s} cg={int(correct_grad)} "
                       f"gamma={gamma:.6g}{f' (gap {gap:.2e})' if mode == 'hard' else ''} "
                       f"loss={float(p[0]):.6f} ratio={float(p[1]):.4f} | err: "
                       f"stats {fwd_err:.2e} dz {dz_err:.2e} (scale {dz_scale:.2e}) "
@@ -495,7 +535,7 @@ def kernel_phase(sc):
 # ------------------------------------------------------------------ stage kernels
 # (name, B, H, W, Ci, C, external_first): the two shapes of the main path at
 # 2N = 60, a small odd-batch shape whose H and W are no tile multiples, and
-# the semi path's shapes
+# the semi, decoder-pretrain and adversarial paths' shapes
 STAGE_SHAPES = (
     ("stage1", 60, 224, 224, 16, 16, True),
     ("stage2", 60, 112, 112, 16, 32, False),
@@ -507,6 +547,13 @@ STAGE_SHAPES = (
     ("semi student 2", 96, 112, 112, 16, 32, False),
     ("semi teacher 1", 32, 224, 224, 16, 16, True),
     ("semi teacher 2", 32, 112, 112, 16, 32, False),
+    # slice F: decoder pretraining's 18 views (forward only on the path);
+    # slice G: the adversarial step's labeled and unlabeled passes of 5
+    # slices each (forward and backward, skip cotangent present)
+    ("decoder F 1", DECODER_VIEWS, 224, 224, 16, 16, True),
+    ("decoder F 2", DECODER_VIEWS, 112, 112, 16, 32, False),
+    ("adv G 1", 5, 224, 224, 16, 16, True),
+    ("adv G 2", 5, 112, 112, 16, 32, False),
 )
 STAGE_TOL = 2e-4  # x max|plain value| of each tensor
 STAGE_REPLACES = {
@@ -2067,6 +2114,19 @@ CONFIG_FILES = {
     "specific/mt.yaml": {"MeanTeacherParams": {"weight": 10, "alpha": 0.999}},
     "specific/uda.yaml": {"ConsistencyParams": {"weight": 5.0}},
     "hooks/mixup.yaml": {"MixUpParams": {"weight": 0.01, "enable_bn": True}},
+    "pretrain.yaml": {
+        "Trainer": {"num_batches": 200, "max_epoch": 75},
+        "Optim": {"name": "RAdam", "lr": 1e-07, "weight_decay": 1e-05},
+        "Scheduler": {"multiplier": 400, "warmup_max": 10},
+        "ContrastiveLoaderParams": {"scan_sample_num": 10, "partition_sample_num": 1}},
+    "hooks/infonce_dense.yaml": {
+        "InfonceParams": {"feature_names": "Up_conv3", "weights": 1.0, "contrast_ons": "self"},
+        "ContrastiveLoaderParams": {"scan_sample_num": 3, "partition_sample_num": 1}},
+    "hooks/spinfonce.yaml": {
+        "SPInfonceParams": {"feature_names": "Conv5", "weights": 1, "contrast_ons": "partition",
+                            "begin_values": 10000, "end_values": 10000, "mode": "soft",
+                            "p": 0.5, "correct_grad": True}},
+    "hooks/adv.yaml": {"Trainer": {"reg_weight": 0.01}},
 }
 SEMI_FILES = ("base.yaml", "specific/production_semi.yaml", "specific/mt.yaml",
               "specific/uda.yaml")
@@ -2090,77 +2150,103 @@ def _merged(*files, **cuts):
     return dictionary_merge_by_hierachy(config, cuts)
 
 
-class _SemiRun:
-    """Instruments the runs inside the block: the trainers `init()` made, an
-    event after each train step (`_call_step`), the stage kernels launched
-    inside the EMA teacher's forwards, the first EMA update held to
-    0.5 t0 + 0.5 s1 (alpha of step 0), and `resume_from_path` held to the
-    checkpoint it read (teacher and RAdam state)."""
+class _Recorder:
+    """Instruments the runs inside the block: the trainers `init()` made,
+    with a CUDA event after each of their train steps; the stage kernels
+    launched inside the EMA teacher's forwards, and the first EMA update
+    held to 0.5 t0 + 0.5 s1 (alpha of step 0); `resume_from_path` handed,
+    with the checkpoint it read, to `on_resume`, whose result is kept in
+    `resumed`. Given the supcon module `sc` too, also for each call of a
+    trainer's `start_training` the kernels it launched and the UNet's
+    parameters (and the adversarial trainer's discriminator's) before and
+    after it, in `runs`."""
+
+    def __init__(self, cs, sc=None, on_resume=None):
+        self.cs, self.sc, self.on_resume = cs, sc, on_resume
+
+    @staticmethod
+    def _snapshot(trainer):
+        out = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+        d = getattr(trainer, "_discriminator", None)
+        if d is not None:
+            out.update({f"discriminator.{k}": p.detach().clone()
+                        for k, p in d.named_parameters()})
+        return out
 
     def __enter__(self):
         from spcl_torch.models.ema import EMATeacher
-        from spcl_torch.ops import convstage_cuda as cs
         from spcl_torch.training import load_checkpoint
-        from spcl_torch.training.trainer import FineTuneTrainer, SemiTrainer, _TrainerBase
-        self.trainers, self.events, self.first_update, self.resumed = [], [], None, None
-        self.teacher_launches = {k: 0 for k in cs.LAUNCHES}
-        run = self
+        from spcl_torch.training.trainer import (FineTuneTrainer, PretrainEncoderTrainer,
+                                                 _TrainerBase)
+        self.trainers, self.events, self.runs = [], [], []
+        self.first_update, self.resumed = None, None
+        self.teacher_launches = {k: 0 for k in self.cs.LAUNCHES}
+        rec = self
 
         def init(orig):
             def wrapped(trainer):
-                run.trainers.append(trainer)
-                return orig(trainer)
+                orig(trainer)
+                rec.trainers.append(trainer)
+                step = trainer._train_step
+
+                def timed(*args, **kwargs):
+                    out = step(*args, **kwargs)
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    rec.events.append(ev)
+                    return out
+                trainer._train_step = timed
             return wrapped
 
-        def call_step(orig):
-            def wrapped(trainer, batches, scalars):
-                out = orig(trainer, batches, scalars)
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                run.events.append(ev)
+        def start(orig):
+            def wrapped(trainer):
+                rec.sc.reset_launch_counts()
+                rec.cs.reset_launch_counts()
+                before = rec._snapshot(trainer)
+                first = len(rec.events)
+                out = orig(trainer)
+                torch.cuda.synchronize()
+                rec.runs.append({"trainer": trainer, "before": before,
+                                 "after": rec._snapshot(trainer),
+                                 "launches": {**rec.sc.LAUNCHES, **rec.cs.LAUNCHES},
+                                 "events": rec.events[first:]})
                 return out
             return wrapped
 
         def resume(orig):
             def wrapped(trainer, path):
                 orig(trainer, path)
-                saved = load_checkpoint(path)
-                teacher = trainer.teacher.state_dict()
-                run.resumed = {
-                    "teacher_step": teacher["step"],
-                    "teacher_equal": all(torch.equal(v.cpu(), saved["_teacher"]["model"][k])
-                                         for k, v in teacher["model"].items()),
-                    "radam_steps": sorted({s["step"] for s in trainer._optimizer.state.values()}),
-                    "radam_equal": all(
-                        torch.equal(s["mu"].cpu(), saved["_optimizer"]["state"][i]["mu"])
-                        for i, s in trainer._optimizer.state_dict()["state"].items())}
+                if rec.on_resume is not None:
+                    rec.resumed = rec.on_resume(trainer, load_checkpoint(path))
             return wrapped
 
         def logits(orig):
             def wrapped(teacher, images):
-                before = dict(cs.LAUNCHES)
+                before = dict(rec.cs.LAUNCHES)
                 out = orig(teacher, images)
-                for k in run.teacher_launches:
-                    run.teacher_launches[k] += cs.LAUNCHES[k] - before[k]
+                for k in rec.teacher_launches:
+                    rec.teacher_launches[k] += rec.cs.LAUNCHES[k] - before[k]
                 return out
             return wrapped
 
         def update(orig):
             def wrapped(teacher, student):
-                if teacher.step or run.first_update is not None:
+                if teacher.step or rec.first_update is not None:
                     return orig(teacher, student)
                 t0 = [p.detach().clone() for p in teacher.model.parameters()]
                 s1 = [p.detach().clone() for p in student.parameters()]
                 alpha = orig(teacher, student)
-                run.first_update = (alpha, all(torch.equal(t, 0.5 * a + 0.5 * b) for t, a, b
+                rec.first_update = (alpha, all(torch.equal(t, 0.5 * a + 0.5 * b) for t, a, b
                                                in zip(teacher.model.parameters(), t0, s1)))
                 return alpha
             return wrapped
 
-        self._saved = [(cls, name, getattr(cls, name), wrap) for cls, name, wrap in (
-            (_TrainerBase, "init", init), (FineTuneTrainer, "_call_step", call_step),
-            (SemiTrainer, "_call_step", call_step), (_TrainerBase, "resume_from_path", resume),
-            (EMATeacher, "logits", logits), (EMATeacher, "update", update))]
+        wraps = [(_TrainerBase, "init", init), (_TrainerBase, "resume_from_path", resume),
+                 (EMATeacher, "logits", logits), (EMATeacher, "update", update)]
+        if self.sc is not None:
+            wraps += [(PretrainEncoderTrainer, "start_training", start),
+                      (FineTuneTrainer, "start_training", start)]
+        self._saved = [(cls, name, getattr(cls, name), wrap) for cls, name, wrap in wraps]
         for cls, name, fn, wrap in self._saved:
             setattr(cls, name, wrap(fn))
         return self
@@ -2170,11 +2256,29 @@ class _SemiRun:
             setattr(cls, name, fn)
 
     def timed_ms(self, skip=1):
-        """ms per step between the end of step `skip` and the last step's
-        end, on the card's clock (host gaps included)."""
-        torch.cuda.synchronize()
-        n = len(self.events) - skip
-        return self.events[skip - 1].elapsed_time(self.events[-1]) / n
+        return _timed_ms(self.events, skip)
+
+
+def _semi_resumed(trainer, saved):
+    """What the semi trainer's resume restored: its teacher and RAdam state."""
+    teacher = trainer.teacher.state_dict()
+    return {"teacher_step": teacher["step"],
+            "teacher_equal": all(torch.equal(v.cpu(), saved["_teacher"]["model"][k])
+                                 for k, v in teacher["model"].items()),
+            "radam_steps": sorted({s["step"] for s in trainer._optimizer.state.values()}),
+            "radam_equal": all(torch.equal(s["mu"].cpu(), saved["_optimizer"]["state"][i]["mu"])
+                               for i, s in trainer._optimizer.state_dict()["state"].items())}
+
+
+def _adv_resumed(trainer, saved):
+    """What the adversarial trainer's resume restored: the discriminator
+    and its Adam state."""
+    adam = trainer._discr_optimizer.state_dict()["state"]
+    return {"discriminator": all(torch.equal(v.cpu(), saved["_discriminator"][k])
+                                 for k, v in trainer.discriminator.state_dict().items()),
+            "adam_steps": sorted({s["step"] for s in adam.values()}),
+            "adam": all(torch.equal(s[m].cpu(), saved["_discr_optimizer"]["state"][i][m])
+                        for i, s in adam.items() for m in ("mu", "nu"))}
 
 
 def _check_semi_metrics(trainer, hooks, what):
@@ -2208,7 +2312,7 @@ def slice_e_phase(cs):
           and config["LabeledLoader"]["batch_size"] == 32, "slice E configuration")
     cs.reset_launch_counts()
     t0 = time.perf_counter()
-    with _SemiRun() as rec:
+    with _Recorder(cs) as rec:
         score = run(config, DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2264,7 +2368,7 @@ def slice_e_phase(cs):
                      Trainer={"save_dir": str(base_dir / "resume"), "max_epoch": 2,
                               "num_batches": SEMI_STEPS})
     cs.reset_launch_counts()
-    with _SemiRun() as rec:
+    with _Recorder(cs, on_resume=_semi_resumed) as rec:
         run(resume, DEVICE)
         torch.cuda.synchronize()
     trainer = rec.trainers[0]
@@ -2291,7 +2395,7 @@ def slice_e_phase(cs):
                      Trainer={"save_dir": str(base_dir / "nhwc"), "max_epoch": 1,
                               "num_batches": SEMI_STEPS})
     cs.reset_launch_counts()
-    with _SemiRun() as rec:
+    with _Recorder(cs) as rec:
         run(config, DEVICE)
         torch.cuda.synchronize()
         ms_nhwc = rec.timed_ms()
@@ -2310,6 +2414,53 @@ def slice_e_phase(cs):
     return out
 
 
+class _HeldSupcon:
+    """Inside the block, each supcon kernel call through the wrappers is
+    recorded in `calls` as (kernel, operand rows, real views: label != the
+    pad's -7) and held to the plain version on the same operands at the
+    kernels phase's tolerances; `max_err` keeps the largest error per
+    kernel. The held calls are not timed."""
+
+    def __init__(self, sc, what):
+        self.sc, self.what = sc, what
+        self.calls = []
+        self.max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
+
+    def __enter__(self):
+        sc = self.sc
+        self._saved = (sc.fwd_stats_kernel, sc.bwd_dz_kernel)
+        plain = {"supcon_fwd": sc.fwd_stats_plain, "supcon_bwd": sc.bwd_dz_plain}
+
+        def noted(kernel, fn):
+            def run(zr, zc, lab_r, *rest):
+                self.calls.append((kernel, zr.shape[0], int((lab_r != -7).sum())))
+                out = fn(zr, zc, lab_r, *rest)
+                ref = plain[kernel](zr, zc, lab_r, *rest)
+                if kernel == "supcon_fwd":  # (denom, c, rawloss, spsum); per row / c
+                    c = torch.clamp(ref[1], min=1.0)
+                    err = max(float((torch.log(out[0] + 1e-16) - torch.log(ref[0] + 1e-16))
+                                    .abs().max()),
+                              float((out[1] - ref[1]).abs().max()),
+                              float(((out[2] - ref[2]) / c).abs().max()),
+                              float(((out[3] - ref[3]) / c).abs().max()))
+                    tol = 2e-4
+                else:
+                    err = float((out - ref).abs().max())
+                    tol = 2e-4 * float(ref.abs().max())
+                check(err <= tol, f"{self.what} {kernel} at {zr.shape[0]} rows: err {err:.2e} "
+                                  f"> {tol:.2e}")
+                self.max_err[kernel] = max(self.max_err[kernel], err)
+                return out
+            return run
+
+        sc.fwd_stats_kernel = noted("supcon_fwd", self._saved[0])
+        sc.bwd_dz_kernel = noted("supcon_bwd", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.sc.fwd_stats_kernel, self.sc.bwd_dz_kernel = self._saved
+
+
 def preset_phase(sc):
     """Every legacy preset name and main_mixup at base.yaml's 5 + 5 slices,
     full width, nhwc, 2 steps each, and the semi trainer once with
@@ -2319,40 +2470,9 @@ def preset_phase(sc):
     from spcl_torch.hooks import LEGACY_TRAINER_PRESETS
     from spcl_torch.main import run
     from spcl_torch.main_mixup import mixup_config
+    from spcl_torch.ops import convstage_cuda as cs
     base_dir = ROOT / "runs" / "chip_smoke_presets"
     shutil.rmtree(base_dir, ignore_errors=True)
-    recorder = []
-    fwd, bwd = sc.fwd_stats_kernel, sc.bwd_dz_kernel
-
-    plain = {"supcon_fwd": sc.fwd_stats_plain, "supcon_bwd": sc.bwd_dz_plain}
-    max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
-
-    def noted(kernel, fn):
-        """The kernel's wrapper, recording (kernel, operand rows, real views:
-        label != the pad's -7) and holding each call to the plain version on
-        the same operands, at the kernels phase's tolerances."""
-        def run(zr, zc, lab_r, *rest):
-            recorder.append((kernel, zr.shape[0], int((lab_r != -7).sum())))
-            out = fn(zr, zc, lab_r, *rest)
-            ref = plain[kernel](zr, zc, lab_r, *rest)
-            if kernel == "supcon_fwd":  # (denom, c, rawloss, spsum); per row / c as rowloss, a
-                c = torch.clamp(ref[1], min=1.0)
-                err = max(float((torch.log(out[0] + 1e-16) - torch.log(ref[0] + 1e-16))
-                                .abs().max()),
-                          float((out[1] - ref[1]).abs().max()),
-                          float(((out[2] - ref[2]) / c).abs().max()),
-                          float(((out[3] - ref[3]) / c).abs().max()))
-                tol = 2e-4
-            else:
-                err = float((out - ref).abs().max())
-                tol = 2e-4 * float(ref.abs().max())
-            check(err <= tol, f"preset {kernel} at {zr.shape[0]} rows: err {err:.2e} > {tol:.2e}")
-            max_err[kernel] = max(max_err[kernel], err)
-            return out
-        return run
-
-    sc.fwd_stats_kernel, sc.bwd_dz_kernel = noted("supcon_fwd", fwd), noted("supcon_bwd", bwd)
-
     def cuts(**trainer):
         return dict(Data={"synthetic": True},
                     Trainer={"max_epoch": 1, "num_batches": PRESET_STEPS, **trainer})
@@ -2365,41 +2485,44 @@ def preset_phase(sc):
         "base.yaml", "specific/mt.yaml", "specific/uda.yaml",
         **cuts(name="semi", two_stage=True, disable_bn=True))))
     launches = {"supcon_fwd": 0, "supcon_bwd": 0}
-    for name, config in runs:
-        config["Trainer"]["save_dir"] = str(base_dir / name.replace(" ", ""))
-        sc.reset_launch_counts()
-        recorder.clear()
-        t0 = time.perf_counter()
-        with _SemiRun() as rec:
-            score = run(config, DEVICE)
-            torch.cuda.synchronize()
-        trainer = rec.trainers[0]
-        hooks = [h.name for h in trainer.hooks]
-        check(len(trainer.step_metrics) == PRESET_STEPS and hooks, f"{name}: {hooks}")
-        _check_semi_metrics(trainer, hooks, name)
-        check(0.0 <= score <= 1.0, f"{name}: DSC {score}")
-        if name in ("infonce", "infoncemt"):
-            views = [(k, real) for k, _, real in recorder]
-            want = [(k, 10) for _ in range(PRESET_STEPS) for k in ("supcon_fwd", "supcon_bwd")]
-            check(sorted(views) == sorted(want), f"{name}: supcon launches {recorder}")
-            print(f"{name}: supcon launches (kernel, operand rows, real views) {recorder}",
-                  flush=True)
-            for k in launches:
-                launches[k] += sc.LAUNCHES[k]
-        else:
-            check(sum(sc.LAUNCHES.values()) == 0, f"{name}: supcon launches {sc.LAUNCHES}")
-        if name == "two_stage + disable_bn":
-            counts = {int(m.num_batches_tracked) for m in trainer.model.modules()
-                      if isinstance(m, torch.nn.BatchNorm2d)}
-            check(counts == {PRESET_STEPS}, f"two_stage + disable_bn BatchNorm counts {counts}")
-        last = trainer.step_metrics[-1]
-        print(f"{name:24s} hooks {hooks} | sup_loss {last['sup_loss']:.5f} reg_loss "
-              f"{last.get('reg_loss', 0.0):.5f} | "
-              + " ".join(f"{h}:{','.join(f'{k}={v:.3g}' for k, v in m.items())}"
-                         for h, m in last["hooks"].items())
-              + f" | {time.perf_counter() - t0:.1f} s", flush=True)
-        del trainer, rec
-    sc.fwd_stats_kernel, sc.bwd_dz_kernel = fwd, bwd
+    with _HeldSupcon(sc, "preset") as held:
+        for name, config in runs:
+            config["Trainer"]["save_dir"] = str(base_dir / name.replace(" ", ""))
+            sc.reset_launch_counts()
+            held.calls.clear()
+            t0 = time.perf_counter()
+            with _Recorder(cs) as rec:
+                score = run(config, DEVICE)
+                torch.cuda.synchronize()
+            trainer = rec.trainers[0]
+            hooks = [h.name for h in trainer.hooks]
+            check(len(trainer.step_metrics) == PRESET_STEPS and hooks, f"{name}: {hooks}")
+            _check_semi_metrics(trainer, hooks, name)
+            check(0.0 <= score <= 1.0, f"{name}: DSC {score}")
+            if name in ("infonce", "infoncemt"):
+                views = [(k, real) for k, _, real in held.calls]
+                want = [(k, 10) for _ in range(PRESET_STEPS)
+                        for k in ("supcon_fwd", "supcon_bwd")]
+                check(sorted(views) == sorted(want), f"{name}: supcon launches {held.calls}")
+                print(f"{name}: supcon launches (kernel, operand rows, real views) "
+                      f"{held.calls}", flush=True)
+                for k in launches:
+                    launches[k] += sc.LAUNCHES[k]
+            else:
+                check(sum(sc.LAUNCHES.values()) == 0, f"{name}: supcon launches {sc.LAUNCHES}")
+            if name == "two_stage + disable_bn":
+                counts = {int(m.num_batches_tracked) for m in trainer.model.modules()
+                          if isinstance(m, torch.nn.BatchNorm2d)}
+                check(counts == {PRESET_STEPS},
+                      f"two_stage + disable_bn BatchNorm counts {counts}")
+            last = trainer.step_metrics[-1]
+            print(f"{name:24s} hooks {hooks} | sup_loss {last['sup_loss']:.5f} reg_loss "
+                  f"{last.get('reg_loss', 0.0):.5f} | "
+                  + " ".join(f"{h}:{','.join(f'{k}={v:.3g}' for k, v in m.items())}"
+                             for h, m in last["hooks"].items())
+                  + f" | {time.perf_counter() - t0:.1f} s", flush=True)
+            del trainer, rec
+    max_err = held.max_err
     print(f"presets' supcon calls agree with the plain versions on their own operands: max "
           f"err fwd stats {max_err['supcon_fwd']:.2e} (tol 2e-4), dz "
           f"{max_err['supcon_bwd']:.2e} (tol 2e-4 x max|dz|)", flush=True)
@@ -2493,6 +2616,387 @@ def semi_parity_phase(cs):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------------------ slices F and G
+# Decoder pretraining (main_pretrain_decoder.py) and the adversarial baseline
+# (main_adv.py), from the transcribed config files as slice E runs them.
+DECODER_FILES = ("base.yaml", "pretrain.yaml", "hooks/infonce_dense.yaml")
+DECODER_STEPS = 6           # 1 warm-up + 5 timed, one epoch
+DECODER_FT_STEPS = 5        # the fine-tune run of the val() sweep, one ratio
+DECODER_SP_STEPS = 2
+DECODER_HOOK = "infonce/Up_conv3/self"
+# the fused stages run forward only under decoder pretraining: the encoder
+# below Conv5 is frozen, so no input or weight of theirs needs a gradient
+DECODER_STAGE_LAUNCHES_PER_STEP = {"convstage_conv": 1, "convstage_bnconv": 2,
+                                   "convstage_bnpool": 2}
+FROZEN_ENCODER = ("Conv1", "Conv2", "Conv3", "Conv4")
+DECODER_TRAINED = ("Conv5", "Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3")
+PAST_UP_CONV3 = ("Up2", "Up_conv2", "Deconv_1x1")
+ADV_FILES = ("base.yaml", "hooks/adv.yaml")
+ADV_STEPS = 6               # 1 warm-up + 5 timed, one epoch
+ADV_SLICES = 5 + 5          # labeled + unlabeled slices a step (base.yaml)
+# the adversarial step runs the UNet forward and backward twice: the labeled
+# view, then the unlabeled one through the discriminator
+ADV_STAGE_LAUNCHES_PER_STEP = {k: 2 * v for k, v in STAGE_LAUNCHES_PER_STEP.items()}
+
+
+def _timed_ms(events, skip=1):
+    """ms per step between the end of step `skip` and the last step's end,
+    on the card's clock (host gaps included)."""
+    torch.cuda.synchronize()
+    return events[skip - 1].elapsed_time(events[-1]) / (len(events) - skip)
+
+
+def _stage_of(key):
+    """"_Up_conv3.conv.0.weight" -> "Up_conv3"."""
+    return key.split(".")[0][1:]
+
+
+def _unchanged(run, stages):
+    return all(torch.equal(v, run["after"][k]) for k, v in run["before"].items()
+               if _stage_of(k) in stages)
+
+
+def _stages_moved(run, stages):
+    """Each stage has a parameter that moved (at the pretrain learning rate
+    of 1e-7 a BatchNorm scale of 1.0 can stay put)."""
+    return all(any(not torch.equal(v, run["after"][k]) for k, v in run["before"].items()
+                   if _stage_of(k) == stage) for stage in stages)
+
+
+def _profile_epochs(title, trainer, ms, steps=3):
+    """Busy share and top kernels of `steps` more train steps of `trainer`
+    under torch.profiler, against its unprofiled `ms` per step."""
+    prof = _print_profile(title, _profiled(_pretrain_epochs(trainer), steps), ms, top=12)
+    return {} if prof is None else {"kernel_ms": prof[0], "busy": prof[0] / ms,
+                                    "stage_ms": prof[1]}
+
+
+def _f_path(run):
+    """The kernels line's name of a slice F run."""
+    return "slice_f" if run == "pallas" else f"slice_f_{run}"
+
+
+def slice_f_phase(sc, cs, encoder_ckpt=None):
+    """Decoder pretraining (spcl_torch.main_pretrain_decoder.run, both phases)
+    under `pallas`, then the same pretraining under `nhwc` and with the
+    self-paced hook; each supcon call held to its plain version."""
+    phase(f"slice F: main_pretrain_decoder.py (base + pretrain + hooks/infonce_dense), "
+          f"UNet-256, 224^2, {DECODER_VIEWS} views x 5 points = 2N {DENSE_2N} at Up_conv3, "
+          f"small_c_layout pallas, 1 + {DECODER_STEPS - 1} steps, then val() at one ratio "
+          f"({DECODER_FT_STEPS} fine-tune steps and one eval epoch); the same under nhwc; "
+          f"{DECODER_SP_STEPS} steps of SPInfonceParams at Up_conv3")
+    from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs
+    from spcl_torch.main_pretrain_decoder import run
+    from spcl_torch.models import UNet
+    from spcl_torch.training import load_checkpoint
+    base_dir = ROOT / "runs" / "chip_smoke_f"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rows = -(-DENSE_2N // sc._TILE) * sc._TILE  # the operands' padded rows
+    # each run's own kernel launches: the decoder pretraining under pallas
+    # ("pallas"), its val() fine-tune, the nhwc pretraining and the
+    # self-paced one
+    out = {"launches": {}}
+
+    def config_for(layout, name, steps):
+        arch = {"small_c_layout": layout}
+        if encoder_ckpt is not None:
+            arch["checkpoint"] = str(encoder_ckpt)
+        return _merged(*DECODER_FILES, Arch=arch, Data={"synthetic": True, "ratios": [1]},
+                       Trainer={"save_dir": str(base_dir / name), "max_epoch": 1,
+                                "num_batches": steps, "ft_num_batches": DECODER_FT_STEPS})
+
+    def pretrain_only(config):
+        pre, _ = separate_pretrain_finetune_configs(config)
+        pre["Trainer"]["name"] = "pretrain_decoder"
+        trainer = build_trainer(pre, save_dir=pre["Trainer"]["save_dir"], pretrain=True,
+                                device=DEVICE)
+        trainer.init()
+        trainer.start_training()
+
+    def check_pretraining(what, run_, held, steps, layout):
+        trainer = run_["trainer"]
+        check(type(trainer).__name__ == "PretrainDecoderTrainer"
+              and trainer._forward_until == "Up_conv3", f"{what}: {type(trainer).__name__}")
+        want_calls = [(k, rows, DENSE_2N) for _ in range(steps)
+                      for k in ("supcon_fwd", "supcon_bwd")]
+        check(sorted(held.calls) == sorted(want_calls),
+              f"{what}: supcon calls (kernel, rows, views) {held.calls}")
+        per_step = DECODER_STAGE_LAUNCHES_PER_STEP if layout == "pallas" else {}
+        want = {k: 0 for k in run_["launches"]}
+        want.update(supcon_fwd=steps, supcon_bwd=steps,
+                    **{k: v * steps for k, v in per_step.items()})
+        check(run_["launches"] == want, f"{what}: launches {run_['launches']}, want {want}")
+        check(_unchanged(run_, FROZEN_ENCODER), f"{what}: a frozen encoder stage moved")
+        check(_unchanged(run_, PAST_UP_CONV3), f"{what}: a stage past Up_conv3 moved")
+        check(_stages_moved(run_, DECODER_TRAINED), f"{what}: a trained stage did not move")
+        check(len(trainer.step_metrics) == steps, len(trainer.step_metrics))
+        for r in trainer.step_metrics:
+            m = r["hooks"][trainer.hooks[0].name]
+            check(math.isfinite(r["reg_loss"]) and all(math.isfinite(v) for v in m.values()),
+                  f"{what}: {r}")
+            if "sp_weight" in m:
+                check(0.0 <= m["sp_weight"] <= 1.0, f"{what}: {m}")
+        return trainer
+
+    # ---- both phases of main_pretrain_decoder.py under pallas
+    config = config_for("pallas", "pallas", DECODER_STEPS)
+    check(config["InfonceParams"]["feature_names"] == "Up_conv3"
+          and config["ContrastiveLoaderParams"]["scan_sample_num"] == 3
+          and config["Optim"]["lr"] == 1e-7, "slice F configuration")
+    t0 = time.perf_counter()
+    with _HeldSupcon(sc, "slice F") as held, _Recorder(cs, sc) as rec:
+        scores = run(config, DEVICE)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre, ft = rec.runs
+    trainer = check_pretraining("slice F pallas", pre, held, DECODER_STEPS, "pallas")
+    want_ft = {k: 0 for k in ft["launches"]}
+    want_ft.update({k: v * DECODER_FT_STEPS for k, v in STAGE_LAUNCHES_PER_STEP.items()})
+    check(ft["launches"] == want_ft, f"slice F fine-tune launches {ft['launches']}")
+    out["launches"].update(pallas=pre["launches"], finetune=ft["launches"])
+    check(list(scores) == [1] and 0.0 <= scores[1] <= 1.0, f"slice F DSC {scores}")
+    state = load_checkpoint(str(base_dir / "pallas" / "pre" / "last.ckpt"))
+    UNet(max_channel=256).load_state_dict(state["_model"], strict=True)
+    check(sorted(state["_hooks"]) == [DECODER_HOOK], sorted(state["_hooks"]))
+    ms = _timed_ms(pre["events"])
+    for r in trainer.step_metrics:
+        print(f"pretrain reg_loss {r['reg_loss']:.6f}", flush=True)
+    print(f"slice F pallas: warm start {'from ' + str(encoder_ckpt) if encoder_ckpt else 'none'}"
+          f" | supcon calls {DECODER_STEPS} x (fwd, bwd) at {rows} operand rows ({DENSE_2N} "
+          f"views), each held to plain: max err fwd stats {held.max_err['supcon_fwd']:.2e}, dz "
+          f"{held.max_err['supcon_bwd']:.2e} | pretrain launches {pre['launches']} | Conv1-Conv4 "
+          f"and Up2..Deconv_1x1 bit-equal, Conv5..Up_conv3 moved | fine-tune launches "
+          f"{ft['launches']} | val DSC {scores[1]:.5f} | pre/last.ckpt reloads strictly | "
+          f"{wall:.1f} s incl. set-up, fine-tune and eval", flush=True)
+    out["max_err"] = dict(held.max_err)
+    steady = _pretrain_epochs(trainer)(DECODER_STEPS)
+    out["pallas"] = {"ms": ms, "steady_ms": steady,
+                     **_profile_epochs("slice F pallas", trainer, steady)}
+    print(f"slice F pallas: {ms:.3f} ms/step over {DECODER_STEPS - 1} steps after 1 warm-up "
+          f"(each supcon call held to plain) = {DECODER_VIEWS * 1e3 / ms:.1f} slices/s; a "
+          f"further epoch unheld {steady:.3f} ms/step = {DECODER_VIEWS * 1e3 / steady:.1f} "
+          f"slices/s", flush=True)
+    del trainer, pre, ft, rec
+    torch.cuda.empty_cache()
+
+    # ---- the same pretraining under nhwc, then the self-paced hook under pallas
+    with _HeldSupcon(sc, "slice F nhwc") as held, _Recorder(cs, sc) as rec:
+        pretrain_only(config_for("nhwc", "nhwc", DECODER_STEPS))
+    trainer = check_pretraining("slice F nhwc", rec.runs[0], held, DECODER_STEPS, "nhwc")
+    out["launches"]["nhwc"] = rec.runs[0]["launches"]
+    steady = _pretrain_epochs(trainer)(DECODER_STEPS)
+    out["nhwc"] = {"ms": _timed_ms(rec.runs[0]["events"]), "steady_ms": steady,
+                   **_profile_epochs("slice F nhwc", trainer, steady)}
+    print(f"slice F nhwc: {out['nhwc']['ms']:.3f} ms/step (held), {steady:.3f} ms/step unheld "
+          f"= {DECODER_VIEWS * 1e3 / steady:.1f} slices/s | pallas / nhwc "
+          f"{out['pallas']['steady_ms'] / steady:.3f}", flush=True)
+    del trainer, rec
+    torch.cuda.empty_cache()
+
+    config = config_for("pallas", "spinfonce", DECODER_SP_STEPS)
+    del config["InfonceParams"]
+    config["SPInfonceParams"] = dict(CONFIG_FILES["hooks/spinfonce.yaml"]["SPInfonceParams"],
+                                     feature_names="Up_conv3", contrast_ons="self")
+    with _HeldSupcon(sc, "slice F spinfonce") as held, _Recorder(cs, sc) as rec:
+        pretrain_only(config)
+    trainer = check_pretraining("slice F spinfonce", rec.runs[0], held, DECODER_SP_STEPS,
+                                "pallas")
+    out["launches"]["spinfonce"] = rec.runs[0]["launches"]
+    m = trainer.step_metrics[-1]["hooks"]["spinfonce/Up_conv3/self"]
+    print(f"slice F spinfonce (soft, correct_grad): reg_loss "
+          f"{trainer.step_metrics[-1]['reg_loss']:.6f} sp_weight {m['sp_weight']:.6f} gamma "
+          f"{m['age_param']:.1f} | supcon err fwd {held.max_err['supcon_fwd']:.2e} dz "
+          f"{held.max_err['supcon_bwd']:.2e}", flush=True)
+    for k in out["max_err"]:
+        out["max_err"][k] = max(out["max_err"][k], held.max_err[k])
+    del trainer, rec
+    torch.cuda.empty_cache()
+    print("slice_f " + json.dumps(out), flush=True)
+    return out
+
+
+def slice_g_phase(sc, cs):
+    """The adversarial baseline (spcl_torch.main.run with main_adv's config)
+    under `pallas`, then its resume into epoch 2."""
+    phase(f"slice G: main_adv.py (base + hooks/adv), UNet-256, 224^2, 5 labeled + 5 unlabeled "
+          f"slices a step, reg_weight 0.01, small_c_layout pallas, 1 epoch of 1 + "
+          f"{ADV_STEPS - 1} steps and one eval epoch; resume into epoch 2")
+    from spcl_torch.main import run
+    from spcl_torch.main_adv import adv_config
+    from spcl_torch.models import Discriminator, UNet
+    from spcl_torch.training import load_checkpoint
+    base_dir = ROOT / "runs" / "chip_smoke_g"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    def config_for(name, max_epoch, **extra):
+        return adv_config(_merged(*ADV_FILES, Arch={"small_c_layout": "pallas"},
+                                  Data={"synthetic": True},
+                                  Trainer={"save_dir": str(base_dir / name),
+                                           "max_epoch": max_epoch, "num_batches": ADV_STEPS},
+                                  **extra))
+
+    def check_run(what, run_, epoch):
+        trainer = run_["trainer"]
+        check(type(trainer).__name__ == "AdversarialTrainer", type(trainer).__name__)
+        want = {k: 0 for k in run_["launches"]}
+        want.update({k: v * ADV_STEPS for k, v in ADV_STAGE_LAUNCHES_PER_STEP.items()})
+        check(run_["launches"] == want, f"{what}: launches {run_['launches']}, want {want}")
+        recs = [r for r in trainer.step_metrics if r["epoch"] == epoch]
+        check(len(recs) == ADV_STEPS, f"{what}: {len(recs)} steps")
+        for r in recs:
+            check(all(math.isfinite(r[k]) for k in ("sup_loss", "gen_loss", "dis_loss"))
+                  and r["gen_loss"] > 0 and r["dis_loss"] > 0, f"{what}: {r}")
+        moved = [k for k, v in run_["before"].items() if k.startswith("discriminator.")
+                 and not torch.equal(v, run_["after"][k])]
+        check(len(moved) == len(list(trainer.discriminator.parameters())),
+              f"{what}: discriminator tensors moved {moved}")
+        return trainer
+
+    config = config_for("pallas", 1)
+    check(config["Trainer"]["name"] == "adv" and config["Trainer"]["reg_weight"] == 0.01
+          and config["LabeledLoader"]["batch_size"] == 5, "slice G configuration")
+    t0 = time.perf_counter()
+    with _Recorder(cs, sc) as rec:
+        score = run(config, DEVICE)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (r,) = rec.runs
+    trainer = check_run("slice G", r, 1)
+    counts = {int(m.num_batches_tracked) for m in trainer.model.modules()
+              if isinstance(m, torch.nn.BatchNorm2d)}
+    check(counts == {2 * ADV_STEPS}, f"BatchNorm counts {counts}: two updates a step")
+    check(0.0 <= score <= 1.0, f"slice G DSC {score}")
+    ckpt = base_dir / "pallas" / "last.ckpt"
+    state = load_checkpoint(str(ckpt))
+    UNet(max_channel=256).load_state_dict(state["_model"], strict=True)
+    Discriminator(4).load_state_dict(state["_discriminator"], strict=True)
+    for m in trainer.step_metrics:
+        print(f"sup_loss {m['sup_loss']:.6f} gen_loss {m['gen_loss']:.6f} dis_loss "
+              f"{m['dis_loss']:.6f}", flush=True)
+    ms = _timed_ms(r["events"])
+    out = {"launches": {"pallas": dict(r["launches"])}, "ms": ms}
+    print(f"slice G pallas: launches {r['launches']} (eval none) | every discriminator tensor "
+          f"moved | BatchNorm counts {counts} | val DSC {score:.5f} | last.ckpt (UNet and "
+          f"discriminator) reloads strictly | {wall:.1f} s incl. set-up and eval", flush=True)
+    print(f"slice G pallas: {ms:.3f} ms/step over {ADV_STEPS - 1} steps after 1 warm-up = "
+          f"{ADV_SLICES * 1e3 / ms:.1f} slices/s ({ADV_SLICES} a step)", flush=True)
+    out.update(_profile_epochs("slice G pallas", trainer, ms))
+    del trainer, rec, r
+    torch.cuda.empty_cache()
+
+    with _Recorder(cs, sc, on_resume=_adv_resumed) as rec:
+        run(config_for("resume", 2, trainer_checkpoint=str(ckpt)), DEVICE)
+        torch.cuda.synchronize()
+    (r,) = rec.runs
+    resumed = rec.resumed
+    check(resumed is not None and resumed["discriminator"] and resumed["adam"]
+          and resumed["adam_steps"] == [ADV_STEPS], f"resume restored {resumed}")
+    trainer = check_run("slice G resume", r, 2)
+    check([m["epoch"] for m in trainer.step_metrics] == [2] * ADV_STEPS,
+          f"resume ran epochs {[m['epoch'] for m in trainer.step_metrics]}")
+    adam_steps = {s["step"] for s in trainer._discr_optimizer.state.values()}
+    check(adam_steps == {2 * ADV_STEPS}, f"discriminator Adam steps {adam_steps}")
+    out["launches"]["resume"] = dict(r["launches"])
+    print(f"resume from {ckpt.name}: epoch 2 only ({ADV_STEPS} steps), the discriminator and "
+          f"its Adam state (step {resumed['adam_steps']}, moments) restored; Adam step "
+          f"{sorted(adam_steps)} after", flush=True)
+    del trainer, rec, r
+    torch.cuda.empty_cache()
+    print("slice_g " + json.dumps(out), flush=True)
+    return out
+
+
+def adv_parity_phase(cs):
+    """One adversarial step (reg_weight 0.5, dis_consider_image) of a
+    UNet-256 under `small_c_layout="pallas"` at crop 32, 4 labeled + 4
+    unlabeled slices: on the card through the stage kernels, and on the CPU
+    through their plain versions, from the same weights, discriminator and
+    draws."""
+    phase("adversarial step parity under pallas: card (kernels) vs CPU (plain)")
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_LABEL
+    from spcl_torch.models import Discriminator, UNet
+    from spcl_torch.training import (Adam, build_adversarial_step, build_optimizer,
+                                     draw_adversarial_params)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(8)
+    policy = dataclasses.replace(ACDC_LABEL, crop=32)
+    rng = np.random.default_rng(13)
+    n = 4
+    lab_np = {"image": rng.integers(0, 255, (n, 1, 48, 48), dtype=np.uint8),
+              "label": rng.integers(0, 4, (n, 48, 48), dtype=np.uint8),
+              "valid": np.ones(n, np.float32)}
+    unl_np = {"image": rng.integers(0, 255, (n, 1, 48, 48), dtype=np.uint8),
+              "label": np.zeros((n, 48, 48), np.uint8),
+              "valid": np.array([1, 1, 1, 0], np.float32)}
+    draws = draw_adversarial_params(torch.Generator().manual_seed(15),
+                                    *[{k: torch.as_tensor(v) for k, v in b.items()}
+                                      for b in (lab_np, unl_np)], None, policy=policy)
+    base = UNet(max_channel=256, small_c_layout="pallas")
+    base_d = Discriminator(5)
+    d0 = {k: v.detach().clone() for k, v in base_d.state_dict().items()}
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        model, d = copy.deepcopy(base).to(dev), copy.deepcopy(base_d).to(dev)
+        opt = build_optimizer(list(model.parameters()), lr=1e-4, weight_decay=1e-5)
+        dopt = Adam(d.parameters(), lr=1e-4, betas=(0.5, 0.999))
+        step = build_adversarial_step(model, d, opt, dopt, num_classes=4, policy=policy,
+                                      reg_weight=0.5, dis_consider_image=True)
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                   for b in (lab_np, unl_np)]
+        cs.reset_launch_counts()
+        m = step(*batches, None, params=_to(draws, dev))
+        launched = dict(cs.LAUNCHES)
+        want = ADV_STAGE_LAUNCHES_PER_STEP if dev != "cpu" else {k: 0 for k in launched}
+        check(launched == want, f"{dev}: stage launches {launched}")
+        stats = torch.cat([b.detach().float().cpu().flatten() for name, b in
+                           model.named_buffers() if "running" in name])
+        # the gradients are left in .grad (the discriminator's scaled by reg_weight)
+        grads = {name: p.grad.detach().cpu().double() for name, p in model.named_parameters()}
+        grads.update({f"discriminator.{name}": p.grad.detach().cpu().double()
+                      for name, p in d.named_parameters()})
+        results[dev] = ({k: float(m[k]) for k in ("sup_loss", "gen_loss", "dis_loss")}, stats,
+                        torch.cat([p.detach().cpu().flatten() for p in model.parameters()]),
+                        {k: v.detach().cpu() for k, v in d.state_dict().items()}, grads)
+    (lk, sk, pk, dk, gk), (lp, sp_, pp, dp, gp) = results[DEVICE], results["cpu"]
+    serr, perr = float((sk - sp_).abs().max()), float((pk - pp).abs().max())
+    gl2 = {name: float((gk[name] - g).norm() / g.norm()) for name, g in gp.items()}
+    derr = {k: float((dk[k] - dp[k]).norm() / (dp[k] - d0[k]).norm()) for k in dp}
+    # the card's discriminator step replayed on the CPU from the card's own
+    # (reg_weight-scaled) gradients: Adam's update is the same function
+    replay = copy.deepcopy(base_d)
+    for name, p in replay.named_parameters():
+        p.grad = gk[f"discriminator.{name}"].float()
+    Adam(replay.parameters(), lr=1e-4, betas=(0.5, 0.999)).step()
+    rerr = max(float((dk[k] - v).abs().max()) for k, v in replay.state_dict().items())
+    worst = sorted(gl2, key=gl2.get)[-3:]
+    print("losses card / cpu: " + ", ".join(f"{k} {lk[k]:.7f} / {lp[k]:.7f}" for k in lk)
+          + f" | max |running stat diff| {serr:.2e} | max |student diff| after one RAdam step "
+          f"{perr:.2e} | discriminator update |card - cpu| / |cpu| (L2): max "
+          f"{max(derr.values()):.2e}; the card's discriminator against its gradients' Adam "
+          f"step replayed on the CPU: max {rerr:.2e}", flush=True)
+    print(f"gradients over {len(gl2)} tensors (student and discriminator), |card - cpu| / |cpu| "
+          f"(L2): max {max(gl2.values()):.2e}, median {sorted(gl2.values())[len(gl2) // 2]:.2e}, "
+          f"largest " + ", ".join(f"{n} {gl2[n]:.2e}" for n in worst)
+          + f" (tol {SEMI_GRAD_TOL:g})", flush=True)
+    for k in lk:
+        check(abs(lk[k] - lp[k]) <= 1e-4 * max(1.0, abs(lp[k])), f"{k} differs card vs CPU")
+    check(serr <= 1e-5, "running statistics differ card vs CPU")
+    check(max(gl2.values()) <= SEMI_GRAD_TOL, f"gradients differ card vs CPU: {worst[-1]}")
+    check(perr <= 1e-5, "updated student differs card vs CPU")
+    # Adam's first step moves a weight by about lr x sign(g): an element whose
+    # gradient sits at its rounding noise may take the other sign and move by
+    # up to 2 lr (tests/test_torch_adversarial.py), so the discriminator is
+    # held through its gradients (above) and the update they make (replayed),
+    # and its update card vs CPU to the gradients' tolerance in L2
+    check(rerr <= 1e-7, "the card's discriminator step is not Adam's on its gradients")
+    check(max(derr.values()) <= SEMI_GRAD_TOL, "updated discriminator differs card vs CPU")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -2521,6 +3025,11 @@ def main():
         preset_phase(sc)
         semi_parity_phase(cs)
         return
+    if "--decoder-adv-only" in sys.argv[1:]:
+        slice_f_phase(sc, cs)
+        slice_g_phase(sc, cs)
+        adv_parity_phase(cs)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     launches, thr, trainer_a = slice_phase(sc)
@@ -2540,6 +3049,9 @@ def main():
     slice_e = slice_e_phase(cs)
     preset_launches, preset_err = preset_phase(sc)
     semi_parity_phase(cs)
+    slice_f = slice_f_phase(sc, cs, ROOT / "runs" / "chip_smoke_b" / "pre" / "last.ckpt")
+    slice_g = slice_g_phase(sc, cs)
+    adv_parity_phase(cs)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -2549,12 +3061,17 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/supcon.cu",
                 "replaces": replaces[name],
                 "launches": (launches[name] + stage_launches[name] + launches_c[name]
-                             + slice_d["launches"][name] + preset_launches[name]),
+                             + slice_d["launches"][name] + preset_launches[name]
+                             + sum(v[name] for v in slice_f["launches"].values())),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
                                      "slice_d": slice_d["launches"][name],
-                                     "slice_e": preset_launches[name]},
-                "max_abs_err": max(max_err[name], strip_err[name], preset_err[name]),
+                                     "slice_e": preset_launches[name],
+                                     **{_f_path(run): v[name]
+                                        for run, v in slice_f["launches"].items()
+                                        if run != "finetune"}},
+                "max_abs_err": max(max_err[name], strip_err[name], preset_err[name],
+                                   slice_f["max_err"][name]),
                 "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -2577,11 +3094,18 @@ def main():
             "name": f"convstage_{name}", "route": "cuda",
             "source": "spcl_torch/ops/csrc/convstage.cu", "replaces": STAGE_REPLACES[name],
             "launches": (stage_launches[f"convstage_{name}"]
-                         + slice_e["pallas"]["launches"][f"convstage_{name}"]),
+                         + slice_e["pallas"]["launches"][f"convstage_{name}"]
+                         + sum(v[f"convstage_{name}"] for v in slice_f["launches"].values())
+                         + sum(v[f"convstage_{name}"] for v in slice_g["launches"].values())),
             "launches_by_path": {"slice_b": stage_launches[f"convstage_{name}"],
                                  "slice_e": slice_e["pallas"]["launches"][f"convstage_{name}"],
                                  "slice_e_teacher": slice_e["pallas"]["teacher"].get(
-                                     f"convstage_{name}", 0)},
+                                     f"convstage_{name}", 0),
+                                 **{_f_path(run): v[f"convstage_{name}"]
+                                    for run, v in slice_f["launches"].items() if run != "nhwc"},
+                                 "slice_g": slice_g["launches"]["pallas"][f"convstage_{name}"],
+                                 "slice_g_resume":
+                                     slice_g["launches"]["resume"][f"convstage_{name}"]},
             "max_abs_err": stage[name]["max_abs_err"], "ms": shapes[at]["ms"],
             "plain_ms": shapes[at]["plain_ms"], "bound_ms": shapes[at]["bound_ms"],
             "bound_by": shapes[at]["bound_by"],
@@ -2611,8 +3135,13 @@ def main():
           f"{slice_d['store_bytes'] / 2**20:.1f} MiB | slice E semi step (32 + 2 x 32 "
           f"slices) pallas {slice_e['pallas']['ms']:.3f} ms/step, "
           f"{96e3 / slice_e['pallas']['ms']:.1f} slices/s, nhwc "
-          f"{slice_e['nhwc']['ms']:.3f} ms/step, {96e3 / slice_e['nhwc']['ms']:.1f} slices/s",
-          flush=True)
+          f"{slice_e['nhwc']['ms']:.3f} ms/step, {96e3 / slice_e['nhwc']['ms']:.1f} slices/s | "
+          f"slice F decoder pretrain step (2N={DENSE_2N}) pallas "
+          f"{slice_f['pallas']['steady_ms']:.3f} ms/step, "
+          f"{DECODER_VIEWS * 1e3 / slice_f['pallas']['steady_ms']:.1f} slices/s, nhwc "
+          f"{slice_f['nhwc']['steady_ms']:.3f} ms/step | slice G adversarial step (5 + 5 "
+          f"slices) pallas {slice_g['ms']:.3f} ms/step, "
+          f"{ADV_SLICES * 1e3 / slice_g['ms']:.1f} slices/s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -4,9 +4,9 @@ The counterpart of `spcl_tpu/entry/common.py` (reference main.py:18-83,
 utils.py:7-34, semi_seg/data/creator.py): trainer dispatch by `Trainer.name`
 (the legacy preset names become the semi trainer with their hook blocks),
 hook activation by config-block presence, `pre_`/`ft_` config splitting for
-the two-phase pipeline, the encoder-pretrain trainer wired to the
-contrastive loader, and the fine-tune, mixup and semi trainers to the
-labeled (and unlabeled), val and test loaders.
+the two-phase pipeline, the encoder- and decoder-pretrain trainers wired to
+the contrastive loader, and the fine-tune, mixup, semi and adversarial
+trainers to the labeled (and unlabeled), val and test loaders.
 """
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ from ..constants import data2class_numbers, data2input_dim
 from ..data import (SliceDataset, corrupt_meta_labels, create_contrastive_loader, get_data,
                     load_packed, synthetic_dataset, synthetic_dataset_hard)
 from ..data.augment import POLICY_ZOO
-from ..hooks import LEGACY_TRAINER_PRESETS, create_hook_from_config, feature_until_from_hooks
-from ..models import UNet
+from ..hooks import (LEGACY_TRAINER_PRESETS, create_hook_from_config,
+                     feature_until_from_hooks, get_individual_hooks)
+from ..models import ENCODER_NAMES, UNet
 from ..models.masking import stages_from_range
 from ..parallel import mesh
 from ..training import trainer_zoo
@@ -129,20 +130,40 @@ def refuse_unported_trainer_keys(trainer_cfg: Dict, name: str) -> None:
             for key, item in refused))
 
 
+def _refuse_decoder_hooks(hooks, ranks: int, grad_cache: int) -> None:
+    """A decoder-stage InfoNCE hook runs in one process and without the
+    gradient cache: its dense draws and SimCLR ids are batch-local."""
+    dense = [h.name for h in get_individual_hooks(*hooks)
+             if h.feature_name is not None and h.feature_name not in ENCODER_NAMES]
+    if dense and ranks > 1:
+        raise NotImplementedError(f"decoder-stage InfoNCE hooks {dense} under Trainer.mesh "
+                                  "are not ported yet (ROADMAP A12)")
+    if dense and grad_cache:
+        raise NotImplementedError(f"decoder-stage InfoNCE hooks {dense} with "
+                                  "Trainer.grad_cache are not ported yet (ROADMAP A12)")
+
+
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
-    encoder-pretrain trainer, the fine-tune trainer (`Trainer.name: ft`), the
-    mixup trainer (`mixup`) or the semi trainer (`semi`, the default, and
-    every name of `LEGACY_TRAINER_PRESETS`: the preset's hook blocks under
-    the config's, explicit blocks winning). The trainer reads `Optim` (name,
-    lr, weight_decay, momentum, nesterov, as spcl_tpu's does),
+    encoder-pretrain trainer (`pretrain`, `pretrain_encoder`: the stages up to
+    the hooks' deepest train), the decoder-pretrain trainer
+    (`pretrain_decoder`: Conv5 up to the hooks' deepest stage train, the
+    encoder below Conv5 is frozen, spcl_tpu entry/common.py:165-171), the
+    fine-tune trainer (`ft`), the mixup trainer (`mixup`), the adversarial
+    trainer (`adv`: `Trainer.reg_weight`, `Trainer.dis_consider_image`) or
+    the semi trainer (`semi`, the default, and every name of
+    `LEGACY_TRAINER_PRESETS`: the preset's hook blocks under the config's,
+    explicit blocks winning). The trainer reads `Optim` (name, lr,
+    weight_decay, momentum, nesterov, as spcl_tpu's does),
     `Trainer.grad_cache`, `Trainer.packed_eval`, `Trainer.two_stage` and
     `Trainer.disable_bn` from the config; `Trainer.device_data` (default
     true) picks the data path. `Trainer.mesh: N|auto` makes the pretrain or
     fine-tune trainer one rank of an N-rank run; the calling process must
     then be one of N ranks (see `spcl_torch.main_pretrain_encoder` and
-    `parallel.mesh.spawn_local`)."""
+    `parallel.mesh.spawn_local`). Not ported yet, and refused here naming
+    ROADMAP A12: a mesh with the semi, mixup or adversarial trainer, and a
+    decoder-stage InfoNCE hook under a mesh or with `grad_cache`."""
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
@@ -151,12 +172,11 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
         config = dictionary_merge_by_hierachy(LEGACY_TRAINER_PRESETS[name], config)
         name = "semi"
     if name not in trainer_zoo:
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (ported: {sorted(trainer_zoo)}; "
-            "the adversarial trainer is ROADMAP A10)")
+        raise NotImplementedError(f"trainer {name!r} is not ported yet "
+                                  f"(ported: {sorted(trainer_zoo)})")
     refuse_unported_trainer_keys(trainer_cfg, name)
-    if name in ("semi", "mixup") and mesh.requested_ranks(trainer_cfg.get("mesh", 0),
-                                                          device) > 1:
+    ranks = mesh.requested_ranks(trainer_cfg.get("mesh", 0), device)
+    if name in ("semi", "mixup", "adv") and ranks > 1:
         raise NotImplementedError(f"Trainer.mesh with the {name} trainer is not ported yet "
                                   "(ROADMAP A12 rest)")
     data_name = data_cfg.get("name", "acdc")
@@ -176,6 +196,7 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
 
     if name.startswith("pretrain"):
         hooks = create_hook_from_config(config, max_epoch=max_epoch)
+        _refuse_decoder_hooks(hooks, ranks, int(trainer_cfg.get("grad_cache") or 0))
         cl_cfg = config.get("ContrastiveLoaderParams", {})
         contrastive_loader = create_contrastive_loader(
             tra_set, scan_sample_num=int(cl_cfg.get("scan_sample_num", 10)),
@@ -185,7 +206,10 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
         trainer = trainer_zoo[name](contrastive_loader=contrastive_loader,
                                     forward_until=until, **kwargs)
         trainer.register_hooks(*hooks)
-        trainer.set_trainable_stages(stages_from_range(None, until))
+        # decoder pretraining trains Conv5 up to `until` (reference
+        # main_pretrain_decoder.py:42-76 set_grad(True, "Conv5", until))
+        start = "Conv5" if name == "pretrain_decoder" else None
+        trainer.set_trainable_stages(stages_from_range(start, until))
         logger.info("pretrain trainer %s: forward_until=%s", name, until)
         return trainer
 
@@ -201,6 +225,10 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
         kwargs.update(unlabeled_loader=unlab,
                       two_stage=bool(trainer_cfg.get("two_stage", False)),
                       disable_bn=bool(trainer_cfg.get("disable_bn", False)))
+    elif name == "adv":
+        kwargs.update(unlabeled_loader=unlab,
+                      reg_weight=float(trainer_cfg.get("reg_weight", 0.01)),
+                      dis_consider_image=bool(trainer_cfg.get("dis_consider_image", False)))
     trainer = trainer_cls(labeled_loader=lab, val_loader=val_loader, test_loader=test_loader,
                           **kwargs)
     # fine-tuning activates no hooks (reference FineTuneTrainer.activate_hooks)

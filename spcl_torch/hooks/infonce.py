@@ -1,12 +1,16 @@
 """InfoNCE / self-paced InfoNCE hooks — the paper's pretraining losses, on
-encoder stages.
+encoder and decoder stages.
 
-The counterpart of the encoder path of `spcl_tpu/hooks/infonce.py`
-(reference semi_seg/hooks/infonce.py:56-141, 171-195):
+The counterpart of `spcl_tpu/hooks/infonce.py` (reference
+semi_seg/hooks/infonce.py:56-141, 171-241):
   features of the two views <- ctx["acts"][stage][-2n:]
   view-1 features re-flipped with the step's flip params (geometry align)
-  ProjectionHead -> z (L2-normalized)
-  loss = (SelfPaced)SupCon(z1, z2, target=meta_labels)
+  encoder stage: ProjectionHead -> z [n, 256] (L2-normalized)
+  decoder stage: DenseProjectionHead -> z [n, 256, 10, 10]; `sample` draws
+    5 points (ys, xs) per image on the pooled grid, the same points for both
+    views; their [n·5, 256] rows are SimCLR-paired (each point's only
+    positive is itself in the other view; target -1 on padded slices)
+  loss = (SelfPaced)SupCon(z1, z2, target)
 
 Criterion dispatch: `use_fused` "auto" or true runs `ops.supcon_cuda` —
 the hand-written kernels on a CUDA tensor at EVERY batch size, their plain
@@ -18,7 +22,10 @@ apply here.)
 (`Trainer.mesh`): "replicated" gathers z and computes the full [2N, 2N] loss
 on every rank; "row_sharded" computes this rank's [2 n_local, 2N] strip
 (`parallel/contrastive.py`). Both give the same loss and the same metrics on
-every rank; in a single process both are the single-device loss.
+every rank; in a single process both are the single-device loss. A decoder
+hook runs in one process only (`entry.build_trainer` refuses it under a
+mesh): its draws and SimCLR ids would have to span the global batch
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import torch
 from .base import TrainerHook, label_from_contrast_on
 from ..data.augment import apply_flip
 from ..losses.supcon import self_paced_supcon_loss, supcon_loss
-from ..models.heads import ProjectionHead
+from ..models.heads import DenseProjectionHead, ProjectionHead
 from ..models.unet import ENCODER_NAMES
 from ..ops.supcon_cuda import fused_self_paced_supcon, fused_supcon
 from ..parallel import mesh
@@ -41,12 +48,9 @@ class INFONCEHook(TrainerHook):
     def __init__(self, *, name: str, feature_name: str, weight: float = 1.0,
                  contrast_on: str = "partition",
                  spatial_size: Optional[Tuple[int, int]] = None,
-                 temperature: float = 0.07, use_fused="auto",
-                 global_contrast: str = "replicated"):
+                 temperature: float = 0.07, num_sampled_points: int = 5,
+                 use_fused="auto", global_contrast: str = "replicated"):
         super().__init__(name, weight)
-        if feature_name not in ENCODER_NAMES:
-            raise NotImplementedError(
-                f"decoder-stage InfoNCE ({feature_name}) is not ported yet")
         if global_contrast not in ("replicated", "row_sharded"):
             raise ValueError(global_contrast)
         self.global_contrast = global_contrast
@@ -54,14 +58,29 @@ class INFONCEHook(TrainerHook):
         self.feature_name = feature_name
         self.contrast_on = contrast_on
         self.temperature = float(temperature)
-        self.spatial_size = tuple(spatial_size) if spatial_size is not None else (1, 1)
+        self.is_encoder = feature_name in ENCODER_NAMES
+        if spatial_size is None:
+            spatial_size = (1, 1) if self.is_encoder else (10, 10)
+        self.spatial_size = tuple(spatial_size)
+        self.num_sampled_points = int(num_sampled_points)
 
     def build(self, model, device):
-        self.projector = ProjectionHead(
-            input_dim=model.channel_dim(self.feature_name), output_dim=256,
-            hidden_dim=256, head_type="mlp", normalize=True,
-            spatial_size=self.spatial_size).to(device)
+        head = ProjectionHead if self.is_encoder else DenseProjectionHead
+        self.projector = head(input_dim=model.channel_dim(self.feature_name), output_dim=256,
+                              hidden_dim=256, head_type="mlp", normalize=True,
+                              spatial_size=self.spatial_size).to(device)
         return self.projector
+
+    def sample(self, generator, ctx):
+        """Decoder stages: the points of this step, ys and xs [n, 5] uniform
+        over the pooled grid (spcl_tpu draws them from fold_in(key, 17))."""
+        if self.is_encoder:
+            return None
+        h, w = self.spatial_size
+        shape = (ctx["n_unl"], self.num_sampled_points)
+        device = ctx["valid"].device
+        return {"ys": torch.randint(0, h, shape, generator=generator, device=device),
+                "xs": torch.randint(0, w, shape, generator=generator, device=device)}
 
     @property
     def fused(self) -> bool:
@@ -97,9 +116,27 @@ class INFONCEHook(TrainerHook):
 
     def loss_fn(self, ctx, scalars):
         z1, z2 = self._projected_views(ctx)
-        target = label_from_contrast_on(ctx, self.contrast_on)
-        loss, metrics = self._criterion(z1, z2, target, ctx["valid"], scalars)
+        if self.is_encoder:
+            target, valid = label_from_contrast_on(ctx, self.contrast_on), ctx["valid"]
+        else:
+            z1, z2, target, valid = self._dense_points(z1, z2, ctx)
+        loss, metrics = self._criterion(z1, z2, target, valid, scalars)
         return loss * self.weight, metrics
+
+    def _dense_points(self, z1, z2, ctx):
+        """The rows of the sampled points of both views [n·5, 256], their
+        SimCLR targets and validity (spcl_tpu hooks/infonce.py:157-171)."""
+        draws = ctx["draws"][self.name]
+        ys, xs = draws["ys"].long(), draws["xs"].long()
+        n, d = z1.shape[:2]
+        rows = torch.arange(n, device=z1.device)[:, None]
+        # advanced indices apart around a slice: [n, 5, d]
+        s1 = z1[rows, :, ys, xs].reshape(-1, d)
+        s2 = z2[rows, :, ys, xs].reshape(-1, d)
+        valid = ctx["valid"].repeat_interleave(ys.shape[1])
+        ids = torch.arange(valid.shape[0], dtype=torch.int32, device=valid.device)
+        target = torch.where(valid > 0, ids, torch.full_like(ids, -1))
+        return s1, s2, target, valid
 
 
 class SelfPacedINFONCEHook(INFONCEHook):
@@ -107,12 +144,13 @@ class SelfPacedINFONCEHook(INFONCEHook):
                  contrast_on: str = "partition", spatial_size=None,
                  temperature: float = 0.07, mode: str = "soft", p: float = 0.5,
                  begin_value: float = 1e6, end_value: float = 1e6,
-                 correct_grad: bool = False, max_epoch: int = 80, use_fused="auto",
+                 correct_grad: bool = False, max_epoch: int = 80,
+                 num_sampled_points: int = 5, use_fused="auto",
                  global_contrast: str = "replicated"):
         super().__init__(name=name, feature_name=feature_name, weight=weight,
                          contrast_on=contrast_on, spatial_size=spatial_size,
-                         temperature=temperature, use_fused=use_fused,
-                         global_contrast=global_contrast)
+                         temperature=temperature, num_sampled_points=num_sampled_points,
+                         use_fused=use_fused, global_contrast=global_contrast)
         if mode not in ("soft", "hard"):
             raise ValueError(mode)
         self.mode = mode

@@ -8,7 +8,13 @@ contrastyou/losses/contrast_loss3.py):
   self-paced weights from the pair negative log-likelihood against the age
   parameter gamma — hard (w = [l <= gamma]) or soft (w = max(1 - l/gamma, 0)),
   weights forced to 1 off the positive mask, optional `correct_grad`
-  rescaling by the mean selected ratio.
+  rescaling by the mean selected ratio;
+- the soft-weighted family of reference contrastyou/losses/contrast_loss.py
+  (spcl_tpu losses/supcon.py:204-326): `supcon_loss_in_mode` (SupConLoss2
+  "in" mode), `soft_supcon_loss` (SupConLoss3: float pair weights),
+  `assemble_block_weights` and `block_soft_supcon_loss` (SupConLoss4: per-block
+  weights with an enable mask on the denominator). No path of the port calls
+  them, so no kernel stands behind them.
 
 Losses return (loss, SupConAux). The max-subtraction uses the global
 detached max of the logits like the reference. This is the path that
@@ -162,3 +168,107 @@ def self_paced_supcon_loss(z1: torch.Tensor, z2: torch.Tensor, *,
         sp_mask=sp_mask if return_matrices else None,
     )
     return loss, aux
+
+
+# --------------------------------------------------------------------------- soft-weighted family
+def _row_mean(row: torch.Tensor, row_ok: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over rows; with a row mask, over the unmasked rows only."""
+    if row_ok is None:
+        return row.mean()
+    return (row * row_ok).sum() / torch.clamp(row_ok.sum(), min=1.0)
+
+
+def _valid2(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if valid is None else torch.cat([valid, valid]).float()
+
+
+def supcon_loss_in_mode(z1: torch.Tensor, z2: torch.Tensor, *,
+                        target: Optional[torch.Tensor] = None,
+                        pos_mask: Optional[torch.Tensor] = None,
+                        valid: Optional[torch.Tensor] = None,
+                        temperature: float = 0.07) -> torch.Tensor:
+    """SupConLoss2 "in" mode (reference contrast_loss.py:95-97):
+    loss_i = -log(pos_sum_i / (pos_sum_i + neg_sum_i)) / pos_count_i, over the
+    valid rows that have a positive."""
+    n = z1.shape[0]
+    pos2, neg2 = _build_masks(n, pos_mask, target, valid, z1.device)
+    sim_exp = torch.exp(_sim_logits(z1, z2, temperature))
+    pos_sum = (sim_exp * pos2).sum(dim=1)
+    neg_sum = (sim_exp * neg2).sum(dim=1)
+    pos_count_raw = pos2.sum(dim=1)
+    row = -torch.log(torch.clamp(pos_sum, min=_EPS)
+                     / torch.clamp(pos_sum + neg_sum, min=_EPS)) \
+        / torch.clamp(pos_count_raw, min=1.0)
+    v2 = _valid2(valid)
+    row_ok = None if v2 is None else v2 * (pos_count_raw > 0).float()
+    return _row_mean(row, row_ok)
+
+
+def _soft_rows(z1, z2, w2, enable, valid, temperature, out_mode):
+    """The row mean of the soft-weighted log-likelihoods over a [2N, 2N]
+    weight matrix `w2`; `enable` ([2N, 2N] or None) restricts the
+    denominator."""
+    n = z1.shape[0]
+    not_diag = 1.0 - torch.eye(2 * n, device=z1.device)
+    v2 = _valid2(valid)
+    if v2 is not None:
+        not_diag = not_diag * (v2[:, None] * v2[None, :])
+    sim_exp = torch.exp(_sim_logits(z1, z2, temperature))
+    denom_mask = not_diag if enable is None else not_diag * enable
+    denominator = (sim_exp * denom_mask).sum(dim=1, keepdim=True)
+    exp_div = sim_exp / torch.clamp(denominator, min=_EPS)
+    w2 = w2 * not_diag
+    w_sum = torch.clamp(w2.sum(dim=1), min=_EPS)
+    if out_mode:
+        row = (torch.log(exp_div + _EPS) * w2).sum(dim=1) / w_sum
+    else:
+        row = torch.log((exp_div * w2).sum(dim=1) + _EPS) / w_sum
+    return -_row_mean(row, v2)
+
+
+def soft_supcon_loss(z1: torch.Tensor, z2: torch.Tensor, *, pos_weight: torch.Tensor,
+                     temperature: float = 0.07, out_mode: bool = True,
+                     enable_mask: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Soft-weighted SupCon (reference SupConLoss3, contrast_loss.py:130-181):
+    float pair weights [N, N] (tiled 2x2) instead of a binary mask;
+    `enable_mask` [2N, 2N] restricts the denominator; `valid` [N] drops
+    padded rows and columns from the weights, the denominator and the mean."""
+    w2 = pos_weight.float().repeat(2, 2)
+    return _soft_rows(z1, z2, w2, enable_mask, valid, temperature, out_mode)
+
+
+def assemble_block_weights(n: int, *, one2one: Optional[torch.Tensor] = None,
+                           two2two: Optional[torch.Tensor] = None,
+                           one2two: Optional[torch.Tensor] = None):
+    """SupConLoss4 block assembly (contrast_loss.py:217-237): the [2N, 2N]
+    pos_weight and enable mask from per-block [N, N] weights, on their device."""
+    blocks = [b for b in (one2one, two2two, one2two) if b is not None]
+    device = blocks[0].device if blocks else None
+    pos_weight = torch.zeros((2 * n, 2 * n), device=device)
+    enable = torch.zeros((2 * n, 2 * n), device=device)
+    if one2one is not None:
+        pos_weight[:n, :n] = one2one
+        enable[:n, :n] = 1.0
+    if two2two is not None:
+        pos_weight[n:, n:] = two2two
+        enable[n:, n:] = 1.0
+    if one2two is not None:
+        pos_weight[:n, n:] = one2two
+        pos_weight[n:, :n] = one2two
+        enable[:n, n:] = 1.0
+        enable[n:, :n] = 1.0
+    return pos_weight, enable
+
+
+def block_soft_supcon_loss(z1: torch.Tensor, z2: torch.Tensor, *,
+                           one2one_weight: Optional[torch.Tensor] = None,
+                           two2two_weight: Optional[torch.Tensor] = None,
+                           one2two_weight: Optional[torch.Tensor] = None,
+                           temperature: float = 0.07, out_mode: bool = True,
+                           valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SupConLoss4: block-assembled soft weights, the denominator restricted
+    to the active blocks. `valid` [N]: padding mask."""
+    pos_weight, enable = assemble_block_weights(
+        z1.shape[0], one2one=one2one_weight, two2two=two2two_weight, one2two=one2two_weight)
+    return _soft_rows(z1, z2, pos_weight, enable, valid, temperature, out_mode)

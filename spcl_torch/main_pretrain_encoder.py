@@ -28,6 +28,7 @@ import argparse
 import logging
 import sys
 from pathlib import Path
+from typing import Optional
 
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
@@ -51,18 +52,20 @@ def main(argv=None, *, device="cuda", until_check: str = "Conv5"):
     return run(config, device, until_check)
 
 
-def run(config, device="cuda", until_check: str = "Conv5"):
+def run(config, device="cuda", until_check: Optional[str] = "Conv5",
+        trainer_name: str = "pretrain_encoder"):
     """Both phases from a merged config, in this process (one rank of the run
-    under `Trainer.mesh`)."""
+    under `Trainer.mesh`). `trainer_name` is the pretrain trainer
+    (`pretrain_decoder` for `spcl_torch.main_pretrain_decoder`)."""
     pretrain_config, ft_config = separate_pretrain_finetune_configs(config)
-    save_dir = config.get("Trainer", {}).get("save_dir", "runs/pretrain_encoder")
+    save_dir = config.get("Trainer", {}).get("save_dir", f"runs/{trainer_name}")
     mesh.initialize_distributed(device=device)  # no-op unless SPCL_* name a run
     master = mesh.on_master()
     config_logger(save_dir if master else None,
                   level=logging.INFO if master else logging.WARNING)
     fix_all_seed(int(config.get("RandomSeed", 10)))
 
-    pretrain_config.setdefault("Trainer", {})["name"] = "pretrain_encoder"
+    pretrain_config.setdefault("Trainer", {})["name"] = trainer_name
     trainer = build_trainer(pretrain_config, save_dir=str(Path(save_dir) / "pre"),
                             pretrain=True, device=device)
     if until_check and trainer._forward_until != until_check:

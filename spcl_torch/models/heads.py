@@ -7,13 +7,21 @@ contrastyou/projectors/heads.py:78-169):
   leaky_relu(0.01) -> Linear -> L2 normalisation (torch F.normalize, eps
   1e-12). The flatten runs in (h, w, c) order, as the NHWC package does, so
   transplanted weights agree for any pooled grid.
+- `DenseProjectionHead` (:96-120; spcl_tpu models/heads.py:102-125): a 1x1
+  convolution MLP (conv0 -> leaky_relu(0.01) -> conv1) at the feature map's
+  full resolution, THEN an adaptive average pool to `spatial_size`, then an
+  L2 normalisation over channels; returns [B, D, h, w]. The MLP runs before
+  the pool (pooling first would be cheaper, but the leaky_relu makes it
+  another function). `F.adaptive_avg_pool2d` has the bin edges of
+  spcl_tpu's `_adaptive_pool_matrix` (floor(i H / s) .. ceil((i + 1) H / s)).
 - `ClusterHead` (:124-144): S independent subheads on the globally
   average-pooled features, each a Linear (or a 128-wide MLP) and a
   temperature softmax; returns [S, B, K].
 - `DenseClusterHead` (:148-169): the same per pixel with 1x1 convolutions;
   returns [S, B, K, H, W] (the class axis second, NCHW).
 
-Submodules carry the flax names (`fc0`/`fc1`, `sub{s}_fc0`, `sub{s}_conv0`)
+Submodules carry the flax names (`fc0`/`fc1`, `conv0`/`conv1`, `sub{s}_fc0`,
+`sub{s}_conv0`)
 so that `models/transplant.py` maps the weights one to one.
 """
 from __future__ import annotations
@@ -49,6 +57,30 @@ class ProjectionHead(nn.Module):
         if self.head_type == "mlp":
             x = self.fc1(F.leaky_relu(x, negative_slope=0.01))
         return F.normalize(x, dim=-1, eps=1e-12) if self.normalize else x
+
+
+class DenseProjectionHead(nn.Module):
+    def __init__(self, input_dim: int, output_dim: int = 256, hidden_dim: int = 256,
+                 head_type: str = "mlp", normalize: bool = True,
+                 spatial_size: Tuple[int, int] = (10, 10)):
+        super().__init__()
+        if head_type not in ("mlp", "linear"):
+            raise ValueError(head_type)
+        self.head_type = head_type
+        self.normalize = normalize
+        self.spatial_size = tuple(spatial_size)
+        if head_type == "mlp":
+            self.conv0 = nn.Conv2d(input_dim, hidden_dim, 1)
+            self.conv1 = nn.Conv2d(hidden_dim, output_dim, 1)
+        else:
+            self.conv0 = nn.Conv2d(input_dim, output_dim, 1)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = self.conv0(features.float())
+        if self.head_type == "mlp":
+            x = self.conv1(F.leaky_relu(x, negative_slope=0.01))
+        x = F.adaptive_avg_pool2d(x, self.spatial_size)
+        return F.normalize(x, dim=1, eps=1e-12) if self.normalize else x
 
 
 def _subhead_out(h: torch.Tensor, normalize: bool, temperature: float, dim: int):

@@ -9,9 +9,11 @@ never imports `spcl_tpu`). Pure numpy in, numpy out; load the result with
     flax Up{k}/conv, bn                  -> _Up{k}.up.1, .up.2
     flax Deconv_1x1 kernel, bias         -> _Deconv_1x1.weight, .bias
     flax head fc0/fc1 kernel, bias       -> fc0/fc1 .weight, .bias
+    flax DenseProjectionHead conv0/conv1 -> conv0/conv1 .weight, .bias
     flax ClusterHead sub{s}_fc0/1        -> sub{s}_fc0/1 .weight, .bias
     flax DenseClusterHead sub{s}_conv0/1 -> sub{s}_conv0/1 .weight, .bias
     flax MINE net conv0, gn0, conv1, gn1, fc -> the same names
+    flax Discriminator conv0-3, gn1-3, fc  -> the same names
 
 Tensor transforms: conv kernels HWIO -> OIHW; Dense kernels [in, out] ->
 Linear weights [out, in]; BN scale/bias/mean/var -> weight/bias/
@@ -86,7 +88,8 @@ def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
 def head_state_dict_from_flax(variables: Mapping) -> Dict[str, np.ndarray]:
     """The variables of a flat flax module (`{"params": {...}}` or the bare
     params) -> the state_dict of its counterpart here: ProjectionHead,
-    ClusterHead, DenseClusterHead, the MINE statistics net."""
+    DenseProjectionHead, ClusterHead, DenseClusterHead, the MINE statistics
+    net, the Discriminator."""
     params = variables.get("params", variables)
     sd: Dict[str, np.ndarray] = {}
     for name, layer in params.items():

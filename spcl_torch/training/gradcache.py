@@ -76,8 +76,8 @@ def _check_hooks(hooks: Sequence[TrainerHook]) -> None:
         if h.feature_name not in ENCODER_NAMES:
             raise NotImplementedError(
                 f"grad_cache supports encoder contrastive hooks; {h.name} taps decoder stage "
-                f"{h.feature_name} (dense point sampling is batch-local and does not benefit "
-                "from a global batch)")
+                f"{h.feature_name}: a decoder hook under grad_cache is not ported yet "
+                "(ROADMAP A12)")
 
 
 def _cut(tree, n: int, lo: int, hi: int):

@@ -20,6 +20,11 @@ The semantics of `spcl_tpu/training/steps.py`:
   labeled batch first and the unlabeled pair second, its BatchNorm
   statistics frozen with `disable_bn`), one backward, one optimizer step,
   then the EMA teacher's update when a hook needs the teacher;
+- `build_adversarial_step` (reference AdversarialEpocher,
+  new_comparable.py:89-206; spcl_tpu steps.py:502-579): the segmentor as the
+  generator (cross-entropy of the labeled view plus `reg_weight` x the BCE
+  of the discriminator's verdict on the unlabeled softmax against "real"),
+  then one discriminator step (labeled softmax real, unlabeled fake);
 - `build_eval_step` (reference EvalEpocher, new_epocher.py:56-97): val
   transform, eval-mode forward, masked cross-entropy and Dice statistics.
 
@@ -34,9 +39,10 @@ inject the drawn values — `params={"aug": <sample_twice dict>, "flip":
 <flip_params dict>}` for the pretrain step, `params={"aug": <sample_once
 dict>}` for the fine-tune step (<sample_twice dict> with hooks), and
 `params={"lab": ..., "unl": ..., "flip": ...}` (`draw_semi_params`) for the
-semi step, each optionally with `"hooks": {name: draws}` for the hooks that
-draw (`TrainerHook.sample`) — so a test can replay the JAX step's draws
-exactly.
+semi step and `params={"lab": <sample_once dict>, "unl": <sample_once
+dict>}` (`draw_adversarial_params`) for the adversarial step, each
+optionally with `"hooks": {name: draws}` for the hooks that draw
+(`TrainerHook.sample`) — so a test can replay the JAX step's draws exactly.
 
 Auxiliary forwards (the EMA teacher, the mixup forward, UC-MT's noisy
 teacher passes, the `disable_bn` second pass) run in train mode with the
@@ -64,6 +70,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 import torch.nn.functional as F
+from torch import nn
 
 from ..data.augment import (AugmentPolicy, apply_flip, apply_geometric, augment_once,
                             augment_twice, center_geometric, flip_params, frame_pixel_mask,
@@ -415,5 +422,86 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
                                               num_classes, batch_l["valid"])
         return {"sup_loss": sup.detach(), "reg_loss": reg.detach(), "inter": inter,
                 "union": union, "hooks": hook_metrics}
+
+    return step
+
+
+def draw_adversarial_params(generator: torch.Generator, batch_l, batch_u,
+                            store: Optional[DeviceStore], *, policy: AugmentPolicy) -> Dict:
+    """The adversarial step's draws (spcl_tpu steps.py:514-519): {"lab": one
+    view of the labeled batch, "unl": one view of the unlabeled batch}."""
+    n_l, in_l, sizes_l, device = _global_view(store, batch_l)
+    n_u, in_u, sizes_u, _ = _global_view(store, batch_u)
+    return {"lab": sample_once(generator, n_l, policy, in_l, sizes=sizes_l, device=device),
+            "unl": sample_once(generator, n_u, policy, in_u, sizes=sizes_u, device=device)}
+
+
+def _bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean sigmoid BCE against a constant label (optax.sigmoid_binary_cross_entropy)."""
+    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, target))
+
+
+def build_adversarial_step(model: UNet, discriminator: nn.Module,
+                           optimizer: torch.optim.Optimizer,
+                           discr_optimizer: torch.optim.Optimizer, *, num_classes: int,
+                           policy: AugmentPolicy, reg_weight: float,
+                           dis_consider_image: bool = False,
+                           store: Optional[DeviceStore] = None) -> Callable:
+    """Returns step(batch_l, batch_u, generator, params=None) -> {"sup_loss",
+    "gen_loss", "dis_loss", "inter", "union"} (detached device tensors).
+
+    The labeled forward, then the unlabeled one (train mode: the running
+    statistics move twice, in that order); the generator loss sup +
+    reg_weight x BCE(D(softmax(logits_u)), 1) with the discriminator's
+    weights before this step; one optimizer step; then the discriminator's
+    loss BCE(D(labeled), 1) + BCE(D(unlabeled), 0) on the detached softmaxes,
+    its gradients scaled by `reg_weight` before its optimizer (spcl_tpu
+    scales the gradients, not the loss, and Adam's eps sees the scale).
+    `dis_consider_image` puts the view's image channels before the softmax.
+    `reg_weight` 0 skips the unlabeled forward and the discriminator step
+    (dis_loss 0). One process only: `entry.build_trainer` refuses `adv`
+    under a mesh."""
+    reg_weight = float(reg_weight)
+
+    def d_input(logits: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+        probs = torch.softmax(logits, dim=1)
+        return torch.cat([image, probs], dim=1) if dis_consider_image else probs
+
+    def step(batch_l, batch_u, generator: Optional[torch.Generator],
+             params: Optional[Dict] = None):
+        if params is None:
+            params = draw_adversarial_params(generator, batch_l, batch_u, store, policy=policy)
+        batch_l = _resolve_batch(store, batch_l)
+        img_l, lab_l = augment_once(_as_float_image(batch_l["image"]), batch_l["label"].long(),
+                                    policy, params["lab"])
+        model.train()
+        logits_l = model(img_l)["logits"]
+        sup = _masked_ce(logits_l, class2one_hot(lab_l, num_classes), batch_l["valid"])
+        gen = torch.zeros((), dtype=torch.float32, device=img_l.device)
+        if reg_weight > 0:
+            batch_u = _resolve_batch(store, batch_u)
+            img_u, _ = augment_once(_as_float_image(batch_u["image"]), None, policy,
+                                    params["unl"])
+            logits_u = model(img_u)["logits"]
+            # non-saturating generator objective: D should call it real. Its
+            # backward also reaches D's parameters; the discriminator step
+            # below sets their gradients afresh
+            gen = _bce_with_logits(discriminator(d_input(logits_u, img_u)), 1.0)
+        optimizer.zero_grad(set_to_none=True)
+        (sup + reg_weight * gen).backward()
+        optimizer.step()
+        dis = torch.zeros((), dtype=torch.float32, device=img_l.device)
+        if reg_weight > 0:
+            dis = (_bce_with_logits(discriminator(d_input(logits_l.detach(), img_l)), 1.0)
+                   + _bce_with_logits(discriminator(d_input(logits_u.detach(), img_u)), 0.0))
+            discr_optimizer.zero_grad(set_to_none=True)
+            dis.backward()
+            grads = [p.grad for p in discriminator.parameters() if p.grad is not None]
+            torch._foreach_mul_(grads, reg_weight)
+            discr_optimizer.step()
+        inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
+                                              num_classes, batch_l["valid"])
+        return {"sup_loss": sup.detach(), "gen_loss": gen.detach(), "dis_loss": dis.detach(),
+                "inter": inter, "union": union}
 
     return step

@@ -6,6 +6,9 @@ The counterparts of `spcl_tpu/training/trainer.py`:
   new_pretrain.py:18-110): loss = hook regularizers only, no eval,
   `last.ckpt` per `save_every` epochs; with `Trainer.grad_cache: N` the
   step is the chunked two-pass one of `training/gradcache.py`;
+- `PretrainDecoderTrainer` (trainer.py:1338-1341): the same with both views
+  sharing one geometry (`total_freedom` false), so that the dense points of
+  a decoder hook align;
 - `FineTuneTrainer` (trainer.py:1006-1031 with what it inherits from
   `Trainer`; reference new_trainer.py:59-76): labeled-only training of the
   whole UNet, per-scan 3D Dice on the val and test loaders after every
@@ -15,7 +18,11 @@ The counterparts of `spcl_tpu/training/trainer.py`:
   labeled and the unlabeled streams, with the hooks' regularisers and, when
   a hook needs it, the EMA teacher (`models/ema.py`), whose alpha_max is the
   hooks' `alpha` (spcl_tpu's trainer leaves it at 0.999: ROADMAP C);
-- `MixUpTrainer` (trainer.py:1034-1048): labeled-only with the MixUp hook.
+- `MixUpTrainer` (trainer.py:1034-1048): labeled-only with the MixUp hook;
+- `AdversarialTrainer` (trainer.py:1051-1107; reference new_trainer.py
+  AdversarialTrainer): the semi loop around `build_adversarial_step`, with
+  the discriminator (`models/discriminator.py`) and its Adam (b1 0.5, b2
+  0.999, lr 1e-4) made at `init()` and kept in the checkpoints.
 
 All share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
 to the device, warm-starts from `Arch.checkpoint`, freezes the stages outside
@@ -59,12 +66,14 @@ One rank is the plain single-process path.
 points) restores everything `last.ckpt` holds — the model, the optimizer
 state, the projectors, the hooks' schedulers, the EMA teacher and its step
 count, the epoch, the best score and the storage — and, beyond spcl_tpu,
-the step generator's state and the samplers' numpy generators, so that a
-resumed run continues the uninterrupted one to the bit.
+the step generator's state and the samplers' numpy generators (and the
+adversarial trainer's discriminator and its Adam state), so that a resumed
+run continues the uninterrupted one to the bit.
 
 Not ported yet: TensorBoard; `Trainer.dump_matrices`, `profile_dir` and
 `defer_reads` are refused by `entry.common.build_trainer` when set, and so is
-a mesh with the semi or mixup trainer, and resume under a mesh.
+a mesh with the semi, mixup or adversarial trainer or a decoder hook, and
+resume under a mesh.
 """
 from __future__ import annotations
 
@@ -78,14 +87,16 @@ import torch
 
 from .checkpoint import load_checkpoint, load_model_state_dict, save_checkpoint
 from .gradcache import build_gradcache_pretrain_step
-from .optim import build_optimizer
-from .steps import build_eval_step, build_finetune_step, build_pretrain_step, build_semi_step
+from .optim import Adam, build_optimizer
+from .steps import (build_adversarial_step, build_eval_step, build_finetune_step,
+                    build_pretrain_step, build_semi_step)
 from ..data.augment import POLICY_ZOO, AugmentPolicy
 from ..data.device_store import DeviceStore
 from ..data.loader import HostLoader, device_prefetch
 from ..hooks.base import TrainerHook, get_individual_hooks
 from ..meters import (AverageValueMeter, MeterInterface, Storage, UniversalDice,
                       meter_display)
+from ..models.discriminator import Discriminator
 from ..models.ema import EMATeacher
 from ..models.masking import set_trainable_stages
 from ..models.unet import UNet
@@ -477,6 +488,15 @@ class PretrainEncoderTrainer(_TrainerBase):
         return 0.0
 
 
+class PretrainDecoderTrainer(PretrainEncoderTrainer):
+    """Decoder pretraining: the two views share one geometry (the reference
+    asserts total_freedom=False, new_pretrain.py:104-110) so that the dense
+    positions of a decoder hook align. `build_trainer` trains Conv5 up to the
+    hooks' deepest stage; the encoder below Conv5 takes no update, and its
+    BatchNorm still updates its running statistics, as spcl_tpu's does."""
+    total_freedom = False
+
+
 class FineTuneTrainer(_TrainerBase):
     """Labeled-only training of the whole UNet (reference new_trainer.py:59-76,
     no hooks) with per-scan Dice on the val and test loaders after every
@@ -557,14 +577,20 @@ class FineTuneTrainer(_TrainerBase):
     def _loss_keys(self) -> Tuple[str, ...]:
         return ("sup_loss",)
 
+    def _loss_focus(self, key: str) -> str:
+        """The meter group a loss key is logged under."""
+        return self.train_meter_focus
+
     def _run_train_epoch(self) -> Dict:
         C = self._model.num_classes
         keys = self._loss_keys()
         meters = MeterInterface(default_focus=self.train_meter_focus)
         with meters.focus_on(self.train_meter_focus):
             meters.register_meter("lr", AverageValueMeter())
-            for k in keys:
+        for k in keys:
+            with meters.focus_on(self._loss_focus(k)):
                 meters.register_meter(k, AverageValueMeter())
+        with meters.focus_on(self.train_meter_focus):
             meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
         scalars = self._hook_scalars()
         lr = self._set_epoch_lr()
@@ -595,9 +621,10 @@ class FineTuneTrainer(_TrainerBase):
                                    for n, hv in hook_vals.items()}
                 self._add_hook_meters(meters, record["hooks"])
             self.step_metrics.append(record)
-            with meters.focus_on(self.train_meter_focus):
-                for k in keys:
+            for k in keys:
+                with meters.focus_on(self._loss_focus(k)):
                     meters[k].add(record[k])
+            with meters.focus_on(self.train_meter_focus):
                 keep = gidx >= 0
                 meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
                                        group_name=[names[i] for i in gidx[keep]])
@@ -753,11 +780,70 @@ class SemiTrainer(FineTuneTrainer):
         return ("sup_loss", "reg_loss")
 
 
+class AdversarialTrainer(SemiTrainer):
+    """The adversarial semi-supervised baseline (reference new_trainer.py
+    AdversarialTrainer + AdversarialEpocher): each step takes a labeled and
+    an unlabeled batch (`build_adversarial_step`). The discriminator is made
+    at `init()` from the run's seed, its input the class softmax (and the
+    image's channels with `dis_consider_image`); its Adam runs at `discr_lr`
+    with b1 0.5, b2 0.999. Meters `adv_reg/gen_loss` and `adv_reg/dis_loss`.
+    Hooks are not activated (spcl_tpu's step reads none)."""
+    activate_hooks = False
+
+    def __init__(self, *, reg_weight: float = 0.01, dis_consider_image: bool = False,
+                 discr_lr: float = 1e-4, **kwargs):
+        super().__init__(**kwargs)
+        self._reg_weight = float(reg_weight)
+        self._dis_consider_image = bool(dis_consider_image)
+        self._discr_lr = float(discr_lr)
+
+    def _build_steps(self) -> None:
+        in_ch = self._model.num_classes + (self._model.input_dim if self._dis_consider_image
+                                           else 0)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self._seed)
+            self._discriminator = Discriminator(in_ch).to(self._device)
+        self._discr_optimizer = Adam(self._discriminator.parameters(), lr=self._discr_lr,
+                                     betas=(0.5, 0.999))
+        self._train_step = build_adversarial_step(
+            self._model, self._discriminator, self._optimizer, self._discr_optimizer,
+            num_classes=self._model.num_classes, policy=self.train_policy,
+            reg_weight=self._reg_weight, dis_consider_image=self._dis_consider_image,
+            store=self._store(self._labeled_loader))
+        self._eval_steps = {}
+
+    def _call_step(self, batches, scalars: Dict) -> Dict:
+        return self._train_step(*batches, self._generator)
+
+    def _loss_keys(self) -> Tuple[str, ...]:
+        return ("sup_loss", "gen_loss", "dis_loss")
+
+    def _loss_focus(self, key: str) -> str:
+        return "adv_reg" if key in ("gen_loss", "dis_loss") else self.train_meter_focus
+
+    def _checkpoint_state(self) -> Dict:
+        state = super()._checkpoint_state()
+        state["_discriminator"] = self._discriminator.state_dict()
+        state["_discr_optimizer"] = self._discr_optimizer.state_dict()
+        return state
+
+    def _restore_extra(self, state: Dict) -> None:
+        super()._restore_extra(state)
+        self._discriminator.load_state_dict(state["_discriminator"], strict=True)
+        self._discr_optimizer.load_state_dict(state["_discr_optimizer"])
+
+    @property
+    def discriminator(self) -> Discriminator:
+        return self._discriminator
+
+
 trainer_zoo = {
     "semi": SemiTrainer,
     "mixup": MixUpTrainer,
+    "adv": AdversarialTrainer,
     "ft": FineTuneTrainer,
     "finetune": FineTuneTrainer,
     "pretrain": PretrainEncoderTrainer,
     "pretrain_encoder": PretrainEncoderTrainer,
+    "pretrain_decoder": PretrainDecoderTrainer,
 }

@@ -47,9 +47,10 @@ from spcl_torch.entry import build_trainer, val
 from spcl_torch.losses import class2one_hot
 from spcl_torch.meters import Storage, UniversalDice, dice_stats_from_labels
 from spcl_torch.models import UNet, unet_state_dict_from_flax
-from spcl_torch.training import (FineTuneTrainer, SemiTrainer, batch_to_device,
-                                 build_eval_step, build_finetune_step, build_optimizer,
-                                 load_checkpoint, load_model_state_dict, save_checkpoint)
+from spcl_torch.training import (AdversarialTrainer, FineTuneTrainer, SemiTrainer,
+                                 batch_to_device, build_eval_step, build_finetune_step,
+                                 build_optimizer, load_checkpoint, load_model_state_dict,
+                                 save_checkpoint)
 from spcl_torch.training.steps import _masked_ce
 from test_torch_port_model import random_flax_unet
 from torch_port_helpers import jax_finetune_draws, nchw, to_torch
@@ -352,13 +353,13 @@ def test_finetune_trainer_runs_on_cpu(tmp_path):
     fresh.load_state_dict(load_model_state_dict(str(run / "best.ckpt")), strict=True)
     last = load_checkpoint(str(run / "last.ckpt"))
     assert last["cur_epoch"] == 2 and last["best_score"] == best
-    # the semi trainer is ported; the adversarial one is not yet (ROADMAP A10)
+    # the semi and adversarial trainers are ported (the latter is a semi loop)
     semi = build_trainer({**config, "Trainer": {**config["Trainer"], "name": "semi"}},
                          device="cpu")
     assert isinstance(semi, SemiTrainer)
-    with pytest.raises(NotImplementedError):
-        build_trainer({**config, "Trainer": {**config["Trainer"], "name": "adv"}},
-                      device="cpu")
+    adv = build_trainer({**config, "Trainer": {**config["Trainer"], "name": "adv"}},
+                        device="cpu")
+    assert isinstance(adv, AdversarialTrainer)
 
 
 @pytest.mark.parametrize("layout,max_channel", [("nhwc", 128), ("pallas", 256)])

@@ -679,3 +679,182 @@ def test_teacher_forward_under_pallas_leaves_running_statistics(cuda):
         student.train()
         student(x)
     assert int(student._Conv1.conv[1].num_batches_tracked) == 1
+
+
+# ------------------------------------------------------------------ decoder pretraining and the adversarial step (slices F, G)
+@pytest.mark.parametrize("pad_rows", [0, 5])
+@pytest.mark.parametrize("mode,gamma,correct_grad", [("none", 1e9, False), ("soft", 8.0, True),
+                                                     ("hard", 5.0, False)])
+def test_supcon_kernels_at_the_dense_infonce_size(cuda, pad_rows, mode, gamma, correct_grad):
+    """2N = 90 (9 slices x 5 points, two views) with the dense hook's
+    SimCLR-pair targets (each row's only positive its other view, -1 on
+    padding): the autograd Function's loss, ratio and dz on the kernels
+    against the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(90 + pad_rows)
+    n = 45
+    base = torch.randn(n, D, generator=g, device="cuda")
+    z = torch.nn.functional.normalize(
+        torch.cat([base, base]) + 0.7 * torch.randn(2 * n, D, generator=g, device="cuda"), dim=1)
+    valid = torch.ones(n, device="cuda")
+    if pad_rows:
+        valid[-pad_rows:] = 0.0
+    labels = torch.where(valid > 0, torch.arange(n, device="cuda"), -1).int()
+    out = {}
+    for use_kernel in (True, False):
+        saved = (sc.fwd_stats_kernel, sc.bwd_dz_kernel)
+        if not use_kernel:
+            sc.fwd_stats_kernel, sc.bwd_dz_kernel = sc.fwd_stats_plain, sc.bwd_dz_plain
+        try:
+            before = dict(sc.LAUNCHES)
+            a, b = z[:n].clone().requires_grad_(True), z[n:].clone().requires_grad_(True)
+            loss, ratio = sc.FusedSupCon.apply(a, b, labels, valid, gamma, 1 / 0.07, mode,
+                                               correct_grad)
+            loss.backward()
+            launched = {k: sc.LAUNCHES[k] - before[k] for k in before}
+        finally:
+            sc.fwd_stats_kernel, sc.bwd_dz_kernel = saved
+        assert launched == ({"supcon_fwd": 1, "supcon_bwd": 1} if use_kernel
+                            else {"supcon_fwd": 0, "supcon_bwd": 0})
+        out[use_kernel] = (loss.detach(), ratio, torch.cat([a.grad, b.grad]))
+    (lk, rk, dk), (lp, rp, dp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, rtol=0, atol=2e-4 * max(1.0, float(lp.abs())))
+    torch.testing.assert_close(rk, rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=2e-4 * float(dp.abs().max()))
+    if pad_rows:  # the padded slices take no gradient
+        assert not dk[n - pad_rows:n].any()
+
+
+def _on(tree, dev):
+    """A tree of dicts, tuples and tensors with every tensor moved to dev."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_on(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _small_batch(g, n, labeled):
+    out = {"image": torch.randint(0, 255, (n, 1, 48, 48), generator=g, dtype=torch.uint8),
+           "label": (torch.randint(0, 4, (n, 48, 48), generator=g, dtype=torch.uint8)
+                     if labeled else torch.zeros(n, 48, 48, dtype=torch.uint8)),
+           "partition": torch.arange(n, dtype=torch.int32) % 3,
+           "patient": torch.zeros(n, dtype=torch.int32),
+           "cycle": torch.zeros(n, dtype=torch.int32),
+           "scan_idx": torch.zeros(n, dtype=torch.int32), "valid": torch.ones(n)}
+    out["valid"][-1] = 0.0
+    return out
+
+
+def test_decoder_pretrain_step_on_card_matches_cpu(cuda):
+    """One decoder-pretrain step (Up_conv3, `self`, Conv5..Up_conv3
+    trainable) of a UNet-256 under `pallas` at crop 32, 6 slices: the fused
+    stages run forward only (no backward pass launches), one supcon_fwd and
+    one supcon_bwd; the card against the CPU from the same weights and
+    draws: loss rtol 1e-4, parameters atol 1e-5 after one RAdam step, the
+    frozen stages bit-equal."""
+    import copy
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_PRETRAIN
+    from spcl_torch.hooks import INFONCEHook
+    from spcl_torch.models import UNet, set_trainable_stages, stages_from_range
+    from spcl_torch.training import build_optimizer, build_pretrain_step
+    from spcl_torch.training.steps import draw_pretrain_params
+    policy = dataclasses.replace(ACDC_PRETRAIN, crop=32)
+    g = torch.Generator().manual_seed(5)
+    batch = _small_batch(g, 6, labeled=False)
+    draws = draw_pretrain_params(g, batch, None, policy=policy, total_freedom=False)
+    hook_draws = {"ys": torch.randint(0, 10, (6, 5), generator=g),
+                  "xs": torch.randint(0, 10, (6, 5), generator=g)}
+    torch.manual_seed(6)
+    base = UNet(max_channel=256, small_c_layout="pallas")
+    set_trainable_stages(base, stages_from_range("Conv5", "Up_conv3"))
+    head = INFONCEHook(name="d", feature_name="Up_conv3", contrast_on="self").build(base, "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        hook = INFONCEHook(name="d", feature_name="Up_conv3", contrast_on="self")
+        hook.projector = copy.deepcopy(head).to(dev)
+        params = [p for p in model.parameters() if p.requires_grad] + hook.parameters()
+        opt = build_optimizer(params, lr=1e-4, weight_decay=1e-5)
+        step = build_pretrain_step(model, [hook], opt, policy=policy, total_freedom=False,
+                                   until="Up_conv3")
+        cs.reset_launch_counts()
+        sc.reset_launch_counts()
+        m = step(_on(batch, dev), None, {},
+                 params=_on({**draws, "hooks": {"d": hook_draws}}, dev))
+        runs[dev] = (float(m["reg_loss"]), {**cs.LAUNCHES, **sc.LAUNCHES},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (lk, nk, sk), (lp, np_, sp) = runs["cuda"], runs["cpu"]
+    assert {k: v for k, v in nk.items() if v} == {
+        "convstage_conv": 1, "convstage_bnconv": 2, "convstage_bnpool": 2,
+        "supcon_fwd": 1, "supcon_bwd": 1}
+    assert not any(np_.values())
+    assert abs(lk - lp) <= 1e-4 * max(1.0, abs(lp))
+    before = base.state_dict()
+    for k, v in sk.items():
+        if "running" in k or "num_batches" in k:
+            continue
+        torch.testing.assert_close(v, sp[k], rtol=0, atol=1e-5, msg=k)
+        if k.split(".")[0][1:] not in ("Conv5", "Up5", "Up_conv5", "Up4", "Up_conv4", "Up3",
+                                       "Up_conv3"):
+            assert torch.equal(v, before[k]), k
+
+
+def test_adversarial_step_on_card_matches_cpu(cuda):
+    """One adversarial step (reg_weight 0.5, dis_consider_image) of a
+    UNet-256 under `pallas` at crop 32, 4 + 4 slices: the stage kernels
+    twice (labeled and unlabeled forward and backward), the card against
+    the CPU from the same weights, discriminator and draws: losses rtol
+    1e-4, the student atol 1e-5, running statistics atol 1e-5, every
+    gradient (student and discriminator) to SEMI_GRAD_TOL; the
+    discriminator's update (Adam's first step follows sign(g); see
+    tests/test_torch_adversarial.py) equal to Adam's step replayed on the
+    CPU from the card's own gradients (atol 1e-7), and to the CPU's update
+    within SEMI_GRAD_TOL relative L2."""
+    import copy
+    import dataclasses
+    from spcl_torch.data.augment import ACDC_LABEL
+    from spcl_torch.models import Discriminator, UNet
+    from spcl_torch.training import (Adam, build_adversarial_step, build_optimizer,
+                                     draw_adversarial_params)
+    policy = dataclasses.replace(ACDC_LABEL, crop=32)
+    g = torch.Generator().manual_seed(7)
+    lab, unl = _small_batch(g, 4, labeled=True), _small_batch(g, 4, labeled=False)
+    lab["valid"][:] = 1.0
+    draws = draw_adversarial_params(g, lab, unl, None, policy=policy)
+    torch.manual_seed(8)
+    base, base_d = UNet(max_channel=256, small_c_layout="pallas"), Discriminator(5)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model, d = copy.deepcopy(base).to(dev), copy.deepcopy(base_d).to(dev)
+        opt = build_optimizer(list(model.parameters()), lr=1e-4, weight_decay=1e-5)
+        dopt = Adam(d.parameters(), lr=1e-4, betas=(0.5, 0.999))
+        step = build_adversarial_step(model, d, opt, dopt, num_classes=4, policy=policy,
+                                      reg_weight=0.5, dis_consider_image=True)
+        cs.reset_launch_counts()
+        m = step(_on(lab, dev), _on(unl, dev), None, params=_on(draws, dev))
+        grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        grads.update({f"d.{n}": p.grad.detach().cpu().double() for n, p in d.named_parameters()})
+        runs[dev] = ({k: float(m[k]) for k in ("sup_loss", "gen_loss", "dis_loss")},
+                     dict(cs.LAUNCHES), {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     {k: v.detach().cpu() for k, v in d.state_dict().items()}, grads)
+    (lk, nk, sk, dk, gk), (lp, np_, sp, dp, gp) = runs["cuda"], runs["cpu"]
+    assert nk == {"convstage_conv": 2, "convstage_bnconv": 4, "convstage_bnpool": 4,
+                  "convstage_poolsums": 4, "convstage_dz1": 4, "convstage_dwprev": 4,
+                  "convstage_dwdx": 2}
+    assert not any(np_.values())
+    for k in lk:
+        assert abs(lk[k] - lp[k]) <= 1e-4 * max(1.0, abs(lp[k])), k
+    for k, v in sk.items():
+        torch.testing.assert_close(v.double(), sp[k].double(), rtol=0, atol=1e-5, msg=k)
+    for name, ref in gp.items():
+        assert float((gk[name] - ref).norm() / ref.norm()) <= SEMI_GRAD_TOL, name
+    d0 = base_d.state_dict()
+    replay = copy.deepcopy(base_d)
+    for name, p in replay.named_parameters():
+        p.grad = gk[f"d.{name}"].float()
+    Adam(replay.parameters(), lr=1e-4, betas=(0.5, 0.999)).step()
+    for k, v in replay.state_dict().items():
+        torch.testing.assert_close(dk[k], v, rtol=0, atol=1e-7, msg=k)
+    for k, v in dp.items():
+        assert float((dk[k] - v).norm() / (v - d0[k]).norm()) <= SEMI_GRAD_TOL, k

@@ -7,9 +7,10 @@ its ROADMAP item, while the paper's configuration (base.yaml + pretrain.yaml
 cache's, with 30 chunks). `dump_matrices` together with `grad_cache` raises
 spcl_tpu's ValueError. The semi and mixup trainers build (`semi` with
 production_semi.yaml + mt.yaml + uda.yaml, as `chip_smoke.py` runs it);
-`Trainer.mesh` with either raises NotImplementedError until ROADMAP A12
-(rest), and so does the adversarial trainer (A10). CPU only; the refused
-cases raise before any data is loaded."""
+`Trainer.mesh` with either, or with the adversarial trainer, raises
+NotImplementedError until ROADMAP A12 (rest), and so does a decoder-stage
+InfoNCE hook under a mesh or with `Trainer.grad_cache`. CPU only; the
+refused cases raise before any data is loaded."""
 from pathlib import Path
 
 import pytest
@@ -86,5 +87,22 @@ def test_semi_trainers_under_a_mesh_are_refused(tmp_path, name):
 
 
 def test_adversarial_trainer_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        build_trainer(_semi_config("Trainer.name=adv"), save_dir=str(tmp_path), device="cpu")
+    """Under a mesh: the adversarial trainer itself builds since it was
+    ported (tests/test_torch_adversarial.py)."""
+    config = _semi_config("Trainer.name=adv", "Trainer.mesh=2")
+    with pytest.raises(NotImplementedError, match="adv trainer is not ported yet "
+                                                  r"\(ROADMAP A12 rest\)"):
+        build_trainer(config, save_dir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("override,refused", [("Trainer.mesh=2", "under Trainer.mesh"),
+                                              ("Trainer.grad_cache=2", "with Trainer.grad_cache")])
+def test_decoder_hooks_under_a_mesh_or_grad_cache_are_refused(tmp_path, override, refused):
+    config = _config(override)
+    config["Trainer"]["name"] = "pretrain_decoder"
+    del config["SPInfonceParams"]
+    config["InfonceParams"] = {"feature_names": "Up_conv3", "weights": 1.0,
+                               "contrast_ons": "self"}
+    with pytest.raises(NotImplementedError, match=f"{refused} are not ported yet "
+                                                  r"\(ROADMAP A12\)"):
+        build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")

@@ -1,7 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files: the random draws of
-spcl_tpu's pretrain, fine-tune and semi steps, replayed with the JAX
-package's own functions so that spcl_torch can be handed the very same
-values."""
+spcl_tpu's pretrain (with its decoder hooks' points), fine-tune, semi and
+adversarial steps, replayed with the JAX package's own functions so that
+spcl_torch can be handed the very same values."""
 import jax
 import numpy as np
 import torch
@@ -28,12 +28,31 @@ def jax_view_draws(key, batch, policy, in_size, sizes=None, total_freedom=True):
     return out
 
 
-def jax_step_draws(key, batch, policy, in_size, sizes=None, flip_threshold=0.8):
+def jax_step_draws(key, batch, policy, in_size, sizes=None, flip_threshold=0.8,
+                   total_freedom=True, hooks=()):
     """The draws of spcl_tpu's pretrain step for `key` (steps.py:421-427):
-    {"aug": ..., "flip": ...} for spcl_torch's step `params`."""
-    k_aug, k_flip, _ = jax.random.split(key, 3)
-    return {"aug": jax_view_draws(k_aug, batch, policy, in_size, sizes),
-            "flip": to_torch(jaug.flip_params(k_flip, batch, threshold=flip_threshold))}
+    {"aug": ..., "flip": ...} for spcl_torch's step `params`, with
+    {"hooks": {name: points}} for the decoder-stage InfoNCE hooks among the
+    spcl_tpu `hooks` (`jax_dense_draws` from the step's hook key)."""
+    k_aug, k_flip, k_hooks = jax.random.split(key, 3)
+    out = {"aug": jax_view_draws(k_aug, batch, policy, in_size, sizes, total_freedom),
+           "flip": to_torch(jaug.flip_params(k_flip, batch, threshold=flip_threshold))}
+    dense = {h.name: jax_dense_draws(k_hooks, batch, h) for h in hooks if not h.is_encoder}
+    if dense:
+        out["hooks"] = dense
+    return out
+
+
+def jax_dense_draws(k_hooks, n, hook):
+    """The points a decoder-stage InfoNCE hook of spcl_tpu draws from the
+    step's hook key (hooks/infonce.py:162-165: fold_in(key, 17), one key for
+    the rows and one for the columns of the pooled grid), as the
+    {"ys", "xs"} [n, points] draws of spcl_torch's hook."""
+    ky, kx = jax.random.split(jax.random.fold_in(k_hooks, 17))
+    h, w = hook.spatial_size
+    shape = (n, hook.num_sampled_points)
+    return {"ys": to_torch(jax.random.randint(ky, shape, 0, h)),
+            "xs": to_torch(jax.random.randint(kx, shape, 0, w))}
 
 
 def to_torch(tree):
@@ -96,3 +115,12 @@ def jax_once_draws(key, batch, policy, in_size, sizes=None):
                                 maxval=policy.contrast[1])
         out["jitter"] = (to_torch(br).reshape(-1), to_torch(ct).reshape(-1))
     return out
+
+
+def jax_adversarial_draws(key, n_l, n_u, policy, in_size, sizes_l=None, sizes_u=None):
+    """The draws of spcl_tpu's adversarial step for `key` (steps.py:514-519):
+    {"lab": ..., "unl": ...} <sample_once dict>s for spcl_torch's step
+    `params`."""
+    k_l, k_u = jax.random.split(key)
+    return {"lab": jax_once_draws(k_l, n_l, policy, in_size, sizes_l),
+            "unl": jax_once_draws(k_u, n_u, policy, in_size, sizes_u)}
