@@ -151,12 +151,40 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                a profile. Then one adversarial step on the card against the
                CPU: losses, every gradient, the updated student and
                discriminator, the running statistics.
- 15. report  — the `kernels` JSON line, the nvidia-smi line, a device line
+ 15. bf16    — (run after phase 3's stage check) the bf16 instantiation of
+               the seven stage kernels against their plain bf16 versions
+               (same rounding points) at S1, S2 (B=60), the fine-tune's B=5
+               and a small shape: forward and backward as wholes (random dp,
+               random non-zero de, de absent), each pass alone, two runs bit
+               for bit; bf16-stored tensors within 2^-7 x max|plain|, float
+               outputs of one pass within STAGE_TOL, those downstream of a
+               stored bf16 intermediate within 2e-3; each pass timed beside
+               its bound (2-byte activations; the products at the bf16
+               tensor-core peak, and beside it at the TF32 peak, the route
+               the kernels take) and the bf16 library call. The same
+               function as phase 3's stage check, given the dtype.
+ 16. slice H — `Arch.dtype: bfloat16` on main_pretrain_encoder.py's path
+               (CONFIG, UNet-256, crop 224 of 256, 2N=60, RAdam) through
+               build_trainer, under `pallas` then `nhwc`: 2 epochs x 3
+               pretrain steps with `Trainer.profile_dir` (epoch 2 traced;
+               its device ms/step within 5% of `_profiled`'s) and
+               `dump_matrices` (four [60, 60] finite matrices); the bf16
+               stage kernels' launches (pallas: 12 a step, none of float32);
+               ms/step, kernel ms/step, busy share, stage kernels, peak
+               memory beside float32's (slices A and B, this run); then the
+               fine-tune (3 epochs of 5 steps at batch 5 and an eval) from
+               its last.ckpt eagerly and with `defer_reads`:
+               storage rows, the best score and best.ckpt's weights within
+               1e-4, each best.ckpt of the first epoch of its run's highest
+               val DSC.
+ 17. report  — the `kernels` JSON line (the bf16 passes as
+               `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
 
 Development aids: `--stage-kernels-only` stops after the build and the stage
-kernel check, `--supcon-kernels-only` runs the build and phases 3 (supcon
+kernel checks (float32, then bf16), `--bf16-only` runs the build and phases
+15 and 16, `--supcon-kernels-only` runs the build and phases 3 (supcon
 part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
 build and phase 11, `--semi-only` the build and phase 12,
 `--decoder-adv-only` the build and phases 13 (without the warm start) and 14.
@@ -175,11 +203,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# bytes/s, float32 FLOP/s (no tensor cores) and dense TF32 tensor-core FLOP/s
-# of one H100 SXM (data sheet)
+# bytes/s, float32 FLOP/s (no tensor cores), dense TF32 and bf16 tensor-core
+# FLOP/s of one H100 SXM (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12      # dense bf16 tensor-core FLOP/s
 # checked against the plain versions; 10 is the infonce presets' 2N (5 + 5 views)
 # and 90 the dense InfoNCE's of decoder pretraining (9 slices x 5 points, two views)
 SIZES = (10, 60, 90, 126, 1024, 3840)
@@ -567,6 +596,40 @@ STAGE_REPLACES = {
 }
 
 
+# ------------------------------------------------------------------ stage kernels, bfloat16
+# `Arch.dtype: bfloat16`: the main path's two stage shapes (slice H's pretrain
+# step, B=60), the fine-tune step's (B=5) and a small odd-batch shape
+BF16_STAGE_SHAPES = (
+    ("stage1", 60, 224, 224, 16, 16, True),
+    ("stage2", 60, 112, 112, 16, 32, False),
+    ("finetune stage1", 5, 224, 224, 16, 16, True),
+    ("finetune stage2", 5, 112, 112, 16, 32, False),
+    ("small-ext", 3, 20, 36, 16, 16, True),
+    ("small", 3, 20, 36, 16, 32, False),
+)
+# Tolerances x max|plain| of each tensor. A tensor stored in bf16 may be one
+# rounding apart where the float32 sums before it differ in order (the
+# kernels' tensor-core chains against cuDNN's): 2^-7, twice the largest
+# relative step of one bf16 rounding. Float32 / float64 statistics and weight
+# gradients computed from the same inputs keep the float32 phase's STAGE_TOL.
+# In the whole-stage runs, the float outputs downstream of a stored bf16
+# intermediate (mean1/var1 after z0; dW0, dW1, dgamma0, dbeta0 after dz1 and
+# dy0) see those roundings: one bf16 step is 2^-8 = 3.9e-3 of an element,
+# taken by a small share of the elements and averaged in the sums, so
+# BF16_CHAINED_TOL = 2e-3.
+BF16_STORED_TOL = 2.0 ** -7
+BF16_CHAINED_TOL = 2e-3
+BF16_STORED = ("p", "e", "z0", "z1", "dz1", "dy0", "dx", "dz0")
+BF16_CHAINED = ("mean1", "var1", "dW0", "dgamma0", "dbeta0", "dW1")
+
+
+def _bf16_tols(chained=False):
+    tols = {name: BF16_STORED_TOL for name in BF16_STORED}
+    if chained:
+        tols.update({name: BF16_CHAINED_TOL for name in BF16_CHAINED})
+    return tols
+
+
 def _stage_inputs(gen, b, h, w, ci, c, external_first):
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=DEVICE) * scale
@@ -579,11 +642,13 @@ def _stage_inputs(gen, b, h, w, ci, c, external_first):
     return args, rn(b, h // 2, w // 2, c), rn(b, h, w, c)
 
 
-def _hold(what, names, kernel_out, plain_out):
-    """Every tensor of `kernel_out` against `plain_out` within STAGE_TOL x
-    max|plain|. Returns the largest absolute error."""
+def _hold(what, names, kernel_out, plain_out, tols=None):
+    """Every tensor of `kernel_out` against `plain_out` within its tolerance
+    x max|plain|: `tols[name]`, else STAGE_TOL. Returns the largest absolute
+    error."""
     worst, parts, bad = 0.0, [], []
     for name, k, p in zip(names, kernel_out, plain_out):
+        tol = (tols or {}).get(name, STAGE_TOL)
         if p is None:
             check(k is None, f"{what}: {name} should be None")
             continue
@@ -592,9 +657,9 @@ def _hold(what, names, kernel_out, plain_out):
         scale = max(float(p.abs().max()), 1e-12)
         err = float((k.double() - p.double()).abs().max())
         parts.append(f"{name} {err:.1e}/{scale:.1e}")
-        if err > STAGE_TOL * scale:
-            n_bad = int(((k.double() - p.double()).abs() > STAGE_TOL * scale).sum())
-            bad.append(f"{name}: {err:.3e} > {STAGE_TOL} x {scale:.3e} at {n_bad} of "
+        if err > tol * scale:
+            n_bad = int(((k.double() - p.double()).abs() > tol * scale).sum())
+            bad.append(f"{name}: {err:.3e} > {tol:.3g} x {scale:.3e} at {n_bad} of "
                        f"{k.numel()} elements")
         worst = max(worst, err)
     print(f"  {what}: " + " | ".join(parts) + " (abs err / max|plain|) "
@@ -603,36 +668,45 @@ def _hold(what, names, kernel_out, plain_out):
     return worst
 
 
-# the passes whose convolutions run on the tensor cores in 3xTF32
+# the passes whose convolutions run on the tensor cores
 TF32_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
 
 
-def _stage_bounds(b, h, w, ci, c, de=True):
+def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
     """Least ms for each pass on the H100: the larger of the bytes it must
-    move (each input read once, each output written once) over the memory
-    rate and its float32 operations over the float32 peak (`bound_f32_ms`).
-    For the 3xTF32 passes also the larger of the bytes and three times the
-    operations over the TF32 tensor-core peak (`bound_3xtf32_ms`), which is
-    their `bound_ms`; the others' `bound_ms` is the float32 one. `de=False`:
+    move (each input read once, each output written once; activations in
+    `dtype`, weights 4 bytes an element) over the memory rate and its
+    operations over the peak rate for their type. Every pass has
+    `bound_f32_ms`, its float32 operations outside the tensor cores, which is
+    the `bound_ms` of the pool passes. The convolution passes' `bound_ms` is
+    that of their products on the tensor cores: float32 activations as three
+    TF32 products a term (`bound_3xtf32_ms`), bfloat16 ones as bf16 products
+    at the bf16 peak (`bound_bf16_ms`), with the route the kernels take for
+    them, one TF32 product a term, beside (`bound_1xtf32_ms`). `de=False`:
     the pool passes without the skip cotangent, as the pretrain path runs
     them (z1 and dp read; dz1 written by dz1)."""
-    px, f = b * h * w, 4
+    bf16 = dtype == torch.bfloat16
+    f = 2 if bf16 else 4
+    px = b * h * w
     skip = 1.0 if de else 0.0
 
     def conv_flops(i, o):
         return 2.0 * 9 * i * o * px
 
-    bytes_ = {"conv": px * (ci + c) * f + 9 * ci * c * f,
-              "bnconv": px * 2 * c * f + 9 * c * c * f,
+    bytes_ = {"conv": px * (ci + c) * f + 9 * ci * c * 4,
+              "bnconv": px * 2 * c * f + 9 * c * c * 4,
               "bnpool": px * c * f * 2.25,              # z1 -> e, p
               "poolsums": px * c * f * (1.25 + skip),   # z1, de, dp
               "dz1": px * c * f * (2.25 + skip),        # z1, de, dp -> dz1
-              "dwprev": px * c * f * 3 + 2 * 9 * c * c * f,   # dz1, z0 -> dy0, dW1
-              "dwdx": px * f * (2 * c + 2 * ci) + 2 * 9 * ci * c * f}  # z0, dy0, x -> dx, dW0
+              "dwprev": px * c * f * 3 + 2 * 9 * c * c * 4,   # dz1, z0 -> dy0, dW1
+              "dwdx": px * f * (2 * c + 2 * ci) + 2 * 9 * ci * c * 4}  # z0, dy0, x -> dx, dW0
     flops = {"conv": conv_flops(ci, c), "bnconv": conv_flops(c, c) + 3.0 * px * c,
              "bnpool": 4.0 * px * c, "poolsums": 9.0 * px * c, "dz1": 11.0 * px * c,
              "dwprev": 2 * conv_flops(c, c) + 4.0 * px * c,
              "dwdx": 2 * conv_flops(ci, c) + 4.0 * px * c}
+    # the products' routes: (key, seconds); the first is the bound
+    routes = ((("bf16", 1 / BF16_FLOPS), ("1xtf32", 1 / TF32_FLOPS)) if bf16
+              else (("3xtf32", 3 / TF32_FLOPS),))
     out = {}
     for name in bytes_:
         tb, tf = bytes_[name] / HBM_BYTES_PER_S, flops[name] / F32_FLOPS
@@ -640,25 +714,29 @@ def _stage_bounds(b, h, w, ci, c, de=True):
                      "bound_by": "operations" if tf > tb else "bytes",
                      "bound_f32_ms": max(tb, tf) * 1e3,
                      "bound_f32_by": "operations" if tf > tb else "bytes"}
-        if name in TF32_PASSES:
-            t3 = 3 * flops[name] / TF32_FLOPS
-            out[name].update({"bound_ms": max(tb, t3) * 1e3,
-                              "bound_by": "operations" if t3 > tb else "bytes",
-                              "bound_3xtf32_ms": max(tb, t3) * 1e3,
-                              "bound_3xtf32_by": "operations" if t3 > tb else "bytes"})
+        if name not in TF32_PASSES:
+            continue
+        for i, (key, per_flop) in enumerate(routes):
+            t = flops[name] * per_flop
+            route = {f"bound_{key}_ms": max(tb, t) * 1e3,
+                     f"bound_{key}_by": "operations" if t > tb else "bytes"}
+            out[name].update(route)
+            if i == 0:
+                out[name].update(bound_ms=route[f"bound_{key}_ms"],
+                                 bound_by=route[f"bound_{key}_by"])
     return out
 
 
 def _library_calls(x, w0, z0, w1, dz1, dy0):
     """One PyTorch call per convolution pass that computes its convolution
     (not the BN, ReLU, mask or sums around it) on the same channels-last
-    inputs, float32 with TF32 off. Timed as yardsticks; the port never calls
-    them."""
+    inputs, in their dtype (float32 with TF32 off, or bfloat16 with the
+    weights rounded to it). Timed as yardsticks; the port never calls them."""
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
     def oihw(w):
-        return w.permute(3, 2, 0, 1).contiguous()
+        return w.permute(3, 2, 0, 1).contiguous().to(z0.dtype)
 
     def conv_backward(grad, inp, w):
         return torch.ops.aten.convolution_backward(
@@ -703,34 +781,48 @@ def _cycling(fn, input_sets):
     return call
 
 
-def stage_kernel_phase(cs):
-    """Hold the stage kernels against their plain versions: the forward as a
-    whole, the backward as a whole from the same residuals (random dp and
-    random non-zero de, and de absent as on the pretrain path), each pass
-    alone on the same inputs, and two runs bit for bit; then time each pass
-    at the path's two shapes."""
-    phase("stage kernels vs plain")
+def stage_kernel_phase(cs, dtype=torch.float32):
+    """Hold the stage kernels of `dtype` (float32, or the bf16 instantiation
+    against the plain bf16 versions, which round at the same points) against
+    their plain versions: the forward as a whole, the backward as a whole
+    from the same residuals (random dp and random non-zero de, and de absent
+    as on the pretrain path), each pass alone on the same inputs (the pool
+    passes also with de absent), and two runs bit for bit; then time each
+    pass at the main path's shapes (and bf16 at the fine-tune step's) beside
+    its bounds and the library call in the same dtype."""
+    bf16 = dtype == torch.bfloat16
+    phase("stage kernels, bfloat16, vs plain" if bf16 else "stage kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(1)
+    gen.manual_seed(2 if bf16 else 1)
+    whole_tols, pass_tols = (_bf16_tols(chained=True), _bf16_tols()) if bf16 else (None, None)
     results = {name: {"max_abs_err": 0.0, "shapes": {}} for name in cs.PASSES}
     fwd_names = ("p", "e", "mean0", "var0", "mean1", "var1")
-    for shape_name, b, h, w, ci, c, ext in STAGE_SHAPES:
+    out_names = {"conv": ("z0", "sums"), "bnconv": ("z1", "sums"), "bnpool": ("e", "p"),
+                 "poolsums": ("sums",), "dz1": ("dz1",), "dwprev": ("dy0", "dW1", "sums"),
+                 "dwdx": ("dx", "dW0")}
+    for shape_name, b, h, w, ci, c, ext in (BF16_STAGE_SHAPES if bf16 else STAGE_SHAPES):
         print(f"{shape_name}: B={b} {h}x{w} C {'(z0) ' if ext else f'{ci}->'}{c} "
-              f"external_first={ext}", flush=True)
+              f"{'bf16 ' if bf16 else ''}external_first={ext}", flush=True)
         args, dp, de = _stage_inputs(gen, b, h, w, ci, c, ext)
+        args = (args[0].to(dtype),) + args[1:]
+        dp, de = dp.to(dtype), de.to(dtype)
         check(float(de.abs().max()) > 0 and float(dp.abs().max()) > 0, "zero cotangents")
         bwd_names = ("dz0" if ext else "dx", "dW0", "dgamma0", "dbeta0", "dW1", "dgamma1",
                      "dbeta1")
         out_k, res = cs.stage_forward(*args, ext)
-        out_p, _ = cs.stage_forward(*args, ext, plain=True)
-        _hold("forward", fwd_names, out_k, out_p)
+        _hold("forward", fwd_names, out_k, cs.stage_forward(*args, ext, plain=True)[0],
+              whole_tols)
         bwd_k = cs.stage_backward(res, dp, de, ext)
+        check(out_k[0].dtype == dtype and bwd_k[0].dtype == dtype
+              and out_k[2].dtype == torch.float32 and bwd_k[4].dtype == torch.float32,
+              f"stage outputs {out_k[0].dtype}, gradients {bwd_k[0].dtype}, statistics "
+              f"{out_k[2].dtype}, dW1 {bwd_k[4].dtype} for {dtype} inputs")
         _hold(f"backward (max|de| {float(de.abs().max()):.2f})", bwd_names, bwd_k,
-              cs.stage_backward(res, dp, de, ext, plain=True))
+              cs.stage_backward(res, dp, de, ext, plain=True), whole_tols)
         _hold("backward, de absent", bwd_names, cs.stage_backward(res, dp, None, ext),
-              cs.stage_backward(res, dp, None, ext, plain=True))
+              cs.stage_backward(res, dp, None, ext, plain=True), whole_tols)
         # two runs of the same inputs: fixed-order reductions give the same bits
         out_2, res_2 = cs.stage_forward(*args, ext)
         bwd_2 = cs.stage_backward(res_2, dp, de, ext)
@@ -738,7 +830,7 @@ def stage_kernel_phase(cs):
                    if a is not None)
         check(same, f"{shape_name}: two runs of the same inputs differ")
         print("  two runs bit for bit: equal", flush=True)
-        del out_2, res_2, bwd_2, out_p
+        del out_2, res_2, bwd_2
 
         # each pass alone, kernel and plain on the same inputs
         x, z0, z1, w0, w1, g0, g1, mean0, var0, coef0, mean1, var1, coef1 = res
@@ -752,10 +844,8 @@ def stage_kernel_phase(cs):
                        "dwprev": (dz1, z0, coef0, w1)}
         if not ext:
             pass_inputs.update({"conv": (x, w0), "dwdx": (z0, dy0, dcoef0, x, w0)})
-        out_names = {"conv": ("z0", "sums"), "bnconv": ("z1", "sums"), "bnpool": ("e", "p"),
-                     "poolsums": ("sums",), "dz1": ("dz1",), "dwprev": ("dy0", "dW1", "sums"),
-                     "dwdx": ("dx", "dW0")}
-        bounds = _stage_bounds(b, h, w, ci, c)
+        timed = shape_name.startswith(("stage", "finetune"))
+        bounds = _stage_bounds(b, h, w, ci, c, dtype=dtype)
         library = _library_calls(None if ext else x, w0, z0, w1, dz1, dy0)
         for name in cs.PASSES:
             if name not in pass_inputs:
@@ -765,35 +855,43 @@ def stage_kernel_phase(cs):
             k_out, p_out = kernel_fn(*inputs), plain_fn(*inputs)
             if torch.is_tensor(k_out):
                 k_out, p_out = (k_out,), (p_out,)
-            err = _hold(f"pass {name}", out_names[name], k_out, p_out)
+            err = _hold(f"pass {name}", out_names[name], k_out, p_out, pass_tols)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
             del k_out, p_out
-            if not shape_name.startswith("stage"):
+            if name in POOL_PASSES:
+                absent = inputs[:-1] + (None,)
+                err = _hold(f"pass {name}, de absent", out_names[name][:1],
+                            (cs._KERNEL_PASSES[name](*absent),),
+                            (cs._PLAIN_PASSES[name](*absent),), pass_tols)
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            if not timed:
                 continue
             ms, plain_ms = _best_of_turns(lambda: kernel_fn(*inputs),
                                           lambda: plain_fn(*inputs), 5)
-            entry = {"at": f"B={b} {h}x{w} C={'' if ext else f'{ci}->'}{c}", "ms": ms,
-                     "plain_ms": plain_ms, **bounds[name]}
             bd = bounds[name]
-            print(f"  time {name}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound "
-                  f"(float32) {bd['bound_f32_ms']:.3f} ms ({bd['bound_f32_by']})"
-                  + (f" | bound (3xTF32) {bd['bound_3xtf32_ms']:.3f} ms "
-                     f"({bd['bound_3xtf32_by']})" if "bound_3xtf32_ms" in bd else ""),
-                  flush=True)
+            entry = {"at": f"B={b} {h}x{w} C={'' if ext else f'{ci}->'}{c}"
+                           + (" bf16" if bf16 else ""),
+                     "ms": ms, "plain_ms": plain_ms, **bd}
             if name in library:
                 what, call = library[name]
                 entry["library_ms"] = _time_ms(call, 5)
-                entry["library_call"] = what
-                print(f"  time {name}: library {what} (float32, TF32 off, channels-last "
-                      f"inputs, without BN/ReLU/mask/sums) {entry['library_ms']:.3f} ms",
-                      flush=True)
+                entry["library_call"] = what + (" (bfloat16, channels-last)" if bf16 else
+                                                " (float32, TF32 off, channels-last)")
+            routes = [k[len("bound_"):-len("_ms")] for k in bd
+                      if k.endswith("_ms") and k != "bound_ms"]
+            print(f"  time {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
+                  + ", ".join(f"{r} {bd[f'bound_{r}_ms']:.4f}" for r in routes) + ")"
+                  + (f" | library {entry['library_call']} {entry['library_ms']:.4f} ms"
+                     if "library_ms" in entry else ""), flush=True)
             results[name]["shapes"][shape_name] = entry
             if name in POOL_PASSES:
                 _time_pool_pass(cs, name, entry, inputs, (b, h, w, c), results, shape_name)
         del res, bwd_k, out_k, dz1, dy0, args, dp, de, library
         torch.cuda.empty_cache()
-    finetune_poolsums(cs, gen, results)
-    print("stage_timings " + json.dumps(results), flush=True)
+    if not bf16:
+        finetune_poolsums(cs, gen, results)
+    print(f"stage_timings{'_bf16' if bf16 else ''} " + json.dumps(results), flush=True)
     torch.backends.cudnn.allow_tf32 = True
     return results
 
@@ -809,9 +907,10 @@ def _pool_entry(cs, name, inputs, shape, de, reps):
     """Times of a pool pass on `inputs` (kernel against plain, in turns), by
     CUDA events around eager calls (`ms`) and by CUDA-graph replay
     (`graph_ms`: device time, without the host's time to launch a call);
-    with its byte bound. Inputs that fit in the L2 are cycled through copies."""
+    with its byte bound at the inputs' element size. Inputs that fit in the
+    L2 are cycled through copies."""
     b, h, w, c = shape
-    bd = _stage_bounds(b, h, w, c, c, de=de)[name]
+    bd = _stage_bounds(b, h, w, c, c, de=de, dtype=inputs[0].dtype)[name]
     nbytes = bd["bound_ms"] * 1e-3 * HBM_BYTES_PER_S
     sets = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
                        for _ in range(math.ceil(3 * L2_BYTES / nbytes) - 1)]
@@ -831,19 +930,14 @@ def _pool_entry(cs, name, inputs, shape, de, reps):
 
 
 def _time_pool_pass(cs, name, entry, inputs, shape, results, shape_name):
-    """At a main-path stage shape: the graph-replay time of the pool pass with
-    de (poolsums only), and both times with de absent, as the pretrain path
+    """At a timed stage shape: the graph-replay time of the pool pass with de
+    (poolsums only), and both times with de absent, as the pretrain path
     runs it (entry "<shape> de absent")."""
     if name == "poolsums":
         timed = _pool_entry(cs, name, inputs, shape, True, 5)
         entry.update({k: timed[k] for k in ("graph_ms", "plain_graph_ms")})
-    absent = inputs[:-1] + (None,)
-    k_out, p_out = cs._KERNEL_PASSES[name](*absent), cs._PLAIN_PASSES[name](*absent)
-    err = _hold(f"pass {name}, de absent", ("out",), (k_out,), (p_out,))
-    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-    del k_out, p_out
-    results[name]["shapes"][f"{shape_name} de absent"] = _pool_entry(cs, name, absent, shape,
-                                                                     False, 5)
+    results[name]["shapes"][f"{shape_name} de absent"] = _pool_entry(
+        cs, name, inputs[:-1] + (None,), shape, False, 5)
 
 
 def finetune_poolsums(cs, gen, results):
@@ -1066,22 +1160,12 @@ def _wall_ms(run, n):
 
 
 def _profiled(run, steps):
-    """Kernel time by kernel (ms per step) of `steps` calls under
-    torch.profiler: kernels only (device-side ranges of user annotations
-    would count their kernels twice)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(steps)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if (getattr(e, "device_type", None) == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            ms = float(getattr(e, "self_device_time_total", 0.0)
-                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / steps
-            out[e.key] = (ms, e.count // steps)
-    return out
+    """Device time by kernel (ms and launches per step) of run(steps) under
+    torch.profiler, by the accounting `Trainer.profile_dir` uses
+    (spcl_torch/utils/profiling.py::kernel_times: kernels, copies and sets,
+    not the device-side ranges of user annotations)."""
+    from spcl_torch.utils import profiling
+    return profiling.kernel_times(run, steps)
 
 
 def _print_profile(title, kernels, wall_ms, top=12):
@@ -1129,6 +1213,8 @@ def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
         on(2)
         off(2)  # warm-up
         turns = {True: [], False: []}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         for device_data in (True, False, False, True):
             with _CountHostBatches() as counter:
                 turns[device_data].append((on if device_data else off)(timed_steps))
@@ -1137,6 +1223,9 @@ def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
                                           f"{counter.calls} host batches")
             else:
                 check(counter.calls == timed_steps, f"{name}: {counter.calls} host batches")
+        step_bytes = torch.cuda.max_memory_allocated() - base
+        print(f"{name}: the steps' memory above what was allocated before them "
+              f"{step_bytes / 2**30:.3f} GiB", flush=True)
         for device_data in (True, False):
             wall = min(turns[device_data])
             label = f"{name} device_data {str(device_data).lower()}"
@@ -1144,7 +1233,8 @@ def profile_phase(trainer_a, trainer_b, steps=5, timed_steps=20):
                   f"{VIEWS * 1e3 / wall:.1f} slices/s (turns "
                   f"{', '.join(f'{t:.3f}' for t in turns[device_data])})", flush=True)
             prof = _print_profile(label, _profiled(on if device_data else off, steps), wall)
-            out[f"{name}_{str(device_data).lower()}"] = {"ms": wall, "turns": turns[device_data]}
+            out[f"{name}_{str(device_data).lower()}"] = {"ms": wall, "turns": turns[device_data],
+                                                         "step_bytes": step_bytes}
             if prof is not None:
                 total, stage, launched = prof
                 out[f"{name}_{str(device_data).lower()}"].update(
@@ -2671,6 +2761,255 @@ def _profile_epochs(title, trainer, ms, steps=3):
                                     "stage_ms": prof[1]}
 
 
+# ------------------------------------------------------------------ slice H
+# `Arch.dtype: bfloat16` on main_pretrain_encoder.py's path (the paper's
+# configuration, CONFIG): per layout, a pretrain run of 2 epochs x 3 steps
+# (epoch 1 the warm-up, epoch 2 traced under Trainer.profile_dir, both with
+# Trainer.dump_matrices), then the fine-tune step at batch 5 (3 epochs of 5
+# steps and an eval each, so that the best epoch is selected among several)
+# from its last.ckpt, eagerly and with Trainer.defer_reads
+SLICE_H_EPOCHS, SLICE_H_STEPS = 2, 3
+SLICE_H_FT_EPOCHS, SLICE_H_FT_STEPS = 3, 5
+SLICE_H_TIMED_STEPS = 5
+SLICE_H_HOOK = "spinfonce/Conv5/partition"
+# eager against deferred on the card: the same steps from the same checkpoint
+# and seed, but cuDNN's backward and the nearest-upsample backward add with
+# atomics, in an order that is not fixed from run to run; after 15 steps
+# the storage rows, the best score and best.ckpt's weights agree to
+# DEFER_REL_TOL x max(1, |value|), and best.ckpt holds the same epoch
+DEFER_REL_TOL = 1e-4
+PROFILE_AGREE = 0.05        # Trainer.profile_dir's ms/step against _profiled's
+
+
+def _storage_rows(run_dir):
+    """storage.csv's rows as {column: float}, without the throughput columns
+    (wall-clock rates differ from run to run)."""
+    import csv
+    return [{k: float(v) for k, v in row.items() if "throughput" not in k and v != ""}
+            for row in csv.DictReader(open(Path(run_dir) / "storage.csv"))]
+
+
+def _host_syncs(trainer):
+    """Run `trainer.start_training()` under torch.cuda's sync debug mode up to
+    the deferred loop's drain (the whole run for the eager loop): returns
+    (best score, the synchronising calls seen: device -> host copies,
+    pageable host -> device copies, stream waits). The loop's own
+    `torch.cuda.synchronize` around each epoch (a wait, not a read: spcl_tpu's
+    block_until_ready) is not counted."""
+    import warnings
+    drain, wait = trainer._drain_epochs, trainer._synchronize
+
+    def draining(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode(0)
+        return drain(*args, **kwargs)
+
+    def waiting():
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        wait()
+        torch.cuda.set_sync_debug_mode(mode)
+
+    trainer._drain_epochs, trainer._synchronize = draining, waiting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            score = trainer.start_training()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # each synchronising call warns; one more notice says the mode is a prototype
+    return score, [str(w.message)[:120] for w in caught
+                   if "synchroniz" in str(w.message).lower()
+                   and "prototype" not in str(w.message).lower()]
+
+
+def _slice_h_finetune(cs, config, ckpt, save_dir, defer):
+    """One fine-tune run (SLICE_H_FT_EPOCHS epochs of SLICE_H_FT_STEPS steps
+    at batch 5, each with an eval on the val and test loaders) from `ckpt`:
+    (bf16 stage launches, storage rows, best score, trainer). The deferred
+    run may not synchronise with the host before its drain; the eager one
+    must be seen to."""
+    from spcl_torch.entry import build_trainer
+    ft = copy.deepcopy(config)
+    ft["Arch"]["checkpoint"] = str(ckpt)
+    ft["Data"]["labeled_scan_num"] = 1
+    ft["Trainer"].update(name="ft", max_epoch=SLICE_H_FT_EPOCHS, num_batches=SLICE_H_FT_STEPS,
+                         defer_reads=defer, profile_dir=None, dump_matrices=False)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    trainer = build_trainer(ft, save_dir=str(save_dir), device=DEVICE)
+    trainer.init()
+    cs.reset_launch_counts()
+    score, syncs = _host_syncs(trainer)
+    print(f"{'deferred' if defer else 'eager'} fine-tune: {len(syncs)} host "
+          f"synchronisations" + (" before the drain" if defer else "")
+          + (f": {syncs[:2]}" if syncs else ""), flush=True)
+    # the eager loop reads its metrics every epoch: the detector must see it
+    check(not syncs if defer else bool(syncs),
+          "the deferred loop synchronised with the host before its drain" if defer
+          else "the sync detector saw none of the eager loop's reads")
+    torch.cuda.synchronize()
+    check(sum(cs.LAUNCHES.values()) == 0, f"bf16 fine-tune ran float32 stage kernels "
+                                          f"{cs.LAUNCHES}")
+    return dict(cs.LAUNCHES_BF16), _storage_rows(save_dir), score, trainer
+
+
+def slice_h_phase(sc, cs, float32=None):
+    """Slice H: the bf16 compute path at full width, under `pallas` and `nhwc`,
+    through spcl_torch.entry.build_trainer. `float32`: slice B's and slice
+    A's numbers from this run (profile_phase), printed beside."""
+    phase("slice H: Arch.dtype bfloat16, encoder pretrain (UNet-256, 224^2, 2N=60) and "
+          "fine-tune, small_c_layout pallas and nhwc")
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.models import UNet
+    from spcl_torch.training import load_checkpoint, load_model_state_dict
+    out = {"launches_by_path": {}}
+    steps = SLICE_H_EPOCHS * SLICE_H_STEPS
+    for layout in ("pallas", "nhwc"):
+        config = copy.deepcopy(CONFIG)
+        config["Arch"].update(dtype="bfloat16", small_c_layout=layout)
+        base = ROOT / "runs" / f"chip_smoke_h_{layout}"
+        shutil.rmtree(base, ignore_errors=True)
+        config["Trainer"].update(max_epoch=SLICE_H_EPOCHS, num_batches=SLICE_H_STEPS,
+                                 save_dir=str(base), profile_dir=str(base / "profile"),
+                                 dump_matrices=True)
+        trainer = build_trainer(config, save_dir=str(base / "pre"), pretrain=True,
+                                device=DEVICE)
+        check(trainer.model.dtype == torch.bfloat16, trainer.model.dtype)
+        trainer.init()
+        check(all(p.dtype == torch.float32 for p in trainer.model.parameters())
+              and all(b.dtype != torch.bfloat16 for b in trainer.model.buffers()),
+              "bf16 model: parameters and buffers must stay float32")
+        sc.reset_launch_counts()
+        cs.reset_launch_counts()
+        trainer.start_training()
+        torch.cuda.synchronize()
+        stage_bf16 = dict(cs.LAUNCHES_BF16)
+        want = {f"{k}_bf16": (v * steps if layout == "pallas" else 0)
+                for k, v in STAGE_LAUNCHES_PER_STEP.items()}
+        print(f"{layout} bf16 pretrain launches in {steps} steps: {stage_bf16} | supcon "
+              f"{dict(sc.LAUNCHES)}", flush=True)
+        check(stage_bf16 == want, f"{layout}: bf16 stage launches {stage_bf16}, want {want}")
+        check(sum(cs.LAUNCHES.values()) == 0, f"{layout}: float32 stage kernels ran "
+                                              f"{cs.LAUNCHES}")
+        check(sc.LAUNCHES == {"supcon_fwd": steps, "supcon_bwd": steps}, dict(sc.LAUNCHES))
+        for rec in trainer.step_metrics:
+            hm = rec["hooks"][SLICE_H_HOOK]
+            check(math.isfinite(rec["reg_loss"]) and 0.0 <= hm["sp_weight"] <= 1.0, rec)
+        print(f"{layout} bf16 reg_loss " + ", ".join(f"{r['reg_loss']:.6f}"
+                                                    for r in trainer.step_metrics), flush=True)
+        mats = trainer.last_matrices.get(SLICE_H_HOOK, {})
+        check(set(mats) == {"sim_logits", "sim_exp", "pos_mask", "sp_mask"}, sorted(mats))
+        for name, m in mats.items():
+            check(m.shape == (VIEWS, VIEWS) and bool(np.isfinite(m).all()),
+                  f"dump_matrices {name}: {m.shape}, finite {bool(np.isfinite(m).all())}")
+        print(f"{layout} dump_matrices: " + ", ".join(f"{k} {tuple(v.shape)}"
+                                                     for k, v in sorted(mats.items()))
+              + " finite", flush=True)
+        ckpt = base / "pre" / "last.ckpt"
+        fresh = UNet(input_dim=1, num_classes=4, max_channel=256, dtype=torch.bfloat16)
+        fresh.load_state_dict(load_model_state_dict(str(ckpt)), strict=True)
+
+        # steady state, profile and peak memory; the trainer's own profiled epoch beside
+        run = _pretrain_epochs(trainer)
+        run(1)
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        turns = [_wall_ms(run, SLICE_H_TIMED_STEPS) for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated()
+        ms = min(turns)
+        prof = _print_profile(f"slice H {layout} bf16", _profiled(run, SLICE_H_STEPS), ms)
+        check(trainer.profile_ms is not None, "Trainer.profile_dir recorded no device time")
+        res = {"ms": ms, "turns": turns, "peak_bytes": peak, "step_bytes": peak - mem0,
+               "profile_dir_ms": trainer.profile_ms}
+        if prof is not None:
+            total, stage_ms, launched = prof
+            res.update(kernel_ms=total, busy=total / ms, stage_ms=stage_ms,
+                       stage_launches=launched)
+            agree = abs(trainer.profile_ms - total) / total
+            print(f"{layout} bf16: Trainer.profile_dir epoch {trainer.profile_ms:.3f} ms/step "
+                  f"device time beside chip_smoke's accounting {total:.3f} ms/step "
+                  f"({100 * agree:.2f}% apart)", flush=True)
+            check(agree <= PROFILE_AGREE, f"profile_dir {trainer.profile_ms} vs {total}")
+        f32 = (float32 or {}).get(layout, {})
+        print(f"slice H {layout} bf16 pretrain step: {ms:.3f} ms/step wall "
+              f"({VIEWS * 1e3 / ms:.1f} slices/s)"
+              + (f", kernels {res['kernel_ms']:.3f} ms/step, busy "
+                 f"{100 * res['busy']:.1f}%, stage kernels {res['stage_ms']:.3f} ms/step "
+                 f"{res['stage_launches']}" if "kernel_ms" in res else "")
+              + f", peak {peak / 2**30:.2f} GiB, the steps' own "
+              f"{(peak - mem0) / 2**30:.3f} GiB"
+              + (f" | float32 beside (slice {'B' if layout == 'pallas' else 'A'}, this run): "
+                 f"{f32['ms']:.3f} ms/step, kernels {f32.get('kernel_ms', float('nan')):.3f} "
+                 f"ms/step, busy {100 * f32.get('busy', float('nan')):.1f}%, the steps' own "
+                 f"{f32.get('step_bytes', float('nan')) / 2**30:.3f} GiB" if f32 else ""),
+              flush=True)
+        del run
+        if layout == "pallas":
+            out["launches_by_path"]["slice_h"] = stage_bf16
+
+        # fine-tune from the pretrain checkpoint: eager, then deferred
+        runs = {}
+        for defer in (False, True):
+            launches, rows, score, ft = _slice_h_finetune(
+                cs, config, ckpt, base / f"ft_{'deferred' if defer else 'eager'}", defer)
+            want = {f"{k}_bf16": (v * SLICE_H_FT_EPOCHS * SLICE_H_FT_STEPS
+                                  if layout == "pallas" else 0)
+                    for k, v in STAGE_LAUNCHES_PER_STEP.items()}
+            check(launches == want, f"{layout} fine-tune launches {launches}, want {want}")
+            check(len(rows) == SLICE_H_FT_EPOCHS and 0.0 <= score <= 1.0,
+                  f"DSC {score}, rows {len(rows)}")
+            for row in rows:
+                for key in ("tra/sup_loss/mean", "val/loss/mean", "test/loss/mean"):
+                    check(math.isfinite(row[key]), f"{key} = {row[key]}")
+            best = load_checkpoint(str(Path(ft.save_dir) / "best.ckpt"))
+            fresh.load_state_dict(best["_model"], strict=True)
+            runs[defer] = (rows, score, best)
+            if layout == "pallas":
+                out["launches_by_path"]["slice_h_finetune" + ("_deferred" if defer else "")] = \
+                    launches
+            del ft
+        (rows_e, score_e, best_e), (rows_d, score_d, best_d) = runs[False], runs[True]
+        check(all(set(e) == set(d) for e, d in zip(rows_e, rows_d)),
+              "deferred storage columns differ")
+        worst = max(abs(e[k] - d[k]) / max(1.0, abs(e[k]))
+                    for e, d in zip(rows_e, rows_d) for k in e)
+        dsc_key = next(k for k in rows_e[0] if k.startswith("val/") and k.endswith("DSC_mean"))
+        dscs = [row[dsc_key] for row in rows_e]
+        # each run's best.ckpt holds the first epoch of its highest val DSC
+        kept = {defer: best["cur_epoch"] for defer, (_, _, best) in runs.items()}
+        for defer, (rows, _, _) in runs.items():
+            at = 1 + max(range(len(rows)), key=lambda i: (rows[i][dsc_key], -i))
+            check(kept[defer] == at, f"{layout} {'deferred' if defer else 'eager'}: best.ckpt "
+                                     f"of epoch {kept[defer]}, its best val DSC at {at}")
+        same_epoch = kept[False] == kept[True]
+        worst_w = max(float((best_e["_model"][k].double() - best_d["_model"][k].double())
+                            .abs().max()) / max(1.0, float(best_e["_model"][k].abs().max()))
+                      for k in best_e["_model"] if best_e["_model"][k].is_floating_point()) \
+            if same_epoch else float("nan")
+        print(f"{layout} bf16 fine-tune, {SLICE_H_FT_EPOCHS} epochs: sup_loss "
+              + ", ".join(f"{r['tra/sup_loss/mean']:.6f}" for r in rows_e)
+              + " | val DSC by epoch " + ", ".join(f"{v:.6f}" for v in dscs)
+              + f" | best.ckpt of epoch {kept[False]} eager, {kept[True]} deferred (of "
+              f"{SLICE_H_FT_EPOCHS}) | best DSC eager {score_e:.6f} deferred {score_d:.6f} | "
+              f"storage rows deferred vs eager: worst |diff| / max(1, |value|) {worst:.2e} "
+              f"over {len(rows_e)} x {len(rows_e[0])} | best.ckpt weights {worst_w:.2e} "
+              f"(tol {DEFER_REL_TOL:g})", flush=True)
+        # the two runs may keep different epochs only where their val DSCs tie
+        # within the card's run-to-run spread
+        check(same_epoch or abs(dscs[kept[False] - 1] - dscs[kept[True] - 1]) <= DEFER_REL_TOL,
+              f"{layout}: best.ckpt of epoch {kept[False]} eager, {kept[True]} deferred")
+        check(worst <= DEFER_REL_TOL and abs(score_e - score_d) <= DEFER_REL_TOL
+              and not worst_w > DEFER_REL_TOL, f"{layout}: deferred fine-tune differs from eager")
+        res["finetune"] = {"dsc": score_e, "dsc_deferred": score_d, "row_diff": worst,
+                           "best_epoch": {"eager": kept[False], "deferred": kept[True]},
+                           "best_ckpt_diff": worst_w}
+        out[layout] = res
+        del trainer
+        torch.cuda.empty_cache()
+    print("slice_h " + json.dumps({k: v for k, v in out.items()}, default=str), flush=True)
+    return out
+
+
 def _f_path(run):
     """The kernels line's name of a slice F run."""
     return "slice_f" if run == "pallas" else f"slice_f_{run}"
@@ -2997,6 +3336,37 @@ def adv_parity_phase(cs):
     torch.backends.cudnn.allow_tf32 = True
 
 
+STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
+             "pool with its statistics")
+
+
+def _stage_entry(cs, name, suffix, results, launches, by_path):
+    """The kernels line's entry of stage pass `name` (`suffix` "_bf16" for
+    the bf16 instantiation) from its phase's `results`; its own numbers are
+    those of the larger main-path shape the pass runs at."""
+    shapes = results[name]["shapes"]
+    at = "stage1" if "stage1" in shapes else "stage2"
+    return {
+        "name": f"convstage_{name}{suffix}", "route": "cuda",
+        "source": "spcl_torch/ops/csrc/convstage.cu",
+        "replaces": STAGE_REPLACES[name] + (' (dtype_name="bfloat16")' if suffix else ""),
+        "launches": launches, "launches_by_path": by_path,
+        "max_abs_err": results[name]["max_abs_err"], "ms": shapes[at]["ms"],
+        "plain_ms": shapes[at]["plain_ms"],
+        **{k: v for k, v in shapes[at].items() if k.startswith("bound_")},
+        "library_ms": shapes[at].get("library_ms"),
+        "library_why": (f"{shapes[at]['library_call']} computes this pass's convolution, "
+                        "not the BN, ReLU, mask or sums around it"
+                        if "library_ms" in shapes[at] else STAGE_WHY),
+        **({"graph_ms": shapes[at]["graph_ms"],
+            "plan": {f"de {'present' if de else 'absent'}":
+                     cs.poolsums_plan(60, 224, 224, 16, True, de,
+                                      torch.bfloat16 if suffix else torch.float32)
+                     for de in (True, False)}}
+           if name == "poolsums" else {}),
+        "at": shapes[at]["at"], "shapes": shapes}
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -3007,6 +3377,11 @@ def main():
     supcon_plans(sc)
     if "--stage-kernels-only" in sys.argv[1:]:  # development aids: one phase
         stage_kernel_phase(cs)
+        stage_kernel_phase(cs, torch.bfloat16)
+        return
+    if "--bf16-only" in sys.argv[1:]:
+        stage_kernel_phase(cs, torch.bfloat16)
+        slice_h_phase(sc, cs)
         return
     if "--supcon-kernels-only" in sys.argv[1:]:
         kernel_phase(sc)
@@ -3032,6 +3407,7 @@ def main():
         return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
+    stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
     launches, thr, trainer_a = slice_phase(sc)
     stage_launches, trainer_b = slice_b_phase(sc, cs)
     steps = profile_phase(trainer_a, trainer_b)
@@ -3052,6 +3428,9 @@ def main():
     slice_f = slice_f_phase(sc, cs, ROOT / "runs" / "chip_smoke_b" / "pre" / "last.ckpt")
     slice_g = slice_g_phase(sc, cs)
     adv_parity_phase(cs)
+    torch.cuda.empty_cache()
+    slice_h = slice_h_phase(sc, cs, float32={"pallas": steps["pallas_true"],
+                                             "nhwc": steps["nhwc_true"]})
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -3084,41 +3463,21 @@ def main():
                 "sizes": {str(n2): v[name] for n2, v in timings.items()},
                 "shapes": {at: v[name] for at, v in strip_shapes.items()}}
                for name in ("supcon_fwd", "supcon_bwd")]
-    stage_why = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or "
-                 "the pool with its statistics")
     for name in cs.PASSES:
-        shapes = stage[name]["shapes"]
-        # the entry's own numbers are those of the larger shape the pass runs at
-        at = "stage1" if "stage1" in shapes else "stage2"
-        kernels.append({
-            "name": f"convstage_{name}", "route": "cuda",
-            "source": "spcl_torch/ops/csrc/convstage.cu", "replaces": STAGE_REPLACES[name],
-            "launches": (stage_launches[f"convstage_{name}"]
-                         + slice_e["pallas"]["launches"][f"convstage_{name}"]
-                         + sum(v[f"convstage_{name}"] for v in slice_f["launches"].values())
-                         + sum(v[f"convstage_{name}"] for v in slice_g["launches"].values())),
-            "launches_by_path": {"slice_b": stage_launches[f"convstage_{name}"],
-                                 "slice_e": slice_e["pallas"]["launches"][f"convstage_{name}"],
-                                 "slice_e_teacher": slice_e["pallas"]["teacher"].get(
-                                     f"convstage_{name}", 0),
-                                 **{_f_path(run): v[f"convstage_{name}"]
-                                    for run, v in slice_f["launches"].items() if run != "nhwc"},
-                                 "slice_g": slice_g["launches"]["pallas"][f"convstage_{name}"],
-                                 "slice_g_resume":
-                                     slice_g["launches"]["resume"][f"convstage_{name}"]},
-            "max_abs_err": stage[name]["max_abs_err"], "ms": shapes[at]["ms"],
-            "plain_ms": shapes[at]["plain_ms"], "bound_ms": shapes[at]["bound_ms"],
-            "bound_by": shapes[at]["bound_by"],
-            **{k: shapes[at][k] for k in ("bound_f32_ms", "bound_3xtf32_ms") if k in shapes[at]},
-            "library_ms": shapes[at].get("library_ms"),
-            "library_why": (f"{shapes[at]['library_call']} computes this pass's convolution, "
-                            "not the BN, ReLU, mask or sums around it"
-                            if "library_ms" in shapes[at] else stage_why),
-            **({"graph_ms": shapes[at]["graph_ms"],
-                "plan": {f"de {'present' if de else 'absent'}":
-                         cs.poolsums_plan(60, 224, 224, 16, True, de) for de in (True, False)}}
-               if name == "poolsums" else {}),
-            "at": shapes[at]["at"], "shapes": shapes})
+        key = f"convstage_{name}"
+        kernels.append(_stage_entry(cs, name, "", stage, (
+            stage_launches[key] + slice_e["pallas"]["launches"][key]
+            + sum(v[key] for v in slice_f["launches"].values())
+            + sum(v[key] for v in slice_g["launches"].values())), {
+            "slice_b": stage_launches[key],
+            "slice_e": slice_e["pallas"]["launches"][key],
+            "slice_e_teacher": slice_e["pallas"]["teacher"].get(key, 0),
+            **{_f_path(run): v[key] for run, v in slice_f["launches"].items() if run != "nhwc"},
+            "slice_g": slice_g["launches"]["pallas"][key],
+            "slice_g_resume": slice_g["launches"]["resume"][key]}))
+        by_path = {path: v[f"{key}_bf16"] for path, v in slice_h["launches_by_path"].items()}
+        kernels.append(_stage_entry(cs, name, "_bf16", stage_bf16, by_path["slice_h"],
+                                    by_path))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(f"device: {smi} | slice A (nhwc) {1e3 / steps['nhwc_ms']:.3f} steps/s, "
@@ -3141,7 +3500,10 @@ def main():
           f"{DECODER_VIEWS * 1e3 / slice_f['pallas']['steady_ms']:.1f} slices/s, nhwc "
           f"{slice_f['nhwc']['steady_ms']:.3f} ms/step | slice G adversarial step (5 + 5 "
           f"slices) pallas {slice_g['ms']:.3f} ms/step, "
-          f"{ADV_SLICES * 1e3 / slice_g['ms']:.1f} slices/s", flush=True)
+          f"{ADV_SLICES * 1e3 / slice_g['ms']:.1f} slices/s | slice H bf16 pretrain step "
+          f"pallas {slice_h['pallas']['ms']:.3f} ms/step, "
+          f"{VIEWS * 1e3 / slice_h['pallas']['ms']:.1f} slices/s, nhwc "
+          f"{slice_h['nhwc']['ms']:.3f} ms/step", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

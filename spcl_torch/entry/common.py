@@ -13,6 +13,8 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from ..configure.dictionary_utils import (dictionary_merge_by_hierachy,
                                           extract_params_with_key_prefix)
 from ..constants import data2class_numbers, data2input_dim
@@ -41,11 +43,16 @@ def separate_pretrain_finetune_configs(config: Dict) -> Tuple[Dict, Dict]:
     return pretrain_config, finetune_config
 
 
+# Arch.dtype -> the UNet's compute dtype (spcl_tpu entry/common.py:43-44)
+ARCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def build_model_from_config(config: Dict) -> UNet:
     arch = config.get("Arch", {})
     data_name = (config.get("Data") or {}).get("name", "acdc")
-    if str(arch.get("dtype", "float32")) != "float32":
-        raise NotImplementedError("Arch.dtype: only float32 is ported yet")
+    dtype = str(arch.get("dtype", "float32"))
+    if dtype not in ARCH_DTYPES:
+        raise ValueError(f"Arch.dtype must be one of {sorted(ARCH_DTYPES)}, got {dtype!r}")
     layout = str(arch.get("small_c_layout", "nhwc"))
     if layout == "packed":
         # the pure-jnp lane-packed layout fills the TPU's 128 lanes and has no
@@ -59,7 +66,8 @@ def build_model_from_config(config: Dict) -> UNet:
         input_dim=int(arch.get("input_dim", data2input_dim.get(data_name, 1))),
         num_classes=int(arch.get("num_classes", data2class_numbers.get(data_name, 4))),
         max_channel=int(arch.get("max_channel", 256)),
-        momentum=float(arch.get("momentum", 0.1)))
+        momentum=float(arch.get("momentum", 0.1)),
+        dtype=ARCH_DTYPES[dtype])
 
 
 # (train, test) per Data block, as spcl_tpu keeps them (entry/common.py:56-94)
@@ -104,30 +112,15 @@ def _load_datasets(data: Dict, name: str, canvas: int, synthetic):
             load_packed(str(Path(root) / f"{name}_val.npz")))
 
 
-def refuse_unported_trainer_keys(trainer_cfg: Dict, name: str) -> None:
-    """Raise NotImplementedError for a `Trainer` key that spcl_tpu honours
-    and the port does not yet, set to anything but its default, instead of
-    training a different function without a word. spcl_tpu reads
-    `dump_matrices` in its pretrain trainer only (training/trainer.py:
-    1152-1159), `profile_dir` and `defer_reads` in every trainer (:897-909,
-    entry/common.py:151). `dump_matrices` together with `grad_cache` is
-    spcl_tpu's ValueError (trainer.py:1152-1158): the probe's whole-batch
-    [2N, 2N] matrices bring back the memory wall that grad_cache removes."""
-    pretrain = name.startswith("pretrain")
-    if pretrain and int(trainer_cfg.get("grad_cache") or 0) and trainer_cfg.get("dump_matrices"):
+def refuse_incompatible_trainer_keys(trainer_cfg: Dict, name: str) -> None:
+    """`Trainer.dump_matrices` together with `grad_cache` in a pretrain
+    trainer is spcl_tpu's ValueError (trainer.py:1152-1158): the probe's
+    whole-batch [2N, 2N] matrices bring back the memory wall that grad_cache
+    removes."""
+    if (name.startswith("pretrain") and int(trainer_cfg.get("grad_cache") or 0)
+            and trainer_cfg.get("dump_matrices")):
         raise ValueError("Trainer.dump_matrices is incompatible with "
                          "Trainer.grad_cache — disable one")
-    refused = []
-    if pretrain and trainer_cfg.get("dump_matrices"):
-        refused.append(("dump_matrices", "A7"))
-    if trainer_cfg.get("profile_dir"):
-        refused.append(("profile_dir", "A7"))
-    if trainer_cfg.get("defer_reads"):
-        refused.append(("defer_reads", "A7"))
-    if refused:
-        raise NotImplementedError("; ".join(
-            f"Trainer.{key}={trainer_cfg[key]!r} is not ported yet (ROADMAP {item})"
-            for key, item in refused))
 
 
 def _refuse_decoder_hooks(hooks, ranks: int, grad_cache: int) -> None:
@@ -158,7 +151,10 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     weight_decay, momentum, nesterov, as spcl_tpu's does),
     `Trainer.grad_cache`, `Trainer.packed_eval`, `Trainer.two_stage` and
     `Trainer.disable_bn` from the config; `Trainer.device_data` (default
-    true) picks the data path. `Trainer.mesh: N|auto` makes the pretrain or
+    true) picks the data path; `Trainer.defer_reads` (+ `flush_every`),
+    `profile_dir` and, in the pretrain trainers, `dump_matrices` are
+    honoured as spcl_tpu honours them (training/trainer.py), and
+    `Arch.dtype` (float32 | bfloat16) is the UNet's compute dtype. `Trainer.mesh: N|auto` makes the pretrain or
     fine-tune trainer one rank of an N-rank run; the calling process must
     then be one of N ranks (see `spcl_torch.main_pretrain_encoder` and
     `parallel.mesh.spawn_local`). Not ported yet, and refused here naming
@@ -174,7 +170,7 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     if name not in trainer_zoo:
         raise NotImplementedError(f"trainer {name!r} is not ported yet "
                                   f"(ported: {sorted(trainer_zoo)})")
-    refuse_unported_trainer_keys(trainer_cfg, name)
+    refuse_incompatible_trainer_keys(trainer_cfg, name)
     ranks = mesh.requested_ranks(trainer_cfg.get("mesh", 0), device)
     if name in ("semi", "mixup", "adv") and ranks > 1:
         raise NotImplementedError(f"Trainer.mesh with the {name} trainer is not ported yet "
@@ -192,7 +188,8 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
                   config=config, seed=seed, crop=crop, data_name=data_name, device=device,
                   mesh=trainer_cfg.get("mesh", 0),
-                  device_data=bool(trainer_cfg.get("device_data", True)))
+                  device_data=bool(trainer_cfg.get("device_data", True)),
+                  defer_reads=bool(trainer_cfg.get("defer_reads", False)))
 
     if name.startswith("pretrain"):
         hooks = create_hook_from_config(config, max_epoch=max_epoch)

@@ -15,6 +15,13 @@ as the JAX `pallas` path does (`_BNVars`, :253-256): with the **biased**
 batch variance, where `nn.BatchNorm2d` on the plain path uses the unbiased
 one; not while the BatchNorm's statistics are frozen
 (`models/norm.py::frozen_statistics`, spcl_tpu's `update_stats=False`).
+
+Under `Arch.dtype: bfloat16` the stage runs in bf16 as spcl_tpu's
+`PallasConvStage(dtype=...)` does (:271-304): stage 1's first convolution
+(one input channel) is the UNet's own `Conv2d` on the bf16 input, weights
+rounded to bf16, in cuDNN, and its bf16 output is the stage's z0; the
+kernels' bf16 instantiation stores the activations in bf16 and keeps the
+BatchNorm statistics in float32.
 """
 from __future__ import annotations
 

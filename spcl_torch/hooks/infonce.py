@@ -138,6 +138,25 @@ class INFONCEHook(TrainerHook):
         target = torch.where(valid > 0, ids, torch.full_like(ids, -1))
         return s1, s2, target, valid
 
+    # ---- batch-0 diagnostics (reference :185-193: sim / mask figure dumps)
+    def _views_and_labels(self, ctx):
+        z1, z2 = self._projected_views(ctx)
+        if self.is_encoder:
+            return z1, z2, label_from_contrast_on(ctx, self.contrast_on), ctx["valid"]
+        return self._dense_points(z1, z2, ctx)
+
+    def matrices_fn(self, ctx, scalars) -> Dict[str, torch.Tensor]:
+        """The [2N, 2N] matrices the reference plots on batch 0 of each epoch
+        (spcl_tpu hooks/infonce.py:178-192), from the plain dense loss: the
+        similarity logits, their exp, and the positive mask. Called by the
+        once-an-epoch probe (`training/steps.py::build_matrix_probe`), never
+        by the step."""
+        z1, z2, target, valid = self._views_and_labels(ctx)
+        _, aux = supcon_loss(z1, z2, target=target, valid=valid,
+                             temperature=self.temperature, return_matrices=True)
+        return {"sim_logits": aux.sim_logits, "sim_exp": torch.exp(aux.sim_logits),
+                "pos_mask": aux.pos_mask}
+
 
 class SelfPacedINFONCEHook(INFONCEHook):
     def __init__(self, *, name: str, feature_name: str, weight: float = 1.0,
@@ -183,6 +202,17 @@ class SelfPacedINFONCEHook(INFONCEHook):
                 correct_grad=self.correct_grad)
             ratio = aux.downgrade_ratio
         return loss, {"loss": loss, "sp_weight": ratio, "age_param": gamma}
+
+    def matrices_fn(self, ctx, scalars) -> Dict[str, torch.Tensor]:
+        """Adds the self-paced weight mask (reference :263-266 plots sp_mask;
+        spcl_tpu hooks/infonce.py:256-268)."""
+        z1, z2, target, valid = self._views_and_labels(ctx)
+        _, aux = self_paced_supcon_loss(
+            z1, z2, target=target, valid=valid, gamma=scalars["gamma"],
+            temperature=self.temperature, weight_update=self.mode,
+            correct_grad=self.correct_grad, return_matrices=True)
+        return {"sim_logits": aux.sim_logits, "sim_exp": torch.exp(aux.sim_logits),
+                "pos_mask": aux.pos_mask, "sp_mask": aux.sp_mask}
 
     def state_dict(self):
         return {"scheduler": self.scheduler.state_dict()}

@@ -34,7 +34,7 @@ class MineStatNet(nn.Module):
         self.fc = nn.Linear(hidden // 2, 1)
 
     def forward(self, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([f1, f2], dim=1)
+        x = torch.cat([f1, f2], dim=1).float()
         x = F.relu(self.gn0(self.conv0(x)))
         x = F.relu(self.gn1(self.conv1(x)))
         return self.fc(x.amax(dim=(2, 3)))[:, 0]

@@ -144,6 +144,7 @@ class DenseClusterHead(nn.Module):
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         outs = []
+        features = features.float()
         for s in range(self.num_subheads):
             h = getattr(self, f"sub{s}_conv0")(features)
             if self.head_type == "mlp":

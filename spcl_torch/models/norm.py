@@ -16,6 +16,14 @@ is not used: it has no CPU path, and one code path serves gloo on the CPU and
 NCCL on the card. Parameters, buffers and state_dict keys are those of
 `nn.BatchNorm2d`.
 
+Under a low-precision compute dtype (bfloat16, `Arch.dtype`) every forward
+follows flax as `TorchBatchNorm` does (norm.py:59-88): the statistics are
+reduced in float32 from the input widened to float32 (train mode) or read
+from the float32 running buffers (eval mode), w = scale * rsqrt(var + eps)
+is formed in float32, and the apply (x - mean) * w + bias runs in the compute
+dtype with mean, w and bias cast to it, so bf16 activations stay bf16. The
+float32 single-rank path is `nn.BatchNorm2d`'s own.
+
 `rank_local_statistics(model)` turns the cross-rank statistics off for a
 block: the gradient-cache step (`training/gradcache.py`) normalises each
 chunk with the rank's own statistics, as spcl_tpu's does (its UNet runs
@@ -52,19 +60,27 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
     frozen_statistics = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        if not mesh.active() or self.rank_local:
+        cross_rank = self.training and mesh.active() and not self.rank_local
+        if x.dtype == torch.float32 and not cross_rank:
+            if not self.training:
+                return super().forward(x)
             if self.frozen_statistics:
                 return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             return super().forward(x)
-        world = mesh.world_size()
+        if not self.training:
+            return self._normalise(x, self.running_mean, self.running_var)
+        world = mesh.world_size() if cross_rank else 1
         xf = x.float()
         local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
-        mean, mean2 = mesh.all_reduce_sum(local) / world
+        mean, mean2 = (mesh.all_reduce_sum(local) / world) if cross_rank else local
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if not self.frozen_statistics:
             self._update_running(x, world, mean, var)
+        return self._normalise(x, mean, var)
+
+    def _normalise(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        """(x - mean) * w + bias in x's dtype, w = weight * rsqrt(var + eps) in
+        float32 (`TorchBatchNorm`'s subtract-first apply)."""
         w = self.weight * torch.rsqrt(var + self.eps)
         shape = (1, -1, 1, 1)
         return ((x - mean.to(x.dtype).reshape(shape)) * w.to(x.dtype).reshape(shape)

@@ -20,6 +20,16 @@ their pools through the fused CUDA stage (experimental/packed_stage.py) —
 only in train mode and only for packable shapes, as
 `spcl_tpu/models/unet.py:189-213` dispatches; eval mode and odd shapes take
 the plain path. Parameters and state_dict keys are the same either way.
+
+`dtype` is the compute dtype (`Arch.dtype`), as in spcl_tpu's UNet
+(models/unet.py:148-176): float32 or bfloat16. The input is cast to it, the
+convolutions take their float32 weights cast to it (`Conv2d`), and the
+activations stay in it from stage to stage; BatchNorm reduces its statistics
+in float32 and normalises in the compute dtype (models/norm.py); the logits
+come back in float32. Parameters, BatchNorm buffers, gradients and optimizer
+state stay float32. The dtype is explicit in the module, not
+`torch.autocast`, which reaches neither the fused stage kernels nor the
+rounding points of spcl_tpu's bf16 path.
 """
 from __future__ import annotations
 
@@ -45,6 +55,19 @@ LAYER_DIMENSION = {"Conv1": 1, "Conv2": 2, "Conv3": 4, "Conv4": 8, "Conv5": 16,
 # "nhwc" / "nchw": the plain path (one function in NCHW PyTorch); "pallas":
 # the fused train-mode stage kernels for Conv1 / Conv2
 SMALL_C_LAYOUTS: Tuple[str, ...] = ("nhwc", "nchw", "pallas")
+DTYPES: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` whose float32 parameters meet the input in its dtype: under
+    bfloat16 the weights (and bias) are rounded to it, as flax's
+    `nn.Conv(dtype=...)` casts its kernel; the gradient comes back to the
+    float32 parameters through the cast. Parameters and keys are
+    `nn.Conv2d`'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def arch_order(name: str) -> int:
@@ -77,9 +100,9 @@ class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, momentum: float = 0.1):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
+            Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
             batch_norm(out_ch, momentum), nn.ReLU(inplace=True),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False),
+            Conv2d(out_ch, out_ch, 3, padding=1, bias=False),
             batch_norm(out_ch, momentum), nn.ReLU(inplace=True))
 
     def forward(self, x):
@@ -91,7 +114,7 @@ class UpConv(nn.Module):
         super().__init__()
         self.up = nn.Sequential(
             nn.Upsample(scale_factor=2, mode="nearest"),
-            nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
+            Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
             batch_norm(out_ch, momentum), nn.ReLU(inplace=True))
 
     def forward(self, x):
@@ -102,14 +125,18 @@ class UNet(nn.Module):
     """5-stage encoder / 4-stage decoder UNet with named-stage outputs."""
 
     def __init__(self, input_dim: int = 1, num_classes: int = 4, max_channel: int = 256,
-                 momentum: float = 0.1, small_c_layout: str = "nhwc"):
+                 momentum: float = 0.1, small_c_layout: str = "nhwc",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if max_channel % 16:
             raise ValueError(f"max_channel must be a multiple of 16, got {max_channel}")
         if small_c_layout not in SMALL_C_LAYOUTS:
             raise ValueError(f"small_c_layout must be one of {SMALL_C_LAYOUTS}, "
                              f"got {small_c_layout!r}")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.small_c_layout = small_c_layout
+        self.dtype = dtype
         self.input_dim = int(input_dim)
         self.num_classes = int(num_classes)
         self.max_channel = int(max_channel)
@@ -127,7 +154,7 @@ class UNet(nn.Module):
         self._Up_conv3 = ConvBlock(2 * ch["Up_conv3"], ch["Up_conv3"], momentum)
         self._Up2 = UpConv(ch["Up_conv3"], ch["Up_conv2"], momentum)
         self._Up_conv2 = ConvBlock(2 * ch["Up_conv2"], ch["Up_conv2"], momentum)
-        self._Deconv_1x1 = nn.Conv2d(ch["Up_conv2"], num_classes, 1)
+        self._Deconv_1x1 = Conv2d(ch["Up_conv2"], num_classes, 1)
         self._pool = nn.MaxPool2d(2, 2)
 
     def channel_dim(self, name: str) -> int:
@@ -151,6 +178,7 @@ class UNet(nn.Module):
         computed stage; stops after `until`. The final logits live under both
         "Deconv_1x1" and "logits"."""
         stages_up_to(until)  # validates `until`
+        x = x.to(self.dtype)
         acts: Dict[str, torch.Tensor] = {}
         if self._use_fused_stages(x):
             # channels-last inside the two stages; `acts` holds NCHW views

@@ -3,8 +3,8 @@
 versions, and launch counts.
 
 One stage is conv3x3 -> BN -> ReLU -> conv3x3 -> BN -> ReLU -> 2x2 max-pool
-in train mode, on channels-last float32 tensors [B, H, W, C] with C in
-{16, 32}. It replaces `fused_packed_block`
+in train mode, on channels-last tensors [B, H, W, C] with C in {16, 32},
+stored in float32 or bfloat16. It replaces `fused_packed_block`
 (spcl_tpu/experimental/packed_block_pallas.py:611-797), whose seven Pallas
 kernel bodies run through `_pc` (:595); one pass here for each:
 
@@ -16,6 +16,16 @@ kernel bodies run through `_pc` (:595); one pass here for each:
   `dz1`                 convstage_dz1                 `_k_dz1`      :374
   `dwprev`              convstage_dwprev              `_k_dwprev`   :412
   `dwdx`                convstage_dwdx                `_k_dwdx`     :471
+
+bfloat16 is the Pallas stage's `dtype_name="bfloat16"` (:611-613): the
+activations and cotangents are stored in bf16, the operands of the products
+are bf16 values (the weights, BN + ReLU of a convolution's input, dz0 in
+dwdx), products accumulate in float32, and the statistics and weight
+gradients come from float32 values, kept in float64 sums and returned in
+float32. The plain versions round at the same points (their convolutions
+run in float32 on bf16-valued operands, whose products are exact); each
+kernel has a bf16 instantiation in csrc/convstage.cu, counted in
+`LAUNCHES_BF16`.
 
 The per-channel coefficient arithmetic between the passes (`bn_fwd_coef`,
 `bn_bwd_coef`) is ordinary tensor code on [C] vectors, as it is XLA glue on
@@ -57,15 +67,18 @@ _BLOCKS_PER_SM = 4  # upper bound on resident blocks; sizes the partials workspa
 SOURCE = _build.CSRC_DIR / "convstage.cu"
 
 PASSES = ("conv", "bnconv", "bnpool", "poolsums", "dz1", "dwprev", "dwdx")
-# kernel name -> launches since the last reset
+_DTYPES = (torch.float32, torch.bfloat16)
+# kernel name -> launches since the last reset, float32 and bfloat16 apart
 LAUNCHES: Dict[str, int] = {f"convstage_{name}": 0 for name in PASSES}
+LAUNCHES_BF16: Dict[str, int] = {f"convstage_{name}_bf16": 0 for name in PASSES}
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 # ------------------------------------------------------------------ build / bind
@@ -87,13 +100,14 @@ def _load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.convstage_tile.argtypes = []
         lib.convstage_tile.restype = i
-        for name, n_ptr, n_int in (("conv", 5, 6), ("bnconv", 6, 5), ("bnpool", 4, 5),
-                                   ("poolsums", 7, 5), ("dz1", 6, 5), ("dwprev", 9, 5),
-                                   ("dwdx", 8, 6)):
+        # pointers, then the ints (the last one `bf`: bfloat16 activations), then the stream
+        for name, n_ptr, n_int in (("conv", 5, 7), ("bnconv", 6, 6), ("bnpool", 4, 6),
+                                   ("poolsums", 7, 6), ("dz1", 6, 6), ("dwprev", 9, 6),
+                                   ("dwdx", 8, 7)):
             fn = getattr(lib, f"convstage_{name}")
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = i
-        lib.convstage_poolsums_plan.argtypes = [i] * 6 + [p]
+        lib.convstage_poolsums_plan.argtypes = [i] * 7 + [p]
         lib.convstage_poolsums_plan.restype = i
         if lib.convstage_tile() != _TILE:
             raise RuntimeError(f"kernel tile {lib.convstage_tile()} != {_TILE}")
@@ -102,16 +116,17 @@ def _load() -> ctypes.CDLL:
 
 
 def _check(tensors, *, pooled: bool = False):
-    """Checks before pointers reach a kernel: contiguous float32 [B, H, W, C]
-    tensors on one CUDA device with C in {16, 32} (H, W even for the pool
-    passes). Returns (B, H, W) of the first tensor."""
+    """Checks before pointers reach a kernel: contiguous [B, H, W, C] tensors
+    of one dtype (float32 or bfloat16) on one CUDA device with C in {16, 32}
+    (H, W even for the pool passes). Returns (B, H, W) of the first tensor."""
     first = tensors[0]
     for t in tensors:
-        if (not t.is_cuda or t.device != first.device or t.dtype != torch.float32
-                or not t.is_contiguous() or t.dim() != 4):
-            raise ValueError("convstage kernels take contiguous float32 [B, H, W, C] tensors "
-                             f"on one CUDA device; got {t.dtype} {t.device} "
-                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+        if (not t.is_cuda or t.device != first.device or t.dtype not in _DTYPES
+                or t.dtype != first.dtype or not t.is_contiguous() or t.dim() != 4):
+            raise ValueError("convstage kernels take contiguous float32 or bfloat16 "
+                             "[B, H, W, C] tensors of one dtype on one CUDA device; got "
+                             f"{t.dtype} {t.device} {tuple(t.shape)} "
+                             f"contiguous={t.is_contiguous()}")
         if t.shape[3] not in _CHANNELS:
             raise ValueError(f"convstage kernels are built for C in {_CHANNELS}, "
                              f"got C={t.shape[3]}")
@@ -141,10 +156,28 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, *args) -> None:
-    err = getattr(_load(), f"convstage_{name}")(*args)
+def _bf(t: torch.Tensor) -> int:
+    """The kernels' `bf` argument: 1 for bfloat16 activations, else 0."""
+    return int(t.dtype == torch.bfloat16)
+
+
+def _launch(name: str, like: torch.Tensor, *args) -> None:
+    """One launch of convstage_`name` on `like`'s dtype (passed as `bf`, the
+    argument before the stream) and its count."""
+    *args, stream = args
+    err = getattr(_load(), f"convstage_{name}")(*args, _bf(like), stream)
     _build.raise_on(err, f"convstage_{name}")
-    LAUNCHES[f"convstage_{name}"] += 1
+    if like.dtype == torch.bfloat16:
+        LAUNCHES_BF16[f"convstage_{name}_bf16"] += 1
+    else:
+        LAUNCHES[f"convstage_{name}"] += 1
+
+
+def _operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 weights as the products' operand in the plain versions:
+    rounded to bfloat16 (and widened back, exactly) for bf16 activations,
+    unchanged for float32. The kernels round them as they stage them."""
+    return w if dtype == torch.float32 else w.to(dtype).float()
 
 
 def _hwio_to_dw(dw64: torch.Tensor, ci: int, co: int) -> torch.Tensor:
@@ -181,17 +214,23 @@ def bn_bwd_coef(sums_dy: torch.Tensor, n: int, mean: torch.Tensor, var: torch.Te
 
 
 def _sums(z: torch.Tensor, other: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """float64 [2, C]: (sum z, sum z*other) over B, H, W (other = z if None)."""
-    other = z if other is None else other
+    """float64 [2, C]: (sum z, sum z*other) over B, H, W (other = z if None),
+    of the float32 values (a bf16 tensor's values widened exactly; the product
+    of two bf16 values is exact in float32)."""
+    z = z.float()
+    other = z if other is None else other.float()
     return torch.stack([z.sum(dim=(0, 1, 2), dtype=torch.float64),
                         (z * other).sum(dim=(0, 1, 2), dtype=torch.float64)])
 
 
 def _bn(z: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    return z * coef[0] + coef[1]
+    """z*inv + shift in float32 (z widened from its storage type)."""
+    return z.float() * coef[0] + coef[1]
 
 
 # ------------------------------------------------------------------ plain versions
+# Each takes and returns activations in their storage type (float32 or
+# bfloat16) and rounds where its kernel does; arithmetic is float32.
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
@@ -213,14 +252,16 @@ def _conv_grads(a: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
 
 
 def conv_plain(x, w):
-    """z0 = conv3x3(x, w), zero padding 1; sums (sum z0, sum z0^2)."""
-    z = _nhwc(F.conv2d(_nchw(x), _oihw(w), padding=1))
-    return z, _sums(z)
+    """z0 = conv3x3(x, w), zero padding 1, stored in x's dtype; sums (sum z0,
+    sum z0^2) of the float32 z0 before it is stored."""
+    z = _nhwc(F.conv2d(_nchw(x.float()), _oihw(_operand(w, x.dtype)), padding=1))
+    return z.to(x.dtype), _sums(z)
 
 
 def bnconv_plain(z0, coef, w):
-    """z1 = conv3x3(relu(z0*inv+shift), w); sums (sum z1, sum z1^2)."""
-    return conv_plain(torch.relu(_bn(z0, coef)), w)
+    """z1 = conv3x3(relu(z0*inv+shift), w), the convolution's input rounded
+    to z0's dtype; sums (sum z1, sum z1^2)."""
+    return conv_plain(torch.relu(_bn(z0, coef)).to(z0.dtype), w)
 
 
 def _windows(t: torch.Tensor) -> torch.Tensor:
@@ -238,21 +279,22 @@ def _unwindows(t: torch.Tensor) -> torch.Tensor:
 
 
 def bnpool_plain(z1, coef):
-    """e = relu(z1*inv+shift); p = maxpool2x2(e)."""
-    e = torch.relu(_bn(z1, coef))
+    """e = relu(z1*inv+shift) in z1's dtype; p = maxpool2x2(e)."""
+    e = torch.relu(_bn(z1, coef)).to(z1.dtype)
     return e, _windows(e).amax(dim=3)
 
 
 def _dy1(z1, coef, dp, de):
-    """dy1 = (poolbwd(dp) + de) * [y1 >= 0]: dp goes to the first maximum of
-    each window in scan order. dp / de may be None (no cotangent)."""
+    """dy1 = (poolbwd(dp) + de) * [y1 >= 0] in float32: dp goes to the first
+    maximum of each window in scan order among e = relu(y1) in z1's dtype.
+    dp / de may be None (no cotangent)."""
     y = _bn(z1, coef)
-    da = torch.zeros_like(z1) if de is None else de
+    da = torch.zeros_like(y) if de is None else de.float()
     if dp is not None:
-        cands = _windows(torch.relu(y))
+        cands = _windows(torch.relu(y).to(z1.dtype))
         is_max = cands == cands.amax(dim=3, keepdim=True)
         first = is_max & (torch.cumsum(is_max.to(torch.int32), dim=3) == 1)
-        da = da + _unwindows(first.to(dp.dtype) * dp[:, :, :, None, :])
+        da = da + _unwindows(first.float() * dp.float()[:, :, :, None, :])
     return torch.where(y >= 0, da, torch.zeros_like(da))
 
 
@@ -262,23 +304,27 @@ def poolsums_plain(z1, coef, dp, de):
 
 
 def dz1_plain(z1, coef, dcoef, dp, de):
-    """dz1 = c0*dy1 + c1 + c2*z1."""
-    return dcoef[0] * _dy1(z1, coef, dp, de) + dcoef[1] + dcoef[2] * z1
+    """dz1 = c0*dy1 + c1 + c2*z1, stored in z1's dtype."""
+    return (dcoef[0] * _dy1(z1, coef, dp, de) + dcoef[1] + dcoef[2] * z1.float()).to(z1.dtype)
 
 
 def dwprev_plain(dz1, z0, coef, w):
-    """dW1 = sum a0^T dz1 with a0 = relu(z0*inv+shift) recomputed;
-    dy0 = conv1^T(dz1) * [y0 >= 0]; sums (sum dy0, sum dy0*z0)."""
+    """dW1 = sum a0^T dz1 with a0 = relu(z0*inv+shift) recomputed (rounded to
+    z0's dtype); dy0 = conv1^T(dz1) * [y0 >= 0], stored in z0's dtype; sums
+    (sum dy0, sum dy0*z0) of the float32 dy0."""
     y0 = _bn(z0, coef)
-    da0, dw = _conv_grads(torch.relu(y0), w, dz1)
+    a0 = torch.relu(y0).to(z0.dtype).float()
+    da0, dw = _conv_grads(a0, _operand(w, z0.dtype), dz1.float())
     dy0 = torch.where(y0 >= 0, da0, torch.zeros_like(da0))
-    return dy0, dw, _sums(dy0, z0)
+    return dy0.to(z0.dtype), dw, _sums(dy0, z0)
 
 
 def dwdx_plain(z0, dy0, dcoef, x, w):
-    """dz0 = c0*dy0 + c1 + c2*z0; dW0 = sum x^T dz0; dx = conv0^T(dz0)."""
-    dz0 = dcoef[0] * dy0 + dcoef[1] + dcoef[2] * z0
-    return _conv_grads(x, w, dz0)
+    """dz0 = c0*dy0 + c1 + c2*z0 (rounded to z0's dtype); dW0 = sum x^T dz0;
+    dx = conv0^T(dz0), stored in x's dtype."""
+    dz0 = (dcoef[0] * dy0.float() + dcoef[1] + dcoef[2] * z0.float()).to(z0.dtype).float()
+    d_in, dw = _conv_grads(x.float(), _operand(w, x.dtype), dz0)
+    return d_in.to(x.dtype), dw
 
 
 # ------------------------------------------------------------------ kernel launches
@@ -297,9 +343,9 @@ def conv_kernel(x, w):
     ci, co = x.shape[3], w.shape[3]
     _weights_ok(w, ci, co, x)
     blocks = _max_blocks(x.device)
-    z = torch.empty((b, h, wd, co), dtype=torch.float32, device=x.device)
+    z = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
     partial, sums = _conv_workspace(blocks, co, x.device)
-    _launch("conv", x.data_ptr(), w.data_ptr(), z.data_ptr(), partial.data_ptr(),
+    _launch("conv", x, x.data_ptr(), w.data_ptr(), z.data_ptr(), partial.data_ptr(),
             sums.data_ptr(), b, h, wd, ci, co, blocks, _stream(x))
     return z, sums
 
@@ -313,7 +359,7 @@ def bnconv_kernel(z0, coef, w):
     blocks = _max_blocks(z0.device)
     z1 = torch.empty_like(z0)
     partial, sums = _conv_workspace(blocks, c, z0.device)
-    _launch("bnconv", z0.data_ptr(), coef.data_ptr(), w.data_ptr(), z1.data_ptr(),
+    _launch("bnconv", z0, z0.data_ptr(), coef.data_ptr(), w.data_ptr(), z1.data_ptr(),
             partial.data_ptr(), sums.data_ptr(), b, h, wd, c, blocks, _stream(z0))
     return z1, sums
 
@@ -324,19 +370,18 @@ def bnpool_kernel(z1, coef):
     c = z1.shape[3]
     _check_small(coef, (2, c), z1, "coef (inv, shift)")
     e = torch.empty_like(z1)
-    p = torch.empty((b, h // 2, wd // 2, c), dtype=torch.float32, device=z1.device)
-    _launch("bnpool", z1.data_ptr(), coef.data_ptr(), e.data_ptr(), p.data_ptr(),
+    p = torch.empty((b, h // 2, wd // 2, c), dtype=z1.dtype, device=z1.device)
+    _launch("bnpool", z1, z1.data_ptr(), coef.data_ptr(), e.data_ptr(), p.data_ptr(),
             b, h, wd, c, _max_blocks(z1.device) * 8, _stream(z1))
     return e, p
 
 
 def _check_cotangents(z1, dp, de):
-    b, h, wd = _check((z1,) + (() if de is None else (de,)), pooled=True)
+    b, h, wd = _check((z1,) + tuple(t for t in (de, dp) if t is not None), pooled=True)
     c = z1.shape[3]
     if de is not None and de.shape != z1.shape:
         raise ValueError(f"de {tuple(de.shape)} != z1 {tuple(z1.shape)}")
     if dp is not None:
-        _check((dp,))
         if tuple(dp.shape) != (b, h // 2, wd // 2, c) or dp.device != z1.device:
             raise ValueError(f"dp {tuple(dp.shape)} for z1 {tuple(z1.shape)}")
     return b, h, wd, c
@@ -364,13 +409,16 @@ def _ticket(device) -> torch.Tensor:
     return ticket
 
 
-def poolsums_plan(b: int, h: int, w: int, c: int, dp: bool, de: bool) -> Dict[str, int]:
+def poolsums_plan(b: int, h: int, w: int, c: int, dp: bool, de: bool,
+                  dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """The launch of convstage_poolsums at [b, h, w, c] with dp / de present
-    or absent, on the current card: clusters, blocks a cluster, clusters
-    resident at once, and the chunks (a pixel's 4 channels, two terms each) a
-    float32 run holds before it is added to float64."""
+    or absent and activations of `dtype`, on the current card: clusters,
+    blocks a cluster, clusters resident at once, and the chunks (a pixel's 4
+    channels, two terms each) a float32 run holds before it is added to
+    float64."""
     out = (ctypes.c_int * 4)()
     err = _load().convstage_poolsums_plan(b, h, w, c, int(dp), int(de),
+                                          int(dtype == torch.bfloat16),
                                           ctypes.cast(out, ctypes.c_void_p))
     _build.raise_on(err, "convstage_poolsums_plan")
     return dict(zip(("clusters", "cluster", "resident", "run"), out))
@@ -380,9 +428,10 @@ def poolsums_kernel(z1, coef, dp, de):
     """`poolsums_plain` on the card: one launch of convstage_poolsums."""
     b, h, wd, c = _check_cotangents(z1, dp, de)
     _check_small(coef, (2, c), z1, "coef (inv, shift)")
-    clusters = poolsums_plan(b, h, wd, c, dp is not None, de is not None)["clusters"]
+    clusters = poolsums_plan(b, h, wd, c, dp is not None, de is not None,
+                             z1.dtype)["clusters"]
     partial, sums = _conv_workspace(clusters, c, z1.device)
-    _launch("poolsums", z1.data_ptr(), coef.data_ptr(), _ptr(dp), _ptr(de),
+    _launch("poolsums", z1, z1.data_ptr(), coef.data_ptr(), _ptr(dp), _ptr(de),
             partial.data_ptr(), sums.data_ptr(), _ticket(z1.device).data_ptr(), b, h, wd, c,
             clusters, _stream(z1))
     return sums
@@ -394,7 +443,7 @@ def dz1_kernel(z1, coef, dcoef, dp, de):
     _check_small(coef, (2, c), z1, "coef (inv, shift)")
     _check_small(dcoef, (3, c), z1, "dcoef (c0, c1, c2)")
     dz = torch.empty_like(z1)
-    _launch("dz1", z1.data_ptr(), coef.data_ptr(), dcoef.data_ptr(), _ptr(dp), _ptr(de),
+    _launch("dz1", z1, z1.data_ptr(), coef.data_ptr(), dcoef.data_ptr(), _ptr(dp), _ptr(de),
             dz.data_ptr(), b, h, wd, c, _max_blocks(z1.device) * 8, _stream(z1))
     return dz
 
@@ -413,7 +462,7 @@ def dwprev_kernel(dz1, z0, coef, w):
     dw_partial = torch.empty((blocks, 9, c, c), dtype=torch.float32, device=dev)
     dw = torch.empty((9, c, c), dtype=torch.float64, device=dev)
     partial, sums = _conv_workspace(blocks, c, dev)
-    _launch("dwprev", dz1.data_ptr(), z0.data_ptr(), coef.data_ptr(), w.data_ptr(),
+    _launch("dwprev", z0, dz1.data_ptr(), z0.data_ptr(), coef.data_ptr(), w.data_ptr(),
             dy0.data_ptr(), dw_partial.data_ptr(), dw.data_ptr(), partial.data_ptr(),
             sums.data_ptr(), b, h, wd, c, blocks, _stream(z0))
     return dy0, _hwio_to_dw(dw, c, c), sums
@@ -433,7 +482,7 @@ def dwdx_kernel(z0, dy0, dcoef, x, w):
     dx = torch.empty_like(x)
     dw_partial = torch.empty((blocks, 9, ci, co), dtype=torch.float32, device=dev)
     dw = torch.empty((9, ci, co), dtype=torch.float64, device=dev)
-    _launch("dwdx", z0.data_ptr(), dy0.data_ptr(), dcoef.data_ptr(), x.data_ptr(),
+    _launch("dwdx", z0, z0.data_ptr(), dy0.data_ptr(), dcoef.data_ptr(), x.data_ptr(),
             w.data_ptr(), dx.data_ptr(), dw_partial.data_ptr(), dw.data_ptr(),
             b, h, wd, ci, co, blocks, _stream(z0))
     return dx, _hwio_to_dw(dw, ci, co)
@@ -489,8 +538,8 @@ def stage_backward(res, dp, de, external_first: bool, plain: Optional[bool] = No
     dy0, dw1, sums_dy0 = ps["dwprev"](dz1, z0, coef0, w1)
     dcoef0, dg0, db0 = bn_bwd_coef(sums_dy0, n, mean0, var0, g0)
     if external_first:
-        # dz0 goes back to the ordinary first convolution
-        dz0 = dcoef0[0] * dy0 + dcoef0[1] + dcoef0[2] * z0
+        # dz0 goes back to the ordinary first convolution, in z0's dtype
+        dz0 = (dcoef0[0] * dy0.float() + dcoef0[1] + dcoef0[2] * z0.float()).to(z0.dtype)
         return dz0, None, dg0, db0, dw1, dg1, db1
     dx, dw0 = ps["dwdx"](z0, dy0, dcoef0, x, w0)
     return dx, dw0, dg0, db0, dw1, dg1, db1
@@ -527,12 +576,14 @@ class FusedConvStage(torch.autograd.Function):
 
 
 def fused_conv_stage(x, w0, g0, b0, w1, g1, b1, *, external_first: bool = False):
-    """One train-mode ConvBlock + pool stage on channels-last float32 `x`.
-    Returns (p, e, mean0, var0, mean1, var1): pooled output [B, H/2, W/2, C],
-    pre-pool activation e [B, H, W, C], and the two BN batch statistics [C]
-    (biased variances)."""
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"x must be float32 [B, H, W, C], got {x.dtype} {tuple(x.shape)}")
+    """One train-mode ConvBlock + pool stage on channels-last `x`, float32 or
+    bfloat16 (the compute dtype; weights and BN parameters stay float32).
+    Returns (p, e, mean0, var0, mean1, var1): pooled output [B, H/2, W/2, C]
+    and pre-pool activation e [B, H, W, C] in x's dtype, and the two BN batch
+    statistics [C] in float32 (biased variances)."""
+    if x.dim() != 4 or x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 [B, H, W, C], got {x.dtype} "
+                         f"{tuple(x.shape)}")
     if x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"the stage pools 2x2: H and W must be even, got {tuple(x.shape)}")
     return FusedConvStage.apply(x, None if external_first else w0, g0, b0, w1, g1, b1,

@@ -1,7 +1,9 @@
 // Fused small-channel encoder stage (conv3x3 -> BN -> ReLU -> conv3x3 -> BN ->
 // ReLU -> 2x2 max-pool) with its backward, CUDA C++ for Hopper (sm_90a), plain
-// C interface for ctypes. Tensors are channels-last float32 [B, H, W, C] with
-// C in {16, 32}; convolution weights are [3, 3, Ci, Co].
+// C interface for ctypes. Activation tensors are channels-last [B, H, W, C]
+// with C in {16, 32}, stored in float32 or in bfloat16 (the `bf` argument of
+// every entry point); convolution weights are float32 [3, 3, Ci, Co], BN
+// coefficients float32, statistics and weight gradients float64.
 //
 // Replaces the seven Pallas TPU kernel bodies that run through `_pc`
 // (spcl_tpu/experimental/packed_block_pallas.py:595), one C function each:
@@ -63,6 +65,27 @@
 // pixel. The grid is the resident block count (occupancy), at most one block
 // per tile.
 //
+// bfloat16 (`Arch.dtype: bfloat16`, `dtype_name="bfloat16"` of
+// fused_packed_block, :611-613). Every kernel is a template on the storage
+// type E of its activations; the rounding points are the Pallas kernels':
+// activations and cotangents are stored in bf16 (z0, z1, e, p, dz1, dy0, dx),
+// the operands of every product are bf16 values (the weights are rounded as
+// they are staged, BN + ReLU of a convolution's input and dz0 of dwdx as
+// their tiles are, `_a_rows` :276-281 and `dz_rows` :488-497), products
+// accumulate in float32, and the statistics are taken from the float32 values
+// before they are rounded (`_k_conv` :261-265, `_k_dwprev` :451-461). The
+// pool selects its maximum among the bf16-rounded e (`_pool_cands` :82-102),
+// the ReLU mask reads the unrounded y. A bf16 tile is copied raw by cp.async
+// (8 bytes a chunk) into a staging buffer while the previous tile computes,
+// then widened into one float32 tile, with its BN / dz0 transform, at the
+// start of its own tile (one more barrier a tile); so the fragment code is
+// one for both types. A bf16 value is exact in TF32 and a product of two is
+// exact in float32, so the bf16 convolutions take ONE TF32 product per term
+// where float32 takes three (mma3<ONE>): the same sums as a bf16 MMA with
+// float32 accumulation. The flush structure stays: dW per tile and d_in per
+// (v, k chunk), added on the CUDA cores. The byte-bound passes read and write
+// 2-byte elements (8-byte loads of 4 channels).
+//
 // Reductions across blocks. The TPU grid is sequential and carries its sums
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
 // block walks a fixed set of tiles (tile t goes to block t mod gridDim), sums
@@ -91,12 +114,20 @@
 // (chip_smoke.py).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+template <class E>
+constexpr bool is_bf16 = std::is_same<E, bf16>::value;
 
 constexpr int TH = 16;                 // tile height (pixels)
 constexpr int TW = 16;                 // tile width = the M of one mma fragment
@@ -119,6 +150,70 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+// ------------------------------------------------------------------ storage types
+// Two bf16 in one 32-bit word (element 0 low) <-> two floats: exact widening.
+__device__ __forceinline__ float2 bf2_to_f2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ uint32_t f2_to_bf2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float4 bf4_to_f4(uint2 u) {
+  const float2 lo = bf2_to_f2(u.x), hi = bf2_to_f2(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// x rounded to the storage type and back (identity for float32)
+template <class E>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (is_bf16<E>) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <class E>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<E>(v.x), rnd<E>(v.y), rnd<E>(v.z), rnd<E>(v.w));
+}
+
+// 4 / 2 consecutive elements of E as floats, and stores that round to E
+__device__ __forceinline__ float4 load4(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  return bf4_to_f4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { st4(p, v); }
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(f2_to_bf2(v.x, v.y), f2_to_bf2(v.z, v.w));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return bf2_to_f2(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = f2_to_bf2(a, b);
+}
+
+// chunk i (4 elements) of p, streamed (__ldcs: evict first) or read-only (__ldg)
+__device__ __forceinline__ float4 ldcs4(const float* p, size_t i) {
+  return __ldcs(reinterpret_cast<const float4*>(p) + i);
+}
+__device__ __forceinline__ float4 ldcs4(const bf16* p, size_t i) {
+  return bf4_to_f4(__ldcs(reinterpret_cast<const uint2*>(p) + i));
+}
+__device__ __forceinline__ float4 ldg4(const float* p, size_t i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p, size_t i) {
+  return bf4_to_f4(__ldg(reinterpret_cast<const uint2*>(p) + i));
 }
 
 // ------------------------------------------------------------------ 3xTF32
@@ -166,17 +261,20 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // d[i][j] += a[i]*b[j] in 3xTF32: the small terms first, then hi*hi, each
-// pass over all MI x NJ accumulators so that consecutive MMAs are independent
-template <int MI, int NJ>
+// pass over all MI x NJ accumulators so that consecutive MMAs are independent.
+// ONE (bf16 operands, for which hi is the value and lo is 0): hi*hi alone.
+template <bool ONE, int MI, int NJ>
 __device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const FragA* a, const FragB* b) {
+  if constexpr (!ONE) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].lo, b[j].hi);
+      for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].lo, b[j].hi);
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].lo);
+      for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].lo);
+  }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -237,7 +335,8 @@ __device__ __forceinline__ void write_sum_partials(const double* s_tot, int C,
 // entry ((tap*KC + kc)*NF + nf)*32 + lane holds {B(t, g), B(t+4, g)} of the
 // 8x8 block (k = kc*8.., n = nf*8..), where B(k, n) = w[tap][k][n] for the
 // forward (K = Ci, N = Co) and w[tap][n][k] for d_in (TRANS: K = Co, N = Ci).
-template <int CI, int CO, bool TRANS>
+// The float32 weights are rounded to E here: they are a product's operand.
+template <int CI, int CO, bool TRANS, class E>
 __device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i) {
   constexpr int KD = TRANS ? CO : CI, ND = TRANS ? CI : CO;
   constexpr int KC = KD / 8, NF = ND / 8;
@@ -245,8 +344,8 @@ __device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i
   const int tap = i / (32 * NF * KC);
   const int k0 = kc * 8 + lane % 4, n = nf * 8 + lane / 4;
   const float* wt = w + tap * CI * CO;
-  return TRANS ? make_float2(wt[n * CO + k0], wt[n * CO + k0 + 4])
-               : make_float2(wt[k0 * CO + n], wt[(k0 + 4) * CO + n]);
+  return TRANS ? make_float2(rnd<E>(wt[n * CO + k0]), rnd<E>(wt[n * CO + k0 + 4]))
+               : make_float2(rnd<E>(wt[k0 * CO + n]), rnd<E>(wt[(k0 + 4) * CO + n]));
 }
 
 // ------------------------------------------------------------------ tile staging
@@ -256,6 +355,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes (4 bf16), through L1 (.cg takes 16-byte copies only)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -294,15 +401,43 @@ struct Chunk {
   }
 };
 
-// Issue this thread's copies of a tile of `src` [B,H,W,C] into s [NPIX][S].
+// Start this thread's cp.async copies of a tile of float32 `src` [B,H,W,C]
+// into s [NPIX][S]; they land at cp_async_wait_all.
 template <bool HALO, int C, int S>
-__device__ __forceinline__ void copy_tile(const float* __restrict__ src, float* s, const Tile& T,
-                                          int H, int W) {
+__device__ __forceinline__ void copy_tile(const float* __restrict__ src, float* s,
+                                          const Tile& T, int H, int W) {
   for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
     const Chunk<HALO, C> k(i, T, H, W);
     const float* from =
         k.inside ? src + (((size_t)T.b * H + k.gy) * W + k.gx) * C + k.c4 * 4 : src;
     cp_async16(s + k.q * S + k.c4 * 4, from, k.inside);
+  }
+}
+
+// The same for a bf16 tile, its raw bytes into r [NPIX][C] (bf16); widen_tile
+// makes the float32 tile of it.
+template <bool HALO, int C>
+__device__ __forceinline__ void copy_raw(const bf16* __restrict__ src, bf16* r, const Tile& T,
+                                         int H, int W) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
+    const Chunk<HALO, C> k(i, T, H, W);
+    const bf16* from =
+        k.inside ? src + (((size_t)T.b * H + k.gy) * W + k.gx) * C + k.c4 * 4 : src;
+    cp_async8(r + k.q * C + k.c4 * 4, from, k.inside);
+  }
+}
+
+// After this thread's raw copies landed: s [NPIX][S] = f(widened chunk,
+// offset in s, c4, offset in r) inside the image, 0 outside. Each thread
+// reads the chunks it copied itself.
+template <bool HALO, int C, int S, class F>
+__device__ __forceinline__ void widen_tile(const bf16* r, float* s, const Tile& T, int H, int W,
+                                           F f) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
+    const Chunk<HALO, C> k(i, T, H, W);
+    const int off = k.q * S + k.c4 * 4, roff = k.q * C + k.c4 * 4;
+    st4(s + off, k.inside ? f(load4(r + roff), off, k.c4, roff)
+                          : make_float4(0.f, 0.f, 0.f, 0.f));
   }
 }
 
@@ -329,18 +464,24 @@ __device__ __forceinline__ float4 bn4(float4 v, const float* inv, const float* s
   return v;
 }
 
-// Shared memory of the conv kernels, in floats. The backward double-buffers
-// its tiles where both copies fit beside the weights (and, for the dwdx
-// form, the single z tile).
+// Shared memory of the conv kernels, in floats. float32: the backward
+// double-buffers its tiles where both copies fit beside the weights (and, for
+// the dwdx form, the single z tile). bf16 (`raw`): one float32 tile of each
+// operand and the raw bf16 tiles the next tile's copies land in (z stays raw:
+// only dz0's transform reads it). Registers are sized for the float32 layout
+// (__launch_bounds__) in both.
 template <int CI, int CO>
-__host__ __device__ constexpr int fwd_smem_floats() {
-  return 2 * 9 * CI * CO + 2 * HALO_N * (CI + PAD);
+__host__ __device__ constexpr int fwd_smem_floats(bool raw = false) {
+  return 2 * 9 * CI * CO + (raw ? HALO_N * (CI + PAD) + HALO_N * CI / 2
+                                : 2 * HALO_N * (CI + PAD));
 }
 
 template <int CI, int CO, bool PREV>
-__host__ __device__ constexpr int bwd_smem_floats(int buffers) {
-  return 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
-         (PREV ? 0 : HALO_N * (CO + PAD));
+__host__ __device__ constexpr int bwd_smem_floats(int buffers, bool raw = false) {
+  return raw ? 9 * CI * CO + HALO_N * (CO + PAD) + NT * (CI + 2 * PAD) +
+                   (HALO_N * CO + NT * CI + (PREV ? 0 : HALO_N * CO)) / 2
+             : 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
+                   (PREV ? 0 : HALO_N * (CO + PAD));
 }
 
 template <int CI, int CO, bool PREV>
@@ -357,23 +498,28 @@ __host__ __device__ constexpr int min_blocks(int smem_floats) {
 // ------------------------------------------------------------------ forward conv
 // out = conv3x3(act(in), w), zero padding 1, plus per-block partial sums of
 // out and out^2 per channel. act = relu(in*inv+shift) when BN_IN, else identity.
-template <int CI, int CO, bool BN_IN>
+template <int CI, int CO, bool BN_IN, class E>
 __global__ void __launch_bounds__(NT, min_blocks(fwd_smem_floats<CI, CO>()))
-conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
-                const float* __restrict__ w, float* __restrict__ out,
+conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
+                const float* __restrict__ w, E* __restrict__ out,
                 double* __restrict__ partial, int B, int H, int W) {
+  constexpr bool ONE = is_bf16<E>;    // bf16 operands: one TF32 product a term
+  constexpr bool RAW = is_bf16<E>;    // bf16 tiles land raw and are widened here
   constexpr int SI = CI + PAD;          // pixel stride: the A loads hit 32 distinct banks
   constexpr int KC = CI / 8, NF = CO / 8;
   extern __shared__ __align__(16) float smem[];
   uint4* s_wf = reinterpret_cast<uint4*>(smem);     // [9][KC][NF][32] B fragments, split
-  float* const s_buf = smem + 2 * 9 * CI * CO;      // two input halo tiles [HALO_N][SI]
+  // float32: two input halo tiles [HALO_N][SI]; bf16: one, then the raw tile
+  // [HALO_N][CI] the next tile's copies land in
+  float* const s_buf = smem + 2 * 9 * CI * CO;
+  bf16* const s_raw = reinterpret_cast<bf16*>(s_buf + HALO_N * SI);
   __shared__ float s_coef[2 * CI];
   __shared__ double s_tot[NWARP * 2 * CO];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   for (int i = tid; i < 9 * CI * CO / 2; i += NT) {  // split once: {hi, hi, lo, lo}
-    const float2 p = weight_pair<CI, CO, false>(w, i);
+    const float2 p = weight_pair<CI, CO, false, E>(w, i);
     const Split a = split(p.x), c = split(p.y);
     s_wf[i] = make_uint4(a.hi, c.hi, a.lo, c.lo);
   }
@@ -384,26 +530,43 @@ conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
+  // this thread's copies of `tile` into float32 buffer `into`, or raw
+  auto copy = [&](int tile, int into) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    if constexpr (RAW) {
+      copy_raw<true, CI>(in, s_raw, T, H, W);
+    } else {
+      copy_tile<true, CI, SI>(in, s_buf + into * HALO_N * SI, T, H, W);
+    }
+  };
+  // BN and ReLU inside the image (rounded to E: the product's operand)
+  auto bn_relu = [&](float4 v, int, int c4, int = 0) {
+    return rnd4<E>(bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4));
+  };
   __syncthreads();  // s_coef is read by other threads' transforms
-  if ((int)blockIdx.x < ntiles)
-    copy_tile<true, CI, SI>(in, s_buf, tile_at(blockIdx.x, tiles_y, tiles_x), H, W);
+  if ((int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
   cp_async_commit();
 
   int buf = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= RAW ? 0 : 1) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
     const int b = T.b, y0 = T.y0, x0 = T.x0;
     float* s_in = s_buf + buf * HALO_N * SI;
     cp_async_wait_all();
-    if constexpr (BN_IN) {  // BN and ReLU inside the image; zeros outside stay 0
-      transform_tile<true, CI, SI>(s_in, T, H, W, [&](float4 v, int, int c4) {
-        return bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
-      });
+    if constexpr (RAW) {
+      __syncthreads();  // every thread is done with the previous tile's float32 tile
+      if constexpr (BN_IN) {
+        widen_tile<true, CI, SI>(s_raw, s_in, T, H, W, bn_relu);
+      } else {
+        widen_tile<true, CI, SI>(s_raw, s_in, T, H, W,
+                                 [](float4 v, int, int, int) { return v; });
+      }
+    } else if constexpr (BN_IN) {  // zeros outside the image stay 0
+      transform_tile<true, CI, SI>(s_in, T, H, W, bn_relu);
     }
     __syncthreads();  // this tile is staged; every thread is done with the other buffer
-    if (tile + (int)gridDim.x < ntiles)  // the next tile's copies run under this tile's MMAs
-      copy_tile<true, CI, SI>(in, s_buf + (buf ^ 1) * HALO_N * SI,
-                              tile_at(tile + gridDim.x, tiles_y, tiles_x), H, W);
+    // the next tile's copies run under this tile's MMAs
+    if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
     cp_async_commit();
 
     float acc[2][NF][4];
@@ -434,12 +597,13 @@ conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
             const uint4 q = s_wf[(((3 * u + v) * KC + kc) * NF + nf) * 32 + lane];
             bf[nf] = {{q.x, q.y}, {q.z, q.w}};
           }
-          mma3<2, NF>(acc, ar + u, bf);
+          mma3<ONE, 2, NF>(acc, ar + u, bf);
         }
       }
     }
 
-    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j
+    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j;
+    // stored in E, summed from the float32 accumulators
     float s0[NF][2], s1[NF][2];
 #pragma unroll
     for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
@@ -449,11 +613,11 @@ conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
       for (int h = 0; h < 2; ++h) {
         const int gy = y0 + 2 * warp + mi, gx = x0 + g + 8 * h;
         if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
-        float* o = out + (((size_t)b * H + gy) * W + gx) * CO + 2 * t;
+        E* o = out + (((size_t)b * H + gy) * W + gx) * CO + 2 * t;
 #pragma unroll
         for (int nf = 0; nf < NF; ++nf) {
           const float z0 = acc[mi][nf][2 * h], z1 = acc[mi][nf][2 * h + 1];
-          *reinterpret_cast<float2*>(o + nf * 8) = make_float2(z0, z1);
+          store2(o + nf * 8, z0, z1);
           s0[nf][0] += z0;
           s0[nf][1] += z1;
           s1[nf][0] = fmaf(z0, z0, s1[nf][0]);
@@ -474,14 +638,15 @@ conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
 // PREV (the dwprev pass, CI == CO): a = relu(zprev*inv+shift) recomputed,
 //   g = g_src; d_in is masked by [y >= 0] and its sums with zprev are taken.
 // !PREV (the dwdx pass): a = a_src, g = c0*g_src + c1 + c2*g_z inside the image.
-template <int CI, int CO, bool PREV>
+template <int CI, int CO, bool PREV, class E>
 __global__ void __launch_bounds__(
     NT, min_blocks(bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>())))
-conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coef,
-                const float* __restrict__ g_src, const float* __restrict__ g_z,
+conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
+                const E* __restrict__ g_src, const E* __restrict__ g_z,
                 const float* __restrict__ g_coef, const float* __restrict__ w,
-                float* __restrict__ d_in, float* __restrict__ dw_partial,
+                E* __restrict__ d_in, float* __restrict__ dw_partial,
                 double* __restrict__ sum_partial, int B, int H, int W) {
+  constexpr bool ONE = is_bf16<E>;    // bf16 operands: one TF32 product a term
   constexpr int SG = CO + PAD;          // d_in's A loads conflict-free, dW's B loads <= 2-way
   constexpr int SA = CI + 2 * PAD;      // dW's A loads (pixel along t) conflict-free
   constexpr int KCI = CO / 8, NFI = CI / 8;   // d_in: K chunks over co, N fragments over ci
@@ -490,18 +655,24 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
   constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
   static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
   static_assert(!PREV || CI == CO, "the dwprev pass has CI == CO");
-  constexpr int NBUF = bwd_buffers<CI, CO, PREV>();
+  constexpr bool RAW = is_bf16<E>;    // bf16 tiles land raw and are widened here
+  constexpr int NBUF = RAW ? 1 : bwd_buffers<CI, CO, PREV>();
+  constexpr bool PREFETCH = RAW || NBUF == 2;       // the next tile's copies under this one's
   constexpr int BUF = HALO_N * SG + NT * SA;        // one gradient halo tile + one activation tile
   extern __shared__ __align__(16) float smem[];
   float2* s_wf = reinterpret_cast<float2*>(smem);   // [9][KCI][NFI][32] B fragments of d_in
   float* const s_buf = smem + 9 * CI * CO;          // NBUF x {g halo [HALO_N][SG], a [NT][SA]}
-  float* const s_z = s_buf + NBUF * BUF;            // !PREV: z0 halo [HALO_N][SG]
+  float* const s_z = s_buf + NBUF * BUF;            // float32, !PREV: z0 halo [HALO_N][SG]
+  // bf16: the raw tiles g [HALO_N][CO], a [NT][CI] and (!PREV) z0 [HALO_N][CO]
+  bf16* const r_g = reinterpret_cast<bf16*>(s_buf + BUF);
+  bf16* const r_a = r_g + HALO_N * CO;
+  bf16* const r_z = r_a + NT * CI;
   __shared__ float s_coef[3 * CO];
   __shared__ double s_tot[NWARP * 2 * CI];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  for (int i = tid; i < 9 * CI * CO / 2; i += NT) s_wf[i] = weight_pair<CI, CO, true>(w, i);
+  for (int i = tid; i < 9 * CI * CO / 2; i += NT) s_wf[i] = weight_pair<CI, CO, true, E>(w, i);
   if constexpr (PREV) {
     for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = a_coef[i];
   } else {
@@ -514,12 +685,33 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
   const int pair = warp % PAIRS, kg = warp / PAIRS;
   const int mt = pair / NTW, nt = pair % NTW;
 
-  // copies of one tile: g (halo) and a into buffer `into`; z0 (halo) for dwdx
+  // copies of one tile: g (halo) and a into buffer `into`, z0 (halo) for
+  // dwdx; bf16: into the raw tiles
   auto copy = [&](int tile, int into) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
-    copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
-    copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
-    if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
+    if constexpr (RAW) {
+      copy_raw<true, CO>(g_src, r_g, T, H, W);
+      copy_raw<false, CI>(a_src, r_a, T, H, W);
+      if constexpr (!PREV) copy_raw<true, CO>(g_z, r_z, T, H, W);
+    } else {
+      copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
+      copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
+      if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
+    }
+  };
+  // PREV: y0 = BN(z0) before the ReLU (the mask needs its sign)
+  auto bn_only = [&](float4 v, int, int c4, int = 0) {
+    return bn4<false>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
+  };
+  // !PREV: dz0 = c0*dy0 + c1 + c2*z0, rounded to E (the operand)
+  auto dz0_of = [&](float4 v, float4 z, int c4) {
+    const float* k0 = s_coef + c4 * 4;
+    const float* k1 = s_coef + CO + c4 * 4;
+    const float* k2 = s_coef + 2 * CO + c4 * 4;
+    return rnd4<E>(make_float4(fmaf(k0[0], v.x, fmaf(k2[0], z.x, k1[0])),
+                               fmaf(k0[1], v.y, fmaf(k2[1], z.y, k1[1])),
+                               fmaf(k0[2], v.z, fmaf(k2[2], z.z, k1[2])),
+                               fmaf(k0[3], v.w, fmaf(k2[3], z.w, k1[3]))));
   };
 
   // tap (u, v) at dw[u][0][v]: one mma3 block per kernel row. The MMAs of one
@@ -533,7 +725,7 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
 #pragma unroll
     for (int k = 0; k < 4; ++k) dw[tap / 3][0][tap % 3][k] = 0.f;
   __syncthreads();  // s_coef is read by other threads' transforms
-  if (NBUF == 2 && (int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
+  if (PREFETCH && (int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
   cp_async_commit();
 
   int buf = 0;
@@ -542,30 +734,32 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
     const int b = T.b, y0 = T.y0, x0 = T.x0;
     float* s_g = s_buf + buf * BUF;
     float* s_a = s_g + HALO_N * SG;
-    if constexpr (NBUF == 1) {
+    if constexpr (!PREFETCH) {
       __syncthreads();  // every thread is done with the previous tile
       copy(tile, 0);
       cp_async_commit();
     }
     cp_async_wait_all();
-    if constexpr (PREV) {  // keep y0 before the ReLU: the mask needs its sign
-      transform_tile<false, CI, SA>(s_a, T, H, W, [&](float4 v, int, int c4) {
-        return bn4<false>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
-      });
-    } else {  // dz0 = c0*dy0 + c1 + c2*z0 inside the image
+    if constexpr (RAW) {
+      __syncthreads();  // every thread is done with the previous tile's float32 tiles
+      if constexpr (PREV) {
+        widen_tile<false, CI, SA>(r_a, s_a, T, H, W, bn_only);
+        widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [](float4 v, int, int, int) { return v; });
+      } else {  // z0 is read raw, at g's offset (the same chunk, copied by this thread)
+        widen_tile<false, CI, SA>(r_a, s_a, T, H, W, [](float4 v, int, int, int) { return v; });
+        widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [&](float4 v, int, int c4, int roff) {
+          return dz0_of(v, load4(r_z + roff), c4);
+        });
+      }
+    } else if constexpr (PREV) {
+      transform_tile<false, CI, SA>(s_a, T, H, W, bn_only);
+    } else {  // inside the image
       transform_tile<true, CO, SG>(s_g, T, H, W, [&](float4 v, int off, int c4) {
-        const float4 z = ld4(s_z + off);
-        const float* k0 = s_coef + c4 * 4;
-        const float* k1 = s_coef + CO + c4 * 4;
-        const float* k2 = s_coef + 2 * CO + c4 * 4;
-        return make_float4(fmaf(k0[0], v.x, fmaf(k2[0], z.x, k1[0])),
-                           fmaf(k0[1], v.y, fmaf(k2[1], z.y, k1[1])),
-                           fmaf(k0[2], v.z, fmaf(k2[2], z.z, k1[2])),
-                           fmaf(k0[3], v.w, fmaf(k2[3], z.w, k1[3])));
+        return dz0_of(v, ld4(s_z + off), c4);
       });
     }
     __syncthreads();  // this tile is staged; every thread is done with the other buffer
-    if constexpr (NBUF == 2) {  // the next tile's copies run under this tile's MMAs
+    if constexpr (PREFETCH) {  // the next tile's copies run under this tile's MMAs
       if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
       cp_async_commit();
     }
@@ -596,13 +790,13 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
         load_row(y0g + yy + 2, win[(yy + 2) % 3]);
         const float* pa = s_a + ((y0g + yy) * TW + kh * 8 + t) * SA + mt * 16 + g;
         float av[4] = {pa[0], pa[8], pa[4 * SA], pa[4 * SA + 8]};
-        if constexpr (PREV) {  // a = relu(y); pixels outside the image hold 0
+        if constexpr (PREV) {  // a = relu(y) rounded to E; pixels outside the image hold 0
 #pragma unroll
-          for (int k = 0; k < 4; ++k) av[k] = fmaxf(av[k], 0.f);
+          for (int k = 0; k < 4; ++k) av[k] = rnd<E>(fmaxf(av[k], 0.f));
         }
         const FragA af = frag_a(av[0], av[1], av[2], av[3]);
 #pragma unroll
-        for (int u = 0; u < 3; ++u) mma3<1, 3>(dwt[u], &af, win[(yy + 2 - u) % 3]);
+        for (int u = 0; u < 3; ++u) mma3<ONE, 1, 3>(dwt[u], &af, win[(yy + 2 - u) % 3]);
       }
     }
 #pragma unroll
@@ -639,7 +833,7 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
             const float2 bw = s_wf[(((3 * u + v) * KCI + kc) * NFI + nf) * 32 + lane];
             bf[nf] = frag_b(bw.x, bw.y);
           }
-          mma3<2, NFI>(part, ar + 2 - u, bf);
+          mma3<ONE, 2, NFI>(part, ar + 2 - u, bf);
         }
         add_rn<2, NFI>(acc, part);
       }
@@ -659,10 +853,11 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
 #pragma unroll
         for (int nf = 0; nf < NFI; ++nf) {
           float d0 = acc[mi][nf][2 * h], d1 = acc[mi][nf][2 * h + 1];
-          if constexpr (PREV) {  // ReLU mask from this pixel's own y; sums with zprev
+          if constexpr (PREV) {  // ReLU mask from this pixel's own y; sums with zprev,
+                                 // of the float32 d_in before it is stored in E
             const float2 yv =
                 *reinterpret_cast<const float2*>(s_a + (py * TW + px) * SA + nf * 8 + 2 * t);
-            const float2 z = *reinterpret_cast<const float2*>(a_src + own + nf * 8);
+            const float2 z = load2(a_src + own + nf * 8);
             if (!(yv.x >= 0.f)) d0 = 0.f;
             if (!(yv.y >= 0.f)) d1 = 0.f;
             s0[nf][0] += d0;
@@ -670,7 +865,7 @@ conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coe
             s1[nf][0] += d0 * z.x;
             s1[nf][1] += d1 * z.y;
           }
-          *reinterpret_cast<float2*>(d_in + own + nf * 8) = make_float2(d0, d1);
+          store2(d_in + own + nf * 8, d0, d1);
         }
       }
     if constexpr (PREV) {
@@ -731,9 +926,11 @@ __device__ __forceinline__ void unpack4(float4 v, float* o) {
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
 
+// e is rounded to E before the maximum is taken (rounding keeps the order)
+template <class E>
 __global__ void __launch_bounds__(NT)
-bnpool_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
-              float* __restrict__ e, float* __restrict__ p, int B, int H, int W, int C) {
+bnpool_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
+              E* __restrict__ e, E* __restrict__ p, int B, int H, int W, int C) {
   const size_t total = (size_t)B * (H / 2) * (W / 2) * (C / 4);
   for (size_t item = (size_t)blockIdx.x * NT + threadIdx.x; item < total;
        item += (size_t)gridDim.x * NT) {
@@ -744,39 +941,41 @@ bnpool_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float z[4];
-      unpack4(ld4(z1 + wd.off[j]), z);
+      unpack4(load4(z1 + wd.off[j]), z);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        z[k] = fmaxf(bn_apply(z[k], inv[k], sh[k]), 0.f);
+        z[k] = rnd<E>(fmaxf(bn_apply(z[k], inv[k], sh[k]), 0.f));
         m[k] = j == 0 ? z[k] : fmaxf(m[k], z[k]);
       }
-      st4(e + wd.off[j], make_float4(z[0], z[1], z[2], z[3]));
+      store4(e + wd.off[j], make_float4(z[0], z[1], z[2], z[3]));
     }
-    st4(p + wd.pooled, make_float4(m[0], m[1], m[2], m[3]));
+    store4(p + wd.pooled, make_float4(m[0], m[1], m[2], m[3]));
   }
 }
 
-// dy1 of one window: pool backward to the first maximum plus the skip
-// cotangent, masked by [y >= 0]. dp / de may be null (no cotangent).
-__device__ __forceinline__ void window_dy(const Window& wd, const float* __restrict__ z1,
+// dy1 of one window: pool backward to the first maximum (among the e rounded
+// to E) plus the skip cotangent, masked by [y >= 0]. dp / de may be null (no
+// cotangent).
+template <class E>
+__device__ __forceinline__ void window_dy(const Window& wd, const E* __restrict__ z1,
                                           const float* __restrict__ coef,
-                                          const float* __restrict__ dp,
-                                          const float* __restrict__ de, int C,
+                                          const E* __restrict__ dp,
+                                          const E* __restrict__ de, int C,
                                           float (&z)[4][4], float (&dy)[4][4]) {
   float inv[4], sh[4], y[4][4], g[4];
   unpack4(ld4(coef + wd.c4 * 4), inv);
   unpack4(ld4(coef + C + wd.c4 * 4), sh);
   if (dp != nullptr) {
-    unpack4(ld4(dp + wd.pooled), g);
+    unpack4(load4(dp + wd.pooled), g);
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) g[k] = 0.f;
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    unpack4(ld4(z1 + wd.off[j]), z[j]);
+    unpack4(load4(z1 + wd.off[j]), z[j]);
     if (de != nullptr) {
-      unpack4(ld4(de + wd.off[j]), dy[j]);
+      unpack4(load4(de + wd.off[j]), dy[j]);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) dy[j][k] = 0.f;
@@ -786,8 +985,8 @@ __device__ __forceinline__ void window_dy(const Window& wd, const float* __restr
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float e0 = fmaxf(y[0][k], 0.f), e1 = fmaxf(y[1][k], 0.f);
-    const float e2 = fmaxf(y[2][k], 0.f), e3 = fmaxf(y[3][k], 0.f);
+    const float e0 = rnd<E>(fmaxf(y[0][k], 0.f)), e1 = rnd<E>(fmaxf(y[1][k], 0.f));
+    const float e2 = rnd<E>(fmaxf(y[2][k], 0.f)), e3 = rnd<E>(fmaxf(y[3][k], 0.f));
     const float m = fmaxf(fmaxf(e0, e1), fmaxf(e2, e3));
     const int first = (e0 == m) ? 0 : (e1 == m) ? 1 : (e2 == m) ? 2 : 3;
 #pragma unroll
@@ -850,10 +1049,10 @@ __device__ __forceinline__ void window_dy(const Window& wd, const float* __restr
 constexpr int PS_CLUSTER = 8;  // blocks of a cluster (the portable most)
 constexpr int PS_RUN = 8;      // chunks a float32 run holds before it goes to float64
 
-template <int C, bool DP, bool DE>
+template <int C, bool DP, bool DE, class E>
 __global__ void __launch_bounds__(NT, 3)
-poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
-                const float* __restrict__ dp, const float* __restrict__ de,
+poolsums_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
+                const E* __restrict__ dp, const E* __restrict__ de,
                 double* __restrict__ cluster_part, unsigned int* __restrict__ ticket,
                 double* __restrict__ sums, int B, int H, int W) {
   constexpr int C4 = C / 4;        // chunks of one pixel
@@ -871,9 +1070,6 @@ poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
   const bool right = (lane / C4) & 1;       // column 1 of its window (W is even)
   const unsigned wc4 = (unsigned)W * C4;    // chunks of one pixel row
   const unsigned total = (unsigned)B * (unsigned)(H / 2) * wc4;
-  const float4* z4 = reinterpret_cast<const float4*>(z1);
-  const float4* de4 = reinterpret_cast<const float4*>(de);
-  const float4* dp4 = reinterpret_cast<const float4*>(dp);
   float inv[4], sh[4];
   unpack4(ld4(coef + c4 * 4), inv);
   unpack4(ld4(coef + C + c4 * 4), sh);
@@ -892,13 +1088,13 @@ poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
     if (i < total) {
       const unsigned rp = i / wc4, rem = i - rp * wc4;   // row pair, chunk in the row
       const size_t q = (size_t)i + (size_t)rp * wc4;     // upper chunk (row 2 rp)
-      unpack4(__ldcs(z4 + q), z[0]);
-      unpack4(__ldcs(z4 + q + wc4), z[1]);
+      unpack4(ldcs4(z1, q), z[0]);
+      unpack4(ldcs4(z1, q + wc4), z[1]);
       if (DE) {
-        unpack4(__ldcs(de4 + q), dy[0]);
-        unpack4(__ldcs(de4 + q + wc4), dy[1]);
+        unpack4(ldcs4(de, q), dy[0]);
+        unpack4(ldcs4(de, q + wc4), dy[1]);
       }
-      if (DP) unpack4(__ldg(dp4 + (size_t)rp * (wc4 / 2) + (rem / (2 * C4)) * C4 + c4), g);
+      if (DP) unpack4(ldg4(dp, (size_t)rp * (wc4 / 2) + (rem / (2 * C4)) * C4 + c4), g);
     }
     float y[2][4];
 #pragma unroll
@@ -910,7 +1106,7 @@ poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
       unsigned bits = 0;   // bit 2k + r: this column's row r holds the window maximum
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float e0 = fmaxf(y[0][k], 0.f), e1 = fmaxf(y[1][k], 0.f);
+        const float e0 = rnd<E>(fmaxf(y[0][k], 0.f)), e1 = rnd<E>(fmaxf(y[1][k], 0.f));
         const float mine = fmaxf(e0, e1);
         const float m = fmaxf(mine, __shfl_xor_sync(FULL, mine, C4));
         bits |= (unsigned)(e0 == m) << (2 * k) | (unsigned)(e1 == m) << (2 * k + 1);
@@ -1009,10 +1205,11 @@ poolsums_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
   if (tid == 0) *ticket = 0u;
 }
 
+template <class E>
 __global__ void __launch_bounds__(NT)
-dz1_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
-           const float* __restrict__ dcoef, const float* __restrict__ dp,
-           const float* __restrict__ de, float* __restrict__ dz, int B, int H, int W, int C) {
+dz1_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
+           const float* __restrict__ dcoef, const E* __restrict__ dp,
+           const E* __restrict__ de, E* __restrict__ dz, int B, int H, int W, int C) {
   const size_t total = (size_t)B * (H / 2) * (W / 2) * (C / 4);
   for (size_t item = (size_t)blockIdx.x * NT + threadIdx.x; item < total;
        item += (size_t)gridDim.x * NT) {
@@ -1027,7 +1224,7 @@ dz1_kernel(const float* __restrict__ z1, const float* __restrict__ coef,
       float o[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) o[k] = fmaf(k0[k], dy[j][k], fmaf(k2[k], z[j][k], k1[k]));
-      st4(dz + wd.off[j], make_float4(o[0], o[1], o[2], o[3]));
+      store4(dz + wd.off[j], make_float4(o[0], o[1], o[2], o[3]));
     }
   }
 }
@@ -1073,35 +1270,38 @@ cudaError_t conv_grid(K kernel, size_t dyn, int B, int H, int W, int max_blocks,
   return cudaSuccess;
 }
 
-template <int CI, int CO, bool BN_IN>
-cudaError_t launch_conv_fwd(const float* in, const float* coef, const float* w, float* out,
+template <int CI, int CO, bool BN_IN, class E>
+cudaError_t launch_conv_fwd(const void* in, const float* coef, const float* w, void* out,
                             double* partial, double* sums, int B, int H, int W,
                             int max_blocks, cudaStream_t stream) {
-  constexpr size_t dyn = sizeof(float) * fwd_smem_floats<CI, CO>();
-  auto kernel = conv_fwd_kernel<CI, CO, BN_IN>;
+  constexpr size_t dyn = sizeof(float) * fwd_smem_floats<CI, CO>(is_bf16<E>);
+  auto kernel = conv_fwd_kernel<CI, CO, BN_IN, E>;
   int grid = 0;
   cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(in, coef, w, out, partial, B, H, W);
+  kernel<<<grid, NT, dyn, stream>>>(static_cast<const E*>(in), coef, w, static_cast<E*>(out),
+                                    partial, B, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce<double>(partial, grid, 2 * CO, sums, stream);
 }
 
-template <int CI, int CO, bool PREV>
-cudaError_t launch_conv_bwd(const float* a_src, const float* a_coef, const float* g_src,
-                            const float* g_z, const float* g_coef, const float* w,
-                            float* d_in, float* dw_partial, double* dw, double* sum_partial,
+template <int CI, int CO, bool PREV, class E>
+cudaError_t launch_conv_bwd(const void* a_src, const float* a_coef, const void* g_src,
+                            const void* g_z, const float* g_coef, const float* w,
+                            void* d_in, float* dw_partial, double* dw, double* sum_partial,
                             double* sums, int B, int H, int W, int max_blocks,
                             cudaStream_t stream) {
-  constexpr size_t dyn =
-      sizeof(float) * bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>());
-  auto kernel = conv_bwd_kernel<CI, CO, PREV>;
+  constexpr size_t dyn = sizeof(float) * bwd_smem_floats<CI, CO, PREV>(
+                                               bwd_buffers<CI, CO, PREV>(), is_bf16<E>);
+  auto kernel = conv_bwd_kernel<CI, CO, PREV, E>;
   int grid = 0;
   cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(a_src, a_coef, g_src, g_z, g_coef, w, d_in, dw_partial,
-                                    sum_partial, B, H, W);
+  kernel<<<grid, NT, dyn, stream>>>(static_cast<const E*>(a_src), a_coef,
+                                    static_cast<const E*>(g_src), static_cast<const E*>(g_z),
+                                    g_coef, w, static_cast<E*>(d_in), dw_partial, sum_partial,
+                                    B, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = reduce<float>(dw_partial, grid, 9 * CI * CO, dw, stream);
@@ -1126,7 +1326,7 @@ int grid_for_windows(int B, int H, int W, int C, int max_blocks) {
 
 // poolsums: clusters of PS_CLUSTER blocks the card holds at once, per
 // kernel variant, found once per process.
-template <int C, bool DP, bool DE>
+template <int C, bool DP, bool DE, class E>
 cudaError_t poolsums_resident(int* clusters) {
   static int resident = -1;
   if (resident < 0) {
@@ -1141,7 +1341,7 @@ cudaError_t poolsums_resident(int* clusters) {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int n = 0;
-    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, poolsums_kernel<C, DP, DE>, &cfg);
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, poolsums_kernel<C, DP, DE, E>, &cfg);
     if (err != cudaSuccess) return err;
     if (n <= 0) return cudaErrorInvalidConfiguration;
     resident = n;
@@ -1161,18 +1361,20 @@ cudaError_t poolsums_variant(int c, bool dp, bool de, Fn& fn) {
   return de ? fn.template run<32, false, true>() : fn.template run<32, false, false>();
 }
 
+template <class E>
 struct PoolsumsResident {
   int* out;
   template <int C, bool DP, bool DE>
-  cudaError_t run() { return poolsums_resident<C, DP, DE>(out); }
+  cudaError_t run() { return poolsums_resident<C, DP, DE, E>(out); }
 };
 
 // The clusters of a poolsums launch: those resident at once, fewer where
 // that would leave threads without a chunk. The chunk index and the grid
 // stride stay below 2^31.
+template <class E>
 cudaError_t poolsums_clusters(int B, int H, int W, int C, bool dp, bool de, int* clusters,
                               int* resident) {
-  PoolsumsResident fn{resident};
+  PoolsumsResident<E> fn{resident};
   cudaError_t err = poolsums_variant(C, dp, de, fn);
   if (err != cudaSuccess) return err;
   const long chunks = (long)B * (H / 2) * W * (C / 4);
@@ -1183,8 +1385,11 @@ cudaError_t poolsums_clusters(int B, int H, int W, int C, bool dp, bool de, int*
   return cudaSuccess;
 }
 
+template <class E>
 struct PoolsumsLaunch {
-  const float *z1, *coef, *dp, *de;
+  const E *z1;
+  const float* coef;
+  const E *dp, *de;
   double* cluster_part;
   unsigned int* ticket;
   double* sums;
@@ -1203,11 +1408,103 @@ struct PoolsumsLaunch {
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, poolsums_kernel<C, DP, DE>, z1, coef, dp, de,
+    cudaError_t err = cudaLaunchKernelEx(&cfg, poolsums_kernel<C, DP, DE, E>, z1, coef, dp, de,
                                          cluster_part, ticket, sums, B, H, W);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
 };
+
+template <class E>
+int poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int* out) {
+  if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
+  int clusters = 0, resident = 0;
+  cudaError_t err = poolsums_clusters<E>(B, H, W, c, has_dp, has_de, &clusters, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int v[4] = {clusters, PS_CLUSTER, resident, PS_RUN};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
+template <class E>
+int poolsums(const void* z1, const float* coef, const void* dp, const void* de,
+             double* cluster_part, double* sums, unsigned int* ticket, int B, int H, int W,
+             int c, int max_clusters, cudaStream_t stream) {
+  if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
+  int clusters = 0, resident = 0;
+  cudaError_t err = poolsums_clusters<E>(B, H, W, c, dp != nullptr, de != nullptr, &clusters,
+                                         &resident);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters > max_clusters) return (int)cudaErrorInvalidValue;
+  PoolsumsLaunch<E> fn{static_cast<const E*>(z1), coef, static_cast<const E*>(dp),
+                       static_cast<const E*>(de), cluster_part, ticket, sums, B, H, W,
+                       clusters, stream};
+  return (int)poolsums_variant(c, dp != nullptr, de != nullptr, fn);
+}
+
+template <class E>
+int conv(const void* x, const float* w, void* z, double* partial, double* sums, int B, int H,
+         int W, int ci, int co, int max_blocks, cudaStream_t s) {
+  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+  if (ci == 16 && co == 16)
+    return (int)launch_conv_fwd<16, 16, false, E>(x, nullptr, w, z, partial, sums, B, H, W,
+                                                  max_blocks, s);
+  if (ci == 16 && co == 32)
+    return (int)launch_conv_fwd<16, 32, false, E>(x, nullptr, w, z, partial, sums, B, H, W,
+                                                  max_blocks, s);
+  if (ci == 32 && co == 32)
+    return (int)launch_conv_fwd<32, 32, false, E>(x, nullptr, w, z, partial, sums, B, H, W,
+                                                  max_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class E>
+int bnconv(const void* z0, const float* coef, const float* w, void* z1, double* partial,
+           double* sums, int B, int H, int W, int c, int max_blocks, cudaStream_t s) {
+  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+  if (c == 16)
+    return (int)launch_conv_fwd<16, 16, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                 max_blocks, s);
+  if (c == 32)
+    return (int)launch_conv_fwd<32, 32, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                 max_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class E>
+int dwprev(const void* dz, const void* zprev, const float* coef, const float* w, void* dyprev,
+           float* dw_partial, double* dw, double* sum_partial, double* sums, int B, int H,
+           int W, int c, int max_blocks, cudaStream_t s) {
+  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+  if (c == 16)
+    return (int)launch_conv_bwd<16, 16, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
+                                                 dw_partial, dw, sum_partial, sums, B, H, W,
+                                                 max_blocks, s);
+  if (c == 32)
+    return (int)launch_conv_bwd<32, 32, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
+                                                 dw_partial, dw, sum_partial, sums, B, H, W,
+                                                 max_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class E>
+int dwdx(const void* z0, const void* dy0, const float* dcoef, const void* x, const float* w,
+         void* dx, float* dw_partial, double* dw, int B, int H, int W, int ci, int co,
+         int max_blocks, cudaStream_t s) {
+  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+  if (ci == 16 && co == 16)
+    return (int)launch_conv_bwd<16, 16, false, E>(x, nullptr, dy0, z0, dcoef, w, dx,
+                                                  dw_partial, dw, nullptr, nullptr, B, H, W,
+                                                  max_blocks, s);
+  if (ci == 16 && co == 32)
+    return (int)launch_conv_bwd<16, 32, false, E>(x, nullptr, dy0, z0, dcoef, w, dx,
+                                                  dw_partial, dw, nullptr, nullptr, B, H, W,
+                                                  max_blocks, s);
+  if (ci == 32 && co == 32)
+    return (int)launch_conv_bwd<32, 32, false, E>(x, nullptr, dy0, z0, dcoef, w, dx,
+                                                  dw_partial, dw, nullptr, nullptr, B, H, W,
+                                                  max_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -1216,114 +1513,106 @@ extern "C" {
 // Side of the square pixel tile a block works on.
 int convstage_tile() { return TH; }
 
-// Workspaces, for a grid of at most `max_blocks` blocks: `partial` float64
-// [max_blocks, 2, C] statistics partials, `dw_partial` float32
-// [max_blocks, 9, Ci, Co] weight-gradient partials. `sums` is float64 [2, C],
-// `dw` float64 [9, Ci, Co]; `coef` float32 [2, C] = (inv, shift), `dcoef`
-// float32 [3, C] = (c0, c1, c2); `dp` / `de` may be null.
+// Every entry point takes the activation tensors as untyped pointers and
+// `bf`: 0 when they are float32, 1 when they are bfloat16. Workspaces, for a
+// grid of at most `max_blocks` blocks: `partial` float64 [max_blocks, 2, C]
+// statistics partials, `dw_partial` float32 [max_blocks, 9, Ci, Co]
+// weight-gradient partials. `sums` is float64 [2, C], `dw` float64
+// [9, Ci, Co]; `w` float32 [3, 3, Ci, Co] (rounded to bf16 as it is staged
+// when bf = 1); `coef`
+// float32 [2, C] = (inv, shift), `dcoef` float32 [3, C] = (c0, c1, c2); `dp` /
+// `de` may be null.
 
-int convstage_conv(const float* x, const float* w, float* z, double* partial, double* sums,
-                   int B, int H, int W, int ci, int co, int max_blocks, void* stream) {
-  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+int convstage_conv(const void* x, const float* w, void* z, double* partial, double* sums,
+                   int B, int H, int W, int ci, int co, int max_blocks, int bf, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (ci == 16 && co == 16)
-    return (int)launch_conv_fwd<16, 16, false>(x, nullptr, w, z, partial, sums, B, H, W, max_blocks, s);
-  if (ci == 16 && co == 32)
-    return (int)launch_conv_fwd<16, 32, false>(x, nullptr, w, z, partial, sums, B, H, W, max_blocks, s);
-  if (ci == 32 && co == 32)
-    return (int)launch_conv_fwd<32, 32, false>(x, nullptr, w, z, partial, sums, B, H, W, max_blocks, s);
-  return (int)cudaErrorInvalidValue;
+  return bf ? conv<bf16>(x, w, z, partial, sums, B, H, W, ci, co, max_blocks, s)
+            : conv<float>(x, w, z, partial, sums, B, H, W, ci, co, max_blocks, s);
 }
 
-int convstage_bnconv(const float* z0, const float* coef, const float* w, float* z1,
+int convstage_bnconv(const void* z0, const float* coef, const float* w, void* z1,
                      double* partial, double* sums, int B, int H, int W, int c,
-                     int max_blocks, void* stream) {
-  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+                     int max_blocks, int bf, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (c == 16)
-    return (int)launch_conv_fwd<16, 16, true>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
-  if (c == 32)
-    return (int)launch_conv_fwd<32, 32, true>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
-  return (int)cudaErrorInvalidValue;
+  return bf ? bnconv<bf16>(z0, coef, w, z1, partial, sums, B, H, W, c, max_blocks, s)
+            : bnconv<float>(z0, coef, w, z1, partial, sums, B, H, W, c, max_blocks, s);
 }
 
-int convstage_bnpool(const float* z1, const float* coef, float* e, float* p, int B, int H,
-                     int W, int c, int max_blocks, void* stream) {
+int convstage_bnpool(const void* z1, const float* coef, void* e, void* p, int B, int H,
+                     int W, int c, int max_blocks, int bf, void* stream) {
   if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
-  bnpool_kernel<<<grid_for_windows(B, H, W, c, max_blocks), NT, 0, (cudaStream_t)stream>>>(
-      z1, coef, e, p, B, H, W, c);
+  const int grid = grid_for_windows(B, H, W, c, max_blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf)
+    bnpool_kernel<bf16><<<grid, NT, 0, s>>>(static_cast<const bf16*>(z1), coef,
+                                            static_cast<bf16*>(e), static_cast<bf16*>(p), B,
+                                            H, W, c);
+  else
+    bnpool_kernel<float><<<grid, NT, 0, s>>>(static_cast<const float*>(z1), coef,
+                                             static_cast<float*>(e), static_cast<float*>(p),
+                                             B, H, W, c);
   return (int)cudaGetLastError();
 }
 
 // The launch plan of convstage_poolsums at this shape, with dp and de
 // present (1) or absent (0): out = {clusters, blocks a cluster, clusters
 // resident at once, chunks a float32 run holds}. Returns a cudaError_t.
-int convstage_poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int* out) {
-  if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
-  int clusters = 0, resident = 0;
-  cudaError_t err = poolsums_clusters(B, H, W, c, has_dp, has_de, &clusters, &resident);
-  if (err != cudaSuccess) return (int)err;
-  const int v[4] = {clusters, PS_CLUSTER, resident, PS_RUN};
-  for (int i = 0; i < 4; ++i) out[i] = v[i];
-  return 0;
+int convstage_poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int bf,
+                            int* out) {
+  return bf ? poolsums_plan<bf16>(B, H, W, c, has_dp, has_de, out)
+            : poolsums_plan<float>(B, H, W, c, has_dp, has_de, out);
 }
 
 // `cluster_part` float64 [max_clusters, 2, C] scratch; `ticket` one unsigned
 // int that is 0 before the call and is 0 again after it.
-int convstage_poolsums(const float* z1, const float* coef, const float* dp, const float* de,
+int convstage_poolsums(const void* z1, const float* coef, const void* dp, const void* de,
                        double* cluster_part, double* sums, unsigned int* ticket, int B,
-                       int H, int W, int c, int max_clusters, void* stream) {
-  if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
-  int clusters = 0, resident = 0;
-  cudaError_t err = poolsums_clusters(B, H, W, c, dp != nullptr, de != nullptr, &clusters,
-                                      &resident);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters > max_clusters) return (int)cudaErrorInvalidValue;
-  PoolsumsLaunch fn{z1, coef, dp, de, cluster_part, ticket, sums, B, H, W, clusters,
-                    (cudaStream_t)stream};
-  return (int)poolsums_variant(c, dp != nullptr, de != nullptr, fn);
+                       int H, int W, int c, int max_clusters, int bf, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf ? poolsums<bf16>(z1, coef, dp, de, cluster_part, sums, ticket, B, H, W, c,
+                             max_clusters, s)
+            : poolsums<float>(z1, coef, dp, de, cluster_part, sums, ticket, B, H, W, c,
+                              max_clusters, s);
 }
 
-int convstage_dz1(const float* z1, const float* coef, const float* dcoef, const float* dp,
-                  const float* de, float* dz, int B, int H, int W, int c, int max_blocks,
-                  void* stream) {
+int convstage_dz1(const void* z1, const float* coef, const float* dcoef, const void* dp,
+                  const void* de, void* dz, int B, int H, int W, int c, int max_blocks,
+                  int bf, void* stream) {
   if (!pool_dims_ok(B, H, W, c)) return (int)cudaErrorInvalidValue;
-  dz1_kernel<<<grid_for_windows(B, H, W, c, max_blocks), NT, 0, (cudaStream_t)stream>>>(
-      z1, coef, dcoef, dp, de, dz, B, H, W, c);
+  const int grid = grid_for_windows(B, H, W, c, max_blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf)
+    dz1_kernel<bf16><<<grid, NT, 0, s>>>(static_cast<const bf16*>(z1), coef, dcoef,
+                                         static_cast<const bf16*>(dp),
+                                         static_cast<const bf16*>(de), static_cast<bf16*>(dz),
+                                         B, H, W, c);
+  else
+    dz1_kernel<float><<<grid, NT, 0, s>>>(static_cast<const float*>(z1), coef, dcoef,
+                                          static_cast<const float*>(dp),
+                                          static_cast<const float*>(de),
+                                          static_cast<float*>(dz), B, H, W, c);
   return (int)cudaGetLastError();
 }
 
-int convstage_dwprev(const float* dz, const float* zprev, const float* coef, const float* w,
-                     float* dyprev, float* dw_partial, double* dw, double* sum_partial,
-                     double* sums, int B, int H, int W, int c, int max_blocks, void* stream) {
-  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+int convstage_dwprev(const void* dz, const void* zprev, const float* coef, const float* w,
+                     void* dyprev, float* dw_partial, double* dw, double* sum_partial,
+                     double* sums, int B, int H, int W, int c, int max_blocks, int bf,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (c == 16)
-    return (int)launch_conv_bwd<16, 16, true>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
-                                              dw_partial, dw, sum_partial, sums, B, H, W,
-                                              max_blocks, s);
-  if (c == 32)
-    return (int)launch_conv_bwd<32, 32, true>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
-                                              dw_partial, dw, sum_partial, sums, B, H, W,
-                                              max_blocks, s);
-  return (int)cudaErrorInvalidValue;
+  return bf ? dwprev<bf16>(dz, zprev, coef, w, dyprev, dw_partial, dw, sum_partial, sums, B,
+                           H, W, c, max_blocks, s)
+            : dwprev<float>(dz, zprev, coef, w, dyprev, dw_partial, dw, sum_partial, sums, B,
+                            H, W, c, max_blocks, s);
 }
 
-int convstage_dwdx(const float* z0, const float* dy0, const float* dcoef, const float* x,
-                   const float* w, float* dx, float* dw_partial, double* dw, int B, int H,
-                   int W, int ci, int co, int max_blocks, void* stream) {
-  if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
+int convstage_dwdx(const void* z0, const void* dy0, const float* dcoef, const void* x,
+                   const float* w, void* dx, float* dw_partial, double* dw, int B, int H,
+                   int W, int ci, int co, int max_blocks, int bf, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (ci == 16 && co == 16)
-    return (int)launch_conv_bwd<16, 16, false>(x, nullptr, dy0, z0, dcoef, w, dx, dw_partial,
-                                               dw, nullptr, nullptr, B, H, W, max_blocks, s);
-  if (ci == 16 && co == 32)
-    return (int)launch_conv_bwd<16, 32, false>(x, nullptr, dy0, z0, dcoef, w, dx, dw_partial,
-                                               dw, nullptr, nullptr, B, H, W, max_blocks, s);
-  if (ci == 32 && co == 32)
-    return (int)launch_conv_bwd<32, 32, false>(x, nullptr, dy0, z0, dcoef, w, dx, dw_partial,
-                                               dw, nullptr, nullptr, B, H, W, max_blocks, s);
-  return (int)cudaErrorInvalidValue;
+  return bf ? dwdx<bf16>(z0, dy0, dcoef, x, w, dx, dw_partial, dw, B, H, W, ci, co,
+                         max_blocks, s)
+            : dwdx<float>(z0, dy0, dcoef, x, w, dx, dw_partial, dw, B, H, W, ci, co,
+                          max_blocks, s);
 }
 
 }  // extern "C"

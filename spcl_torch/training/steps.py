@@ -127,8 +127,13 @@ def draw_pretrain_params(generator: torch.Generator, batch, store: Optional[Devi
 
 
 def _as_float_image(img: torch.Tensor) -> torch.Tensor:
-    """Batches ship images as packed uint8; scale to [0, 1] float on the
-    device. Float inputs pass through."""
+    """Batches ship images as packed uint8; scale to [0, 1] float32 on the
+    device. Float inputs pass through as float32: the augmentation runs in
+    float32 and the UNet casts its input to its compute dtype (`Arch.dtype`),
+    as spcl_tpu's does (steps.py:55-61, models/unet.py:178). Under bfloat16
+    the logits come back from the UNet in float32 (bf16-rounded values), so
+    the cross-entropy's log_softmax is float32 as spcl_tpu's is; the heads
+    pool features as float32 and the contrastive losses see float32 z."""
     if img.dtype == torch.uint8:
         return img.float() / 255.0
     return img.float()
@@ -173,6 +178,54 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         return {"reg_loss": total.detach(), "hooks": hook_metrics}
 
     return step
+
+
+def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: AugmentPolicy,
+                       total_freedom: bool, until: Optional[str],
+                       flip_threshold: float = 0.8,
+                       store: Optional[DeviceStore] = None) -> Optional[Callable]:
+    """Once-an-epoch diagnostics (`Trainer.dump_matrices`; spcl_tpu
+    steps.py:459-499): batch 0's contrastive matrices (similarity logits, their
+    exp, the positive mask, and the self-paced mask) for every hook with a
+    `matrices_fn`, kept out of the step so that the [2N, 2N] tensors exist
+    only here. Returns probe(batch, generator, hook_scalars, params=None) ->
+    {hook: {name: tensor}}, or None when no hook makes matrices.
+
+    The probe makes the pretrain step's draws for `batch` from `generator`
+    (the trainer hands it a copy of its generator, so that they are the
+    draws of the epoch's first step and the step's own stay untouched) and
+    runs the UNet in eval mode, with its running statistics, as spcl_tpu's
+    does; the matrices come from the plain dense losses."""
+    drawing = tuple(hooks)  # every hook draws, in the step's order
+    hooks = tuple(h for h in drawing if hasattr(h, "matrices_fn"))
+    if not hooks:
+        return None
+
+    @torch.no_grad()
+    def probe(batch, generator: Optional[torch.Generator],
+              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
+        if params is None:
+            params = draw_pretrain_params(generator, batch, store, policy=policy,
+                                          total_freedom=total_freedom,
+                                          flip_threshold=flip_threshold)
+        batch = _resolve_batch(store, batch)
+        image = _as_float_image(batch["image"])
+        (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
+        fp = params["flip"]
+        was_training = model.training
+        model.eval()
+        try:
+            acts = model(torch.cat([v1, apply_flip(v2, fp)], dim=0), until=until)
+        finally:
+            model.train(was_training)
+        ctx = {"acts": acts, "n_unl": image.shape[0], "flip": fp}
+        ctx.update({k: batch[k] for k in _META_KEYS})
+        injected = params.get("hooks") or {}
+        ctx["draws"] = {h.name: injected[h.name] if h.name in injected
+                        else h.sample(generator, ctx) for h in drawing}
+        return {h.name: h.matrices_fn(ctx, hook_scalars.get(h.name, {})) for h in hooks}
+
+    return probe
 
 
 def _reduce_gradients(optimizer: torch.optim.Optimizer) -> None:

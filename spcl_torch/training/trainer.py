@@ -70,13 +70,33 @@ the step generator's state and the samplers' numpy generators (and the
 adversarial trainer's discriminator and its Adam state), so that a resumed
 run continues the uninterrupted one to the bit.
 
-Not ported yet: TensorBoard; `Trainer.dump_matrices`, `profile_dir` and
-`defer_reads` are refused by `entry.common.build_trainer` when set, and so is
-a mesh with the semi, mixup or adversarial trainer or a decoder hook, and
-resume under a mesh.
+Every trainer writes its run's `config.yaml` (with the git hash) and its
+epochs' scalars to TensorBoard (`writer.py`; spcl_tpu trainer.py:125-137,
+:935-944) on rank 0. `Trainer.profile_dir` traces epoch start + 1 under
+torch.profiler, writes the chrome trace there and logs the device ms per step
+(`utils/profiling.py`; spcl_tpu trainer.py:897-911). `Trainer.dump_matrices`
+(pretrain trainers, `device_data` true) runs `build_matrix_probe` on batch 0
+of each epoch and writes its matrices as images (spcl_tpu trainer.py:
+1151-1240).
+
+`Trainer.defer_reads` (spcl_tpu trainer.py:755-882; `device_data` required,
+the adversarial trainer runs eagerly as spcl_tpu's does) runs the whole
+training without a device -> host read: the steps' metrics and the eval
+statistics stay on the card, the val score is computed there
+(`deferred.device_val_score`), and the best epoch's checkpoint state is kept
+by a select on the card (`deferred.DeviceBest`). One drain at the end
+rebuilds every epoch's storage row, meters and TensorBoard scalars and
+writes `best.ckpt` and `last.ckpt` with the contents the eager loop writes
+(the best epoch's optimizer state and metadata included, where spcl_tpu
+keeps the final optimizer state). `Trainer.flush_every: N` drains and writes
+the checkpoints every N epochs.
+
+Not ported yet: a mesh with the semi, mixup or adversarial trainer or a
+decoder hook, and resume under a mesh.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from pathlib import Path
@@ -85,11 +105,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import deferred
 from .checkpoint import load_checkpoint, load_model_state_dict, save_checkpoint
 from .gradcache import build_gradcache_pretrain_step
 from .optim import Adam, build_optimizer
 from .steps import (build_adversarial_step, build_eval_step, build_finetune_step,
-                    build_pretrain_step, build_semi_step)
+                    build_matrix_probe, build_pretrain_step, build_semi_step)
 from ..data.augment import POLICY_ZOO, AugmentPolicy
 from ..data.device_store import DeviceStore
 from ..data.loader import HostLoader, device_prefetch
@@ -102,7 +123,9 @@ from ..models.masking import set_trainable_stages
 from ..models.unet import UNet
 from ..parallel import mesh as mesh_lib
 from ..schedulers.lr import warmup_cosine_epoch_schedule
-from ..utils.utils import get_logger
+from ..utils import profiling
+from ..utils.utils import get_logger, gethash, yaml_write
+from ..writer import NullWriter, SummaryWriter
 
 logger = get_logger("trainer")
 
@@ -116,9 +139,10 @@ class _TrainerBase:
     def __init__(self, *, model: UNet, save_dir: str, max_epoch: int = 100,
                  num_batches: int = 100, config: Optional[Dict] = None, seed: int = 10,
                  crop: int = 224, data_name: str = "acdc", device="cuda", mesh=0,
-                 device_data: bool = True):
+                 device_data: bool = True, defer_reads: bool = False):
         self._n_shards = self._join_mesh(mesh, device)
         self._device_data = bool(device_data)
+        self._defer_reads = bool(defer_reads)
         self._is_master = mesh_lib.on_master()
         self._device = mesh_lib.rank_device(device)
         self._model = model
@@ -135,6 +159,13 @@ class _TrainerBase:
         self._cur_epoch = 0
         self._initialized = False
         self.last_epoch_stats: Dict = {}
+        # device ms per step of the epoch traced under `Trainer.profile_dir`
+        self.profile_ms: Optional[float] = None
+        self._writer = SummaryWriter(self._save_dir) if self._is_master else NullWriter()
+        if self._config and self._is_master:
+            # the run's config and git hash beside its results (reference
+            # trainer/_io.py:54-60, spcl_tpu trainer.py:132-137)
+            yaml_write({**self._config, "githash": gethash()}, self._save_dir, "config.yaml")
 
     # ----------------------------------------------------------------- mesh
     @staticmethod
@@ -198,9 +229,57 @@ class _TrainerBase:
         if self._is_master:
             logger.info(msg, *args, stacklevel=2)
 
+    def _trainer_cfg(self) -> Dict:
+        return self._config.get("Trainer") or {}
+
+    def _check_deferred(self) -> None:
+        if not self._device_data:
+            raise ValueError("Trainer.defer_reads requires Trainer.device_data "
+                             "(the steps gather their batches on the device)")
+
+    def _dispatch_maybe_profiled(self, start: int) -> Dict:
+        """`_dispatch_train_epoch`, traced under torch.profiler when this is
+        epoch start + 1 and `Trainer.profile_dir` is set (rank 0); the device
+        ms per step of the trace goes to `profile_ms` and the log."""
+        profile_dir = self._trainer_cfg().get("profile_dir")
+        if not (profile_dir and self._cur_epoch == start + 1 and self._is_master):
+            return self._dispatch_train_epoch()
+        out = {}
+        profiling.trace(lambda: out.update(record=self._dispatch_train_epoch()),
+                        str(profile_dir))
+        self.profile_ms = profiling.device_ms_per_step(str(profile_dir), calls=self._num_batches)
+        if self.profile_ms is None:
+            self._log("profiled epoch %d into %s: the trace holds no device time",
+                      self._cur_epoch, profile_dir)
+        else:
+            self._log("profiled epoch %d into %s: %.3f ms/step device time", self._cur_epoch,
+                      profile_dir, self.profile_ms)
+        return out["record"]
+
+    @staticmethod
+    def _stack_metrics(pending: List[Dict]) -> Dict:
+        """The steps' metric dicts as one tree of [steps, ...] arrays: device
+        tensors stacked on the device, hook metrics that are host floats (a
+        schedule's gamma) as float32 numpy, neither read nor uploaded."""
+        def stack(values):
+            if torch.is_tensor(values[0]):
+                return torch.stack(values)
+            return np.asarray(values, dtype=np.float32)
+
+        out = {}
+        for k, v in pending[0].items():
+            if k == "hooks":
+                out[k] = {name: {m: stack([p[k][name][m] for p in pending]) for m in hm}
+                          for name, hm in v.items()}
+            else:
+                out[k] = stack([p[k] for p in pending])
+        return out
+
     def _finish(self) -> None:
-        """End of `start_training`: the success marker, then a barrier, so
-        that what rank 0 wrote is there for every rank that goes on."""
+        """End of `start_training`: the TensorBoard events flushed, the
+        success marker, then a barrier, so that what rank 0 wrote is there for
+        every rank that goes on."""
+        self._writer.flush()
         if self._is_master:
             from .. import success
             success(self._save_dir)
@@ -311,17 +390,6 @@ class _TrainerBase:
         return (self._cur_epoch % max(save_every, 1) == 0
                 or self._cur_epoch == self._max_epoch)
 
-    def _hook_metric_arrays(self, pending: List[Dict]) -> Dict[str, Dict[str, np.ndarray]]:
-        """{hook: {metric: [steps] numpy}} of an epoch's step outputs, one
-        device -> host copy per metric."""
-        if not pending or "hooks" not in pending[0]:
-            return {}
-        return {name: {k: torch.stack([torch.as_tensor(m["hooks"][name][k],
-                                                       device=self._device)
-                                       for m in pending]).cpu().numpy()
-                       for k in pending[0]["hooks"][name]}
-                for name in pending[0]["hooks"]}
-
     @staticmethod
     def _add_hook_meters(meters: MeterInterface, hooks: Dict[str, Dict[str, float]]) -> None:
         for name, hm in hooks.items():
@@ -414,12 +482,14 @@ class PretrainEncoderTrainer(_TrainerBase):
         self._forward_until = forward_until
         # one entry per step, host floats: {"epoch", "reg_loss", "hooks"}
         self.step_metrics: List[Dict] = []
+        # `Trainer.dump_matrices`: the last epoch's {hook: {matrix: numpy}}
+        self.last_matrices: Dict = {}
 
     def _loaders(self) -> List[HostLoader]:
         return [self._contrastive_loader]
 
     def _build_steps(self) -> None:
-        grad_cache = int((self._config.get("Trainer") or {}).get("grad_cache") or 0)
+        grad_cache = int(self._trainer_cfg().get("grad_cache") or 0)
         kwargs = dict(policy=self.train_policy, total_freedom=self.total_freedom,
                       until=self._forward_until, store=self._store(self._contrastive_loader))
         if grad_cache:
@@ -428,62 +498,133 @@ class PretrainEncoderTrainer(_TrainerBase):
         else:
             self._train_step = build_pretrain_step(self._model, self._hooks, self._optimizer,
                                                    **kwargs)
+        self._matrix_probe = None
+        if self._trainer_cfg().get("dump_matrices"):
+            if grad_cache:
+                # spcl_tpu trainer.py:1152-1158: the probe's whole-batch [2N, 2N]
+                # matrices bring back the memory wall grad_cache removes
+                raise ValueError("Trainer.dump_matrices is incompatible with "
+                                 "Trainer.grad_cache — disable one")
+            if self._device_data:  # as spcl_tpu: the probe reads batch 0 of the store
+                self._matrix_probe = build_matrix_probe(self._model, self._hooks, **kwargs)
 
-    def _run_train_epoch(self) -> Dict:
-        meters = MeterInterface(default_focus=self.train_meter_focus)
-        with meters.focus_on(self.train_meter_focus):
-            meters.register_meter("lr", AverageValueMeter())
-            meters.register_meter("reg_loss", AverageValueMeter())
+    def _dispatch_train_epoch(self) -> Dict:
+        """The epoch's steps, without a device -> host read: {"epoch", "lr",
+        "n_slices", "elapsed", "metrics": [steps] device tensors, "matrices":
+        the probe's, or None}."""
         scalars = self._hook_scalars()
         lr = self._set_epoch_lr()
         rows = self._index_rows(self._contrastive_loader, self._num_batches)
         # real views: the contrast sampler and the rank padding add -1 entries
         n_slices = 2 * int((rows >= 0).sum())
         inputs = self._step_inputs(self._contrastive_loader, rows)
+        matrices = None
+        if self._matrix_probe is not None and len(inputs):
+            # batch 0's draws from a copy of the generator: the step's own
+            # draws stay as they are without the probe
+            probe_gen = torch.Generator(device=self._device)
+            probe_gen.set_state(self._generator.get_state())
+            matrices = self._matrix_probe(inputs[0], probe_gen, scalars)
         pending = []
-        self._synchronize()
+        self._synchronize()  # a wait, not a read: the epoch's own time
         t0 = time.perf_counter()
         for batch in inputs:
             pending.append(self._train_step(batch, self._generator, scalars))
         self._synchronize()
-        elapsed = time.perf_counter() - t0
-        # one device -> host copy per epoch: no per-step synchronisation
-        reg = torch.stack([m["reg_loss"] for m in pending]).cpu().numpy()
-        hook_vals = self._hook_metric_arrays(pending)
-        for b in range(len(pending)):
+        return {"epoch": self._cur_epoch, "lr": lr, "n_slices": n_slices,
+                "elapsed": time.perf_counter() - t0, "steps": len(pending),
+                "metrics": self._stack_metrics(pending), "matrices": matrices}
+
+    def _epoch_stats(self, record: Dict, host: Dict) -> Dict:
+        """Meters, `step_metrics` and TensorBoard of one epoch from its
+        record and its drained metrics; fails on a non-finite loss."""
+        meters = MeterInterface(default_focus=self.train_meter_focus)
+        with meters.focus_on(self.train_meter_focus):
+            meters.register_meter("lr", AverageValueMeter())
+            meters.register_meter("reg_loss", AverageValueMeter())
+        reg = host["metrics"]["reg_loss"]
+        hook_vals = host["metrics"].get("hooks", {})
+        for b in range(record["steps"]):
             # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
             if not np.isfinite(reg[b]):
                 raise RuntimeError(f"non-finite pretrain reg_loss at batch {b}: {reg[b]}")
-            record = {"epoch": self._cur_epoch, "reg_loss": float(reg[b]),
-                      "hooks": {n: {k: float(v[b]) for k, v in hv.items()}
-                                for n, hv in hook_vals.items()}}
-            self.step_metrics.append(record)
+            step = {"epoch": record["epoch"], "reg_loss": float(reg[b]),
+                    "hooks": {n: {k: float(v[b]) for k, v in hv.items()}
+                              for n, hv in hook_vals.items()}}
+            self.step_metrics.append(step)
             with meters.focus_on(self.train_meter_focus):
-                meters["reg_loss"].add(record["reg_loss"])
-            self._add_hook_meters(meters, record["hooks"])
+                meters["reg_loss"].add(step["reg_loss"])
+            self._add_hook_meters(meters, step["hooks"])
         with meters.focus_on(self.train_meter_focus):
-            meters["lr"].add(lr)
+            meters["lr"].add(record["lr"])
         stats = meters.statistics()
+        elapsed = max(record["elapsed"], 1e-9)
         stats.setdefault(self.train_meter_focus, {})["throughput"] = {
-            "slices_per_sec": n_slices / max(elapsed, 1e-9),
-            "steps_per_sec": len(pending) / max(elapsed, 1e-9)}
+            "slices_per_sec": record["n_slices"] / elapsed,
+            "steps_per_sec": record["steps"] / elapsed}
+        self._writer.add_scalars_from_meter_interface(record["epoch"], **stats)
+        if host.get("matrices") is not None:
+            self.last_matrices = host["matrices"]
+            for hname, mats in host["matrices"].items():
+                for mname, m in mats.items():
+                    self._writer.add_matrix_image(f"{hname}/{mname}", m, record["epoch"])
         return stats
+
+    def _run_train_epoch(self) -> Dict:
+        record = self._dispatch_train_epoch()
+        # one device -> host copy per metric per epoch: no per-step synchronisation
+        return self._epoch_stats(record, deferred.drain([record])[0])
+
+    def _end_epoch(self) -> None:
+        """The hooks' schedulers step before any checkpoint of the epoch, so
+        that it holds the state a resumed run continues from."""
+        for h in self._hooks:
+            h.on_epoch_end()
 
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
+        if self._defer_reads:
+            return self._start_training_deferred()
         start = self._cur_epoch + 1 if self._cur_epoch else 1
         for self._cur_epoch in range(start, self._max_epoch + 1):
-            train_stats = self._run_train_epoch()
+            record = self._dispatch_maybe_profiled(start)
+            train_stats = self._epoch_stats(record, deferred.drain([record])[0])
             self.last_epoch_stats = train_stats
-            # the hooks' schedulers step before the checkpoint, so that it
-            # holds the state a resumed run continues from
-            for h in self._hooks:
-                h.on_epoch_end()
+            self._end_epoch()
             if self._save_now():
                 self.save_to("last.ckpt")
             self._log("pretrain epoch %03d | %s", self._cur_epoch,
                       meter_display(train_stats))
+        self._finish()
+        return 0.0
+
+    def _drain_records(self, records: List[Dict]) -> None:
+        """The deferred epochs' meters and log lines, from one drain."""
+        for record, host in zip(records, deferred.drain(
+                [{"metrics": r["metrics"], "matrices": r["matrices"]} for r in records])):
+            self.last_epoch_stats = self._epoch_stats(record, host)
+            self._log("pretrain epoch %03d | %s", record["epoch"],
+                      meter_display(self.last_epoch_stats))
+        records.clear()
+
+    def _start_training_deferred(self) -> float:
+        """`Trainer.defer_reads` (spcl_tpu `_start_pretrain_deferred`,
+        trainer.py:1267-1325): no read until the end (or a flush), then one
+        drain of every epoch and `last.ckpt`."""
+        self._check_deferred()
+        flush_every = int(self._trainer_cfg().get("flush_every") or 0)
+        start = self._cur_epoch + 1 if self._cur_epoch else 1
+        records: List[Dict] = []
+        for self._cur_epoch in range(start, self._max_epoch + 1):
+            records.append(self._dispatch_maybe_profiled(start))
+            self._end_epoch()
+            if flush_every and self._cur_epoch % flush_every == 0 \
+                    and self._cur_epoch < self._max_epoch:
+                self._drain_records(records)
+                self.save_to("last.ckpt")
+        self._drain_records(records)
+        self.save_to("last.ckpt")
         self._finish()
         return 0.0
 
@@ -581,7 +722,26 @@ class FineTuneTrainer(_TrainerBase):
         """The meter group a loss key is logged under."""
         return self.train_meter_focus
 
-    def _run_train_epoch(self) -> Dict:
+    def _dispatch_train_epoch(self) -> Dict:
+        """The epoch's steps, without a device -> host read: {"epoch", "lr",
+        "n_slices", "elapsed", "rows": the batches' global index rows,
+        "metrics": [steps, ...] device tensors}."""
+        scalars = self._hook_scalars()
+        lr = self._set_epoch_lr()
+        global_rows, inputs, n_slices = self._epoch_inputs()
+        pending = []
+        self._synchronize()  # a wait, not a read: the epoch's own time
+        t0 = time.perf_counter()
+        for batches in inputs:
+            pending.append(self._call_step(batches, scalars))
+        self._synchronize()
+        return {"epoch": self._cur_epoch, "lr": lr, "n_slices": n_slices,
+                "elapsed": time.perf_counter() - t0, "steps": len(pending),
+                "rows": global_rows, "metrics": self._stack_metrics(pending)}
+
+    def _epoch_stats(self, record: Dict, host: Dict) -> Dict:
+        """Meters and `step_metrics` of one train epoch from its record and
+        its drained metrics; fails on a non-finite loss."""
         C = self._model.num_classes
         keys = self._loss_keys()
         meters = MeterInterface(default_focus=self.train_meter_focus)
@@ -592,56 +752,50 @@ class FineTuneTrainer(_TrainerBase):
                 meters.register_meter(k, AverageValueMeter())
         with meters.focus_on(self.train_meter_focus):
             meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
-        scalars = self._hook_scalars()
-        lr = self._set_epoch_lr()
         # Dice groups by scan name through the root (a subset's scan_idx is
         # its own numbering, the store's the root's)
         names = self._labeled_loader.dataset.root.scan_names
-        global_rows, inputs, n_slices = self._epoch_inputs()
-        pending = []
-        self._synchronize()
-        t0 = time.perf_counter()
-        for batches in inputs:
-            pending.append(self._call_step(batches, scalars))
-        self._synchronize()
-        elapsed = time.perf_counter() - t0
-        # one device -> host copy per metric per epoch: no per-step synchronisation
-        stacked = {k: torch.stack([m[k] for m in pending]).cpu().numpy()
-                   for k in keys + ("inter", "union")}
-        hook_vals = self._hook_metric_arrays(pending)
-        for b, gidx in enumerate(global_rows):
-            record = {"epoch": self._cur_epoch}
+        stacked = host["metrics"]
+        hook_vals = stacked.get("hooks", {})
+        for b, gidx in enumerate(record["rows"]):
+            step = {"epoch": record["epoch"]}
             for k in keys:
-                record[k] = float(stacked[k][b])
+                step[k] = float(stacked[k][b])
                 # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
-                if not np.isfinite(record[k]):
-                    raise RuntimeError(f"non-finite {k} at batch {b}: {record[k]}")
+                if not np.isfinite(step[k]):
+                    raise RuntimeError(f"non-finite {k} at batch {b}: {step[k]}")
             if hook_vals:
-                record["hooks"] = {n: {k: float(v[b]) for k, v in hv.items()}
-                                   for n, hv in hook_vals.items()}
-                self._add_hook_meters(meters, record["hooks"])
-            self.step_metrics.append(record)
+                step["hooks"] = {n: {k: float(v[b]) for k, v in hv.items()}
+                                 for n, hv in hook_vals.items()}
+                self._add_hook_meters(meters, step["hooks"])
+            self.step_metrics.append(step)
             for k in keys:
                 with meters.focus_on(self._loss_focus(k)):
-                    meters[k].add(record[k])
+                    meters[k].add(step[k])
             with meters.focus_on(self.train_meter_focus):
                 keep = gidx >= 0
                 meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
                                        group_name=[names[i] for i in gidx[keep]])
         with meters.focus_on(self.train_meter_focus):
-            meters["lr"].add(lr)
+            meters["lr"].add(record["lr"])
         stats = meters.statistics()
+        elapsed = max(record["elapsed"], 1e-9)
         stats.setdefault(self.train_meter_focus, {})["throughput"] = {
-            "slices_per_sec": n_slices / max(elapsed, 1e-9),
-            "steps_per_sec": len(pending) / max(elapsed, 1e-9)}
+            "slices_per_sec": record["n_slices"] / elapsed,
+            "steps_per_sec": record["steps"] / elapsed}
         return stats
 
-    def _run_eval_epoch(self, loader: HostLoader) -> Tuple[Dict, float]:
-        C = self._model.num_classes
-        meters = MeterInterface(default_focus="eval")
-        meters.register_meter("loss", AverageValueMeter())
-        dice = meters.register_meter("dice", UniversalDice(C, report_axises=list(range(1, C))))
-        packed = int((self._config.get("Trainer") or {}).get("packed_eval") or 0)
+    def _run_train_epoch(self) -> Dict:
+        record = self._dispatch_train_epoch()
+        # one device -> host copy per metric per epoch: no per-step synchronisation
+        return self._epoch_stats(record, deferred.drain([record])[0])
+
+    def _dispatch_eval(self, loader: HostLoader) -> Dict:
+        """An eval epoch's steps, without a read: {"out": {"loss" [batches],
+        "inter", "union" [batches, B, C]} on the device, "rows": index rows
+        (-1 = padding), "groups": scan names (one per batch, or one per slice
+        with `packed_eval`)}."""
+        packed = int(self._trainer_cfg().get("packed_eval") or 0)
         if self._device_data and packed > 0:
             rows, groups = self._packed_eval_rows(loader, packed)
             inputs = self._upload_rows(rows)
@@ -652,10 +806,19 @@ class FineTuneTrainer(_TrainerBase):
             inputs = self._step_inputs(loader, rows)
         step = self._eval_step_for(loader)
         pending = [step(batch) for batch in inputs]
-        if pending:
-            stacked = {k: torch.stack([o[k] for o in pending]).cpu().numpy()
-                       for k in ("loss", "inter", "union")}
-        for b, (row, group) in enumerate(zip(rows, groups)):
+        out = ({k: torch.stack([o[k] for o in pending]) for k in ("loss", "inter", "union")}
+               if pending else {})
+        return {"out": out, "rows": rows, "groups": groups}
+
+    def _eval_stats(self, record: Dict, host: Dict) -> Tuple[Dict, float]:
+        """(eval meters' statistics, val DSC_mean) from an eval epoch's record
+        and its drained outputs."""
+        C = self._model.num_classes
+        meters = MeterInterface(default_focus="eval")
+        meters.register_meter("loss", AverageValueMeter())
+        dice = meters.register_meter("dice", UniversalDice(C, report_axises=list(range(1, C))))
+        stacked = host["out"]
+        for b, (row, group) in enumerate(zip(record["rows"], record["groups"])):
             meters["loss"].add(float(stacked["loss"][b]))
             keep = np.asarray(row) >= 0
             if isinstance(group, list):  # packed_eval: a scan name per slice
@@ -663,6 +826,10 @@ class FineTuneTrainer(_TrainerBase):
             dice.add(stacked["inter"][b][keep], stacked["union"][b][keep], group_name=group)
         stats = meters.statistics("eval")
         return stats, float(stats["dice"]["DSC_mean"])
+
+    def _run_eval_epoch(self, loader: HostLoader) -> Tuple[Dict, float]:
+        record = self._dispatch_eval(loader)
+        return self._eval_stats(record, deferred.drain([{"out": record["out"]}])[0])
 
     def _packed_eval_rows(self, loader: HostLoader, packed: int):
         """(global index rows, per-slice scan names) of `Trainer.packed_eval`
@@ -688,9 +855,12 @@ class FineTuneTrainer(_TrainerBase):
     def start_training(self) -> float:
         if not self._initialized:
             raise RuntimeError("call init() first")
+        if self._defer_reads:
+            return self._start_training_deferred()
         start = self._cur_epoch + 1 if self._cur_epoch else 1
         for self._cur_epoch in range(start, self._max_epoch + 1):
-            train_stats = self._run_train_epoch()
+            record = self._dispatch_maybe_profiled(start)
+            train_stats = self._epoch_stats(record, deferred.drain([record])[0])
             self.last_epoch_stats = train_stats
             val_stats, cur_score = self._run_eval_epoch(self._val_loader)
             test_stats, _ = (self._run_eval_epoch(self._test_loader)
@@ -698,9 +868,7 @@ class FineTuneTrainer(_TrainerBase):
             # the epoch's row and the hooks' scheduler steps go in before the
             # checkpoints, so that they hold the state a resumed run continues
             # from (spcl_tpu writes them after, and its checkpoints lag by one)
-            self._storage.put_epoch(self._cur_epoch, {**train_stats, "val": val_stats,
-                                                      "test": test_stats})
-            self._storage.flush()
+            self._put_epoch(self._cur_epoch, train_stats, val_stats, test_stats)
             for h in self._hooks:
                 h.on_epoch_end()
             is_best = cur_score > self._best_score
@@ -713,6 +881,97 @@ class FineTuneTrainer(_TrainerBase):
                       cur_score, self._best_score, meter_display(train_stats))
         self._finish()
         return float(self._best_score)
+
+    def _put_epoch(self, epoch: int, train_stats: Dict, val_stats: Dict,
+                   test_stats: Dict) -> None:
+        """The epoch's storage row (storage.csv) and TensorBoard scalars."""
+        self._storage.put_epoch(epoch, {**train_stats, "val": val_stats, "test": test_stats})
+        self._storage.flush()
+        self._writer.add_scalars_from_meter_interface(epoch, **train_stats, val=val_stats,
+                                                      test=test_stats)
+
+    # ----------------------------------------------------------------- deferred
+    def _start_training_deferred(self) -> float:
+        """`Trainer.defer_reads` (spcl_tpu `_start_training_deferred`,
+        trainer.py:755-882): the epochs run without a device -> host read.
+        Each epoch's val score is computed on the device and the best epoch's
+        checkpoint state kept there (`deferred.DeviceBest`); the drain at the
+        end (and at each `flush_every`) rebuilds the epochs' storage rows,
+        meters and TensorBoard scalars from one copy per metric and writes the
+        checkpoints the eager loop writes."""
+        self._check_deferred()
+        flush_every = int(self._trainer_cfg().get("flush_every") or 0)
+        start = self._cur_epoch + 1 if self._cur_epoch else 1
+        if start > self._max_epoch:
+            # resumed at max_epoch: nothing to train; last.ckpt as restored
+            self.save_to("last.ckpt")
+            self._finish()
+            return float(self._best_score)
+        # the device's best so far starts at the restored one (a resumed run)
+        self._device_best_score = float(np.float32(self._best_score))
+        best = deferred.DeviceBest(self._device, self._device_best_score)
+        records: List[Dict] = []
+        for self._cur_epoch in range(start, self._max_epoch + 1):
+            record = {"train": self._dispatch_maybe_profiled(start),
+                      "val": self._dispatch_eval(self._val_loader),
+                      "test": (self._dispatch_eval(self._test_loader)
+                               if self._test_loader is not None else None)}
+            record["score"] = deferred.device_val_score(
+                record["val"]["out"], record["val"]["rows"], record["val"]["groups"],
+                self._model.num_classes)
+            records.append(record)
+            for h in self._hooks:
+                h.on_epoch_end()
+            best.update(self._cur_epoch, record["score"], self._checkpoint_state())
+            if flush_every and self._cur_epoch % flush_every == 0 \
+                    and self._cur_epoch < self._max_epoch:
+                self._drain_epochs(records, best)
+                self.save_to("last.ckpt")
+        self._drain_epochs(records, best)
+        self.save_to("last.ckpt")
+        self._log("deferred run done | best val DSC %.4f (on the device %.4f)",
+                  self._best_score, self._device_best_score)
+        self._finish()
+        return float(self._best_score)
+
+    def _drain_epochs(self, records: List[Dict], best: "deferred.DeviceBest") -> None:
+        """One copy per metric of the deferred epochs; their storage rows and
+        TensorBoard scalars; `best.ckpt` as the eager loop writes it at the
+        best of them (the device's choice, replayed from the drained scores)."""
+        hosts = deferred.drain([{"train": r["train"]["metrics"], "val": r["val"]["out"],
+                                 "test": None if r["test"] is None else r["test"]["out"],
+                                 "score": r["score"]} for r in records])
+        best_epoch, best_score, best_storage = None, None, None
+        device_best = self._device_best_score
+        for r, host in zip(records, hosts):
+            epoch = r["train"]["epoch"]
+            train_stats = self._epoch_stats(r["train"], {"metrics": host["train"]})
+            self.last_epoch_stats = train_stats
+            val_stats, cur_score = self._eval_stats(r["val"], {"out": host["val"]})
+            test_stats = (self._eval_stats(r["test"], {"out": host["test"]})[0]
+                          if r["test"] is not None else {})
+            self._put_epoch(epoch, train_stats, val_stats, test_stats)
+            if host["score"] > device_best:  # the device's select, replayed
+                device_best = float(host["score"])
+                best_epoch, best_score = epoch, cur_score
+                best_storage = copy.deepcopy(self._storage.state_dict())
+            self._log("epoch %03d | val DSC %.4f (device %.4f) | %s", epoch, cur_score,
+                      float(host["score"]), meter_display(train_stats))
+        self._device_best_score = device_best
+        if best_epoch is not None:
+            self._best_score = best_score
+            state = best.state(best_epoch)
+            state["best_score"] = float(best_score)
+            state["storage"] = best_storage
+            if self._is_master:
+                save_checkpoint(str(Path(self._save_dir) / "best.ckpt"), state)
+        records.clear()
+
+    @property
+    def device_best_score(self) -> float:
+        """The best val score as the deferred loop's device select saw it
+        (float32); -inf before a deferred run."""
+        return getattr(self, "_device_best_score", -np.inf)
 
     def _checkpoint_state(self) -> Dict:
         state = super()._checkpoint_state()
@@ -787,11 +1046,16 @@ class AdversarialTrainer(SemiTrainer):
     at `init()` from the run's seed, its input the class softmax (and the
     image's channels with `dis_consider_image`); its Adam runs at `discr_lr`
     with b1 0.5, b2 0.999. Meters `adv_reg/gen_loss` and `adv_reg/dis_loss`.
-    Hooks are not activated (spcl_tpu's step reads none)."""
+    Hooks are not activated (spcl_tpu's step reads none). `defer_reads` is
+    ignored: the two-optimizer loop runs eagerly, as spcl_tpu's does
+    (trainer.py:1056)."""
     activate_hooks = False
 
     def __init__(self, *, reg_weight: float = 0.01, dis_consider_image: bool = False,
                  discr_lr: float = 1e-4, **kwargs):
+        if kwargs.get("defer_reads"):
+            logger.info("Trainer.defer_reads: the adversarial trainer runs eagerly")
+        kwargs["defer_reads"] = False
         super().__init__(**kwargs)
         self._reg_weight = float(reg_weight)
         self._dis_consider_image = bool(dis_consider_image)

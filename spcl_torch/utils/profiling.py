@@ -1,0 +1,124 @@
+"""Device time from `torch.profiler`: the counterpart of
+`spcl_tpu/utils/profiling.py` (which reads jax.profiler's device plane).
+
+One definition of what counts as device time, shared by `Trainer.profile_dir`
+and `chip_smoke.py`: the device events of CUDA kernels, memory copies and
+memory sets, never the device-side ranges of user annotations (they span
+kernels that are counted already).
+
+- `kernel_times(run, steps)`: run(steps) under the profiler (CPU + CUDA
+  activities) -> {event name: (ms per step, launches per step)}.
+- `device_ms_per_step(trace_dir, calls)`: the device ms per call of a chrome
+  trace that the profiler exported into `trace_dir` (`export_chrome_trace`),
+  summed over every `*.json` file there; None for a trace that holds no
+  device event, as a CPU trace does.
+- `device_op_breakdown(trace_dir, top)`: {kernel name: total ms} of such a
+  trace, largest first.
+- `profile_device_time(run_one, reps)`: trace `reps` calls of run_one() and
+  return the device ms per call (None without device events).
+"""
+from __future__ import annotations
+
+import gzip
+import json
+import shutil
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, Iterator, Optional, Tuple
+
+import torch
+
+# chrome-trace categories of device work (torch.profiler / kineto)
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def activities():
+    """CPU, and CUDA where the card is there."""
+    from torch.profiler import ProfilerActivity
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def kernel_times(run: Callable[[int], object], steps: int) -> Dict[str, Tuple[float, int]]:
+    """{event name: (ms per step, launches per step)} of the device events of
+    run(steps) under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    with profile(activities=activities()) as prof:
+        run(steps)
+        _sync()
+    out = {}
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            ms = float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / steps
+            out[e.key] = (ms, e.count // steps)
+    return out
+
+
+def _device_events(trace_dir: str) -> Iterator[dict]:
+    for path in sorted(Path(trace_dir).rglob("*.json*")):
+        opener = gzip.open if path.suffix == ".gz" else open
+        try:
+            with opener(path, "rt") as f:
+                events = json.load(f).get("traceEvents", [])
+        except (OSError, ValueError):
+            continue
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
+                yield e
+
+
+def device_ms_per_step(trace_dir: str, calls: Optional[int] = None) -> Optional[float]:
+    """Device ms per call (per step) of the chrome traces in `trace_dir`:
+    the summed duration of their device events over `calls` (1 if None);
+    None when there is no device event."""
+    total_us, seen = 0.0, False
+    for e in _device_events(trace_dir):
+        total_us += float(e.get("dur", 0.0))
+        seen = True
+    if not seen:
+        return None
+    return total_us / 1e3 / max(int(calls or 1), 1)
+
+
+def device_op_breakdown(trace_dir: str, top: int = 0) -> Optional[Dict[str, float]]:
+    """{device event name: total ms}, largest first (all, or the `top`
+    first); None when the traces hold no device event."""
+    totals: Dict[str, float] = {}
+    for e in _device_events(trace_dir):
+        totals[e.get("name", "?")] = totals.get(e.get("name", "?"), 0.0) + float(
+            e.get("dur", 0.0)) / 1e3
+    if not totals:
+        return None
+    items = sorted(totals.items(), key=lambda kv: -kv[1])
+    return dict(items[:top] if top else items)
+
+
+def trace(run: Callable[[], object], trace_dir: str) -> None:
+    """run() under torch.profiler (CPU + CUDA activities), its chrome trace
+    written to trace_dir/trace.json."""
+    from torch.profiler import profile
+    Path(trace_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities()) as prof:
+        run()
+        _sync()
+    prof.export_chrome_trace(str(Path(trace_dir) / "trace.json"))
+
+
+def profile_device_time(run_one: Callable[[], object], reps: int = 20) -> Optional[float]:
+    """Trace `reps` calls of run_one() and return the device ms per call."""
+    d = tempfile.mkdtemp(prefix="spcl_trace_")
+    try:
+        trace(lambda: [run_one() for _ in range(reps)], d)
+        return device_ms_per_step(d, calls=reps)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)

@@ -1,4 +1,5 @@
-"""Host-side utilities: seeding, scalar-or-list broadcasting, yaml io, logging.
+"""Host-side utilities: seeding, scalar-or-list broadcasting, yaml io, the
+git hash, logging.
 
 `fix_all_seed` pins python, numpy and torch. Randomness inside a training
 step comes from explicit `torch.Generator`s owned by the trainer, not from
@@ -7,13 +8,15 @@ the global torch seed.
 from __future__ import annotations
 
 import collections.abc
+import json
 import logging
 import random
+import subprocess
 import sys
 from contextlib import contextmanager
 from itertools import repeat
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -69,6 +72,53 @@ def yaml_load(path: PathLike) -> Dict[str, Any]:
     import yaml
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def yaml_write(dictionary: Mapping, save_dir: PathLike, save_name: str) -> str:
+    """Write `dictionary` as YAML to save_dir/save_name (spcl_tpu
+    utils/utils.py:99-105: numpy scalars and arrays as plain values, tuples
+    as lists, keys in their order). Without pyyaml the file is written as
+    JSON, which is valid YAML and loads to the same dict. Returns the path."""
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    out = save_dir / save_name
+    plain = _to_plain(dictionary)
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    with open(out, "w") as f:
+        if yaml is not None:
+            yaml.safe_dump(plain, f, sort_keys=False)
+        else:
+            json.dump(plain, f, indent=2)
+            f.write("\n")
+    return str(out)
+
+
+def _to_plain(obj):
+    if isinstance(obj, Mapping):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_plain(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj
+
+
+def gethash(repo_dir: PathLike = None) -> Optional[str]:
+    """The git commit of the checkout (spcl_tpu utils/utils.py:119-128), or
+    None outside a git repository; written beside each run's config."""
+    cwd = str(Path(repo_dir) if repo_dir is not None else Path(__file__).parents[2])
+    try:
+        return subprocess.check_output(["git", "rev-parse", "HEAD"], cwd=cwd,
+                                       stderr=subprocess.DEVNULL).decode().strip()
+    except Exception:
+        return None
 
 
 # ----------------------------------------------------------------------------- logging

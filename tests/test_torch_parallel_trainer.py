@@ -132,12 +132,26 @@ def test_pallas_layout_refused_under_mesh(mesh_runs):
 
 
 def test_files_written_by_rank_0_only(mesh_runs):
+    """Rank 0 writes the checkpoints, storage.csv, the run's config.yaml and
+    (where tensorboard imports) one TensorBoard event file, named by time and
+    host; the other ranks write nothing."""
+    try:
+        import tensorboard  # noqa: F401
+        events = ["events"]
+    except ImportError:
+        events = []
+
+    def run_files(files):
+        return sorted("events" if f.startswith("events.out.tfevents") else f for f in files)
+
     ranks = mesh_runs[1]
     for name in ("pretrain_replicated", "pretrain_row_sharded"):
-        assert ranks[0][name]["files"] == [".success", "last.ckpt"]
+        assert run_files(ranks[0][name]["files"]) == sorted(
+            [".success", "config.yaml", "last.ckpt"] + events)
         assert ranks[1][name]["files"] == []
     for name in ("finetune", "finetune_padded"):
-        assert ranks[0][name]["files"] == [".success", "best.ckpt", "last.ckpt", "storage.csv"]
+        assert run_files(ranks[0][name]["files"]) == sorted(
+            [".success", "best.ckpt", "config.yaml", "last.ckpt", "storage.csv"] + events)
         assert ranks[1][name]["files"] == []
 
 

@@ -1,16 +1,17 @@
-"""Trainer keys that spcl_tpu honours and spcl_torch does not port yet are
-refused, not ignored: a non-default value of `Trainer.dump_matrices`,
-`profile_dir` or `defer_reads` raises NotImplementedError naming the key and
-its ROADMAP item, while the paper's configuration (base.yaml + pretrain.yaml
-+ specific/selfpaced_infonce.yaml) still builds, and so does it with
-`Trainer.grad_cache=30` (ported: the trainer's step is then the gradient
-cache's, with 30 chunks). `dump_matrices` together with `grad_cache` raises
-spcl_tpu's ValueError. The semi and mixup trainers build (`semi` with
-production_semi.yaml + mt.yaml + uda.yaml, as `chip_smoke.py` runs it);
-`Trainer.mesh` with either, or with the adversarial trainer, raises
-NotImplementedError until ROADMAP A12 (rest), and so does a decoder-stage
-InfoNCE hook under a mesh or with `Trainer.grad_cache`. CPU only; the
-refused cases raise before any data is loaded."""
+"""The `Trainer` keys of spcl_tpu build in spcl_torch and are wired: the
+paper's configuration (base.yaml + pretrain.yaml +
+specific/selfpaced_infonce.yaml) builds as it is, with
+`Trainer.grad_cache=30` (the trainer's step is then the gradient cache's,
+with 30 chunks), with `dump_matrices` (the matrix probe is built), with
+`profile_dir` (epoch start + 1 of the loop goes through the profiler) and
+with `defer_reads` (`start_training` takes the deferred loop).
+`dump_matrices` together with `grad_cache` raises spcl_tpu's ValueError. The
+semi and mixup trainers build (`semi` with production_semi.yaml + mt.yaml +
+uda.yaml, as `chip_smoke.py` runs it); `Trainer.mesh` with either, or with
+the adversarial trainer, raises NotImplementedError until ROADMAP A12
+(rest), and so does a decoder-stage InfoNCE hook under a mesh or with
+`Trainer.grad_cache`. CPU only; the refused cases raise before any data is
+loaded."""
 from pathlib import Path
 
 import pytest
@@ -32,25 +33,41 @@ def _config(*overrides):
 
 @pytest.mark.parametrize("override,refused", [
     ("Trainer.grad_cache=30", None),  # bigbatch_pretrain.yaml's chunk count
-    ("Trainer.dump_matrices=true", "Trainer.dump_matrices=True is not ported yet (ROADMAP A7)"),
-    ("Trainer.profile_dir=runs/prof",
-     "Trainer.profile_dir='runs/prof' is not ported yet (ROADMAP A7)"),
-    ("Trainer.defer_reads=true", "Trainer.defer_reads=True is not ported yet (ROADMAP A7)"),
+    ("Trainer.dump_matrices=true", None),
+    ("Trainer.profile_dir=runs/prof", None),
+    ("Trainer.defer_reads=true", None),
     ("Trainer.device_data=true", None),  # the paper's configuration as base.yaml sets it
 ])
-def test_unported_trainer_keys_are_refused(tmp_path, override, refused):
+def test_unported_trainer_keys_are_refused(tmp_path, monkeypatch, override, refused):
+    """No key is refused any more (`refused` is None in every case): each
+    builds and is wired."""
+    from spcl_torch.training import trainer as trainer_mod
     config = _config(override)
-    if refused is not None:
-        with pytest.raises(NotImplementedError) as err:
-            build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
-        assert str(err.value) == refused
-        return
+    assert refused is None
     trainer = build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
     assert trainer._forward_until == "Conv5"
-    assert config["Trainer"]["profile_dir"] is None
     trainer.init()
     chunks = getattr(trainer._train_step, "num_chunks", None)
     assert chunks == (30 if override == "Trainer.grad_cache=30" else None)
+    assert (trainer._matrix_probe is not None) == (override == "Trainer.dump_matrices=true")
+    # profile_dir: the loop's dispatch of epoch start + 1 goes through the profiler
+    traced = []
+    monkeypatch.setattr(trainer_mod.profiling, "trace",
+                        lambda run, d: traced.append(d) or run())
+    monkeypatch.setattr(trainer, "_dispatch_train_epoch", lambda: {"epoch": "stub"})
+    for epoch in (1, 2):
+        trainer._cur_epoch = epoch
+        assert trainer._dispatch_maybe_profiled(start=1) == {"epoch": "stub"}
+    assert traced == (["runs/prof"] if override == "Trainer.profile_dir=runs/prof" else [])
+    # defer_reads: start_training takes the deferred loop
+    trainer._cur_epoch = 0
+    monkeypatch.setattr(trainer, "_start_training_deferred", lambda: "deferred")
+    monkeypatch.setattr(trainer, "_dispatch_train_epoch", lambda: 1 / 0)  # eager: fails
+    if override == "Trainer.defer_reads=true":
+        assert trainer.start_training() == "deferred"
+    else:
+        with pytest.raises(ZeroDivisionError):
+            trainer.start_training()
 
 
 def test_dump_matrices_with_grad_cache_raises(tmp_path):
