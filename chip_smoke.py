@@ -668,8 +668,10 @@ def _hold(what, names, kernel_out, plain_out, tols=None):
     return worst
 
 
-# the passes whose convolutions run on the tensor cores
+# the passes whose convolutions run on the tensor cores; in bf16, those that
+# take one TF32 product a term (bnconv and dwprev take bf16 m16n8k16 products)
 TF32_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
+BF16_ON_TF32 = ("conv", "dwdx")
 
 
 def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
@@ -681,8 +683,9 @@ def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
     the `bound_ms` of the pool passes. The convolution passes' `bound_ms` is
     that of their products on the tensor cores: float32 activations as three
     TF32 products a term (`bound_3xtf32_ms`), bfloat16 ones as bf16 products
-    at the bf16 peak (`bound_bf16_ms`), with the route the kernels take for
-    them, one TF32 product a term, beside (`bound_1xtf32_ms`). `de=False`:
+    at the bf16 peak (`bound_bf16_ms`), with, for conv and dwdx, the route
+    their kernels take, one TF32 product a term, beside (`bound_1xtf32_ms`;
+    bnconv's and dwprev's kernels take bf16 products). `de=False`:
     the pool passes without the skip cotangent, as the pretrain path runs
     them (z1 and dp read; dz1 written by dz1)."""
     bf16 = dtype == torch.bfloat16
@@ -717,6 +720,8 @@ def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
         if name not in TF32_PASSES:
             continue
         for i, (key, per_flop) in enumerate(routes):
+            if key == "1xtf32" and name not in BF16_ON_TF32:
+                continue
             t = flops[name] * per_flop
             route = {f"bound_{key}_ms": max(tb, t) * 1e3,
                      f"bound_{key}_by": "operations" if t > tb else "bytes"}
@@ -1111,8 +1116,9 @@ def _time_finetune_and_eval(ft_config, ckpt, save_dir):
 # the kernels of csrc/convstage.cu by their own names, whole, as the profiler
 # demangles them ("(anonymous namespace)::poolsums_kernel<16>(...)"), so that
 # PyTorch's at::native::reduce_kernel is none of them
-STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnpool_kernel",
-                      "poolsums_kernel", "dz1_kernel", "convstage_reduce_kernel")
+STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnconv_bf16_kernel",
+                      "dwprev_bf16_kernel", "bnpool_kernel", "poolsums_kernel", "dz1_kernel",
+                      "convstage_reduce_kernel")
 STAGE_KERNEL_RE = re.compile(r"(?:^|[\s:])(%s)\b" % "|".join(STAGE_KERNEL_NAMES))
 # launches of convstage_reduce_kernel in one train step: one after each
 # forward convolution (conv, 2 x bnconv), two after each dwprev, one after

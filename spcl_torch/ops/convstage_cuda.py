@@ -327,6 +327,48 @@ def dwdx_plain(z0, dy0, dcoef, x, w):
     return d_in.to(x.dtype), dw
 
 
+def float64_pass(name: str, *inputs):
+    """A convolution pass (conv, bnconv, dwprev or dwdx) in float64, with its
+    plain version's outputs, unrounded: the reference that the kernels' errors
+    are measured against. The products' operands are those the kernel
+    multiplies: for float32 activations, the inputs and what is formed from
+    them in float64; for bfloat16 ones, the convolution's input formed in
+    float32 as the plain version forms it and rounded to bf16 (a0 =
+    relu(y0), whose ReLU mask is the float32 y0's; dz0), and the weights
+    rounded to bf16."""
+    *acts, w = inputs
+    bf16 = acts[0].dtype == torch.bfloat16
+    wd = torch.float32 if bf16 else torch.float64  # where operands are formed
+
+    def operand(t):  # as the kernel stores it, then exact in float64
+        return (t.to(torch.bfloat16) if bf16 else t).double()
+
+    def sums(z, other):
+        return torch.stack([z.sum(dim=(0, 1, 2)), (z * other).sum(dim=(0, 1, 2))])
+
+    def conv(a):
+        z = _nhwc(F.conv2d(_nchw(a), _oihw(operand(w)), padding=1))
+        return z, sums(z, z)
+
+    def y(z0, coef):
+        return z0.to(wd) * coef[0].to(wd) + coef[1].to(wd)
+
+    if name == "conv":
+        return conv(acts[0].double())
+    if name == "bnconv":
+        return conv(operand(torch.relu(y(*acts))))
+    if name == "dwprev":
+        dz1, z0, coef = acts
+        y0 = y(z0, coef)
+        d_in, dw = _conv_grads(operand(torch.relu(y0)), operand(w), dz1.double())
+        dy0 = torch.where(y0 >= 0, d_in, torch.zeros_like(d_in))
+        return dy0, dw, sums(dy0, z0.double())
+    z0, dy0, dcoef, x = acts
+    d = dcoef.to(wd)
+    dz0 = d[0] * dy0.to(wd) + d[1] + d[2] * z0.to(wd)
+    return _conv_grads(x.double(), operand(w), operand(dz0))
+
+
 # ------------------------------------------------------------------ kernel launches
 def _weights_ok(w: torch.Tensor, ci: int, co: int, like: torch.Tensor) -> torch.Tensor:
     return _check_small(w, (3, 3, ci, co), like, "convolution weights [3, 3, Ci, Co]")

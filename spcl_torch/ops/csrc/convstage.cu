@@ -75,16 +75,25 @@
 // accumulate in float32, and the statistics are taken from the float32 values
 // before they are rounded (`_k_conv` :261-265, `_k_dwprev` :451-461). The
 // pool selects its maximum among the bf16-rounded e (`_pool_cands` :82-102),
-// the ReLU mask reads the unrounded y. A bf16 tile is copied raw by cp.async
-// (8 bytes a chunk) into a staging buffer while the previous tile computes,
-// then widened into one float32 tile, with its BN / dz0 transform, at the
-// start of its own tile (one more barrier a tile); so the fragment code is
-// one for both types. A bf16 value is exact in TF32 and a product of two is
-// exact in float32, so the bf16 convolutions take ONE TF32 product per term
-// where float32 takes three (mma3<ONE>): the same sums as a bf16 MMA with
-// float32 accumulation. The flush structure stays: dW per tile and d_in per
-// (v, k chunk), added on the CUDA cores. The byte-bound passes read and write
-// 2-byte elements (8-byte loads of 4 channels).
+// the ReLU mask reads the unrounded y. conv and dwdx keep the float32 code:
+// the raw bf16 tile is copied by cp.async (8 bytes a chunk) into a staging
+// buffer while the previous tile computes, then widened into one float32
+// tile, with its dz0 transform, at the start of its own tile (one more
+// barrier a tile), and each term takes ONE TF32 product (mma3<ONE>; a bf16
+// value is exact in TF32 and a product of two exact in float32). bnconv and
+// dwprev have kernels of their own for bf16 (bnconv_bf16_kernel,
+// dwprev_bf16_kernel, see their section): their tiles stay bf16 in shared
+// memory (16-byte cp.async, two buffers, BN + ReLU rounded in place, the
+// mask kept as bits), and ldmatrix feeds mma.sync.m16n8k16 bf16 fragments,
+// twice the K of the TF32 instruction at twice its rate. The flush structure
+// stays in all four: dW per tile and d_in per (v, k chunk) added on the CUDA
+// cores. The byte-bound passes read and write 2-byte elements (8-byte loads
+// of 4 channels). What bounds the bf16 convolutions: their bytes (2-byte
+// activations, 0.03-0.09 ms at B=60) lie above their operations at the bf16
+// tensor-core peak (989 TFLOP/s). Their times lie 2.7-4.7x above that
+// bound; by instruction count, not profiled, the instructions around the
+// MMAs (fragment loads, the BN transform, the epilogue's stores and sums)
+// outweigh the MMAs on mma.sync (PERF.md, open questions).
 //
 // Reductions across blocks. The TPU grid is sequential and carries its sums
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
@@ -118,6 +127,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -351,7 +361,7 @@ __device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i
 // ------------------------------------------------------------------ tile staging
 // cp.async copies global -> shared without registers; a source size of 0
 // writes 16 zero bytes (pixels outside the image).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
@@ -383,12 +393,13 @@ __device__ __forceinline__ Tile tile_at(int tile, int tiles_y, int tiles_x) {
   return {tile / (tiles_y * tiles_x), (r / tiles_x) * TH, (r % tiles_x) * TW};
 }
 
-// Chunk i (4 channels) of a staged tile of C channels: its pixel q, its
-// channel group c4 and its image position; HALO tiles are (TH+2) x (TW+2)
-// pixels from (y0-1, x0-1), the others TH x TW from (y0, x0).
-template <bool HALO, int C>
+// Chunk i (CW channels, 16 bytes of float32 or of bf16) of a staged tile of
+// C channels: its pixel q, its channel group c4 and its image position; HALO
+// tiles are (TH+2) x (TW+2) pixels from (y0-1, x0-1), the others TH x TW
+// from (y0, x0).
+template <bool HALO, int C, int CW = 4>
 struct Chunk {
-  static constexpr int C4 = C / 4, NPIX = HALO ? HALO_N : NT, TOTAL = NPIX * C4;
+  static constexpr int C4 = C / CW, NPIX = HALO ? HALO_N : NT, TOTAL = NPIX * C4;
   int q, c4, gy, gx;
   bool inside;
   __device__ __forceinline__ Chunk(int i, const Tile& T, int H, int W) {
@@ -466,9 +477,9 @@ __device__ __forceinline__ float4 bn4(float4 v, const float* inv, const float* s
 
 // Shared memory of the conv kernels, in floats. float32: the backward
 // double-buffers its tiles where both copies fit beside the weights (and, for
-// the dwdx form, the single z tile). bf16 (`raw`): one float32 tile of each
-// operand and the raw bf16 tiles the next tile's copies land in (z stays raw:
-// only dz0's transform reads it). Registers are sized for the float32 layout
+// the dwdx form, the single z tile). bf16 (`raw`, conv and dwdx): one float32
+// tile of each operand and the raw bf16 tiles the next tile's copies land in
+// (z stays raw: only dz0's transform reads it). Registers are sized for the float32 layout
 // (__launch_bounds__) in both.
 template <int CI, int CO>
 __host__ __device__ constexpr int fwd_smem_floats(bool raw = false) {
@@ -479,7 +490,7 @@ __host__ __device__ constexpr int fwd_smem_floats(bool raw = false) {
 template <int CI, int CO, bool PREV>
 __host__ __device__ constexpr int bwd_smem_floats(int buffers, bool raw = false) {
   return raw ? 9 * CI * CO + HALO_N * (CO + PAD) + NT * (CI + 2 * PAD) +
-                   (HALO_N * CO + NT * CI + (PREV ? 0 : HALO_N * CO)) / 2
+                   (HALO_N * CO + NT * CI + HALO_N * CO) / 2
              : 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
                    (PREV ? 0 : HALO_N * (CO + PAD));
 }
@@ -503,7 +514,8 @@ __global__ void __launch_bounds__(NT, min_blocks(fwd_smem_floats<CI, CO>()))
 conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
                 const float* __restrict__ w, E* __restrict__ out,
                 double* __restrict__ partial, int B, int H, int W) {
-  constexpr bool ONE = is_bf16<E>;    // bf16 operands: one TF32 product a term
+  static_assert(!(BN_IN && is_bf16<E>), "bnconv in bf16 is bnconv_bf16_kernel");
+  constexpr bool ONE = is_bf16<E>;    // bf16 operands (conv): one TF32 product a term
   constexpr bool RAW = is_bf16<E>;    // bf16 tiles land raw and are widened here
   constexpr int SI = CI + PAD;          // pixel stride: the A loads hit 32 distinct banks
   constexpr int KC = CI / 8, NF = CO / 8;
@@ -539,9 +551,9 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
       copy_tile<true, CI, SI>(in, s_buf + into * HALO_N * SI, T, H, W);
     }
   };
-  // BN and ReLU inside the image (rounded to E: the product's operand)
-  auto bn_relu = [&](float4 v, int, int c4, int = 0) {
-    return rnd4<E>(bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4));
+  // BN and ReLU inside the image (float32 only: bf16 bnconv has its own kernel)
+  auto bn_relu = [&](float4 v, int, int c4) {
+    return bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
   };
   __syncthreads();  // s_coef is read by other threads' transforms
   if ((int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
@@ -555,12 +567,7 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
     cp_async_wait_all();
     if constexpr (RAW) {
       __syncthreads();  // every thread is done with the previous tile's float32 tile
-      if constexpr (BN_IN) {
-        widen_tile<true, CI, SI>(s_raw, s_in, T, H, W, bn_relu);
-      } else {
-        widen_tile<true, CI, SI>(s_raw, s_in, T, H, W,
-                                 [](float4 v, int, int, int) { return v; });
-      }
+      widen_tile<true, CI, SI>(s_raw, s_in, T, H, W, [](float4 v, int, int, int) { return v; });
     } else if constexpr (BN_IN) {  // zeros outside the image stay 0
       transform_tile<true, CI, SI>(s_in, T, H, W, bn_relu);
     }
@@ -646,7 +653,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
                 const float* __restrict__ g_coef, const float* __restrict__ w,
                 E* __restrict__ d_in, float* __restrict__ dw_partial,
                 double* __restrict__ sum_partial, int B, int H, int W) {
-  constexpr bool ONE = is_bf16<E>;    // bf16 operands: one TF32 product a term
+  constexpr bool ONE = is_bf16<E>;    // bf16 operands (dwdx): one TF32 product a term
   constexpr int SG = CO + PAD;          // d_in's A loads conflict-free, dW's B loads <= 2-way
   constexpr int SA = CI + 2 * PAD;      // dW's A loads (pixel along t) conflict-free
   constexpr int KCI = CO / 8, NFI = CI / 8;   // d_in: K chunks over co, N fragments over ci
@@ -655,7 +662,8 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
   constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
   static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
   static_assert(!PREV || CI == CO, "the dwprev pass has CI == CO");
-  constexpr bool RAW = is_bf16<E>;    // bf16 tiles land raw and are widened here
+  static_assert(!(PREV && is_bf16<E>), "dwprev in bf16 is dwprev_bf16_kernel");
+  constexpr bool RAW = is_bf16<E>;    // bf16 (dwdx) tiles land raw and are widened here
   constexpr int NBUF = RAW ? 1 : bwd_buffers<CI, CO, PREV>();
   constexpr bool PREFETCH = RAW || NBUF == 2;       // the next tile's copies under this one's
   constexpr int BUF = HALO_N * SG + NT * SA;        // one gradient halo tile + one activation tile
@@ -686,13 +694,13 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
   const int mt = pair / NTW, nt = pair % NTW;
 
   // copies of one tile: g (halo) and a into buffer `into`, z0 (halo) for
-  // dwdx; bf16: into the raw tiles
+  // dwdx; bf16 (dwdx): into the raw tiles
   auto copy = [&](int tile, int into) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
     if constexpr (RAW) {
       copy_raw<true, CO>(g_src, r_g, T, H, W);
       copy_raw<false, CI>(a_src, r_a, T, H, W);
-      if constexpr (!PREV) copy_raw<true, CO>(g_z, r_z, T, H, W);
+      copy_raw<true, CO>(g_z, r_z, T, H, W);
     } else {
       copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
       copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
@@ -700,7 +708,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
     }
   };
   // PREV: y0 = BN(z0) before the ReLU (the mask needs its sign)
-  auto bn_only = [&](float4 v, int, int c4, int = 0) {
+  auto bn_only = [&](float4 v, int, int c4) {
     return bn4<false>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
   };
   // !PREV: dz0 = c0*dy0 + c1 + c2*z0, rounded to E (the operand)
@@ -742,15 +750,11 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
     cp_async_wait_all();
     if constexpr (RAW) {
       __syncthreads();  // every thread is done with the previous tile's float32 tiles
-      if constexpr (PREV) {
-        widen_tile<false, CI, SA>(r_a, s_a, T, H, W, bn_only);
-        widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [](float4 v, int, int, int) { return v; });
-      } else {  // z0 is read raw, at g's offset (the same chunk, copied by this thread)
-        widen_tile<false, CI, SA>(r_a, s_a, T, H, W, [](float4 v, int, int, int) { return v; });
-        widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [&](float4 v, int, int c4, int roff) {
-          return dz0_of(v, load4(r_z + roff), c4);
-        });
-      }
+      // z0 is read raw, at g's offset (the same chunk, copied by this thread)
+      widen_tile<false, CI, SA>(r_a, s_a, T, H, W, [](float4 v, int, int, int) { return v; });
+      widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [&](float4 v, int, int c4, int roff) {
+        return dz0_of(v, load4(r_z + roff), c4);
+      });
     } else if constexpr (PREV) {
       transform_tile<false, CI, SA>(s_a, T, H, W, bn_only);
     } else {  // inside the image
@@ -790,9 +794,9 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
         load_row(y0g + yy + 2, win[(yy + 2) % 3]);
         const float* pa = s_a + ((y0g + yy) * TW + kh * 8 + t) * SA + mt * 16 + g;
         float av[4] = {pa[0], pa[8], pa[4 * SA], pa[4 * SA + 8]};
-        if constexpr (PREV) {  // a = relu(y) rounded to E; pixels outside the image hold 0
+        if constexpr (PREV) {  // a = relu(y); pixels outside the image hold 0
 #pragma unroll
-          for (int k = 0; k < 4; ++k) av[k] = rnd<E>(fmaxf(av[k], 0.f));
+          for (int k = 0; k < 4; ++k) av[k] = fmaxf(av[k], 0.f);
         }
         const FragA af = frag_a(av[0], av[1], av[2], av[3]);
 #pragma unroll
@@ -893,6 +897,477 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
     dw_partial[(size_t)blockIdx.x * 9 * CI * CO + i] = s;
   }
   if constexpr (PREV) write_sum_partials(s_tot, CI, sum_partial);
+}
+
+// ------------------------------------------------------------------ bf16 on bf16 tensor cores
+// bnconv and dwprev in bfloat16: bf16 tiles in shared memory, never widened,
+// fed to mma.sync.m16n8k16 (bf16 in, float32 out) through ldmatrix.
+//
+// Tiles. A halo tile (and dwprev's activation tile) is staged as bf16 with
+// 16-byte cp.async.cg copies (8 channels a chunk, zeros for pixels outside
+// the image) into one of two buffers, so the next tile's copies run under
+// this tile's MMAs. A pixel row is padded by BPAD bf16 (16 bytes): strides
+// of 48 B (C16) and 80 B (C32) put the eight 16-byte rows of an ldmatrix
+// phase on eight distinct bank groups. The thread that copied a chunk then
+// applies BN (+ ReLU) in float32 and rounds back to bf16 in place, inside the
+// image only (halo zeros stay 0: BN(0) is not 0); one barrier a tile.
+// dwprev's ReLU mask [y0 >= 0] is taken there from the unrounded float32 y0
+// and kept as one bit per channel in the pixel's padding (a tiny negative y0
+// would round to -0.0 in bf16, and -0.0 >= 0 holds).
+constexpr int BPAD = 8;  // bf16 of padding per shared-memory pixel row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: lane l gives the address of row l % 8 of 8x8 matrix l / 8 (16
+// bytes, 8 bf16); lane (g, t) receives elements (g, 2t..2t+1) of each matrix,
+// or with .trans elements (2t..2t+1, g)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a b, m16n8k16, bf16 operands (two a 32-bit word, the lower k in the
+// low half), float32 accumulation. A (16x16): a0 (g, 2t..), a1 (g+8, 2t..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..); B (16x8): b0 (2t.., g), b1 (2t+8.., g);
+// C/D as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Weights [3,3,C,C] rounded to bf16 as m16n8k16 B fragments, two 8-column
+// blocks a 16-byte entry: entry ((tap*KC + kc)*NP + j)*32 + lane holds, for
+// nf = 2j and 2j+1, {B(k0, n), B(k0+1, n)} and {B(k0+8, n), B(k0+9, n)} with
+// k0 = kc*16 + 2t, n = nf*8 + g; B(k, n) = w[tap][k][n] (forward) or
+// w[tap][n][k] (TRANS: d_in).
+template <int C, bool TRANS>
+__device__ __forceinline__ uint4 weight_frag_bf16(const float* __restrict__ w, int i) {
+  constexpr int KC = C / 16, NP = C / 16;
+  const int lane = i % 32, j = (i / 32) % NP, kc = (i / (32 * NP)) % KC;
+  const int tap = i / (32 * NP * KC);
+  const int k0 = kc * 16 + 2 * (lane % 4);
+  const float* wt = w + tap * C * C;
+  auto at = [&](int k, int n) { return TRANS ? wt[n * C + k] : wt[k * C + n]; };
+  uint32_t r[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = (2 * j + h) * 8 + lane / 4;
+    r[2 * h] = f2_to_bf2(at(k0, n), at(k0 + 1, n));
+    r[2 * h + 1] = f2_to_bf2(at(k0 + 8, n), at(k0 + 9, n));
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// The NF B fragments of (tap, kc) from weight_frag_bf16's layout
+template <int C>
+__device__ __forceinline__ void load_wfrag(const uint4* s_wf, int tap, int kc, int lane,
+                                           uint32_t (&b)[C / 8][2]) {
+  constexpr int KC = C / 16, NP = C / 16;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const uint4 q = s_wf[((tap * KC + kc) * NP + j) * 32 + lane];
+    b[2 * j][0] = q.x;
+    b[2 * j][1] = q.y;
+    b[2 * j + 1][0] = q.z;
+    b[2 * j + 1][1] = q.w;
+  }
+}
+
+// Start this thread's 16-byte cp.async copies of a bf16 tile of `src`
+// [B,H,W,C] (8 channels a chunk) into s [NPIX][S]; outside the image: zeros.
+template <bool HALO, int C, int S>
+__device__ __forceinline__ void copy_tile_bf16(const bf16* __restrict__ src, bf16* s,
+                                               const Tile& T, int H, int W) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C, 8>::TOTAL; i += NT) {
+    const Chunk<HALO, C, 8> k(i, T, H, W);
+    const bf16* from =
+        k.inside ? src + (((size_t)T.b * H + k.gy) * W + k.gx) * C + k.c4 * 8 : src;
+    cp_async16(s + k.q * S + k.c4 * 8, from, k.inside);
+  }
+}
+
+// After this thread's copies landed: f(v, q, c8) on the 8 values (widened)
+// of each of its own chunks inside the image, rounded back to bf16 in place;
+// chunks outside stay 0.
+template <bool HALO, int C, int S, class F>
+__device__ __forceinline__ void transform_tile_bf16(bf16* s, const Tile& T, int H, int W, F f) {
+  for (int i = threadIdx.x; i < Chunk<HALO, C, 8>::TOTAL; i += NT) {
+    const Chunk<HALO, C, 8> k(i, T, H, W);
+    if (!k.inside) continue;
+    uint4* p = reinterpret_cast<uint4*>(s + k.q * S + k.c4 * 8);
+    const uint4 u = *p;
+    const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f2 = bf2_to_f2(w4[j]);
+      v[2 * j] = f2.x;
+      v[2 * j + 1] = f2.y;
+    }
+    f(v, k.q, k.c4);
+    *p = make_uint4(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]), f2_to_bf2(v[4], v[5]),
+                    f2_to_bf2(v[6], v[7]));
+  }
+}
+
+// Dynamic shared memory (bytes) of the two kernels: the B fragments, then
+// two buffers of each tile.
+template <int C>
+__host__ __device__ constexpr int bnconv_bf16_smem() {
+  return 9 * C * C * 2 + 2 * HALO_N * (C + BPAD) * 2;
+}
+
+template <int C>
+__host__ __device__ constexpr int dwprev_bf16_smem() {
+  return 9 * C * C * 2 + 2 * (HALO_N + NT) * (C + BPAD) * 2;
+}
+
+// Blocks per SM that __launch_bounds__ sizes the registers for: bnconv 4
+// (C16, 64 registers) and 2 (C32: at 3, 80 registers spilled and S2 ran 8%
+// slower on the H100); dwprev 2 (C16) and 1 (C32): dW's running and
+// per-tile sums alone hold 72 floats a thread. Each fits the SM's 228 KB of
+// shared memory (a block: its dynamic bytes, its static sums, at most
+// 4.5 KB, and 1 KB the card reserves).
+template <int C>
+constexpr int bnconv_bf16_blocks = C == 16 ? 4 : 2;
+template <int C>
+constexpr int dwprev_bf16_blocks = C == 16 ? 2 : 1;
+static_assert(4 * (bnconv_bf16_smem<16>() + 5632) <= 228 * 1024 &&
+                  2 * (bnconv_bf16_smem<32>() + 5632) <= 228 * 1024 &&
+                  2 * (dwprev_bf16_smem<16>() + 5632) <= 228 * 1024,
+              "the blocks per SM fit in shared memory");
+
+// bnconv, bf16: out = conv3x3(relu(in*inv+shift) rounded to bf16, w rounded
+// to bf16), stored in bf16, plus per-block partial sums of the float32 out and
+// out^2. Implicit GEMM as conv_fwd_kernel's: M = 16 pixels of a tile row,
+// N = C, K = 16 channels a step, warp w owns tile rows 2w, 2w+1; an A
+// fragment (one ldmatrix.x4) of each of the four halo rows 2w..2w+3 serves
+// the three taps u of a kernel column v.
+template <int C>
+__global__ void __launch_bounds__(NT, bnconv_bf16_blocks<C>)
+bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
+                   const float* __restrict__ w, bf16* __restrict__ out,
+                   double* __restrict__ partial, int B, int H, int W) {
+  constexpr int S = C + BPAD;
+  constexpr int KC = C / 16, NF = C / 8;
+  constexpr int TILE = HALO_N * S;
+  extern __shared__ __align__(16) float smem[];
+  uint4* const s_wf = reinterpret_cast<uint4*>(smem);             // [9][KC][NF/2][32]
+  bf16* const s_tiles = reinterpret_cast<bf16*>(smem) + 9 * C * C;  // 2 x [HALO_N][S]
+  __shared__ float s_coef[2 * C];
+  __shared__ double s_tot[NWARP * 2 * C];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 9 * C * C / 8; i += NT) s_wf[i] = weight_frag_bf16<C, false>(w, i);
+  for (int i = tid; i < 2 * C; i += NT) s_coef[i] = coef[i];
+  for (int i = tid; i < NWARP * 2 * C; i += NT) s_tot[i] = 0.0;
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  auto copy = [&](int tile, int into) {
+    copy_tile_bf16<true, C, S>(in, s_tiles + into * TILE, tile_at(tile, tiles_y, tiles_x), H, W);
+  };
+  // BN and ReLU (rounded to bf16 by the store: the product's operand)
+  auto bn_relu = [&](float (&v)[8], int, int c8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = fmaxf(bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[C + c8 * 8 + j]), 0.f);
+  };
+  __syncthreads();  // s_coef is read by other threads' transforms
+  if ((int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
+  cp_async_commit();
+  // this lane's ldmatrix row: pixel column lrow of the M block, channel lk of the K step
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    bf16* const s_in = s_tiles + buf * TILE;
+    cp_async_wait_all();
+    transform_tile_bf16<true, C, S>(s_in, T, H, W, bn_relu);
+    __syncthreads();  // this tile is staged; every thread is done with the other buffer
+    // the next tile's copies run under this tile's MMAs
+    if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+
+    float acc[2][NF][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nf][k] = 0.f;
+    // pixel (row 2w+mi, column m) reads halo (row+u, m+v)
+    const uint32_t a_base = smem_u32(s_in + (2 * warp * HALO_W + lrow) * S + lk);
+#pragma unroll 1
+    for (int v = 0; v < 3; ++v) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t ar[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ldsm_x4(ar[r], a_base + ((r * HALO_W + v) * S + kc * 16) * 2);
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          uint32_t bw[NF][2];
+          load_wfrag<C>(s_wf, 3 * u + v, kc, lane, bw);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) mma_bf16(acc[mi][nf], ar[mi + u], bw[nf]);
+        }
+      }
+    }
+
+    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j;
+    // stored in bf16, summed from the float32 accumulators
+    float s0[NF][2], s1[NF][2];
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gy = T.y0 + 2 * warp + mi, gx = T.x0 + g + 8 * h;
+        if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
+        bf16* o = out + (((size_t)T.b * H + gy) * W + gx) * C + 2 * t;
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          const float z0 = acc[mi][nf][2 * h], z1 = acc[mi][nf][2 * h + 1];
+          store2(o + nf * 8, z0, z1);
+          s0[nf][0] += z0;
+          s0[nf][1] += z1;
+          s1[nf][0] = fmaf(z0, z0, s1[nf][0]);
+          s1[nf][1] = fmaf(z1, z1, s1[nf][1]);
+        }
+      }
+    add_tile_sums<NF>(s0, 0, s_tot, C);
+    add_tile_sums<NF>(s1, 1, s_tot, C);
+  }
+  cp_async_wait_all();
+  write_sum_partials(s_tot, C, partial);
+}
+
+// dwprev, bf16, for the forward z1 = conv3x3(a0, w) with a0 = relu(y0)
+// rounded to bf16, y0 = z0*inv + shift, given g = dz1:
+//   dW[u,v,ci,co] = sum_p a0[p, ci] * g[p-(u-1,v-1), co]
+//   dy0[p, ci]    = [y0 >= 0] * sum_{u,v,co} g[p-(u-1,v-1), co] * w[u,v,ci,co]
+// stored in bf16, with per-block partial sums of the float32 dy0 and dy0*z0.
+//   dW: nine GEMMs, M = 16 ci, N = 8 co, K = the 16 pixels of one tile row:
+//       A(ci, p) = a0[p][ci] (ldmatrix.x4.trans of the activation tile),
+//       B(p, co) = g at halo (y+2-u, x+2-v) (ldmatrix.x2.trans); warp ->
+//       (16-ci block, 8-co block, group of RPG tile rows) as conv_bwd_kernel,
+//       the B fragments of three halo rows kept as a window sliding down;
+//       accumulated per tile, then added to the block's sum on the CUDA cores.
+//   d_in: implicit GEMM as bnconv's with the transposed weights, warp w
+//       owning rows 2w, 2w+1; each (v, 16-channel k chunk) is one chain of
+//       three k16 MMAs into a fresh accumulator, added with add_rn.
+template <int C>
+__global__ void __launch_bounds__(NT, dwprev_bf16_blocks<C>)
+dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
+                   const bf16* __restrict__ dz1, const float* __restrict__ w,
+                   bf16* __restrict__ dy0, float* __restrict__ dw_partial,
+                   double* __restrict__ sum_partial, int B, int H, int W) {
+  constexpr int S = C + BPAD;
+  constexpr int KC = C / 16, NF = C / 8;
+  constexpr int MT = C / 16, NTW = C / 8, PAIRS = MT * NTW;
+  constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
+  static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
+  constexpr int GT = HALO_N * S, AT = NT * S;
+  static_assert(9 * C * C * 4 * KG <= dwprev_bf16_smem<C>(), "dW partials fit");
+  extern __shared__ __align__(16) float smem[];
+  uint4* const s_wf = reinterpret_cast<uint4*>(smem);            // [9][KC][NF/2][32], d_in's
+  bf16* const s_gt = reinterpret_cast<bf16*>(smem) + 9 * C * C;  // 2 x dz1 halo [HALO_N][S]
+  bf16* const s_at = s_gt + 2 * GT;  // 2 x a0 [NT][S]; the mask bytes in each pixel's pad
+  __shared__ float s_coef[2 * C];
+  __shared__ double s_tot[NWARP * 2 * C];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 9 * C * C / 8; i += NT) s_wf[i] = weight_frag_bf16<C, true>(w, i);
+  for (int i = tid; i < 2 * C; i += NT) s_coef[i] = coef[i];
+  for (int i = tid; i < NWARP * 2 * C; i += NT) s_tot[i] = 0.0;
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const int ntiles = B * tiles_y * tiles_x;
+  const int pair = warp % PAIRS, kg = warp / PAIRS;
+  const int mt = pair / NTW, nt = pair % NTW;
+  auto copy = [&](int tile, int into) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    copy_tile_bf16<true, C, S>(dz1, s_gt + into * GT, T, H, W);
+    copy_tile_bf16<false, C, S>(z0, s_at + into * AT, T, H, W);
+  };
+  // ldmatrix rows of this lane: d_in's A (pixel column lrow, channel lk);
+  // dW's A (pixel tp, ci offset tc); dW's B (pixel lane % 16)
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const int tp = (lane & 7) + (lane >> 4) * 8, tc = ((lane >> 3) & 1) * 8;
+
+  // tap 3u+v; dwt: this tile's MMAs, dw: the block's running sum
+  float dw[9][4], dwt[9][4];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dw[tap][k] = 0.f;
+  __syncthreads();  // s_coef is read by other threads' transforms
+  if ((int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
+  cp_async_commit();
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile T = tile_at(tile, tiles_y, tiles_x);
+    bf16* const s_g = s_gt + buf * GT;
+    bf16* const s_a = s_at + buf * AT;
+    cp_async_wait_all();
+    // a0 = relu(y0) rounded to bf16 in place; the mask [y0 >= 0] of the
+    // unrounded y0, bit j of byte c8 in the pixel's pad
+    transform_tile_bf16<false, C, S>(s_a, T, H, W, [&](float (&v)[8], int q, int c8) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float y = bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[C + c8 * 8 + j]);
+        bits |= (y >= 0.f ? 1u : 0u) << j;
+        v[j] = fmaxf(y, 0.f);
+      }
+      reinterpret_cast<unsigned char*>(s_a + q * S + C)[c8] = (unsigned char)bits;
+    });
+    __syncthreads();  // this tile is staged; every thread is done with the other buffers
+    if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+
+    // ---- dW: tile row y = y0g + yy; halo row h at win[(h - y0g) % 3]
+    const int y0g = kg * RPG;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dwt[tap][k] = 0.f;
+    {
+      const uint32_t g_base = smem_u32(s_g + (lane & 15) * S + nt * 8);
+      const uint32_t a_base = smem_u32(s_a + tp * S + mt * 16 + tc);
+      uint32_t win[3][3][2];
+      auto load_row = [&](int h, uint32_t(&dst)[3][2]) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v)
+          ldsm_x2_trans(dst[v], g_base + ((h * HALO_W + 2 - v) * S) * 2);
+      };
+      load_row(y0g, win[0]);
+      load_row(y0g + 1, win[1]);
+#pragma unroll
+      for (int yy = 0; yy < RPG; ++yy) {
+        load_row(y0g + yy + 2, win[(yy + 2) % 3]);
+        uint32_t af[4];
+        ldsm_x4_trans(af, a_base + ((y0g + yy) * TW * S) * 2);
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+#pragma unroll
+          for (int v = 0; v < 3; ++v) mma_bf16(dwt[3 * u + v], af, win[(yy + 2 - u) % 3][v]);
+      }
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dw[tap][k] += dwt[tap][k];
+
+    // ---- d_in: pixel (row 2w+mi, column m) reads halo (row+2-u, m+2-v)
+    float acc[2][NF][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nf][k] = 0.f;
+    const uint32_t d_base = smem_u32(s_g + (2 * warp * HALO_W + lrow) * S + lk);
+#pragma unroll 1
+    for (int v = 0; v < 3; ++v) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t ar[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ldsm_x4(ar[r], d_base + ((r * HALO_W + 2 - v) * S + kc * 16) * 2);
+        float part[2][NF][4] = {};  // one chain over the three u, then added
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          uint32_t bw[NF][2];
+          load_wfrag<C>(s_wf, 3 * u + v, kc, lane, bw);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) mma_bf16(part[mi][nf], ar[mi + 2 - u], bw[nf]);
+        }
+        add_rn<2, NF>(acc, part);
+      }
+    }
+
+    // epilogue: masked by this pixel's bits, summed with z0 (of the float32
+    // dy0 before it is stored in bf16)
+    float s0[NF][2], s1[NF][2];
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int py = 2 * warp + mi, px = g + 8 * h;
+        const int gy = T.y0 + py, gx = T.x0 + px;
+        if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
+        const size_t own = (((size_t)T.b * H + gy) * W + gx) * C + 2 * t;
+        const unsigned char* mask =
+            reinterpret_cast<const unsigned char*>(s_a + (py * TW + px) * S + C);
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          float d0 = acc[mi][nf][2 * h], d1 = acc[mi][nf][2 * h + 1];
+          const unsigned m = mask[nf] >> (2 * t);
+          const float2 z = load2(z0 + own + nf * 8);
+          if (!(m & 1u)) d0 = 0.f;
+          if (!(m & 2u)) d1 = 0.f;
+          s0[nf][0] += d0;
+          s0[nf][1] += d1;
+          s1[nf][0] += d0 * z.x;
+          s1[nf][1] += d1 * z.y;
+          store2(dy0 + own + nf * 8, d0, d1);
+        }
+      }
+    add_tile_sums<NF>(s0, 0, s_tot, C);
+    add_tile_sums<NF>(s1, 1, s_tot, C);
+  }
+
+  // dW partial of this block: the KG row groups' sums added in group order
+  // through shared memory (the tiles' buffers are free now)
+  cp_async_wait_all();
+  __syncthreads();
+  float* s_dw = smem;  // [KG][9][C][C]
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ci = mt * 16 + g + 8 * (k >> 1), co = nt * 8 + 2 * t + (k & 1);
+      s_dw[((kg * 9 + tap) * C + ci) * C + co] = dw[tap][k];
+    }
+  __syncthreads();
+  for (int i = tid; i < 9 * C * C; i += NT) {
+    float s = 0.f;
+    for (int k = 0; k < KG; ++k) s += s_dw[k * 9 * C * C + i];
+    dw_partial[(size_t)blockIdx.x * 9 * C * C + i] = s;
+  }
+  write_sum_partials(s_tot, C, sum_partial);
 }
 
 // ------------------------------------------------------------------ pool passes
@@ -1310,6 +1785,61 @@ cudaError_t launch_conv_bwd(const void* a_src, const float* a_coef, const void* 
   return cudaSuccess;
 }
 
+// bnconv and dwprev in bf16: their own kernels, which ask for the SM's
+// largest shared-memory carveout (several blocks a SM), once per device;
+// `done` is the caller's, one per kernel instantiation (a bit per device)
+template <class K>
+cudaError_t prefer_shared(K kernel, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (err != cudaSuccess || (done.load() & bit)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int C>
+cudaError_t launch_bnconv_bf16(const void* z0, const float* coef, const float* w, void* z1,
+                               double* partial, double* sums, int B, int H, int W,
+                               int max_blocks, cudaStream_t stream) {
+  constexpr size_t dyn = bnconv_bf16_smem<C>();
+  auto kernel = bnconv_bf16_kernel<C>;
+  static std::atomic<unsigned> carveout_set{0};
+  int grid = 0;
+  cudaError_t err = prefer_shared(kernel, carveout_set);
+  if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(z0), coef, w,
+                                    static_cast<bf16*>(z1), partial, B, H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce<double>(partial, grid, 2 * C, sums, stream);
+}
+
+template <int C>
+cudaError_t launch_dwprev_bf16(const void* dz, const void* zprev, const float* coef,
+                               const float* w, void* dyprev, float* dw_partial, double* dw,
+                               double* sum_partial, double* sums, int B, int H, int W,
+                               int max_blocks, cudaStream_t stream) {
+  constexpr size_t dyn = dwprev_bf16_smem<C>();
+  auto kernel = dwprev_bf16_kernel<C>;
+  static std::atomic<unsigned> carveout_set{0};
+  int grid = 0;
+  cudaError_t err = prefer_shared(kernel, carveout_set);
+  if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(zprev), coef,
+                                    static_cast<const bf16*>(dz), w, static_cast<bf16*>(dyprev),
+                                    dw_partial, sum_partial, B, H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = reduce<float>(dw_partial, grid, 9 * C * C, dw, stream);
+  if (err != cudaSuccess) return err;
+  return reduce<double>(sum_partial, grid, 2 * C, sums, stream);
+}
+
 bool dims_ok(int B, int H, int W) { return B > 0 && H > 0 && W > 0; }
 
 bool pool_dims_ok(int B, int H, int W, int C) {
@@ -1461,12 +1991,19 @@ template <class E>
 int bnconv(const void* z0, const float* coef, const float* w, void* z1, double* partial,
            double* sums, int B, int H, int W, int c, int max_blocks, cudaStream_t s) {
   if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  if (c == 16)
-    return (int)launch_conv_fwd<16, 16, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
-                                                 max_blocks, s);
-  if (c == 32)
-    return (int)launch_conv_fwd<32, 32, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
-                                                 max_blocks, s);
+  if constexpr (is_bf16<E>) {
+    if (c == 16)
+      return (int)launch_bnconv_bf16<16>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
+    if (c == 32)
+      return (int)launch_bnconv_bf16<32>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
+  } else {
+    if (c == 16)
+      return (int)launch_conv_fwd<16, 16, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                   max_blocks, s);
+    if (c == 32)
+      return (int)launch_conv_fwd<32, 32, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                   max_blocks, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1475,14 +2012,23 @@ int dwprev(const void* dz, const void* zprev, const float* coef, const float* w,
            float* dw_partial, double* dw, double* sum_partial, double* sums, int B, int H,
            int W, int c, int max_blocks, cudaStream_t s) {
   if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  if (c == 16)
-    return (int)launch_conv_bwd<16, 16, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
-                                                 dw_partial, dw, sum_partial, sums, B, H, W,
-                                                 max_blocks, s);
-  if (c == 32)
-    return (int)launch_conv_bwd<32, 32, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
-                                                 dw_partial, dw, sum_partial, sums, B, H, W,
-                                                 max_blocks, s);
+  if constexpr (is_bf16<E>) {
+    if (c == 16)
+      return (int)launch_dwprev_bf16<16>(dz, zprev, coef, w, dyprev, dw_partial, dw,
+                                         sum_partial, sums, B, H, W, max_blocks, s);
+    if (c == 32)
+      return (int)launch_dwprev_bf16<32>(dz, zprev, coef, w, dyprev, dw_partial, dw,
+                                         sum_partial, sums, B, H, W, max_blocks, s);
+  } else {
+    if (c == 16)
+      return (int)launch_conv_bwd<16, 16, true, E>(zprev, coef, dz, nullptr, nullptr, w,
+                                                   dyprev, dw_partial, dw, sum_partial, sums, B,
+                                                   H, W, max_blocks, s);
+    if (c == 32)
+      return (int)launch_conv_bwd<32, 32, true, E>(zprev, coef, dz, nullptr, nullptr, w,
+                                                   dyprev, dw_partial, dw, sum_partial, sums, B,
+                                                   H, W, max_blocks, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -255,3 +255,33 @@ def test_config_passes_the_layout_through():
         build_model_from_config({"Arch": {"small_c_layout": "packed"}})
     with pytest.raises(ValueError):
         UNet(small_c_layout="lanes")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["conv", "bnconv", "dwprev", "dwdx"])
+def test_float64_pass_agrees_with_the_plain_version(name, dtype):
+    """`float64_pass`, the float64 reference of the kernels' accuracy
+    measurements, computes what the plain version computes, on the same
+    operands: outputs stored in the activations' dtype within their rounding
+    (2^-8 x max|ref| for bf16, 1e-5 for float32), float32 outputs (weight
+    gradients, sums) within 1e-5 x max|ref|, float32 arithmetic on 288-term
+    products being all that differs."""
+    g = torch.Generator().manual_seed(3)
+    b, h, w, ci, c = 2, 10, 12, 16, 32
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    act = {n: rn(b, h, w, ci if n == "x" else c).to(dtype) for n in ("x", "z0", "dz1", "dy0")}
+    coef = torch.stack([1 + rn(c, scale=0.1), rn(c, scale=0.1)])
+    dcoef = torch.stack([1 + rn(c, scale=0.1), rn(c, scale=0.01), rn(c, scale=0.01)])
+    w0, w1 = rn(3, 3, ci, c, scale=1 / 12), rn(3, 3, c, c, scale=1 / 12)
+    inputs = {"conv": (act["x"], w0), "bnconv": (act["z0"], coef, w1),
+              "dwprev": (act["dz1"], act["z0"], coef, w1),
+              "dwdx": (act["z0"], act["dy0"], dcoef, act["x"], w0)}[name]
+    want = cs.float64_pass(name, *inputs)
+    got = cs._PLAIN_PASSES[name](*inputs)
+    for x, ref in zip(got, want):
+        assert ref.dtype == torch.float64
+        tol = 2.0 ** -8 if x.dtype == torch.bfloat16 else 1e-5
+        assert float((x.double() - ref).abs().max()) <= tol * float(ref.abs().max())

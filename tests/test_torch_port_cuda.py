@@ -377,9 +377,9 @@ def _wide(g, *shape):
 def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name):
     """Activations over six decades, where one TF32 pass misses the stage
     tolerance (tests/test_torch_convstage_tf32.py shows it on the CPU): the
-    3xTF32 kernels hold 2e-4 x max|ref| against the plain version in
-    float64. BN is the identity (inv 1, shift 0), so the ReLU masks of the
-    float32 and float64 versions are the same."""
+    3xTF32 kernels hold 2e-4 x max|ref| against the pass in float64. BN is
+    the identity (inv 1, shift 0), so the ReLU masks of the float32 and
+    float64 versions are the same."""
     g = torch.Generator(device="cuda").manual_seed(11)
     b, h, w, ci, c = 2, 40, 56, 16, 32
     coef = torch.stack([torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")])
@@ -393,15 +393,15 @@ def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name):
               "dwdx": (_wide(g, b, h, w, c), _wide(g, b, h, w, c), dcoef, _wide(g, b, h, w, ci),
                        wt)}[name]
     got = cs._KERNEL_PASSES[name](*inputs)
-    want = cs._PLAIN_PASSES[name](*(t.double() for t in inputs))
-    _assert_stage_close(got, want)
+    _assert_stage_close(got, cs.float64_pass(name, *inputs))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("c", [16, 32])
-def test_bnconv_and_dwprev_two_runs_bit_for_bit(cuda, c):
+def test_bnconv_and_dwprev_two_runs_bit_for_bit(cuda, c, dtype):
     args, _, de = _stage_args(3, 40, 40, 16, c, True, seed=c)
-    z0, w1 = args[0], args[4]
-    coef = torch.stack([1 + 0.1 * de[0, 0, 0], 0.1 * de[0, 0, 1]]).contiguous()
+    z0, w1, de = args[0].to(dtype), args[4], de.to(dtype)
+    coef = torch.stack([1 + 0.1 * de[0, 0, 0].float(), 0.1 * de[0, 0, 1].float()]).contiguous()
     dz1 = de.contiguous()
     for fn, inputs in ((cs.bnconv_kernel, (z0, coef, w1)),
                        (cs.dwprev_kernel, (dz1, z0, coef, w1))):
@@ -918,3 +918,25 @@ def test_bf16_stage_kernels_reject_mixed_dtypes(cuda):
     with pytest.raises(ValueError):  # bf16 weights: the kernels take float32 weights
         cs.bnconv_kernel(z, coef, torch.zeros(3, 3, 16, 16, device="cuda",
                                               dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(3, 20, 36, 16), (2, 34, 50, 32), (60, 112, 112, 32)])
+def test_bf16_dwprev_and_bnconv_at_the_mask_edges(cuda, b, h, w, c):
+    """bf16 dwprev and bnconv on inputs whose y0 = z0*inv + shift is +0,
+    -0.0, a tiny negative (a subnormal bf16 keeps, one that rounds to -0.0 in
+    bf16, a normal) or halfway between two bf16 values (tests/
+    torch_bf16_edges.py): dy0 equals `dwprev_plain`'s bit for bit where the
+    plain version masks it (y0 < 0 unrounded) and holds the stage tolerances
+    elsewhere, as do dW1, the sums and bnconv's z1 and sums."""
+    from torch_bf16_edges import pass_inputs
+
+    z0, coef, dz1, w1 = (torch.from_numpy(a).cuda() for a in pass_inputs(b, h, w, c, seed=c))
+    z0, dz1 = z0.to(torch.bfloat16), dz1.to(torch.bfloat16)
+    y0 = z0.float() * coef[0] + coef[1]
+    masked = ~(y0 >= 0)
+    assert bool(masked.any()) and bool((y0 == 0).any())
+    got, want = cs.dwprev_kernel(dz1, z0, coef, w1), cs.dwprev_plain(dz1, z0, coef, w1)
+    assert torch.equal(got[0][masked].view(torch.int16), want[0][masked].view(torch.int16))
+    _assert_stage_close(got, want, chained=False)
+    _assert_stage_close(cs.bnconv_kernel(z0, coef, w1), cs.bnconv_plain(z0, coef, w1),
+                        chained=False)
