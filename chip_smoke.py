@@ -668,10 +668,8 @@ def _hold(what, names, kernel_out, plain_out, tols=None):
     return worst
 
 
-# the passes whose convolutions run on the tensor cores; in bf16, those that
-# take one TF32 product a term (bnconv and dwprev take bf16 m16n8k16 products)
-TF32_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
-BF16_ON_TF32 = ("conv", "dwdx")
+# the passes whose convolutions run on the tensor cores
+CONV_PASSES = ("conv", "bnconv", "dwprev", "dwdx")
 
 
 def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
@@ -681,11 +679,9 @@ def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
     operations over the peak rate for their type. Every pass has
     `bound_f32_ms`, its float32 operations outside the tensor cores, which is
     the `bound_ms` of the pool passes. The convolution passes' `bound_ms` is
-    that of their products on the tensor cores: float32 activations as three
-    TF32 products a term (`bound_3xtf32_ms`), bfloat16 ones as bf16 products
-    at the bf16 peak (`bound_bf16_ms`), with, for conv and dwdx, the route
-    their kernels take, one TF32 product a term, beside (`bound_1xtf32_ms`;
-    bnconv's and dwprev's kernels take bf16 products). `de=False`:
+    that of their products on the tensor cores, as their kernels take them:
+    float32 activations as three TF32 products a term (`bound_3xtf32_ms`),
+    bfloat16 ones as bf16 products at the bf16 peak (`bound_bf16_ms`). `de=False`:
     the pool passes without the skip cotangent, as the pretrain path runs
     them (z1 and dp read; dz1 written by dz1)."""
     bf16 = dtype == torch.bfloat16
@@ -707,9 +703,8 @@ def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
              "bnpool": 4.0 * px * c, "poolsums": 9.0 * px * c, "dz1": 11.0 * px * c,
              "dwprev": 2 * conv_flops(c, c) + 4.0 * px * c,
              "dwdx": 2 * conv_flops(ci, c) + 4.0 * px * c}
-    # the products' routes: (key, seconds); the first is the bound
-    routes = ((("bf16", 1 / BF16_FLOPS), ("1xtf32", 1 / TF32_FLOPS)) if bf16
-              else (("3xtf32", 3 / TF32_FLOPS),))
+    # the products' route: (key, seconds a FLOP)
+    key, per_flop = ("bf16", 1 / BF16_FLOPS) if bf16 else ("3xtf32", 3 / TF32_FLOPS)
     out = {}
     for name in bytes_:
         tb, tf = bytes_[name] / HBM_BYTES_PER_S, flops[name] / F32_FLOPS
@@ -717,18 +712,12 @@ def _stage_bounds(b, h, w, ci, c, de=True, dtype=torch.float32):
                      "bound_by": "operations" if tf > tb else "bytes",
                      "bound_f32_ms": max(tb, tf) * 1e3,
                      "bound_f32_by": "operations" if tf > tb else "bytes"}
-        if name not in TF32_PASSES:
+        if name not in CONV_PASSES:
             continue
-        for i, (key, per_flop) in enumerate(routes):
-            if key == "1xtf32" and name not in BF16_ON_TF32:
-                continue
-            t = flops[name] * per_flop
-            route = {f"bound_{key}_ms": max(tb, t) * 1e3,
-                     f"bound_{key}_by": "operations" if t > tb else "bytes"}
-            out[name].update(route)
-            if i == 0:
-                out[name].update(bound_ms=route[f"bound_{key}_ms"],
-                                 bound_by=route[f"bound_{key}_by"])
+        t = flops[name] * per_flop
+        route = {"ms": max(tb, t) * 1e3, "by": "operations" if t > tb else "bytes"}
+        out[name].update({f"bound_{key}_{k}": v for k, v in route.items()},
+                         **{f"bound_{k}": v for k, v in route.items()})
     return out
 
 
@@ -877,6 +866,9 @@ def stage_kernel_phase(cs, dtype=torch.float32):
             entry = {"at": f"B={b} {h}x{w} C={'' if ext else f'{ci}->'}{c}"
                            + (" bf16" if bf16 else ""),
                      "ms": ms, "plain_ms": plain_ms, **bd}
+            if name in CONV_PASSES:  # device time, without the host's launch path
+                entry["graph_ms"], entry["plain_graph_ms"] = _best_of_turns(
+                    lambda: kernel_fn(*inputs), lambda: plain_fn(*inputs), 5, timer=_graph_ms)
             if name in library:
                 what, call = library[name]
                 entry["library_ms"] = _time_ms(call, 5)
@@ -884,7 +876,8 @@ def stage_kernel_phase(cs, dtype=torch.float32):
                                                 " (float32, TF32 off, channels-last)")
             routes = [k[len("bound_"):-len("_ms")] for k in bd
                       if k.endswith("_ms") and k != "bound_ms"]
-            print(f"  time {name}: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+            graph = (f" (graph replay {entry['graph_ms']:.4f})" if "graph_ms" in entry else "")
+            print(f"  time {name}: kernel {ms:.4f} ms{graph} | plain {plain_ms:.4f} ms | bound "
                   f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; "
                   + ", ".join(f"{r} {bd[f'bound_{r}_ms']:.4f}" for r in routes) + ")"
                   + (f" | library {entry['library_call']} {entry['library_ms']:.4f} ms"
@@ -1116,8 +1109,8 @@ def _time_finetune_and_eval(ft_config, ckpt, save_dir):
 # the kernels of csrc/convstage.cu by their own names, whole, as the profiler
 # demangles them ("(anonymous namespace)::poolsums_kernel<16>(...)"), so that
 # PyTorch's at::native::reduce_kernel is none of them
-STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "bnconv_bf16_kernel",
-                      "dwprev_bf16_kernel", "bnpool_kernel", "poolsums_kernel", "dz1_kernel",
+STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "conv_fwd_bf16_kernel",
+                      "conv_bwd_bf16_kernel", "bnpool_kernel", "poolsums_kernel", "dz1_kernel",
                       "convstage_reduce_kernel")
 STAGE_KERNEL_RE = re.compile(r"(?:^|[\s:])(%s)\b" % "|".join(STAGE_KERNEL_NAMES))
 # launches of convstage_reduce_kernel in one train step: one after each
@@ -3364,8 +3357,8 @@ def _stage_entry(cs, name, suffix, results, launches, by_path):
         "library_why": (f"{shapes[at]['library_call']} computes this pass's convolution, "
                         "not the BN, ReLU, mask or sums around it"
                         if "library_ms" in shapes[at] else STAGE_WHY),
-        **({"graph_ms": shapes[at]["graph_ms"],
-            "plan": {f"de {'present' if de else 'absent'}":
+        **({"graph_ms": shapes[at]["graph_ms"]} if "graph_ms" in shapes[at] else {}),
+        **({"plan": {f"de {'present' if de else 'absent'}":
                      cs.poolsums_plan(60, 224, 224, 16, True, de,
                                       torch.bfloat16 if suffix else torch.float32)
                      for de in (True, False)}}

@@ -12,10 +12,13 @@ residuals and cotangents, and then each of the seven kernels runs alone on
 them; printed: a sha256 of each pass's output bytes. This tree and the one
 in DIR (a directory holding a `spcl_torch/`, e.g. `git archive <commit>
 spcl_torch | tar -x -C DIR`) each run in their own process on the same
-inputs. The passes in SAME (every float32 pass and the bf16 conv, bnpool,
-poolsums, dz1 and dwdx: those whose code the bf16 bnconv and dwprev kernels
-left alone) must agree bit for bit; the script exits 1 if one does not. The
-card's name and power limit are printed beside the result.
+inputs. The passes in SAME must agree bit for bit; the script exits 1 if one
+does not. They are those whose results the last kernel change left alone:
+the float32 conv, bnconv, bnpool, poolsums and dwprev, and the bf16 bnconv,
+bnpool, poolsums and dwprev (bnconv and dwprev now run in the templates of
+the bf16 conv and dwdx kernels; dz1 and dwdx in both dtypes form the
+BatchNorm backward in another order). The card's name and power limit are
+printed beside the result.
 """
 import argparse
 import hashlib
@@ -28,8 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("S1", 60, 224, 224, 16, 16, True), ("S2", 60, 112, 112, 16, 32, False),
           ("small", 3, 20, 36, 16, 32, False))
 PASSES = ("conv", "bnconv", "bnpool", "poolsums", "dz1", "dwprev", "dwdx")
-SAME = tuple(PASSES) + tuple(f"{p}_bf16" for p in ("conv", "bnpool", "poolsums", "dz1",
-                                                   "dwdx"))
+SAME = ("conv", "bnconv", "bnpool", "poolsums", "dwprev",
+        "bnconv_bf16", "bnpool_bf16", "poolsums_bf16", "dwprev_bf16")
 
 
 def _digest(out):

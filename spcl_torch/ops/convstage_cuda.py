@@ -37,8 +37,10 @@ The arithmetic is `spcl_tpu`'s, not `nn.BatchNorm2d`'s: biased variance
 clamped at 0, eps 1e-5, apply as z*inv + shift (two roundings, the same in
 the kernels and the plain versions, so both take the same ReLU masks from
 the same inputs), ReLU mask y >= 0 in the backward, pool backward to the
-first maximum in scan order, BN backward as c0*dy + c1 + c2*z; cotangents of
-the four statistics outputs are dropped.
+first maximum in scan order, BN backward as (c0*dy + c1) + c2*z, each
+operation rounded in that order (the kernels' too, so dz1 and dwdx's dz0 are
+the same bits in both); cotangents of the four statistics outputs are
+dropped.
 
 Dispatch: a CUDA tensor launches the kernels or raises; a CPU tensor takes
 the plain versions. The kernels are built with nvcc at first use into
@@ -228,6 +230,13 @@ def _bn(z: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
     return z.float() * coef[0] + coef[1]
 
 
+def bn_bwd(dy: torch.Tensor, z: torch.Tensor, dcoef: torch.Tensor) -> torch.Tensor:
+    """The BatchNorm backward (c0*dy + c1) + c2*z in float32, each operation
+    rounded in this order, as spcl_tpu writes it (`_k_dz1`, `dz_rows`) and the
+    kernels form it (`bn_bwd` in csrc/convstage.cu)."""
+    return dcoef[0] * dy.float() + dcoef[1] + dcoef[2] * z.float()
+
+
 # ------------------------------------------------------------------ plain versions
 # Each takes and returns activations in their storage type (float32 or
 # bfloat16) and rounds where its kernel does; arithmetic is float32.
@@ -304,8 +313,8 @@ def poolsums_plain(z1, coef, dp, de):
 
 
 def dz1_plain(z1, coef, dcoef, dp, de):
-    """dz1 = c0*dy1 + c1 + c2*z1, stored in z1's dtype."""
-    return (dcoef[0] * _dy1(z1, coef, dp, de) + dcoef[1] + dcoef[2] * z1.float()).to(z1.dtype)
+    """dz1 = (c0*dy1 + c1) + c2*z1, stored in z1's dtype."""
+    return bn_bwd(_dy1(z1, coef, dp, de), z1, dcoef).to(z1.dtype)
 
 
 def dwprev_plain(dz1, z0, coef, w):
@@ -320,9 +329,9 @@ def dwprev_plain(dz1, z0, coef, w):
 
 
 def dwdx_plain(z0, dy0, dcoef, x, w):
-    """dz0 = c0*dy0 + c1 + c2*z0 (rounded to z0's dtype); dW0 = sum x^T dz0;
+    """dz0 = (c0*dy0 + c1) + c2*z0 (rounded to z0's dtype); dW0 = sum x^T dz0;
     dx = conv0^T(dz0), stored in x's dtype."""
-    dz0 = (dcoef[0] * dy0.float() + dcoef[1] + dcoef[2] * z0.float()).to(z0.dtype).float()
+    dz0 = bn_bwd(dy0, z0, dcoef).to(z0.dtype).float()
     d_in, dw = _conv_grads(x.float(), _operand(w, x.dtype), dz0)
     return d_in.to(x.dtype), dw
 
@@ -581,7 +590,7 @@ def stage_backward(res, dp, de, external_first: bool, plain: Optional[bool] = No
     dcoef0, dg0, db0 = bn_bwd_coef(sums_dy0, n, mean0, var0, g0)
     if external_first:
         # dz0 goes back to the ordinary first convolution, in z0's dtype
-        dz0 = (dcoef0[0] * dy0.float() + dcoef0[1] + dcoef0[2] * z0.float()).to(z0.dtype)
+        dz0 = bn_bwd(dy0, z0, dcoef0).to(z0.dtype)
         return dz0, None, dg0, db0, dw1, dg1, db1
     dx, dw0 = ps["dwdx"](z0, dy0, dcoef0, x, w0)
     return dx, dw0, dg0, db0, dw1, dg1, db1

@@ -24,8 +24,8 @@
 // passes are elementwise over 2x2 windows; the backward routes dp to the
 // FIRST maximum in scan order (r0,c0),(r0,c1),(r1,c0),(r1,c1).
 //
-// The convolutions run on the tensor cores in 3xTF32 (mma.sync.m16n8k8, TF32
-// in, float32 out): every operand x is split into hi = x with its low 13
+// The float32 convolutions run on the tensor cores in 3xTF32 (mma.sync.m16n8k8,
+// TF32 in, float32 out): every operand x is split into hi = x with its low 13
 // mantissa bits cleared (a TF32 value) and lo = x - hi (exact), and each
 // product is accumulated as lo*hi + hi*lo + hi*hi. The MMA reads the top 11
 // significant bits of lo; with the dropped lo*lo term that leaves about 1e-6
@@ -66,34 +66,30 @@
 // per tile.
 //
 // bfloat16 (`Arch.dtype: bfloat16`, `dtype_name="bfloat16"` of
-// fused_packed_block, :611-613). Every kernel is a template on the storage
-// type E of its activations; the rounding points are the Pallas kernels':
-// activations and cotangents are stored in bf16 (z0, z1, e, p, dz1, dy0, dx),
-// the operands of every product are bf16 values (the weights are rounded as
-// they are staged, BN + ReLU of a convolution's input and dz0 of dwdx as
-// their tiles are, `_a_rows` :276-281 and `dz_rows` :488-497), products
-// accumulate in float32, and the statistics are taken from the float32 values
-// before they are rounded (`_k_conv` :261-265, `_k_dwprev` :451-461). The
-// pool selects its maximum among the bf16-rounded e (`_pool_cands` :82-102),
-// the ReLU mask reads the unrounded y. conv and dwdx keep the float32 code:
-// the raw bf16 tile is copied by cp.async (8 bytes a chunk) into a staging
-// buffer while the previous tile computes, then widened into one float32
-// tile, with its dz0 transform, at the start of its own tile (one more
-// barrier a tile), and each term takes ONE TF32 product (mma3<ONE>; a bf16
-// value is exact in TF32 and a product of two exact in float32). bnconv and
-// dwprev have kernels of their own for bf16 (bnconv_bf16_kernel,
-// dwprev_bf16_kernel, see their section): their tiles stay bf16 in shared
-// memory (16-byte cp.async, two buffers, BN + ReLU rounded in place, the
-// mask kept as bits), and ldmatrix feeds mma.sync.m16n8k16 bf16 fragments,
-// twice the K of the TF32 instruction at twice its rate. The flush structure
-// stays in all four: dW per tile and d_in per (v, k chunk) added on the CUDA
-// cores. The byte-bound passes read and write 2-byte elements (8-byte loads
-// of 4 channels). What bounds the bf16 convolutions: their bytes (2-byte
-// activations, 0.03-0.09 ms at B=60) lie above their operations at the bf16
-// tensor-core peak (989 TFLOP/s). Their times lie 2.7-4.7x above that
-// bound; by instruction count, not profiled, the instructions around the
-// MMAs (fragment loads, the BN transform, the epilogue's stores and sums)
-// outweigh the MMAs on mma.sync (PERF.md, open questions).
+// fused_packed_block, :611-613). Every kernel takes the storage type of its
+// activations; the rounding points are the Pallas kernels': activations and
+// cotangents are stored in bf16 (z0, z1, e, p, dz1, dy0, dx), the operands of
+// every product are bf16 values (the weights are rounded as they are staged,
+// BN + ReLU of a convolution's input and dz0 of dwdx as their tiles are,
+// `_a_rows` :276-281 and `dz_rows` :488-497), products accumulate in float32,
+// and the statistics are taken from the float32 values before they are rounded
+// (`_k_conv` :261-265, `_k_dwprev` :451-461). The pool selects its maximum
+// among the bf16-rounded e (`_pool_cands` :82-102), the ReLU mask reads the
+// unrounded y. Every bf16 convolution runs on bf16 tensor cores,
+// mma.sync.m16n8k16 (twice the K of the TF32 instruction at twice its rate),
+// in two kernels of its own (conv_fwd_bf16_kernel for conv and bnconv,
+// conv_bwd_bf16_kernel for dwdx and dwprev; see their section): the tiles
+// stay bf16 in shared memory (16-byte cp.async, two buffers, the BN + ReLU or
+// dz0 transform rounded in place, dwprev's mask kept as bits) and ldmatrix
+// feeds the fragments. The same implicit GEMMs and the same flush structure
+// as the float32 kernels: dW per tile and d_in per (v, k chunk) added on the
+// CUDA cores. The byte-bound passes read and write 2-byte elements (8-byte
+// loads of 4 channels). What bounds the bf16 convolutions: their bytes
+// (2-byte activations, 0.02-0.09 ms at B=60) lie above their operations at
+// the bf16 tensor-core peak (989 TFLOP/s). By instruction count, not
+// profiled, the instructions around the MMAs (fragment loads, the tile
+// transforms, the epilogue's stores and sums) outweigh the MMAs on mma.sync
+// (PERF.md, open questions).
 //
 // Reductions across blocks. The TPU grid is sequential and carries its sums
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
@@ -108,7 +104,9 @@
 //
 // Arithmetic kept from the TPU kernels: BN applied as z*inv + shift (product
 // and sum rounded separately, see bn_apply); ReLU mask y >= 0 in the backward;
-// BN backward as c0*dy + c1 + c2*z.
+// BN backward as (c0*dy + c1) + c2*z, each operation rounded in that order
+// (bn_bwd), as spcl_tpu and the plain versions write it: dz1 and dz0 equal
+// the plain versions' bit for bit.
 //
 // Bound on the H100. Each pass must read and write its stage tensors once
 // (193 MB each at 60x224x224x16), which at 3.35 TB/s is 0.06-0.25 ms per
@@ -154,6 +152,14 @@ __device__ __forceinline__ float bn_apply(float z, float inv, float shift) {
   return __fadd_rn(__fmul_rn(z, inv), shift);
 }
 
+// The BatchNorm backward c0*dy + c1 + c2*z in the plain version's order,
+// (c0*dy + c1) + c2*z, each operation rounded (no contraction): the same bits
+// as the plain PyTorch version and spcl_tpu (`_k_dz1`, `dz_rows`), so that
+// dz1 and dwdx's bf16 operand dz0 round to the same values.
+__device__ __forceinline__ float bn_bwd(float dy, float z, float c0, float c1, float c2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(c0, dy), c1), __fmul_rn(c2, z));
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -183,11 +189,6 @@ template <class E>
 __device__ __forceinline__ float rnd(float x) {
   if constexpr (is_bf16<E>) return __bfloat162float(__float2bfloat16_rn(x));
   return x;
-}
-
-template <class E>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<E>(v.x), rnd<E>(v.y), rnd<E>(v.z), rnd<E>(v.w));
 }
 
 // 4 / 2 consecutive elements of E as floats, and stores that round to E
@@ -272,19 +273,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // d[i][j] += a[i]*b[j] in 3xTF32: the small terms first, then hi*hi, each
 // pass over all MI x NJ accumulators so that consecutive MMAs are independent.
-// ONE (bf16 operands, for which hi is the value and lo is 0): hi*hi alone.
-template <bool ONE, int MI, int NJ>
+template <int MI, int NJ>
 __device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const FragA* a, const FragB* b) {
-  if constexpr (!ONE) {
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].lo, b[j].hi);
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].lo, b[j].hi);
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].lo);
-  }
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], a[i].hi, b[j].lo);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -345,8 +343,7 @@ __device__ __forceinline__ void write_sum_partials(const double* s_tot, int C,
 // entry ((tap*KC + kc)*NF + nf)*32 + lane holds {B(t, g), B(t+4, g)} of the
 // 8x8 block (k = kc*8.., n = nf*8..), where B(k, n) = w[tap][k][n] for the
 // forward (K = Ci, N = Co) and w[tap][n][k] for d_in (TRANS: K = Co, N = Ci).
-// The float32 weights are rounded to E here: they are a product's operand.
-template <int CI, int CO, bool TRANS, class E>
+template <int CI, int CO, bool TRANS>
 __device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i) {
   constexpr int KD = TRANS ? CO : CI, ND = TRANS ? CI : CO;
   constexpr int KC = KD / 8, NF = ND / 8;
@@ -354,8 +351,8 @@ __device__ __forceinline__ float2 weight_pair(const float* __restrict__ w, int i
   const int tap = i / (32 * NF * KC);
   const int k0 = kc * 8 + lane % 4, n = nf * 8 + lane / 4;
   const float* wt = w + tap * CI * CO;
-  return TRANS ? make_float2(rnd<E>(wt[n * CO + k0]), rnd<E>(wt[n * CO + k0 + 4]))
-               : make_float2(rnd<E>(wt[k0 * CO + n]), rnd<E>(wt[(k0 + 4) * CO + n]));
+  return TRANS ? make_float2(wt[n * CO + k0], wt[n * CO + k0 + 4])
+               : make_float2(wt[k0 * CO + n], wt[(k0 + 4) * CO + n]);
 }
 
 // ------------------------------------------------------------------ tile staging
@@ -365,14 +362,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 8 bytes (4 bf16), through L1 (.cg takes 16-byte copies only)
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -425,33 +414,6 @@ __device__ __forceinline__ void copy_tile(const float* __restrict__ src, float* 
   }
 }
 
-// The same for a bf16 tile, its raw bytes into r [NPIX][C] (bf16); widen_tile
-// makes the float32 tile of it.
-template <bool HALO, int C>
-__device__ __forceinline__ void copy_raw(const bf16* __restrict__ src, bf16* r, const Tile& T,
-                                         int H, int W) {
-  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
-    const Chunk<HALO, C> k(i, T, H, W);
-    const bf16* from =
-        k.inside ? src + (((size_t)T.b * H + k.gy) * W + k.gx) * C + k.c4 * 4 : src;
-    cp_async8(r + k.q * C + k.c4 * 4, from, k.inside);
-  }
-}
-
-// After this thread's raw copies landed: s [NPIX][S] = f(widened chunk,
-// offset in s, c4, offset in r) inside the image, 0 outside. Each thread
-// reads the chunks it copied itself.
-template <bool HALO, int C, int S, class F>
-__device__ __forceinline__ void widen_tile(const bf16* r, float* s, const Tile& T, int H, int W,
-                                           F f) {
-  for (int i = threadIdx.x; i < Chunk<HALO, C>::TOTAL; i += NT) {
-    const Chunk<HALO, C> k(i, T, H, W);
-    const int off = k.q * S + k.c4 * 4, roff = k.q * C + k.c4 * 4;
-    st4(s + off, k.inside ? f(load4(r + roff), off, k.c4, roff)
-                          : make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-}
-
 // After this thread's copies landed: v = f(v, offset, c4) on its own chunks
 // inside the image (those outside stay 0).
 template <bool HALO, int C, int S, class F>
@@ -475,24 +437,18 @@ __device__ __forceinline__ float4 bn4(float4 v, const float* inv, const float* s
   return v;
 }
 
-// Shared memory of the conv kernels, in floats. float32: the backward
+// Shared memory of the float32 conv kernels, in floats: the backward
 // double-buffers its tiles where both copies fit beside the weights (and, for
-// the dwdx form, the single z tile). bf16 (`raw`, conv and dwdx): one float32
-// tile of each operand and the raw bf16 tiles the next tile's copies land in
-// (z stays raw: only dz0's transform reads it). Registers are sized for the float32 layout
-// (__launch_bounds__) in both.
+// the dwdx form, the single z tile).
 template <int CI, int CO>
-__host__ __device__ constexpr int fwd_smem_floats(bool raw = false) {
-  return 2 * 9 * CI * CO + (raw ? HALO_N * (CI + PAD) + HALO_N * CI / 2
-                                : 2 * HALO_N * (CI + PAD));
+__host__ __device__ constexpr int fwd_smem_floats() {
+  return 2 * 9 * CI * CO + 2 * HALO_N * (CI + PAD);
 }
 
 template <int CI, int CO, bool PREV>
-__host__ __device__ constexpr int bwd_smem_floats(int buffers, bool raw = false) {
-  return raw ? 9 * CI * CO + HALO_N * (CO + PAD) + NT * (CI + 2 * PAD) +
-                   (HALO_N * CO + NT * CI + HALO_N * CO) / 2
-             : 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
-                   (PREV ? 0 : HALO_N * (CO + PAD));
+__host__ __device__ constexpr int bwd_smem_floats(int buffers) {
+  return 9 * CI * CO + buffers * (HALO_N * (CO + PAD) + NT * (CI + 2 * PAD)) +
+         (PREV ? 0 : HALO_N * (CO + PAD));
 }
 
 template <int CI, int CO, bool PREV>
@@ -507,31 +463,26 @@ __host__ __device__ constexpr int min_blocks(int smem_floats) {
 }
 
 // ------------------------------------------------------------------ forward conv
-// out = conv3x3(act(in), w), zero padding 1, plus per-block partial sums of
-// out and out^2 per channel. act = relu(in*inv+shift) when BN_IN, else identity.
-template <int CI, int CO, bool BN_IN, class E>
+// float32: out = conv3x3(act(in), w), zero padding 1, plus per-block partial
+// sums of out and out^2 per channel. act = relu(in*inv+shift) when BN_IN, else
+// identity.
+template <int CI, int CO, bool BN_IN>
 __global__ void __launch_bounds__(NT, min_blocks(fwd_smem_floats<CI, CO>()))
-conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
-                const float* __restrict__ w, E* __restrict__ out,
+conv_fwd_kernel(const float* __restrict__ in, const float* __restrict__ coef,
+                const float* __restrict__ w, float* __restrict__ out,
                 double* __restrict__ partial, int B, int H, int W) {
-  static_assert(!(BN_IN && is_bf16<E>), "bnconv in bf16 is bnconv_bf16_kernel");
-  constexpr bool ONE = is_bf16<E>;    // bf16 operands (conv): one TF32 product a term
-  constexpr bool RAW = is_bf16<E>;    // bf16 tiles land raw and are widened here
   constexpr int SI = CI + PAD;          // pixel stride: the A loads hit 32 distinct banks
   constexpr int KC = CI / 8, NF = CO / 8;
   extern __shared__ __align__(16) float smem[];
   uint4* s_wf = reinterpret_cast<uint4*>(smem);     // [9][KC][NF][32] B fragments, split
-  // float32: two input halo tiles [HALO_N][SI]; bf16: one, then the raw tile
-  // [HALO_N][CI] the next tile's copies land in
-  float* const s_buf = smem + 2 * 9 * CI * CO;
-  bf16* const s_raw = reinterpret_cast<bf16*>(s_buf + HALO_N * SI);
+  float* const s_buf = smem + 2 * 9 * CI * CO;      // two input halo tiles [HALO_N][SI]
   __shared__ float s_coef[2 * CI];
   __shared__ double s_tot[NWARP * 2 * CO];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   for (int i = tid; i < 9 * CI * CO / 2; i += NT) {  // split once: {hi, hi, lo, lo}
-    const float2 p = weight_pair<CI, CO, false, E>(w, i);
+    const float2 p = weight_pair<CI, CO, false>(w, i);
     const Split a = split(p.x), c = split(p.y);
     s_wf[i] = make_uint4(a.hi, c.hi, a.lo, c.lo);
   }
@@ -542,16 +493,12 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
-  // this thread's copies of `tile` into float32 buffer `into`, or raw
+  // this thread's copies of `tile` into buffer `into`
   auto copy = [&](int tile, int into) {
-    const Tile T = tile_at(tile, tiles_y, tiles_x);
-    if constexpr (RAW) {
-      copy_raw<true, CI>(in, s_raw, T, H, W);
-    } else {
-      copy_tile<true, CI, SI>(in, s_buf + into * HALO_N * SI, T, H, W);
-    }
+    copy_tile<true, CI, SI>(in, s_buf + into * HALO_N * SI, tile_at(tile, tiles_y, tiles_x), H,
+                            W);
   };
-  // BN and ReLU inside the image (float32 only: bf16 bnconv has its own kernel)
+  // BN and ReLU inside the image
   auto bn_relu = [&](float4 v, int, int c4) {
     return bn4<true>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
   };
@@ -560,15 +507,12 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
   cp_async_commit();
 
   int buf = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= RAW ? 0 : 1) {
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
     const int b = T.b, y0 = T.y0, x0 = T.x0;
     float* s_in = s_buf + buf * HALO_N * SI;
     cp_async_wait_all();
-    if constexpr (RAW) {
-      __syncthreads();  // every thread is done with the previous tile's float32 tile
-      widen_tile<true, CI, SI>(s_raw, s_in, T, H, W, [](float4 v, int, int, int) { return v; });
-    } else if constexpr (BN_IN) {  // zeros outside the image stay 0
+    if constexpr (BN_IN) {  // zeros outside the image stay 0
       transform_tile<true, CI, SI>(s_in, T, H, W, bn_relu);
     }
     __syncthreads();  // this tile is staged; every thread is done with the other buffer
@@ -604,13 +548,12 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
             const uint4 q = s_wf[(((3 * u + v) * KC + kc) * NF + nf) * 32 + lane];
             bf[nf] = {{q.x, q.y}, {q.z, q.w}};
           }
-          mma3<ONE, 2, NF>(acc, ar + u, bf);
+          mma3<2, NF>(acc, ar + u, bf);
         }
       }
     }
 
-    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j;
-    // stored in E, summed from the float32 accumulators
+    // epilogue: pixel (row 2*warp+mi, column g + 8*h), channels nf*8 + 2t + j
     float s0[NF][2], s1[NF][2];
 #pragma unroll
     for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
@@ -620,7 +563,7 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
       for (int h = 0; h < 2; ++h) {
         const int gy = y0 + 2 * warp + mi, gx = x0 + g + 8 * h;
         if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
-        E* o = out + (((size_t)b * H + gy) * W + gx) * CO + 2 * t;
+        float* o = out + (((size_t)b * H + gy) * W + gx) * CO + 2 * t;
 #pragma unroll
         for (int nf = 0; nf < NF; ++nf) {
           const float z0 = acc[mi][nf][2 * h], z1 = acc[mi][nf][2 * h + 1];
@@ -639,21 +582,20 @@ conv_fwd_kernel(const E* __restrict__ in, const float* __restrict__ coef,
 }
 
 // ------------------------------------------------------------------ backward conv
-// For a forward z = conv3x3(a, w) with a [.., CI], z [.., CO], given g = dz:
+// float32. For a forward z = conv3x3(a, w) with a [.., CI], z [.., CO], given g = dz:
 //   d_in[p, ci]      = sum_{u,v,co} g[p-(u-1,v-1), co] * w[u,v,ci,co]
 //   dW[u,v,ci,co]    = sum_p a[p, ci] * g[p-(u-1,v-1), co]
 // PREV (the dwprev pass, CI == CO): a = relu(zprev*inv+shift) recomputed,
 //   g = g_src; d_in is masked by [y >= 0] and its sums with zprev are taken.
 // !PREV (the dwdx pass): a = a_src, g = c0*g_src + c1 + c2*g_z inside the image.
-template <int CI, int CO, bool PREV, class E>
+template <int CI, int CO, bool PREV>
 __global__ void __launch_bounds__(
     NT, min_blocks(bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>())))
-conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
-                const E* __restrict__ g_src, const E* __restrict__ g_z,
+conv_bwd_kernel(const float* __restrict__ a_src, const float* __restrict__ a_coef,
+                const float* __restrict__ g_src, const float* __restrict__ g_z,
                 const float* __restrict__ g_coef, const float* __restrict__ w,
-                E* __restrict__ d_in, float* __restrict__ dw_partial,
+                float* __restrict__ d_in, float* __restrict__ dw_partial,
                 double* __restrict__ sum_partial, int B, int H, int W) {
-  constexpr bool ONE = is_bf16<E>;    // bf16 operands (dwdx): one TF32 product a term
   constexpr int SG = CO + PAD;          // d_in's A loads conflict-free, dW's B loads <= 2-way
   constexpr int SA = CI + 2 * PAD;      // dW's A loads (pixel along t) conflict-free
   constexpr int KCI = CO / 8, NFI = CI / 8;   // d_in: K chunks over co, N fragments over ci
@@ -662,25 +604,19 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
   constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
   static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
   static_assert(!PREV || CI == CO, "the dwprev pass has CI == CO");
-  static_assert(!(PREV && is_bf16<E>), "dwprev in bf16 is dwprev_bf16_kernel");
-  constexpr bool RAW = is_bf16<E>;    // bf16 (dwdx) tiles land raw and are widened here
-  constexpr int NBUF = RAW ? 1 : bwd_buffers<CI, CO, PREV>();
-  constexpr bool PREFETCH = RAW || NBUF == 2;       // the next tile's copies under this one's
+  constexpr int NBUF = bwd_buffers<CI, CO, PREV>();
+  constexpr bool PREFETCH = NBUF == 2;              // the next tile's copies under this one's
   constexpr int BUF = HALO_N * SG + NT * SA;        // one gradient halo tile + one activation tile
   extern __shared__ __align__(16) float smem[];
   float2* s_wf = reinterpret_cast<float2*>(smem);   // [9][KCI][NFI][32] B fragments of d_in
   float* const s_buf = smem + 9 * CI * CO;          // NBUF x {g halo [HALO_N][SG], a [NT][SA]}
-  float* const s_z = s_buf + NBUF * BUF;            // float32, !PREV: z0 halo [HALO_N][SG]
-  // bf16: the raw tiles g [HALO_N][CO], a [NT][CI] and (!PREV) z0 [HALO_N][CO]
-  bf16* const r_g = reinterpret_cast<bf16*>(s_buf + BUF);
-  bf16* const r_a = r_g + HALO_N * CO;
-  bf16* const r_z = r_a + NT * CI;
+  float* const s_z = s_buf + NBUF * BUF;            // !PREV: z0 halo [HALO_N][SG]
   __shared__ float s_coef[3 * CO];
   __shared__ double s_tot[NWARP * 2 * CI];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  for (int i = tid; i < 9 * CI * CO / 2; i += NT) s_wf[i] = weight_pair<CI, CO, true, E>(w, i);
+  for (int i = tid; i < 9 * CI * CO / 2; i += NT) s_wf[i] = weight_pair<CI, CO, true>(w, i);
   if constexpr (PREV) {
     for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = a_coef[i];
   } else {
@@ -693,33 +629,24 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
   const int pair = warp % PAIRS, kg = warp / PAIRS;
   const int mt = pair / NTW, nt = pair % NTW;
 
-  // copies of one tile: g (halo) and a into buffer `into`, z0 (halo) for
-  // dwdx; bf16 (dwdx): into the raw tiles
+  // copies of one tile: g (halo) and a into buffer `into`, z0 (halo) for dwdx
   auto copy = [&](int tile, int into) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
-    if constexpr (RAW) {
-      copy_raw<true, CO>(g_src, r_g, T, H, W);
-      copy_raw<false, CI>(a_src, r_a, T, H, W);
-      copy_raw<true, CO>(g_z, r_z, T, H, W);
-    } else {
-      copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
-      copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
-      if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
-    }
+    copy_tile<true, CO, SG>(g_src, s_buf + into * BUF, T, H, W);
+    copy_tile<false, CI, SA>(a_src, s_buf + into * BUF + HALO_N * SG, T, H, W);
+    if constexpr (!PREV) copy_tile<true, CO, SG>(g_z, s_z, T, H, W);
   };
   // PREV: y0 = BN(z0) before the ReLU (the mask needs its sign)
   auto bn_only = [&](float4 v, int, int c4) {
     return bn4<false>(v, s_coef + c4 * 4, s_coef + CI + c4 * 4);
   };
-  // !PREV: dz0 = c0*dy0 + c1 + c2*z0, rounded to E (the operand)
+  // !PREV: dz0 = c0*dy0 + c1 + c2*z0
   auto dz0_of = [&](float4 v, float4 z, int c4) {
     const float* k0 = s_coef + c4 * 4;
     const float* k1 = s_coef + CO + c4 * 4;
     const float* k2 = s_coef + 2 * CO + c4 * 4;
-    return rnd4<E>(make_float4(fmaf(k0[0], v.x, fmaf(k2[0], z.x, k1[0])),
-                               fmaf(k0[1], v.y, fmaf(k2[1], z.y, k1[1])),
-                               fmaf(k0[2], v.z, fmaf(k2[2], z.z, k1[2])),
-                               fmaf(k0[3], v.w, fmaf(k2[3], z.w, k1[3]))));
+    return make_float4(bn_bwd(v.x, z.x, k0[0], k1[0], k2[0]), bn_bwd(v.y, z.y, k0[1], k1[1], k2[1]),
+                       bn_bwd(v.z, z.z, k0[2], k1[2], k2[2]), bn_bwd(v.w, z.w, k0[3], k1[3], k2[3]));
   };
 
   // tap (u, v) at dw[u][0][v]: one mma3 block per kernel row. The MMAs of one
@@ -748,14 +675,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
       cp_async_commit();
     }
     cp_async_wait_all();
-    if constexpr (RAW) {
-      __syncthreads();  // every thread is done with the previous tile's float32 tiles
-      // z0 is read raw, at g's offset (the same chunk, copied by this thread)
-      widen_tile<false, CI, SA>(r_a, s_a, T, H, W, [](float4 v, int, int, int) { return v; });
-      widen_tile<true, CO, SG>(r_g, s_g, T, H, W, [&](float4 v, int, int c4, int roff) {
-        return dz0_of(v, load4(r_z + roff), c4);
-      });
-    } else if constexpr (PREV) {
+    if constexpr (PREV) {
       transform_tile<false, CI, SA>(s_a, T, H, W, bn_only);
     } else {  // inside the image
       transform_tile<true, CO, SG>(s_g, T, H, W, [&](float4 v, int off, int c4) {
@@ -800,7 +720,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
         }
         const FragA af = frag_a(av[0], av[1], av[2], av[3]);
 #pragma unroll
-        for (int u = 0; u < 3; ++u) mma3<ONE, 1, 3>(dwt[u], &af, win[(yy + 2 - u) % 3]);
+        for (int u = 0; u < 3; ++u) mma3<1, 3>(dwt[u], &af, win[(yy + 2 - u) % 3]);
       }
     }
 #pragma unroll
@@ -837,7 +757,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
             const float2 bw = s_wf[(((3 * u + v) * KCI + kc) * NFI + nf) * 32 + lane];
             bf[nf] = frag_b(bw.x, bw.y);
           }
-          mma3<ONE, 2, NFI>(part, ar + 2 - u, bf);
+          mma3<2, NFI>(part, ar + 2 - u, bf);
         }
         add_rn<2, NFI>(acc, part);
       }
@@ -857,8 +777,7 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
 #pragma unroll
         for (int nf = 0; nf < NFI; ++nf) {
           float d0 = acc[mi][nf][2 * h], d1 = acc[mi][nf][2 * h + 1];
-          if constexpr (PREV) {  // ReLU mask from this pixel's own y; sums with zprev,
-                                 // of the float32 d_in before it is stored in E
+          if constexpr (PREV) {  // ReLU mask from this pixel's own y; sums with zprev
             const float2 yv =
                 *reinterpret_cast<const float2*>(s_a + (py * TW + px) * SA + nf * 8 + 2 * t);
             const float2 z = load2(a_src + own + nf * 8);
@@ -900,17 +819,24 @@ conv_bwd_kernel(const E* __restrict__ a_src, const float* __restrict__ a_coef,
 }
 
 // ------------------------------------------------------------------ bf16 on bf16 tensor cores
-// bnconv and dwprev in bfloat16: bf16 tiles in shared memory, never widened,
-// fed to mma.sync.m16n8k16 (bf16 in, float32 out) through ldmatrix.
+// The four convolution passes in bfloat16: bf16 tiles in shared memory, never
+// widened, fed to mma.sync.m16n8k16 (bf16 in, float32 out) through ldmatrix.
+// Two templates: conv_fwd_bf16_kernel (conv, and bnconv with BN_IN) and
+// conv_bwd_bf16_kernel (dwdx, and dwprev with PREV), over Ci -> Co in
+// {16 -> 16, 16 -> 32, 32 -> 32}.
 //
-// Tiles. A halo tile (and dwprev's activation tile) is staged as bf16 with
-// 16-byte cp.async.cg copies (8 channels a chunk, zeros for pixels outside
-// the image) into one of two buffers, so the next tile's copies run under
-// this tile's MMAs. A pixel row is padded by BPAD bf16 (16 bytes): strides
-// of 48 B (C16) and 80 B (C32) put the eight 16-byte rows of an ldmatrix
-// phase on eight distinct bank groups. The thread that copied a chunk then
-// applies BN (+ ReLU) in float32 and rounds back to bf16 in place, inside the
-// image only (halo zeros stay 0: BN(0) is not 0); one barrier a tile.
+// Tiles. A halo tile and the backward's activation tile are staged as bf16
+// with 16-byte cp.async.cg copies (8 channels a chunk, zeros for pixels
+// outside the image) into one of two buffers, so the next tile's copies run
+// under this tile's MMAs. A pixel row is padded by BPAD bf16 (16 bytes):
+// strides of 48 B (16 channels) and 80 B (32) put the eight 16-byte rows of
+// an ldmatrix phase on eight distinct bank groups. The thread that copied a
+// chunk then transforms it in float32 and rounds back to bf16 in place,
+// inside the image only (halo zeros stay 0: BN(0) is not 0, nor is dz0 at
+// dy0 = z0 = 0); one barrier a tile. The transforms: BN + ReLU (bnconv,
+// dwprev's activation) and dz0 = c0*dy0 + c1 + c2*z0 (dwdx's gradient, from
+// a z0 halo tile of one unpadded buffer: only the transform reads it, so
+// its next copy is issued after the tile's barrier with the others).
 // dwprev's ReLU mask [y0 >= 0] is taken there from the unrounded float32 y0
 // and kept as one bit per channel in the pixel's padding (a tiny negative y0
 // would round to -0.0 in bf16, and -0.0 >= 0 holds).
@@ -953,19 +879,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Weights [3,3,C,C] rounded to bf16 as m16n8k16 B fragments, two 8-column
-// blocks a 16-byte entry: entry ((tap*KC + kc)*NP + j)*32 + lane holds, for
-// nf = 2j and 2j+1, {B(k0, n), B(k0+1, n)} and {B(k0+8, n), B(k0+9, n)} with
-// k0 = kc*16 + 2t, n = nf*8 + g; B(k, n) = w[tap][k][n] (forward) or
-// w[tap][n][k] (TRANS: d_in).
-template <int C, bool TRANS>
+// Weights [3,3,CI,CO] rounded to bf16 as m16n8k16 B fragments of a K x N
+// product, two 8-column blocks a 16-byte entry: entry ((tap*KC + kc)*NP +
+// j)*32 + lane holds, for nf = 2j and 2j+1, {B(k0, n), B(k0+1, n)} and
+// {B(k0+8, n), B(k0+9, n)} with k0 = kc*16 + 2t, n = nf*8 + g. Forward: K =
+// CI, N = CO, B(k, n) = w[tap][k][n]; TRANS (d_in): K = CO, N = CI, B(k, n) =
+// w[tap][n][k]. w[tap] is [CI][CO], row stride CO in both.
+template <int CI, int CO, bool TRANS>
 __device__ __forceinline__ uint4 weight_frag_bf16(const float* __restrict__ w, int i) {
-  constexpr int KC = C / 16, NP = C / 16;
+  constexpr int KC = (TRANS ? CO : CI) / 16, NP = (TRANS ? CI : CO) / 16;
   const int lane = i % 32, j = (i / 32) % NP, kc = (i / (32 * NP)) % KC;
   const int tap = i / (32 * NP * KC);
   const int k0 = kc * 16 + 2 * (lane % 4);
-  const float* wt = w + tap * C * C;
-  auto at = [&](int k, int n) { return TRANS ? wt[n * C + k] : wt[k * C + n]; };
+  const float* wt = w + tap * CI * CO;
+  auto at = [&](int k, int n) { return TRANS ? wt[n * CO + k] : wt[k * CO + n]; };
   uint32_t r[4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -976,11 +903,12 @@ __device__ __forceinline__ uint4 weight_frag_bf16(const float* __restrict__ w, i
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-// The NF B fragments of (tap, kc) from weight_frag_bf16's layout
-template <int C>
+// The ND / 8 B fragments of (tap, kc) of a K = KD, N = ND product from
+// weight_frag_bf16's layout
+template <int KD, int ND>
 __device__ __forceinline__ void load_wfrag(const uint4* s_wf, int tap, int kc, int lane,
-                                           uint32_t (&b)[C / 8][2]) {
-  constexpr int KC = C / 16, NP = C / 16;
+                                           uint32_t (&b)[ND / 8][2]) {
+  constexpr int KC = KD / 16, NP = ND / 16;
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
     const uint4 q = s_wf[((tap * KC + kc) * NP + j) * 32 + lane];
@@ -1004,6 +932,17 @@ __device__ __forceinline__ void copy_tile_bf16(const bf16* __restrict__ src, bf1
   }
 }
 
+// 8 bf16 (16 bytes) widened to floats
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f2 = bf2_to_f2(w4[j]);
+    v[2 * j] = f2.x;
+    v[2 * j + 1] = f2.y;
+  }
+}
+
 // After this thread's copies landed: f(v, q, c8) on the 8 values (widened)
 // of each of its own chunks inside the image, rounded back to bf16 in place;
 // chunks outside stay 0.
@@ -1013,84 +952,87 @@ __device__ __forceinline__ void transform_tile_bf16(bf16* s, const Tile& T, int 
     const Chunk<HALO, C, 8> k(i, T, H, W);
     if (!k.inside) continue;
     uint4* p = reinterpret_cast<uint4*>(s + k.q * S + k.c4 * 8);
-    const uint4 u = *p;
-    const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
     float v[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f2 = bf2_to_f2(w4[j]);
-      v[2 * j] = f2.x;
-      v[2 * j + 1] = f2.y;
-    }
+    unpack8(*p, v);
     f(v, k.q, k.c4);
     *p = make_uint4(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]), f2_to_bf2(v[4], v[5]),
                     f2_to_bf2(v[6], v[7]));
   }
 }
 
-// Dynamic shared memory (bytes) of the two kernels: the B fragments, then
-// two buffers of each tile.
-template <int C>
-__host__ __device__ constexpr int bnconv_bf16_smem() {
-  return 9 * C * C * 2 + 2 * HALO_N * (C + BPAD) * 2;
+// Dynamic shared memory (bytes) of the two kernels: the B fragments, two
+// buffers of each tile, and dwdx's (!PREV) z0 halo tile.
+template <int CI, int CO>
+__host__ __device__ constexpr int fwd_bf16_smem() {
+  return 9 * CI * CO * 2 + 2 * HALO_N * (CI + BPAD) * 2;
 }
 
-template <int C>
-__host__ __device__ constexpr int dwprev_bf16_smem() {
-  return 9 * C * C * 2 + 2 * (HALO_N + NT) * (C + BPAD) * 2;
+template <int CI, int CO, bool PREV>
+__host__ __device__ constexpr int bwd_bf16_smem() {
+  return 9 * CI * CO * 2 + 2 * (HALO_N * (CO + BPAD) + NT * (CI + BPAD)) * 2 +
+         (PREV ? 0 : HALO_N * CO * 2);
 }
 
-// Blocks per SM that __launch_bounds__ sizes the registers for: bnconv 4
-// (C16, 64 registers) and 2 (C32: at 3, 80 registers spilled and S2 ran 8%
-// slower on the H100); dwprev 2 (C16) and 1 (C32): dW's running and
-// per-tile sums alone hold 72 floats a thread. Each fits the SM's 228 KB of
-// shared memory (a block: its dynamic bytes, its static sums, at most
-// 4.5 KB, and 1 KB the card reserves).
-template <int C>
-constexpr int bnconv_bf16_blocks = C == 16 ? 4 : 2;
-template <int C>
-constexpr int dwprev_bf16_blocks = C == 16 ? 2 : 1;
-static_assert(4 * (bnconv_bf16_smem<16>() + 5632) <= 228 * 1024 &&
-                  2 * (bnconv_bf16_smem<32>() + 5632) <= 228 * 1024 &&
-                  2 * (dwprev_bf16_smem<16>() + 5632) <= 228 * 1024,
+// Blocks per SM that __launch_bounds__ sizes the registers for: the forward
+// 4 at 16 -> 16 (64 registers) and 2 with 32 output channels (bnconv C32 at
+// 3, 80 registers, spilled and ran 8% slower on the H100); the backward 2
+// with 16 input channels and 1 with 32: dW's running and per-tile sums alone
+// hold 72 floats a thread. Each fits the SM's 228 KB of shared memory (a
+// block: its dynamic bytes, its static sums, at most 4.5 KB, and 1 KB the
+// card reserves).
+template <int CI, int CO>
+constexpr int fwd_bf16_blocks = CI == 16 && CO == 16 ? 4 : 2;
+template <int CI>
+constexpr int bwd_bf16_blocks = CI == 16 ? 2 : 1;
+static_assert(4 * (fwd_bf16_smem<16, 16>() + 5632) <= 228 * 1024 &&
+                  2 * (fwd_bf16_smem<16, 32>() + 5632) <= 228 * 1024 &&
+                  2 * (fwd_bf16_smem<32, 32>() + 5632) <= 228 * 1024 &&
+                  2 * (bwd_bf16_smem<16, 16, true>() + 5632) <= 228 * 1024 &&
+                  2 * (bwd_bf16_smem<16, 16, false>() + 5632) <= 228 * 1024 &&
+                  2 * (bwd_bf16_smem<16, 32, false>() + 5632) <= 228 * 1024,
               "the blocks per SM fit in shared memory");
 
-// bnconv, bf16: out = conv3x3(relu(in*inv+shift) rounded to bf16, w rounded
-// to bf16), stored in bf16, plus per-block partial sums of the float32 out and
-// out^2. Implicit GEMM as conv_fwd_kernel's: M = 16 pixels of a tile row,
-// N = C, K = 16 channels a step, warp w owns tile rows 2w, 2w+1; an A
-// fragment (one ldmatrix.x4) of each of the four halo rows 2w..2w+3 serves
-// the three taps u of a kernel column v.
-template <int C>
-__global__ void __launch_bounds__(NT, bnconv_bf16_blocks<C>)
-bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
-                   const float* __restrict__ w, bf16* __restrict__ out,
-                   double* __restrict__ partial, int B, int H, int W) {
-  constexpr int S = C + BPAD;
-  constexpr int KC = C / 16, NF = C / 8;
+// bf16 forward: out = conv3x3(act(in), w rounded to bf16), stored in bf16,
+// plus per-block partial sums of the float32 out and out^2; act =
+// relu(in*inv+shift) rounded to bf16 (BN_IN: bnconv, CI == CO), else the
+// input as stored (conv). Implicit GEMM as conv_fwd_kernel's: M = 16 pixels
+// of a tile row, N = CO, K = 16 input channels a step, warp w owns tile rows
+// 2w, 2w+1; an A fragment (one ldmatrix.x4) of each of the four halo rows
+// 2w..2w+3 serves the three taps u of a kernel column v.
+template <int CI, int CO, bool BN_IN>
+__global__ void __launch_bounds__(NT, fwd_bf16_blocks<CI, CO>)
+conv_fwd_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
+                     const float* __restrict__ w, bf16* __restrict__ out,
+                     double* __restrict__ partial, int B, int H, int W) {
+  static_assert(!BN_IN || CI == CO, "the bnconv pass has CI == CO");
+  constexpr int S = CI + BPAD;
+  constexpr int KC = CI / 16, NF = CO / 8;
   constexpr int TILE = HALO_N * S;
   extern __shared__ __align__(16) float smem[];
-  uint4* const s_wf = reinterpret_cast<uint4*>(smem);             // [9][KC][NF/2][32]
-  bf16* const s_tiles = reinterpret_cast<bf16*>(smem) + 9 * C * C;  // 2 x [HALO_N][S]
-  __shared__ float s_coef[2 * C];
-  __shared__ double s_tot[NWARP * 2 * C];
+  uint4* const s_wf = reinterpret_cast<uint4*>(smem);               // [9][KC][NF/2][32]
+  bf16* const s_tiles = reinterpret_cast<bf16*>(smem) + 9 * CI * CO;  // 2 x [HALO_N][S]
+  __shared__ float s_coef[2 * CI];
+  __shared__ double s_tot[NWARP * 2 * CO];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  for (int i = tid; i < 9 * C * C / 8; i += NT) s_wf[i] = weight_frag_bf16<C, false>(w, i);
-  for (int i = tid; i < 2 * C; i += NT) s_coef[i] = coef[i];
-  for (int i = tid; i < NWARP * 2 * C; i += NT) s_tot[i] = 0.0;
+  for (int i = tid; i < 9 * CI * CO / 8; i += NT) s_wf[i] = weight_frag_bf16<CI, CO, false>(w, i);
+  if constexpr (BN_IN) {
+    for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = coef[i];
+  }
+  for (int i = tid; i < NWARP * 2 * CO; i += NT) s_tot[i] = 0.0;
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
   auto copy = [&](int tile, int into) {
-    copy_tile_bf16<true, C, S>(in, s_tiles + into * TILE, tile_at(tile, tiles_y, tiles_x), H, W);
+    copy_tile_bf16<true, CI, S>(in, s_tiles + into * TILE, tile_at(tile, tiles_y, tiles_x), H,
+                                W);
   };
   // BN and ReLU (rounded to bf16 by the store: the product's operand)
   auto bn_relu = [&](float (&v)[8], int, int c8) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      v[j] = fmaxf(bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[C + c8 * 8 + j]), 0.f);
+      v[j] = fmaxf(bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[CI + c8 * 8 + j]), 0.f);
   };
   __syncthreads();  // s_coef is read by other threads' transforms
   if ((int)blockIdx.x < ntiles) copy(blockIdx.x, 0);
@@ -1103,7 +1045,7 @@ bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
     const Tile T = tile_at(tile, tiles_y, tiles_x);
     bf16* const s_in = s_tiles + buf * TILE;
     cp_async_wait_all();
-    transform_tile_bf16<true, C, S>(s_in, T, H, W, bn_relu);
+    if constexpr (BN_IN) transform_tile_bf16<true, CI, S>(s_in, T, H, W, bn_relu);
     __syncthreads();  // this tile is staged; every thread is done with the other buffer
     // the next tile's copies run under this tile's MMAs
     if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
@@ -1128,7 +1070,7 @@ bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
 #pragma unroll
         for (int u = 0; u < 3; ++u) {
           uint32_t bw[NF][2];
-          load_wfrag<C>(s_wf, 3 * u + v, kc, lane, bw);
+          load_wfrag<CI, CO>(s_wf, 3 * u + v, kc, lane, bw);
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1148,7 +1090,7 @@ bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
       for (int h = 0; h < 2; ++h) {
         const int gy = T.y0 + 2 * warp + mi, gx = T.x0 + g + 8 * h;
         if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
-        bf16* o = out + (((size_t)T.b * H + gy) * W + gx) * C + 2 * t;
+        bf16* o = out + (((size_t)T.b * H + gy) * W + gx) * CO + 2 * t;
 #pragma unroll
         for (int nf = 0; nf < NF; ++nf) {
           const float z0 = acc[mi][nf][2 * h], z1 = acc[mi][nf][2 * h + 1];
@@ -1159,52 +1101,65 @@ bnconv_bf16_kernel(const bf16* __restrict__ in, const float* __restrict__ coef,
           s1[nf][1] = fmaf(z1, z1, s1[nf][1]);
         }
       }
-    add_tile_sums<NF>(s0, 0, s_tot, C);
-    add_tile_sums<NF>(s1, 1, s_tot, C);
+    add_tile_sums<NF>(s0, 0, s_tot, CO);
+    add_tile_sums<NF>(s1, 1, s_tot, CO);
   }
   cp_async_wait_all();
-  write_sum_partials(s_tot, C, partial);
+  write_sum_partials(s_tot, CO, partial);
 }
 
-// dwprev, bf16, for the forward z1 = conv3x3(a0, w) with a0 = relu(y0)
-// rounded to bf16, y0 = z0*inv + shift, given g = dz1:
-//   dW[u,v,ci,co] = sum_p a0[p, ci] * g[p-(u-1,v-1), co]
-//   dy0[p, ci]    = [y0 >= 0] * sum_{u,v,co} g[p-(u-1,v-1), co] * w[u,v,ci,co]
-// stored in bf16, with per-block partial sums of the float32 dy0 and dy0*z0.
+// bf16 backward, for a forward z = conv3x3(a, w) with a [.., CI], z [.., CO]
+// and w rounded to bf16, given g = dz (both operands bf16 values):
+//   dW[u,v,ci,co] = sum_p a[p, ci] * g[p-(u-1,v-1), co]
+//   d_in[p, ci]   = sum_{u,v,co} g[p-(u-1,v-1), co] * w[u,v,ci,co]
+// PREV (dwprev, CI == CO): a = relu(y0) rounded to bf16, y0 = zprev*inv +
+//   shift, g = dz1 as stored; d_in = dy0 is masked by [y0 >= 0], and per-block
+//   partial sums of the float32 dy0 and dy0*zprev are taken.
+// !PREV (dwdx): a = x as stored, g = dz0 = c0*dy0 + c1 + c2*z0 rounded to
+//   bf16 inside the image; d_in = dx, no mask, no sums.
+// d_in is stored in bf16.
 //   dW: nine GEMMs, M = 16 ci, N = 8 co, K = the 16 pixels of one tile row:
-//       A(ci, p) = a0[p][ci] (ldmatrix.x4.trans of the activation tile),
+//       A(ci, p) = a[p][ci] (ldmatrix.x4.trans of the activation tile),
 //       B(p, co) = g at halo (y+2-u, x+2-v) (ldmatrix.x2.trans); warp ->
 //       (16-ci block, 8-co block, group of RPG tile rows) as conv_bwd_kernel,
 //       the B fragments of three halo rows kept as a window sliding down;
 //       accumulated per tile, then added to the block's sum on the CUDA cores.
-//   d_in: implicit GEMM as bnconv's with the transposed weights, warp w
+//   d_in: implicit GEMM as the forward's, M = 16 pixels, K = CO (16-channel
+//       chunks of the g tile), N = CI with the transposed weights, warp w
 //       owning rows 2w, 2w+1; each (v, 16-channel k chunk) is one chain of
 //       three k16 MMAs into a fresh accumulator, added with add_rn.
-template <int C>
-__global__ void __launch_bounds__(NT, dwprev_bf16_blocks<C>)
-dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
-                   const bf16* __restrict__ dz1, const float* __restrict__ w,
-                   bf16* __restrict__ dy0, float* __restrict__ dw_partial,
-                   double* __restrict__ sum_partial, int B, int H, int W) {
-  constexpr int S = C + BPAD;
-  constexpr int KC = C / 16, NF = C / 8;
-  constexpr int MT = C / 16, NTW = C / 8, PAIRS = MT * NTW;
+template <int CI, int CO, bool PREV>
+__global__ void __launch_bounds__(NT, bwd_bf16_blocks<CI>)
+conv_bwd_bf16_kernel(const bf16* __restrict__ a_src, const float* __restrict__ a_coef,
+                     const bf16* __restrict__ g_src, const bf16* __restrict__ g_z,
+                     const float* __restrict__ g_coef, const float* __restrict__ w,
+                     bf16* __restrict__ d_in, float* __restrict__ dw_partial,
+                     double* __restrict__ sum_partial, int B, int H, int W) {
+  static_assert(!PREV || CI == CO, "the dwprev pass has CI == CO");
+  constexpr int SG = CO + BPAD, SA = CI + BPAD;  // pixel strides of the g and a tiles
+  constexpr int KCI = CO / 16, NFI = CI / 8;     // d_in: K chunks over co, N fragments over ci
+  constexpr int MT = CI / 16, NTW = CO / 8, PAIRS = MT * NTW;
   constexpr int KG = NWARP / PAIRS, RPG = TH / KG;
   static_assert(PAIRS * KG == NWARP && KG * RPG == TH, "dW warp mapping");
-  constexpr int GT = HALO_N * S, AT = NT * S;
-  static_assert(9 * C * C * 4 * KG <= dwprev_bf16_smem<C>(), "dW partials fit");
+  constexpr int GT = HALO_N * SG, AT = NT * SA;
+  static_assert(9 * CI * CO * 4 * KG <= bwd_bf16_smem<CI, CO, PREV>(), "dW partials fit");
   extern __shared__ __align__(16) float smem[];
-  uint4* const s_wf = reinterpret_cast<uint4*>(smem);            // [9][KC][NF/2][32], d_in's
-  bf16* const s_gt = reinterpret_cast<bf16*>(smem) + 9 * C * C;  // 2 x dz1 halo [HALO_N][S]
-  bf16* const s_at = s_gt + 2 * GT;  // 2 x a0 [NT][S]; the mask bytes in each pixel's pad
-  __shared__ float s_coef[2 * C];
-  __shared__ double s_tot[NWARP * 2 * C];
+  uint4* const s_wf = reinterpret_cast<uint4*>(smem);  // [9][KCI][NFI/2][32], d_in's
+  bf16* const s_gt = reinterpret_cast<bf16*>(smem) + 9 * CI * CO;  // 2 x g halo [HALO_N][SG]
+  bf16* const s_at = s_gt + 2 * GT;  // 2 x a [NT][SA]; PREV: the mask bytes in each pixel's pad
+  bf16* const s_z = s_at + 2 * AT;   // !PREV: z0 halo [HALO_N][CO], one buffer
+  __shared__ float s_coef[PREV ? 2 * CI : 3 * CO];
+  __shared__ double s_tot[PREV ? NWARP * 2 * CI : 1];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  for (int i = tid; i < 9 * C * C / 8; i += NT) s_wf[i] = weight_frag_bf16<C, true>(w, i);
-  for (int i = tid; i < 2 * C; i += NT) s_coef[i] = coef[i];
-  for (int i = tid; i < NWARP * 2 * C; i += NT) s_tot[i] = 0.0;
+  for (int i = tid; i < 9 * CI * CO / 8; i += NT) s_wf[i] = weight_frag_bf16<CI, CO, true>(w, i);
+  if constexpr (PREV) {
+    for (int i = tid; i < 2 * CI; i += NT) s_coef[i] = a_coef[i];
+    for (int i = tid; i < NWARP * 2 * CI; i += NT) s_tot[i] = 0.0;
+  } else {
+    for (int i = tid; i < 3 * CO; i += NT) s_coef[i] = g_coef[i];
+  }
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const int ntiles = B * tiles_y * tiles_x;
@@ -1212,8 +1167,9 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
   const int mt = pair / NTW, nt = pair % NTW;
   auto copy = [&](int tile, int into) {
     const Tile T = tile_at(tile, tiles_y, tiles_x);
-    copy_tile_bf16<true, C, S>(dz1, s_gt + into * GT, T, H, W);
-    copy_tile_bf16<false, C, S>(z0, s_at + into * AT, T, H, W);
+    copy_tile_bf16<true, CO, SG>(g_src, s_gt + into * GT, T, H, W);
+    copy_tile_bf16<false, CI, SA>(a_src, s_at + into * AT, T, H, W);
+    if constexpr (!PREV) copy_tile_bf16<true, CO, CO>(g_z, s_z, T, H, W);
   };
   // ldmatrix rows of this lane: d_in's A (pixel column lrow, channel lk);
   // dW's A (pixel tp, ci offset tc); dW's B (pixel lane % 16)
@@ -1236,18 +1192,31 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
     bf16* const s_g = s_gt + buf * GT;
     bf16* const s_a = s_at + buf * AT;
     cp_async_wait_all();
-    // a0 = relu(y0) rounded to bf16 in place; the mask [y0 >= 0] of the
-    // unrounded y0, bit j of byte c8 in the pixel's pad
-    transform_tile_bf16<false, C, S>(s_a, T, H, W, [&](float (&v)[8], int q, int c8) {
-      unsigned bits = 0;
+    if constexpr (PREV) {
+      // a0 = relu(y0) rounded to bf16 in place; the mask [y0 >= 0] of the
+      // unrounded y0, bit j of byte c8 in the pixel's pad
+      transform_tile_bf16<false, CI, SA>(s_a, T, H, W, [&](float (&v)[8], int q, int c8) {
+        unsigned bits = 0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float y = bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[C + c8 * 8 + j]);
-        bits |= (y >= 0.f ? 1u : 0u) << j;
-        v[j] = fmaxf(y, 0.f);
-      }
-      reinterpret_cast<unsigned char*>(s_a + q * S + C)[c8] = (unsigned char)bits;
-    });
+        for (int j = 0; j < 8; ++j) {
+          const float y = bn_apply(v[j], s_coef[c8 * 8 + j], s_coef[CI + c8 * 8 + j]);
+          bits |= (y >= 0.f ? 1u : 0u) << j;
+          v[j] = fmaxf(y, 0.f);
+        }
+        reinterpret_cast<unsigned char*>(s_a + q * SA + CI)[c8] = (unsigned char)bits;
+      });
+    } else {
+      // dz0 rounded to bf16 in place, from the z0 chunk this thread copied
+      transform_tile_bf16<true, CO, SG>(s_g, T, H, W, [&](float (&v)[8], int q, int c8) {
+        float z[8];
+        unpack8(*reinterpret_cast<const uint4*>(s_z + q * CO + c8 * 8), z);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = c8 * 8 + j;
+          v[j] = bn_bwd(v[j], z[j], s_coef[c], s_coef[CO + c], s_coef[2 * CO + c]);
+        }
+      });
+    }
     __syncthreads();  // this tile is staged; every thread is done with the other buffers
     if (tile + (int)gridDim.x < ntiles) copy(tile + gridDim.x, buf ^ 1);
     cp_async_commit();
@@ -1259,13 +1228,13 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
 #pragma unroll
       for (int k = 0; k < 4; ++k) dwt[tap][k] = 0.f;
     {
-      const uint32_t g_base = smem_u32(s_g + (lane & 15) * S + nt * 8);
-      const uint32_t a_base = smem_u32(s_a + tp * S + mt * 16 + tc);
+      const uint32_t g_base = smem_u32(s_g + (lane & 15) * SG + nt * 8);
+      const uint32_t a_base = smem_u32(s_a + tp * SA + mt * 16 + tc);
       uint32_t win[3][3][2];
       auto load_row = [&](int h, uint32_t(&dst)[3][2]) {
 #pragma unroll
         for (int v = 0; v < 3; ++v)
-          ldsm_x2_trans(dst[v], g_base + ((h * HALO_W + 2 - v) * S) * 2);
+          ldsm_x2_trans(dst[v], g_base + ((h * HALO_W + 2 - v) * SG) * 2);
       };
       load_row(y0g, win[0]);
       load_row(y0g + 1, win[1]);
@@ -1273,7 +1242,7 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
       for (int yy = 0; yy < RPG; ++yy) {
         load_row(y0g + yy + 2, win[(yy + 2) % 3]);
         uint32_t af[4];
-        ldsm_x4_trans(af, a_base + ((y0g + yy) * TW * S) * 2);
+        ldsm_x4_trans(af, a_base + ((y0g + yy) * TW * SA) * 2);
 #pragma unroll
         for (int u = 0; u < 3; ++u)
 #pragma unroll
@@ -1286,41 +1255,44 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
       for (int k = 0; k < 4; ++k) dw[tap][k] += dwt[tap][k];
 
     // ---- d_in: pixel (row 2w+mi, column m) reads halo (row+2-u, m+2-v)
-    float acc[2][NF][4];
+    float acc[2][NFI][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int nf = 0; nf < NF; ++nf)
+      for (int nf = 0; nf < NFI; ++nf)
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[mi][nf][k] = 0.f;
-    const uint32_t d_base = smem_u32(s_g + (2 * warp * HALO_W + lrow) * S + lk);
+    // dwdx takes the k chunks one at a time: unrolled, dwdx 16 -> 32 spilled at
+    // its 128 registers and ran 9% slower on the H100, while dwprev C32 ran 4%
+    // faster unrolled
+    const uint32_t d_base = smem_u32(s_g + (2 * warp * HALO_W + lrow) * SG + lk);
 #pragma unroll 1
     for (int v = 0; v < 3; ++v) {
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll (PREV ? KCI : 1)
+      for (int kc = 0; kc < KCI; ++kc) {
         uint32_t ar[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          ldsm_x4(ar[r], d_base + ((r * HALO_W + 2 - v) * S + kc * 16) * 2);
-        float part[2][NF][4] = {};  // one chain over the three u, then added
+          ldsm_x4(ar[r], d_base + ((r * HALO_W + 2 - v) * SG + kc * 16) * 2);
+        float part[2][NFI][4] = {};  // one chain over the three u, then added
 #pragma unroll
         for (int u = 0; u < 3; ++u) {
-          uint32_t bw[NF][2];
-          load_wfrag<C>(s_wf, 3 * u + v, kc, lane, bw);
+          uint32_t bw[NFI][2];
+          load_wfrag<CO, CI>(s_wf, 3 * u + v, kc, lane, bw);
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int nf = 0; nf < NF; ++nf) mma_bf16(part[mi][nf], ar[mi + 2 - u], bw[nf]);
+            for (int nf = 0; nf < NFI; ++nf) mma_bf16(part[mi][nf], ar[mi + 2 - u], bw[nf]);
         }
-        add_rn<2, NF>(acc, part);
+        add_rn<2, NFI>(acc, part);
       }
     }
 
-    // epilogue: masked by this pixel's bits, summed with z0 (of the float32
-    // dy0 before it is stored in bf16)
-    float s0[NF][2], s1[NF][2];
+    // epilogue; PREV: masked by this pixel's bits, summed with zprev (of the
+    // float32 dy0 before it is stored in bf16)
+    float s0[NFI][2], s1[NFI][2];
 #pragma unroll
-    for (int nf = 0; nf < NF; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
+    for (int nf = 0; nf < NFI; ++nf) s0[nf][0] = s0[nf][1] = s1[nf][0] = s1[nf][1] = 0.f;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1328,46 +1300,50 @@ dwprev_bf16_kernel(const bf16* __restrict__ z0, const float* __restrict__ coef,
         const int py = 2 * warp + mi, px = g + 8 * h;
         const int gy = T.y0 + py, gx = T.x0 + px;
         if (gy >= H || gx >= W) continue;  // outside the image: not stored, not summed
-        const size_t own = (((size_t)T.b * H + gy) * W + gx) * C + 2 * t;
-        const unsigned char* mask =
-            reinterpret_cast<const unsigned char*>(s_a + (py * TW + px) * S + C);
+        const size_t own = (((size_t)T.b * H + gy) * W + gx) * CI + 2 * t;
 #pragma unroll
-        for (int nf = 0; nf < NF; ++nf) {
+        for (int nf = 0; nf < NFI; ++nf) {
           float d0 = acc[mi][nf][2 * h], d1 = acc[mi][nf][2 * h + 1];
-          const unsigned m = mask[nf] >> (2 * t);
-          const float2 z = load2(z0 + own + nf * 8);
-          if (!(m & 1u)) d0 = 0.f;
-          if (!(m & 2u)) d1 = 0.f;
-          s0[nf][0] += d0;
-          s0[nf][1] += d1;
-          s1[nf][0] += d0 * z.x;
-          s1[nf][1] += d1 * z.y;
-          store2(dy0 + own + nf * 8, d0, d1);
+          if constexpr (PREV) {
+            const unsigned char* mask =
+                reinterpret_cast<const unsigned char*>(s_a + (py * TW + px) * SA + CI);
+            const unsigned m = mask[nf] >> (2 * t);
+            const float2 z = load2(a_src + own + nf * 8);
+            if (!(m & 1u)) d0 = 0.f;
+            if (!(m & 2u)) d1 = 0.f;
+            s0[nf][0] += d0;
+            s0[nf][1] += d1;
+            s1[nf][0] += d0 * z.x;
+            s1[nf][1] += d1 * z.y;
+          }
+          store2(d_in + own + nf * 8, d0, d1);
         }
       }
-    add_tile_sums<NF>(s0, 0, s_tot, C);
-    add_tile_sums<NF>(s1, 1, s_tot, C);
+    if constexpr (PREV) {
+      add_tile_sums<NFI>(s0, 0, s_tot, CI);
+      add_tile_sums<NFI>(s1, 1, s_tot, CI);
+    }
   }
 
   // dW partial of this block: the KG row groups' sums added in group order
   // through shared memory (the tiles' buffers are free now)
   cp_async_wait_all();
   __syncthreads();
-  float* s_dw = smem;  // [KG][9][C][C]
+  float* s_dw = smem;  // [KG][9][CI][CO]
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int ci = mt * 16 + g + 8 * (k >> 1), co = nt * 8 + 2 * t + (k & 1);
-      s_dw[((kg * 9 + tap) * C + ci) * C + co] = dw[tap][k];
+      s_dw[((kg * 9 + tap) * CI + ci) * CO + co] = dw[tap][k];
     }
   __syncthreads();
-  for (int i = tid; i < 9 * C * C; i += NT) {
+  for (int i = tid; i < 9 * CI * CO; i += NT) {
     float s = 0.f;
-    for (int k = 0; k < KG; ++k) s += s_dw[k * 9 * C * C + i];
-    dw_partial[(size_t)blockIdx.x * 9 * C * C + i] = s;
+    for (int k = 0; k < KG; ++k) s += s_dw[k * 9 * CI * CO + i];
+    dw_partial[(size_t)blockIdx.x * 9 * CI * CO + i] = s;
   }
-  write_sum_partials(s_tot, C, sum_partial);
+  if constexpr (PREV) write_sum_partials(s_tot, CI, sum_partial);
 }
 
 // ------------------------------------------------------------------ pool passes
@@ -1698,7 +1674,7 @@ dz1_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
     for (int j = 0; j < 4; ++j) {
       float o[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = fmaf(k0[k], dy[j][k], fmaf(k2[k], z[j][k], k1[k]));
+      for (int k = 0; k < 4; ++k) o[k] = bn_bwd(dy[j][k], z[j][k], k0[k], k1[k], k2[k]);
       store4(dz + wd.off[j], make_float4(o[0], o[1], o[2], o[3]));
     }
   }
@@ -1745,49 +1721,9 @@ cudaError_t conv_grid(K kernel, size_t dyn, int B, int H, int W, int max_blocks,
   return cudaSuccess;
 }
 
-template <int CI, int CO, bool BN_IN, class E>
-cudaError_t launch_conv_fwd(const void* in, const float* coef, const float* w, void* out,
-                            double* partial, double* sums, int B, int H, int W,
-                            int max_blocks, cudaStream_t stream) {
-  constexpr size_t dyn = sizeof(float) * fwd_smem_floats<CI, CO>(is_bf16<E>);
-  auto kernel = conv_fwd_kernel<CI, CO, BN_IN, E>;
-  int grid = 0;
-  cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(static_cast<const E*>(in), coef, w, static_cast<E*>(out),
-                                    partial, B, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce<double>(partial, grid, 2 * CO, sums, stream);
-}
-
-template <int CI, int CO, bool PREV, class E>
-cudaError_t launch_conv_bwd(const void* a_src, const float* a_coef, const void* g_src,
-                            const void* g_z, const float* g_coef, const float* w,
-                            void* d_in, float* dw_partial, double* dw, double* sum_partial,
-                            double* sums, int B, int H, int W, int max_blocks,
-                            cudaStream_t stream) {
-  constexpr size_t dyn = sizeof(float) * bwd_smem_floats<CI, CO, PREV>(
-                                               bwd_buffers<CI, CO, PREV>(), is_bf16<E>);
-  auto kernel = conv_bwd_kernel<CI, CO, PREV, E>;
-  int grid = 0;
-  cudaError_t err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(static_cast<const E*>(a_src), a_coef,
-                                    static_cast<const E*>(g_src), static_cast<const E*>(g_z),
-                                    g_coef, w, static_cast<E*>(d_in), dw_partial, sum_partial,
-                                    B, H, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = reduce<float>(dw_partial, grid, 9 * CI * CO, dw, stream);
-  if (err != cudaSuccess) return err;
-  if (PREV) return reduce<double>(sum_partial, grid, 2 * CI, sums, stream);
-  return cudaSuccess;
-}
-
-// bnconv and dwprev in bf16: their own kernels, which ask for the SM's
-// largest shared-memory carveout (several blocks a SM), once per device;
-// `done` is the caller's, one per kernel instantiation (a bit per device)
+// The bf16 kernels ask for the SM's largest shared-memory carveout (several
+// blocks a SM), once per device; `done` is the caller's, one per kernel
+// instantiation (a bit per device)
 template <class K>
 cudaError_t prefer_shared(K kernel, std::atomic<unsigned>& done) {
   int dev = 0;
@@ -1800,44 +1736,76 @@ cudaError_t prefer_shared(K kernel, std::atomic<unsigned>& done) {
   return err;
 }
 
-template <int C>
-cudaError_t launch_bnconv_bf16(const void* z0, const float* coef, const float* w, void* z1,
-                               double* partial, double* sums, int B, int H, int W,
-                               int max_blocks, cudaStream_t stream) {
-  constexpr size_t dyn = bnconv_bf16_smem<C>();
-  auto kernel = bnconv_bf16_kernel<C>;
-  static std::atomic<unsigned> carveout_set{0};
+// A forward convolution pass (conv, or bnconv with BN_IN) on E: float32
+// conv_fwd_kernel or bf16 conv_fwd_bf16_kernel, then the sums' reduction.
+template <int CI, int CO, bool BN_IN, class E>
+cudaError_t launch_conv_fwd(const void* in, const float* coef, const float* w, void* out,
+                            double* partial, double* sums, int B, int H, int W,
+                            int max_blocks, cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = prefer_shared(kernel, carveout_set);
-  if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(z0), coef, w,
-                                    static_cast<bf16*>(z1), partial, B, H, W);
+  cudaError_t err;
+  if constexpr (is_bf16<E>) {
+    constexpr size_t dyn = fwd_bf16_smem<CI, CO>();
+    auto kernel = conv_fwd_bf16_kernel<CI, CO, BN_IN>;
+    static std::atomic<unsigned> carveout_set{0};
+    err = prefer_shared(kernel, carveout_set);
+    if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(in), coef, w,
+                                      static_cast<bf16*>(out), partial, B, H, W);
+  } else {
+    constexpr size_t dyn = sizeof(float) * fwd_smem_floats<CI, CO>();
+    auto kernel = conv_fwd_kernel<CI, CO, BN_IN>;
+    err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, dyn, stream>>>(static_cast<const float*>(in), coef, w,
+                                      static_cast<float*>(out), partial, B, H, W);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce<double>(partial, grid, 2 * C, sums, stream);
+  return reduce<double>(partial, grid, 2 * CO, sums, stream);
 }
 
-template <int C>
-cudaError_t launch_dwprev_bf16(const void* dz, const void* zprev, const float* coef,
-                               const float* w, void* dyprev, float* dw_partial, double* dw,
-                               double* sum_partial, double* sums, int B, int H, int W,
-                               int max_blocks, cudaStream_t stream) {
-  constexpr size_t dyn = dwprev_bf16_smem<C>();
-  auto kernel = dwprev_bf16_kernel<C>;
-  static std::atomic<unsigned> carveout_set{0};
+// A backward convolution pass (dwdx, or dwprev with PREV) on E: float32
+// conv_bwd_kernel or bf16 conv_bwd_bf16_kernel, then the reductions.
+template <int CI, int CO, bool PREV, class E>
+cudaError_t launch_conv_bwd(const void* a_src, const float* a_coef, const void* g_src,
+                            const void* g_z, const float* g_coef, const float* w,
+                            void* d_in, float* dw_partial, double* dw, double* sum_partial,
+                            double* sums, int B, int H, int W, int max_blocks,
+                            cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = prefer_shared(kernel, carveout_set);
-  if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(zprev), coef,
-                                    static_cast<const bf16*>(dz), w, static_cast<bf16*>(dyprev),
-                                    dw_partial, sum_partial, B, H, W);
+  cudaError_t err;
+  if constexpr (is_bf16<E>) {
+    constexpr size_t dyn = bwd_bf16_smem<CI, CO, PREV>();
+    auto kernel = conv_bwd_bf16_kernel<CI, CO, PREV>;
+    static std::atomic<unsigned> carveout_set{0};
+    err = prefer_shared(kernel, carveout_set);
+    if (err == cudaSuccess) err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, dyn, stream>>>(static_cast<const bf16*>(a_src), a_coef,
+                                      static_cast<const bf16*>(g_src),
+                                      static_cast<const bf16*>(g_z), g_coef, w,
+                                      static_cast<bf16*>(d_in), dw_partial, sum_partial, B, H,
+                                      W);
+  } else {
+    constexpr size_t dyn =
+        sizeof(float) * bwd_smem_floats<CI, CO, PREV>(bwd_buffers<CI, CO, PREV>());
+    auto kernel = conv_bwd_kernel<CI, CO, PREV>;
+    err = conv_grid(kernel, dyn, B, H, W, max_blocks, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NT, dyn, stream>>>(static_cast<const float*>(a_src), a_coef,
+                                      static_cast<const float*>(g_src),
+                                      static_cast<const float*>(g_z), g_coef, w,
+                                      static_cast<float*>(d_in), dw_partial, sum_partial, B, H,
+                                      W);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = reduce<float>(dw_partial, grid, 9 * C * C, dw, stream);
+  err = reduce<float>(dw_partial, grid, 9 * CI * CO, dw, stream);
   if (err != cudaSuccess) return err;
-  return reduce<double>(sum_partial, grid, 2 * C, sums, stream);
+  if (PREV) return reduce<double>(sum_partial, grid, 2 * CI, sums, stream);
+  return cudaSuccess;
 }
 
 bool dims_ok(int B, int H, int W) { return B > 0 && H > 0 && W > 0; }
@@ -1991,19 +1959,12 @@ template <class E>
 int bnconv(const void* z0, const float* coef, const float* w, void* z1, double* partial,
            double* sums, int B, int H, int W, int c, int max_blocks, cudaStream_t s) {
   if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  if constexpr (is_bf16<E>) {
-    if (c == 16)
-      return (int)launch_bnconv_bf16<16>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
-    if (c == 32)
-      return (int)launch_bnconv_bf16<32>(z0, coef, w, z1, partial, sums, B, H, W, max_blocks, s);
-  } else {
-    if (c == 16)
-      return (int)launch_conv_fwd<16, 16, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
-                                                   max_blocks, s);
-    if (c == 32)
-      return (int)launch_conv_fwd<32, 32, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
-                                                   max_blocks, s);
-  }
+  if (c == 16)
+    return (int)launch_conv_fwd<16, 16, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                 max_blocks, s);
+  if (c == 32)
+    return (int)launch_conv_fwd<32, 32, true, E>(z0, coef, w, z1, partial, sums, B, H, W,
+                                                 max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2012,23 +1973,14 @@ int dwprev(const void* dz, const void* zprev, const float* coef, const float* w,
            float* dw_partial, double* dw, double* sum_partial, double* sums, int B, int H,
            int W, int c, int max_blocks, cudaStream_t s) {
   if (!dims_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-  if constexpr (is_bf16<E>) {
-    if (c == 16)
-      return (int)launch_dwprev_bf16<16>(dz, zprev, coef, w, dyprev, dw_partial, dw,
-                                         sum_partial, sums, B, H, W, max_blocks, s);
-    if (c == 32)
-      return (int)launch_dwprev_bf16<32>(dz, zprev, coef, w, dyprev, dw_partial, dw,
-                                         sum_partial, sums, B, H, W, max_blocks, s);
-  } else {
-    if (c == 16)
-      return (int)launch_conv_bwd<16, 16, true, E>(zprev, coef, dz, nullptr, nullptr, w,
-                                                   dyprev, dw_partial, dw, sum_partial, sums, B,
-                                                   H, W, max_blocks, s);
-    if (c == 32)
-      return (int)launch_conv_bwd<32, 32, true, E>(zprev, coef, dz, nullptr, nullptr, w,
-                                                   dyprev, dw_partial, dw, sum_partial, sums, B,
-                                                   H, W, max_blocks, s);
-  }
+  if (c == 16)
+    return (int)launch_conv_bwd<16, 16, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
+                                                 dw_partial, dw, sum_partial, sums, B, H, W,
+                                                 max_blocks, s);
+  if (c == 32)
+    return (int)launch_conv_bwd<32, 32, true, E>(zprev, coef, dz, nullptr, nullptr, w, dyprev,
+                                                 dw_partial, dw, sum_partial, sums, B, H, W,
+                                                 max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 

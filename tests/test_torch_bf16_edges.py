@@ -18,6 +18,12 @@ on the card, against spcl_tpu's `_k_bnconv` / `_k_dwprev` path.
   order; measured up to 2.0e-4, on p); the sums of dy0 of a masked edge
   channel (dbeta0, dgamma0) are 0 in both, those of the passed edges
   within STAGE_TOL of spcl_tpu's (measured up to 8.0e-5).
+- The BatchNorm backward at bf16 ties (`bn_bwd_ties`), float32 and bf16:
+  the plain dz1 and dwdx's dz0 (read through dW0 at a one-hot x) equal
+  spcl_tpu's `_k_dz1` and `dz_rows` formulas, evaluated in eager jnp (one
+  rounding per operation), bit for bit; the fused order the kernels took
+  before (c0*dy + (c2*z + c1), two FMAs) gives other bf16 values at about
+  half the elements, so these inputs tell the two orders apart.
 """
 import jax
 import jax.numpy as jnp
@@ -28,7 +34,7 @@ import torch
 from spcl_tpu.experimental.packed_block_pallas import _bn, fused_packed_block
 from spcl_tpu.experimental.packed_stage import pack, unpack
 from spcl_torch.ops import convstage_cuda as cs
-from torch_bf16_edges import EDGES, FLUSHED, pass_inputs, role, to_bf16
+from torch_bf16_edges import EDGES, FLUSHED, bn_bwd_ties, fused_order, pass_inputs, role, to_bf16
 
 STAGE_TOL = 2e-3
 # XLA:CPU keeps float32 between fused bf16 operations unless told not to
@@ -138,3 +144,38 @@ def test_bf16_stage_at_the_edges_matches_fused_packed_block():
                 assert got == 0 and ref == 0, (edge[0], name)
             else:
                 assert ref != 0 and abs(got - ref) <= STAGE_TOL * abs(ref), (edge[0], name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_backward_at_bf16_ties_matches_spcl_tpu(dtype):
+    b, h, w, ci, c = 1, 10, 12, 16, 16
+    dy, z, dcoef = bn_bwd_ties(b, h, w, c, seed=4)
+    # spcl_tpu, eager: `_k_dz1` (:374) and `dz_rows` (:488-497, its row mask
+    # 1.0 inside the image) on the operands as stored in `dtype`
+    dc = jnp.asarray(dcoef)
+    dyj, zj = (jnp.asarray(a).astype(dtype).astype(jnp.float32) for a in (dy, z))
+    dz1_j = (dc[0] * dyj + dc[1] + dc[2] * zj).astype(dtype)
+    dz0_j = ((dc[0] * dyj + dc[1] + dc[2] * zj) * jnp.float32(1.0)).astype(dtype)
+    want = np.asarray(dz0_j.astype(jnp.float32))
+    np.testing.assert_array_equal(np.asarray(dz1_j.astype(jnp.float32)), want)
+    fused = fused_order(dy, z, dcoef)
+    differs = (to_bf16(fused) if dtype == "bfloat16" else fused) != want
+    assert differs.mean() > (0.4 if dtype == "bfloat16" else 0.99)
+
+    tdtype = getattr(torch, dtype)
+    dy_t, z_t, dc_t = torch.from_numpy(dy).to(tdtype), torch.from_numpy(z).to(tdtype), \
+        torch.from_numpy(dcoef)
+    coef = torch.stack([torch.ones(c), torch.zeros(c)])  # y1 = z1 >= 0: dy1 = de
+    np.testing.assert_array_equal(cs.dz1_plain(z_t, coef, dc_t, None, dy_t).float().numpy(), want)
+    # dz0 through dW0: x one-hot at pixel p_i in channel i gives
+    # dW0[u, v, i] = dz0[p_i - (u-1, v-1)]
+    x = torch.zeros(b, h, w, ci, dtype=tdtype)
+    pix = [(1 + (3 * i) % (h - 2), 1 + (5 * i) % (w - 2)) for i in range(ci)]
+    for i, (py, px) in enumerate(pix):
+        x[0, py, px, i] = 1
+    w0 = torch.randn(3, 3, ci, c, generator=torch.Generator().manual_seed(4)) / 12
+    _, dw0 = cs.dwdx_plain(z_t, dy_t, dc_t, x, w0)
+    taps = np.arange(3)
+    for i, (py, px) in enumerate(pix):
+        np.testing.assert_array_equal(dw0[:, :, i].numpy(),
+                                      want[0][np.ix_(py + 1 - taps, px + 1 - taps)])

@@ -266,8 +266,24 @@ def test_float64_pass_agrees_with_the_plain_version(name, dtype):
     (2^-8 x max|ref| for bf16, 1e-5 for float32), float32 outputs (weight
     gradients, sums) within 1e-5 x max|ref|, float32 arithmetic on 288-term
     products being all that differs."""
+    check_float64_pass(name, dtype, 16, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["conv", "dwdx"])
+@pytest.mark.parametrize("ci,c", [(16, 16), (32, 32)])
+def test_float64_pass_agrees_with_the_plain_version_at_each_width(ci, c, name, dtype):
+    """The same for conv and dwdx at the widths the kernels take beside
+    16 -> 32 (the test above): 16 -> 16 and 32 -> 32."""
+    check_float64_pass(name, dtype, ci, c)
+
+
+def check_float64_pass(name, dtype, ci, c):
+    """`float64_pass` against the plain pass `name` on [2, 10, 12] activations
+    of ci (x) and c channels (the rest) in `dtype`, at the tolerances of
+    `test_float64_pass_agrees_with_the_plain_version`."""
     g = torch.Generator().manual_seed(3)
-    b, h, w, ci, c = 2, 10, 12, 16, 32
+    b, h, w = 2, 10, 12
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g) * scale

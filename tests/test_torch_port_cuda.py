@@ -373,13 +373,18 @@ def _wide(g, *shape):
     return mag * sign
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["conv", "bnconv", "dwprev", "dwdx"])
-def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name):
+def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name, dtype):
     """Activations over six decades, where one TF32 pass misses the stage
     tolerance (tests/test_torch_convstage_tf32.py shows it on the CPU): the
-    3xTF32 kernels hold 2e-4 x max|ref| against the pass in float64. BN is
-    the identity (inv 1, shift 0), so the ReLU masks of the float32 and
-    float64 versions are the same."""
+    3xTF32 kernels hold 2e-4 x max|ref| against the pass in float64. The
+    bf16 kernels, against the pass in float64 on the bf16 operands they
+    multiply (`float64_pass`): 2e-4 x max|ref| on their float outputs
+    (weight gradients, sums), BF16_STORED x max|ref| on those stored in bf16
+    (one rounding, 2^-8 of an element at most). BN is the identity (inv 1,
+    shift 0) and dz0 = dy0, so the ReLU masks of the kernels and the float64
+    versions are the same."""
     g = torch.Generator(device="cuda").manual_seed(11)
     b, h, w, ci, c = 2, 40, 56, 16, 32
     coef = torch.stack([torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")])
@@ -387,26 +392,94 @@ def test_stage_conv_kernels_hold_wide_range_against_float64(cuda, name):
                          torch.zeros(c, device="cuda")])
     wt = torch.randn(3, 3, c if name in ("bnconv", "dwprev") else ci, c, generator=g,
                      device="cuda") / 12
-    inputs = {"conv": (_wide(g, b, h, w, ci), wt),
-              "bnconv": (_wide(g, b, h, w, c), coef, wt),
-              "dwprev": (_wide(g, b, h, w, c), _wide(g, b, h, w, c), coef, wt),
-              "dwdx": (_wide(g, b, h, w, c), _wide(g, b, h, w, c), dcoef, _wide(g, b, h, w, ci),
-                       wt)}[name]
+    def wide(*shape):
+        return _wide(g, *shape).to(dtype)
+
+    inputs = {"conv": (wide(b, h, w, ci), wt),
+              "bnconv": (wide(b, h, w, c), coef, wt),
+              "dwprev": (wide(b, h, w, c), wide(b, h, w, c), coef, wt),
+              "dwdx": (wide(b, h, w, c), wide(b, h, w, c), dcoef, wide(b, h, w, ci), wt)}[name]
     got = cs._KERNEL_PASSES[name](*inputs)
-    _assert_stage_close(got, cs.float64_pass(name, *inputs))
+    for k, ref in zip(got, cs.float64_pass(name, *inputs)):
+        tol = BF16_STORED if k.dtype == torch.bfloat16 else 2e-4
+        assert float((k.double() - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("c", [16, 32])
 def test_bnconv_and_dwprev_two_runs_bit_for_bit(cuda, c, dtype):
-    args, _, de = _stage_args(3, 40, 40, 16, c, True, seed=c)
-    z0, w1, de = args[0].to(dtype), args[4], de.to(dtype)
+    """The four convolution passes, twice on the same inputs (conv and dwdx
+    16 -> c): the same bits."""
+    args, dp, de = _stage_args(3, 40, 40, 16, c, False, seed=c)
+    x, w0, w1 = args[0].to(dtype), args[1], args[4]
+    z0, dz1, dy0 = de.to(dtype), dp.repeat(1, 2, 2, 1).to(dtype).contiguous(), de.to(dtype)
     coef = torch.stack([1 + 0.1 * de[0, 0, 0].float(), 0.1 * de[0, 0, 1].float()]).contiguous()
-    dz1 = de.contiguous()
+    dcoef = torch.stack([1 + 0.1 * de[0, 1, 0].float(), 0.1 * de[0, 1, 1].float(),
+                         0.01 * de[0, 1, 2].float()]).contiguous()
     for fn, inputs in ((cs.bnconv_kernel, (z0, coef, w1)),
-                       (cs.dwprev_kernel, (dz1, z0, coef, w1))):
+                       (cs.dwprev_kernel, (dz1, z0, coef, w1)),
+                       (cs.conv_kernel, (x, w0)),
+                       (cs.dwdx_kernel, (z0, dy0, dcoef, x, w0))):
         first, second = fn(*inputs), fn(*inputs)
-        assert all(torch.equal(x, y) for x, y in zip(first, second))
+        assert all(torch.equal(a, a2) for a, a2 in zip(first, second))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 20, 36), (3, 20, 36), (5, 26, 14), (60, 34, 50)])
+@pytest.mark.parametrize("ci,co", [(16, 16), (16, 32), (32, 32)])
+def test_bf16_conv_and_dwdx_match_plain(cuda, b, h, w, ci, co):
+    """conv and dwdx in bf16 (conv_fwd_bf16_kernel, conv_bwd_bf16_kernel)
+    against their plain bf16 versions at every (ci, co) the entry points
+    take, at H and W no multiples of the 16x16 tile and B = 1 to 60: bf16
+    outputs (z0, dx) within BF16_STORED x max|plain|, float ones (the sums,
+    dW0) within 2e-4; one launch each, counted under the bf16 names."""
+    g = torch.Generator(device="cuda").manual_seed(b * h + ci + co)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x, z0, dy0 = rn(b, h, w, ci), rn(b, h, w, co), rn(b, h, w, co, scale=0.1)
+    x, z0, dy0 = x.to(torch.bfloat16), z0.to(torch.bfloat16), dy0.to(torch.bfloat16)
+    w0 = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+    dcoef = torch.stack([1 + rn(co, scale=0.1), rn(co, scale=0.01), rn(co, scale=0.01)])
+    cs.reset_launch_counts()
+    for name, inputs in (("conv", (x, w0)), ("dwdx", (z0, dy0, dcoef, x, w0))):
+        got, want = cs._KERNEL_PASSES[name](*inputs), cs._PLAIN_PASSES[name](*inputs)
+        assert got[0].dtype == torch.bfloat16
+        _assert_stage_close(got, want, chained=False)
+    assert cs.LAUNCHES_BF16["convstage_conv_bf16"] == cs.LAUNCHES_BF16["convstage_dwdx_bf16"] == 1
+    assert sum(cs.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("co", [16, 32])
+def test_bn_backward_in_the_plain_order_bit_for_bit(cuda, co, dtype):
+    """dz1 and dwdx's dz0 = (c0*dy + c1) + c2*z, on inputs where the fused
+    order c0*dy + (c2*z + c1) gives other float32 values everywhere and
+    other bf16 values at about half the elements (`bn_bwd_ties`,
+    tests/torch_bf16_edges.py): dz1_kernel equals dz1_plain bit for bit,
+    and dwdx's dz0 equals the plain version's, read through dW0: at B = 1, x
+    one-hot at pixel p_i in channel i makes dW0[u, v, i] = dz0[p_i - (u-1,
+    v-1)], one exact product beside zeros, in the kernel and in the plain
+    version (on the CPU) alike."""
+    from torch_bf16_edges import bn_bwd_ties
+
+    b, h, w, ci = 1, 20, 36, 16
+    dy, z, dcoef = (torch.from_numpy(a) for a in bn_bwd_ties(b, h, w, co, seed=co))
+    dy, z = dy.to(dtype), z.to(dtype)
+    coef = torch.stack([torch.ones(co), torch.zeros(co)])  # y1 = z1 >= 0: dy1 = de
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    got = cs.dz1_kernel(*(t.cuda() for t in (z, coef, dcoef)), None, dy.cuda()).cpu()
+    want = cs.dz1_plain(z, coef, dcoef, None, dy)
+    assert torch.equal(got.view(bits), want.view(bits))
+    x = torch.zeros(b, h, w, ci, dtype=dtype)
+    for i in range(ci):  # interior pixels, across the 16 x 16 tiles' edges
+        x[0, 2 + (7 * i) % (h - 4), 2 + (11 * i) % (w - 4), i] = 1
+    w0 = torch.randn(3, 3, ci, co, generator=torch.Generator().manual_seed(co)) / 12
+    inputs = (z, dy, dcoef, x, w0)
+    _, dw_got = cs.dwdx_kernel(*(t.cuda() for t in inputs))
+    _, dw_want = cs.dwdx_plain(*inputs)
+    assert bool((dw_want != 0).all())
+    assert torch.equal(dw_got.cpu(), dw_want)
 
 
 def test_stage_autograd_on_card_matches_cpu(cuda):

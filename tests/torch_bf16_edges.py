@@ -3,8 +3,9 @@ seed: channels whose y0 = z0*inv + shift is exactly +0 or -0.0 (the ReLU
 mask [y0 >= 0] passes them), a tiny negative (masked: a float32 subnormal
 that bf16 keeps, one that rounds to -0.0 in bf16, a normal), or halfway
 between two bf16 values (a0 = bf16(relu(y0)) rounds to even), beside
-ordinary channels. Shared by tests/test_torch_port_cuda.py (the kernels on
-the card) and tests/test_torch_bf16_edges.py (the plain versions against
+ordinary channels; and inputs of the BatchNorm backward that land on bf16
+ties (`bn_bwd_ties`). Shared by tests/test_torch_port_cuda.py (the kernels
+on the card) and tests/test_torch_bf16_edges.py (the plain versions against
 spcl_tpu); imports neither torch nor jax."""
 import numpy as np
 
@@ -53,3 +54,35 @@ def pass_inputs(b, h, w, c, seed):
     dz1 = to_bf16(rng.randn(b, h, w, c).astype(np.float32))
     w1 = (rng.randn(3, 3, c, c) * (9 * c) ** -0.5).astype(np.float32)
     return z0, np.stack([inv, shift]).astype(np.float32), dz1, w1
+
+
+def bn_bwd_ties(b, h, w, c, seed):
+    """(dy, z, dcoef) as float32 numpy arrays, dy and z [b, h, w, c] holding
+    bf16 values, dcoef [3, c] = (c0, c1, c2), on which the BatchNorm backward
+    in the plain order, (c0*dy + c1) + c2*z with each operation rounded to
+    float32, lands exactly halfway between two bf16 values, while the fused
+    order c0*dy + (c2*z + c1) (two FMAs) lands one float32 ulp above it.
+
+    Channel k has c0 = 2^e (e = k % 5 - 2), c1 = 2^(e-8) + 2^(e-24) and
+    c2 = 2^(e-24); dy holds bf16 values in [1, 2) and z = 1, so c0*dy and
+    c2*z are exact. Plain: c0*dy + c1 is a float32 tie that rounds to even,
+    c0*dy + 2^(e-8), and adding 2^(e-24) ties the same way. Fused: c2*z + c1
+    = 2^(e-8) + 2^(e-23) exactly, and c0*dy plus that is exact too. The
+    float32 results always differ; rounded to bf16 (ulp 2^(e-7)), the plain
+    one goes to even and the fused one up, so they differ wherever dy's last
+    bf16 bit is 0, about half the elements. The plain values have at most 9
+    significant bits: one TF32 or bf16 operand holds them exactly."""
+    rng = np.random.RandomState(seed)
+    dy = (1.0 + rng.randint(0, 128, size=(b, h, w, c)) / 128.0).astype(np.float32)
+    e = (np.arange(c) % 5 - 2).astype(np.float64)
+    dcoef = np.stack([2.0 ** e, 2.0 ** (e - 8) + 2.0 ** (e - 24), 2.0 ** (e - 24)])
+    return dy, np.ones_like(dy), dcoef.astype(np.float32)
+
+
+def fused_order(dy, z, dcoef):
+    """c0*dy + (c2*z + c1) in float32 numpy: the two FMAs' result on
+    `bn_bwd_ties` inputs, where both products are exact."""
+    c0, c1, c2 = dcoef
+    assert np.array_equal((c0 * dy).astype(np.float64), c0.astype(np.float64) * dy)
+    assert np.array_equal((c2 * z).astype(np.float64), c2.astype(np.float64) * z)
+    return (c0 * dy + (c2 * z + c1)).astype(np.float32)
