@@ -177,7 +177,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                storage rows, the best score and best.ckpt's weights within
                1e-4, each best.ckpt of the first epoch of its run's highest
                val DSC.
- 17. report  — the `kernels` JSON line (the bf16 passes as
+ 17. slice I — evaluating, inspecting and serving a trained model at the
+               paper's width (UNet-256, 4 classes, crop 224 of 256, `nhwc`):
+               1 fine-tune epoch of 5 steps from slice B's pretrain last.ckpt;
+               `spcl_torch.inference.run_inference` from its last.ckpt, its
+               Dice equal to the trainer's own eval epoch on the test loader,
+               the forward's and the surface meters' ms per scan apart;
+               `spcl_torch.weight_inspection.inspect` from slice B's
+               checkpoint at 2N=60 (sp_mask in [0, 1], pos_mask symmetric,
+               finite losses, the npz keys of weight_inspection.py, its wall
+               time); the fine-tune checkpoint exported with a symbolic
+               batch in float32 and in bf16 and served by `make_http_server`
+               on 127.0.0.1 in a thread: 3 warm-up requests, then 50 at batch
+               1, 8 and 32 of 224^2 uint8 slices with `?outputs=both` and 50
+               with `?outputs=pred`, every response held to the live
+               module's eval forward on the card (TF32 off; float32 logits
+               within 1e-4, bf16 within 2^-7 x max|logits|, pred equal where
+               the top two logits are further apart): p50 / p99 latency,
+               slices/s and the direct forward's ms at each batch. No kernel
+               of spcl_torch.ops runs in eval mode.
+ 18. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -187,7 +206,9 @@ kernel checks (float32, then bf16), `--bf16-only` runs the build and phases
 15 and 16, `--supcon-kernels-only` runs the build and phases 3 (supcon
 part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
 build and phase 11, `--semi-only` the build and phase 12,
-`--decoder-adv-only` the build and phases 13 (without the warm start) and 14.
+`--decoder-adv-only` the build and phases 13 (without the warm start) and 14,
+`--serving-only` the build and phase 17 (the fine-tune from a fresh UNet,
+weight inspection of its random initialisation).
 """
 import copy
 import json
@@ -3335,6 +3356,328 @@ def adv_parity_phase(cs):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------------------ slice I
+SLICE_I_FT_STEPS = 5          # the fine-tune that writes the served checkpoint
+SLICE_I_WARMUP = 3            # requests before the timed ones
+SLICE_I_REQUESTS = 50         # timed requests at each batch size
+SERVE_BATCHES = (1, 8, 32)
+SERVE_F32_TOL = 1e-4          # float32 logits, TF32 off in both the server and the forward
+SERVE_BF16_REL_TOL = 2.0 ** -7  # x max|logits|: one bf16 rounding of the largest logit
+SLICE_I_FORWARD_REPS = 20
+INSPECT_KEYS = [f"gamma_{g}/{k}" for g in (1.0, 3.0, 10.0, 100.0)
+                for k in ("sim_logits", "pos_mask", "sp_mask")]  # weight_inspection.py's
+
+
+def _slice_i_config(**arch):
+    """CONFIG as the fine-tune trainer of the paper's configuration takes it
+    (UNet-256, 4 classes, crop 224 of 256, `nhwc`), 1 epoch of 5 steps."""
+    config = copy.deepcopy(CONFIG)
+    config["Arch"].update(arch)
+    config["Trainer"].update(name="ft", max_epoch=1, num_batches=SLICE_I_FT_STEPS)
+    return config
+
+
+def _serving_slices(config, n):
+    """n val slices of the synthetic test set, center-cropped to 224^2, uint8."""
+    from spcl_torch.entry.common import load_datasets_from_config
+    images = load_datasets_from_config(config)[1].images
+    canvas, crop = images.shape[-1], config["Data"]["crop"]
+    lo = (canvas - crop) // 2
+    idx = np.arange(n) % len(images)
+    return np.ascontiguousarray(images[idx, lo:lo + crop, lo:lo + crop])
+
+
+def _direct_logits(model, x_uint8):
+    """The live module's NHWC logits on the request's float32 input."""
+    x = torch.from_numpy(x_uint8.astype(np.float32) / 255.0).to(DEVICE)
+    with torch.no_grad():
+        return model(x[:, None])["logits"].permute(0, 2, 3, 1)
+
+
+def _serve_tol(dtype, ref):
+    """The tolerance of a response against the direct forward's logits `ref`."""
+    if dtype == "float32":
+        return SERVE_F32_TOL
+    return SERVE_BF16_REL_TOL * float(ref.abs().max())
+
+
+def _hold_response(what, logits, pred, ref, tol):
+    """Served logits within `tol` of the direct forward's; pred equal wherever
+    the top two logits are further apart than `tol`. Returns the error."""
+    err = float((torch.from_numpy(logits).to(ref.device) - ref).abs().max()) \
+        if logits is not None else 0.0
+    check(err <= tol, f"{what}: served logits {err} from the direct forward (tolerance {tol})")
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    got = torch.from_numpy(pred).to(ref.device).long()
+    check(bool((got == ref.argmax(dim=-1))[clear].all()),
+          f"{what}: served pred differs from the direct forward away from ties")
+    return err
+
+
+def _post(port, path, body):
+    """One POST on a fresh connection with TCP_NODELAY (as HTTP clients such
+    as curl and urllib3 set it; urllib does not, and its body, sent after the
+    headers, then waits for the server's delayed ACK); returns the body."""
+    import http.client
+    import socket
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200, f"POST {path}: HTTP {resp.status} {data[:200]!r}")
+        return data
+    finally:
+        conn.close()
+
+
+def _serve_requests(port, model, dtype, slices, batch, n, outputs, what):
+    """n POST /predict requests of `batch` uint8 slices, each response held
+    to the direct forward; returns the latencies in ms and the largest
+    error over its tolerance."""
+    import io
+    lat, err = [], 0.0
+    for r in range(n):
+        x = slices[(r * batch) % (len(slices) - batch + 1):][:batch]
+        buf = io.BytesIO()
+        np.save(buf, x)
+        body = buf.getvalue()
+        t0 = time.perf_counter()
+        data = _post(port, f"/predict?outputs={outputs}", body)
+        out = np.load(io.BytesIO(data))
+        if outputs == "both":
+            logits, pred = out["logits"], out["pred"]
+        else:
+            logits, pred = None, out
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(pred.shape == (batch,) + x.shape[1:] and pred.dtype == np.int32,
+              f"{what}: pred {pred.shape} {pred.dtype}")
+        ref = _direct_logits(model, x)
+        tol = _serve_tol(dtype, ref)
+        err = max(err, _hold_response(what, logits, pred, ref, tol) / tol)
+    return lat, err
+
+
+def _get_ms(port, path, n=20):
+    """Median wall ms of n GET requests (the HTTP round trip alone)."""
+    import http.client
+    import socket
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            conn.request("GET", path)
+            conn.getresponse().read()
+        finally:
+            conn.close()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def _served_call_ms(server, slices, batch, fresh_thread, n=10):
+    """Median wall ms of the artifact's call with the copy back of pred:
+    through the server's device thread (`server.predict`, as a request runs
+    it), or directly, each call in a fresh thread."""
+    import threading
+    x = slices[:batch].astype(np.float32)[..., None] / 255.0
+    lat = []
+
+    def call():
+        t0 = time.perf_counter()
+        if fresh_thread:
+            server.served_model(x)["pred"].cpu()
+        else:
+            server.predict(x, ("pred",))
+        lat.append((time.perf_counter() - t0) * 1e3)
+
+    call()  # warm-up
+    lat.clear()
+    for _ in range(n):
+        if fresh_thread:
+            t = threading.Thread(target=call)
+            t.start()
+            t.join(timeout=60)
+        else:
+            call()
+    return float(np.median(lat))
+
+
+def _forward_ms(model, slices, batch, reps=SLICE_I_FORWARD_REPS):
+    """The direct eval-mode forward of `batch` slices on the card (input
+    already there), CUDA events over `reps` calls after a warm-up."""
+    x = torch.from_numpy(slices[:batch].astype(np.float32) / 255.0).to(DEVICE)[:, None]
+    with torch.no_grad():
+        model(x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            model(x)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _pcts(lat):
+    a = np.sort(np.asarray(lat))
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def slice_i_phase(encoder_ckpt=None):
+    """Slice I: evaluate, inspect and serve a trained UNet-256 through the
+    port's entry points (`spcl_torch.inference`, `spcl_torch.weight_inspection`,
+    `spcl_torch.serving`). The eval-mode forward takes the UNet's plain path:
+    no kernel of spcl_torch.ops runs here. `encoder_ckpt`: slice B's pretrain
+    last.ckpt, the fine-tune's warm start and the inspected weights (None:
+    the fresh random initialisation, as `--serving-only` runs it)."""
+    phase("slice I: inference, weight inspection and serving (UNet-256, 224^2)")
+    import threading
+    from spcl_torch import inference, weight_inspection
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.entry.common import build_model_from_config
+    from spcl_torch.serving import export_from_checkpoint, make_http_server
+    from spcl_torch.training import load_model_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = ROOT / "runs" / "chip_smoke_i"
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+
+    # ---- the checkpoint: one fine-tune epoch of 5 steps from the encoder
+    config = _slice_i_config(checkpoint=str(encoder_ckpt) if encoder_ckpt else None)
+    trainer = build_trainer(config, save_dir=str(base / "ft"), device=DEVICE)
+    trainer.init()
+    trainer.start_training()
+    ckpt = base / "ft" / "last.ckpt"
+    check(ckpt.exists(), f"{ckpt} missing")
+    del trainer
+
+    # ---- inference from it, held to the trainer's own eval epoch
+    config = _slice_i_config(checkpoint=str(ckpt))
+    report = inference.run_inference(config, str(base / "inference"), device=DEVICE)
+    trainer = build_trainer(config, save_dir=str(base / "eval"), device=DEVICE)
+    trainer.init()
+    stats, dsc = trainer._run_eval_epoch(trainer._test_loader)
+    dice = {k: v for k, v in report.items() if k.startswith("DSC")}
+    check(dice == {k: stats["dice"][k] for k in dice} and dice["DSC_mean"] == dsc,
+          f"inference Dice {dice} != the trainer's eval epoch {stats['dice']}")
+    for k, v in report.items():
+        check(k.startswith("DSC") or math.isnan(v) or v >= 0.0, f"{k} = {v}")
+    loader = trainer._test_loader
+    list(inference.predictions(trainer, loader))  # warm-up
+    t0 = time.perf_counter()
+    preds = list(inference.predictions(trainer, loader))
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = inference.score(preds, trainer.model.num_classes)
+    meters = time.perf_counter() - t0
+    check(list(again) == list(report)
+          and np.array_equal(list(again.values()), list(report.values()), equal_nan=True),
+          f"a second scoring differs: {again} vs {report}")
+    scans = len(preds)
+    out["inference"] = {"scans": scans, "slices": sum(len(p) for _, p, _ in preds),
+                        "forward_ms_per_scan": fwd * 1e3 / scans,
+                        "meters_ms_per_scan": meters * 1e3 / scans, "report": report}
+    print(f"inference ({scans} test scans, {out['inference']['slices']} slices, "
+          f"{trainer._eval_out_size()}^2): Dice equals the trainer's eval epoch "
+          f"(DSC_mean {dsc:.5f}) | HD95_mean {report['HD95_mean']:.4f} ASSD_mean "
+          f"{report['ASSD_mean']:.4f} | forward (copy in, crop, eval forward, argmax, "
+          f"copy out) {out['inference']['forward_ms_per_scan']:.3f} ms per scan | surface "
+          f"meters and Dice on the host {out['inference']['meters_ms_per_scan']:.3f} ms per "
+          f"scan", flush=True)
+    del trainer, preds
+
+    # ---- weight inspection from the encoder checkpoint, 2N = 60
+    inspect_config = copy.deepcopy(CONFIG)
+    inspect_config["Arch"]["checkpoint"] = str(encoder_ckpt) if encoder_ckpt else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = weight_inspection.inspect(inspect_config, str(base / "inspect"), device=DEVICE)
+    torch.cuda.synchronize()
+    out["inspect_s"] = time.perf_counter() - t0
+    for g, d in got.items():
+        check(d["sim_logits"].shape == (VIEWS, VIEWS), f"{g}: {d['sim_logits'].shape}")
+        check(math.isfinite(d["loss"]) and 0.0 <= d["downgrade_ratio"] <= 1.0, f"{g}: {d}")
+        check(bool(np.all((d["sp_mask"] >= 0) & (d["sp_mask"] <= 1))), f"{g}: sp_mask")
+        check(np.array_equal(d["pos_mask"], d["pos_mask"].T), f"{g}: pos_mask not symmetric")
+    with np.load(base / "inspect" / "weight_inspection.npz") as f:
+        check(sorted(f.files) == sorted(INSPECT_KEYS), f"npz keys {sorted(f.files)}")
+    print(f"weight inspection (2N={VIEWS}): {out['inspect_s']:.2f} s wall (trainer build, "
+          f"warm start, one batch, four gammas, the npz) | "
+          + " | ".join(f"{g}: loss {d['loss']:.4f} kept {d['downgrade_ratio']:.4f}"
+                       for g, d in got.items()), flush=True)
+
+    # ---- serving: the checkpoint exported in float32 and bf16, over HTTP
+    slices = _serving_slices(config, max(SERVE_BATCHES) * 4)
+    out["serving"] = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _slice_i_config(dtype=dtype)
+        path = base / f"unet256_{dtype}.spclt"
+        t0 = time.perf_counter()
+        crop = cfg["Data"]["crop"]
+        meta = export_from_checkpoint(str(ckpt), str(path), config=cfg, height=crop, width=crop)
+        export_s = time.perf_counter() - t0
+        check(meta["input_shape"] == ["b", str(crop), str(crop), "1"] and meta["dtype"] == dtype,
+              meta)
+        model = build_model_from_config(cfg)
+        model.load_state_dict(load_model_state_dict(str(ckpt)), strict=False)
+        model.to(DEVICE).eval()
+        server = make_http_server(str(path), host="127.0.0.1", port=0, device=DEVICE)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            _, err = _serve_requests(port, model, dtype, slices, 1, SLICE_I_WARMUP, "both",
+                                     f"{dtype} warm-up")
+            healthz_ms = _get_ms(port, "/healthz")
+            rows = {}
+            for batch in SERVE_BATCHES:
+                row = {}
+                for outputs in ("both", "pred"):
+                    lat, e = _serve_requests(port, model, dtype, slices, batch,
+                                             SLICE_I_REQUESTS, outputs, f"{dtype} batch {batch}")
+                    err = max(err, e)
+                    p50, p99 = _pcts(lat)
+                    row[outputs] = {"p50_ms": p50, "p99_ms": p99,
+                                    "slices_per_s": batch * len(lat) * 1e3 / sum(lat)}
+                row["forward_ms"] = _forward_ms(model, slices, batch)
+                row["call_ms"] = _served_call_ms(server, slices, batch, False)
+                row["call_fresh_thread_ms"] = _served_call_ms(server, slices, batch, True)
+                rows[batch] = row
+                print(f"serving {dtype} batch {batch}: ?outputs=pred p50 "
+                      f"{row['pred']['p50_ms']:.3f} ms p99 {row['pred']['p99_ms']:.3f} ms "
+                      f"{row['pred']['slices_per_s']:.1f} slices/s | ?outputs=both p50 "
+                      f"{row['both']['p50_ms']:.3f} ms p99 {row['both']['p99_ms']:.3f} ms "
+                      f"{row['both']['slices_per_s']:.1f} slices/s | direct forward "
+                      f"{row['forward_ms']:.3f} ms | the artifact's call + pred copied back "
+                      f"on the server's device thread {row['call_ms']:.3f} ms, in a fresh thread "
+                      f"{row['call_fresh_thread_ms']:.3f} ms ({SLICE_I_REQUESTS} requests each, "
+                      f"every response held to the direct forward)", flush=True)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the HTTP server thread did not stop")
+        out["serving"][dtype] = {"rows": rows, "err_over_tol": err, "export_s": export_s,
+                                 "bytes": path.stat().st_size, "healthz_ms": healthz_ms}
+        responses = SLICE_I_WARMUP + 2 * SLICE_I_REQUESTS * len(SERVE_BATCHES)
+        print(f"serving {dtype}: artifact {path.stat().st_size / 2**20:.1f} MiB exported in "
+              f"{export_s:.2f} s | GET /healthz {healthz_ms:.3f} ms (median of 20) | "
+              f"largest |served - direct| logits / tolerance {err:.3g} "
+              f"({'1e-4' if dtype == 'float32' else '2^-7 x max|logits|'}, TF32 off) over "
+              f"{responses} responses, pred equal away from ties", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
              "pool with its statistics")
 
@@ -3404,6 +3747,9 @@ def main():
         slice_g_phase(sc, cs)
         adv_parity_phase(cs)
         return
+    if "--serving-only" in sys.argv[1:]:
+        slice_i_phase()
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -3430,6 +3776,8 @@ def main():
     torch.cuda.empty_cache()
     slice_h = slice_h_phase(sc, cs, float32={"pallas": steps["pallas_true"],
                                              "nhwc": steps["nhwc_true"]})
+    torch.cuda.empty_cache()
+    slice_i = slice_i_phase(ROOT / "runs" / "chip_smoke_b" / "pre" / "last.ckpt")
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -3502,7 +3850,13 @@ def main():
           f"{ADV_SLICES * 1e3 / slice_g['ms']:.1f} slices/s | slice H bf16 pretrain step "
           f"pallas {slice_h['pallas']['ms']:.3f} ms/step, "
           f"{VIEWS * 1e3 / slice_h['pallas']['ms']:.1f} slices/s, nhwc "
-          f"{slice_h['nhwc']['ms']:.3f} ms/step", flush=True)
+          f"{slice_h['nhwc']['ms']:.3f} ms/step | slice I inference "
+          f"{slice_i['inference']['forward_ms_per_scan']:.3f} ms per scan (forward) + "
+          f"{slice_i['inference']['meters_ms_per_scan']:.3f} (meters), served batch 32 "
+          f"float32 {slice_i['serving']['float32']['rows'][32]['pred']['slices_per_s']:.1f} "
+          f"slices/s, bf16 "
+          f"{slice_i['serving']['bfloat16']['rows'][32]['pred']['slices_per_s']:.1f} slices/s",
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

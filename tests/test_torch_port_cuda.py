@@ -1013,3 +1013,31 @@ def test_bf16_dwprev_and_bnconv_at_the_mask_edges(cuda, b, h, w, c):
     _assert_stage_close(got, want, chained=False)
     _assert_stage_close(cs.bnconv_kernel(z0, coef, w1), cs.bnconv_plain(z0, coef, w1),
                         chained=False)
+
+
+# ------------------------------------------------------------------ serving
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_artifact_on_the_card_matches_the_live_module(cuda, tmp_path, dtype):
+    """An artifact exported on the CPU (weights stored there) and loaded with
+    device="cuda" runs on the card and gives the live eval-mode module's
+    logits there: within 1e-4 in float32 (TF32 off), 2^-7 x max|logits| in
+    bf16; the same pred wherever the top two logits are further apart."""
+    from spcl_torch.models import UNet
+    from spcl_torch.serving import export_inference, load_artifact, save_artifact
+
+    torch.manual_seed(0)
+    net = UNet(input_dim=1, num_classes=4, max_channel=128, dtype=dtype).eval()
+    path = str(tmp_path / "m.spclt")
+    save_artifact(path, export_inference(net, height=64, width=64))
+    served = load_artifact(path, device="cuda")
+    net.cuda()
+    x = torch.rand(3, 64, 64, 1, generator=torch.Generator().manual_seed(1))
+    out = served(x.numpy())
+    with torch.no_grad():
+        ref = net(x.cuda().permute(0, 3, 1, 2))["logits"].permute(0, 2, 3, 1)
+    assert out["logits"].device.type == "cuda" and out["pred"].dtype == torch.int32
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * float(ref.abs().max())
+    torch.testing.assert_close(out["logits"], ref, rtol=0, atol=tol)
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    assert torch.equal(out["pred"].long()[clear], ref.argmax(dim=-1)[clear])

@@ -229,5 +229,7 @@ def test_hook_draws_have_the_shapes_of_spcl_tpus(arrays):
     d = mix.sample(g, ctx)
     assert d["lam"].shape == () and 0.0 <= float(d["lam"]) <= 1.0
     assert sorted(d["perm"].tolist()) == list(range(2 * N_L))
-    with pytest.raises(NotImplementedError):
-        type(mix)(alpha=0.4)
+    d = type(mix)(alpha=0.4).sample(g, ctx)  # Beta(0.4, 0.4): spcl_tpu's jax.random.beta
+    assert d["lam"].shape == () and 0.0 <= float(d["lam"]) <= 1.0
+    with pytest.raises(ValueError):
+        type(mix)(alpha=0.0)
