@@ -196,7 +196,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                the top two logits are further apart): p50 / p99 latency,
                slices/s and the direct forward's ms at each batch. No kernel
                of spcl_torch.ops runs in eval mode.
- 18. report  — the `kernels` JSON line (the bf16 passes as
+ 18. slice J — every trainer under `Trainer.mesh=2` at full width (UNet-256,
+               crop 224 of 256, `nhwc`; two ranks over NCCL with two or more
+               cards, over gloo on one, as slice C), each against this
+               process running the same padded batches and draws alone:
+               J1 main.py at production_semi + mt + uda (32 + 32 slices, 2
+               epochs x 1 warm-up + 3 timed steps, eval epochs) — per-step
+               losses and hook metrics, student and teacher weights, replicas
+               equal to the bit, files from rank 0 only, last.ckpt reloading
+               strictly, ms/step beside one process, then `trainer_checkpoint`
+               resume under the mesh into epoch 2 against the uninterrupted
+               run; J2 the presets entropy, ucmeanteacher, iic, udaiic, midl,
+               mine and infonce (row_sharded: one supcon_fwd and one
+               supcon_bwd strip a rank, shape printed) at base.yaml's 5 + 5
+               slices padded to 6 + 6, 1 step each; J3 main_mixup at alpha 1
+               and 0.4 and main_adv (reg_weight 0.01), 3 steps each, the
+               discriminator's update too; J4 main_pretrain_decoder at
+               infonce_dense.yaml (9 slices padded to 10) under replicated
+               (pretraining) and row_sharded (both phases), 3 steps each, one
+               forward and one dz launch a rank and step, each held to the
+               plain version; J5 a fine-tune of 2 epochs x 3 steps with
+               `defer_reads` against the eager one under the mesh.
+               Tolerances (stated at `J_LOSS_TOL`): weights slice C's,
+               losses and hook metrics 5e-3 relative (TF32).
+ 19. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -208,7 +231,8 @@ part) and 8, `--mesh-only` the build and phases 8-10, `--bigbatch-only` the
 build and phase 11, `--semi-only` the build and phase 12,
 `--decoder-adv-only` the build and phases 13 (without the warm start) and 14,
 `--serving-only` the build and phase 17 (the fine-tune from a fresh UNet,
-weight inspection of its random initialisation).
+weight inspection of its random initialisation), `--semi-mesh-only` the
+build and phase 18.
 """
 import copy
 import json
@@ -2527,13 +2551,13 @@ def slice_e_phase(cs):
 class _HeldSupcon:
     """Inside the block, each supcon kernel call through the wrappers is
     recorded in `calls` as (kernel, operand rows, real views: label != the
-    pad's -7) and held to the plain version on the same operands at the
+    pad's -7), and in `shapes` as (kernel, rows, columns), and held to the plain version on the same operands at the
     kernels phase's tolerances; `max_err` keeps the largest error per
     kernel. The held calls are not timed."""
 
     def __init__(self, sc, what):
         self.sc, self.what = sc, what
-        self.calls = []
+        self.calls, self.shapes = [], []
         self.max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
 
     def __enter__(self):
@@ -2544,6 +2568,7 @@ class _HeldSupcon:
         def noted(kernel, fn):
             def run(zr, zc, lab_r, *rest):
                 self.calls.append((kernel, zr.shape[0], int((lab_r != -7).sum())))
+                self.shapes.append((kernel, zr.shape[0], zc.shape[0]))
                 out = fn(zr, zc, lab_r, *rest)
                 ref = plain[kernel](zr, zc, lab_r, *rest)
                 if kernel == "supcon_fwd":  # (denom, c, rawloss, spsum); per row / c
@@ -3356,6 +3381,520 @@ def adv_parity_phase(cs):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------------------ slice J
+# every trainer of main.py, main_mixup.py, main_adv.py and
+# main_pretrain_decoder.py under Trainer.mesh=2 at full width (UNet-256,
+# crop 224 of 256, nhwc), each against this process running the same padded
+# batches and draws alone
+RANKS_J = 2
+SLICE_J_STEPS = 4            # J1: an epoch of 1 warm-up + 3 timed steps, two epochs
+SLICE_J_SHORT = 3            # J3, J4, J5: steps a run
+SLICE_J_PRESETS = ("entropy", "ucmeanteacher", "iic", "udaiic", "midl", "mine", "infonce")
+MIXUP_ALPHAS = (1.0, 0.4)
+J_DECODER_CONTRASTS = ("replicated", "row_sharded")
+# slice C's tolerances where they hold (see slice_c_phase: the ranks
+# convolve half the rows, so cuDNN may take other TF32 algorithms, and the
+# BatchNorm sums run in another order): weights within twice what the run
+# moved them. Losses and hook metrics 5e-3 relative, 10x TF32's unit
+# roundoff (2^-11): slice C's 1e-3 held for every part in slice J alone
+# (at most 3.9e-4), but in the whole script MINE's mutual information,
+# which runs its own TF32 statistics network on the rank's rows, moved
+# 1.23e-3 (H100). Losses and hook metrics near zero (a mutual information
+# of random heads) are held to 5e-3 x max(|value|, J_METRIC_FLOOR).
+J_LOSS_TOL = 5e-3
+J_METRIC_FLOOR = 1e-2
+# the adversarial losses after the first step read the discriminator, whose
+# Adam moves a weight by about lr x sign(g): where g sits at its rounding
+# noise the two runs move it 2 lr apart (the discriminator's update is held
+# within 1e-2 relative L2 for that reason, tests/test_torch_adversarial.py),
+# and gen_loss / dis_loss carry that (2.3e-3 on an H100)
+J_ADV_TOLS = {"gen_loss": 1e-2, "dis_loss": 1e-2}
+# the discriminator's Adam first moments (its summed gradients): 2.4e-2 to
+# 4.2e-2 relative L2 on an H100 (the gradients carry the TF32 noise of the
+# UNet's softmax and of the discriminator's own convolutions); gradients not
+# summed over the ranks, or summed twice, are 0.5 off
+J_D_MOMENT_TOL = 0.2
+# a gate's share of pixels (UC-MT's entropy threshold) flips where a pixel
+# sits at the threshold, as slice C's hard weights do: held in absolute
+# value to slice C's sp_weight tolerance (1.99e-3 relative on an H100 in
+# the whole script, 0 in slice J alone)
+J_GATES = {"ucmt/uc_ratio": 5e-3}
+
+
+class _PaddedLoaders:
+    """Inside the block, every trainer `init()` makes takes its training
+    batches right-padded with -1 (valid 0) to a multiple of `multiple`: the
+    single process then runs the very batches a mesh run of that many ranks
+    pads (eval batches need no padding: every eval output is per slice)."""
+
+    def __init__(self, multiple):
+        self.multiple = multiple
+
+    def __enter__(self):
+        from spcl_torch.data.loader import HostLoader
+        from spcl_torch.training.trainer import _TrainerBase
+        self._orig = _TrainerBase.init
+        orig, multiple = self._orig, self.multiple
+
+        def init(trainer):
+            orig(trainer)
+            for attr in ("_labeled_loader", "_unlabeled_loader", "_contrastive_loader"):
+                loader = getattr(trainer, attr, None)
+                if loader is not None:
+                    setattr(trainer, attr, HostLoader(loader.dataset,
+                                                      _PaddedSampler(loader.sampler, multiple)))
+        _TrainerBase.init = init
+        return self
+
+    def __exit__(self, *exc):
+        from spcl_torch.training.trainer import _TrainerBase
+        _TrainerBase.init = self._orig
+
+
+class _MixUpAlpha:
+    """Inside the block `MixUpParams` makes a MixUp hook of Beta(alpha,
+    alpha) (the factory, as spcl_tpu's, passes none: Beta(1, 1))."""
+
+    def __init__(self, alpha):
+        self.alpha = alpha
+
+    def __enter__(self):
+        from spcl_torch.hooks import creator
+        from spcl_torch.hooks.mixup import MixUpHook
+        self._orig = creator.create_mixup_hook
+        alpha = self.alpha
+
+        def make(weight=1.0, enable_bn=True):
+            return MixUpHook(name="mix_reg", weight=weight, enable_bn=enable_bn, alpha=alpha)
+        creator.create_mixup_hook = make
+        return self
+
+    def __exit__(self, *exc):
+        from spcl_torch.hooks import creator
+        creator.create_mixup_hook = self._orig
+
+
+class _KeepEpochCheckpoint:
+    """Inside the block, rank 0's last.ckpt of epoch `epoch` is also copied
+    to `path` (the resume's starting point)."""
+
+    def __init__(self, epoch, path):
+        self.epoch, self.path = epoch, Path(path)
+
+    def __enter__(self):
+        from spcl_torch.training.trainer import _TrainerBase
+        self._orig = _TrainerBase.save_to
+        orig, keep = self._orig, self
+
+        def save_to(trainer, name):
+            orig(trainer, name)
+            if name == "last.ckpt" and trainer._cur_epoch == keep.epoch and trainer._is_master:
+                shutil.copy(Path(trainer.save_dir) / name, keep.path)
+        _TrainerBase.save_to = save_to
+        return self
+
+    def __exit__(self, *exc):
+        from spcl_torch.training.trainer import _TrainerBase
+        _TrainerBase.save_to = self._orig
+
+
+def _j_weights(module, names):
+    """{name: numpy} of the named parameters of `module`."""
+    params = dict(module.named_parameters())
+    return {k: params[k].detach().cpu().numpy().copy() for k in names}
+
+
+J_WEIGHTS = ("_Conv1.conv.0.weight", "_Conv5.conv.0.weight", "_Up_conv3.conv.0.weight")
+
+
+def _j_run(trainer, before=None):
+    """What is compared of a finished run: its step metrics, a few of the
+    UNet's weights (the teacher's, the discriminator's) and what they were
+    before it."""
+    out = {"steps": [dict(m) for m in trainer.step_metrics], "n_shards": trainer.n_shards,
+           "weights": _j_weights(trainer.model, J_WEIGHTS)}
+    if trainer.teacher is not None:
+        out["teacher"] = _j_weights(trainer.teacher.model, J_WEIGHTS)
+    d = getattr(trainer, "_discriminator", None)
+    if d is not None:
+        out["discriminator"] = {k: v.detach().cpu().numpy().copy()
+                                for k, v in d.state_dict().items()}
+        state = trainer._discr_optimizer.state_dict()["state"]
+        out["d_moments"] = [state[i]["mu"].cpu().numpy().copy() for i in sorted(state)]
+        out["d_lr"] = trainer._discr_lr
+    if before is not None:
+        out["before"] = before
+    if hasattr(trainer, "best_score"):
+        out["score"] = float(trainer.best_score)
+    return out
+
+
+def _j_before(trainer):
+    out = {"weights": _j_weights(trainer.model, J_WEIGHTS)}
+    d = getattr(trainer, "_discriminator", None)
+    if d is not None:
+        out["discriminator"] = {k: v.detach().cpu().numpy().copy()
+                                for k, v in d.state_dict().items()}
+    return out
+
+
+class _Before:
+    """Records `_j_before` of every trainer right after its `init()`."""
+
+    def __enter__(self):
+        from spcl_torch.training.trainer import _TrainerBase
+        self._orig, self.records = _TrainerBase.init, []
+        orig, rec = self._orig, self
+
+        def init(trainer):
+            orig(trainer)
+            rec.records.append(_j_before(trainer))
+        _TrainerBase.init = init
+        return self
+
+    def __exit__(self, *exc):
+        from spcl_torch.training.trainer import _TrainerBase
+        _TrainerBase.init = self._orig
+
+
+def _j_configs(base_dir, mesh, shared_dir=None):
+    """{part: config} of slice J; `mesh` is Trainer.mesh (0: one process).
+    Each part writes under `base_dir` (a rank's own directory, so that which
+    rank wrote what shows), J4 under `shared_dir`: main_pretrain_decoder.py's
+    fine-tune phase reads the pretraining's last.ckpt from the run's
+    save_dir, which rank 0 wrote."""
+    from spcl_torch.main_adv import adv_config
+    from spcl_torch.main_mixup import mixup_config
+
+    def cut(part, steps, max_epoch=1, **trainer):
+        root = shared_dir if part.startswith("j4") and shared_dir is not None else base_dir
+        return {"Data": {"synthetic": True},
+                "Trainer": {"save_dir": str(Path(root) / part), "max_epoch": max_epoch,
+                            "num_batches": steps, "mesh": mesh, **trainer}}
+
+    out = {"j1": _merged(*SEMI_FILES, **cut("j1", SLICE_J_STEPS, max_epoch=2))}
+    for name in SLICE_J_PRESETS:
+        blocks = cut(f"j2_{name}", 1, name=name)
+        if name == "infonce":
+            blocks["InfonceParams"] = {"global_contrast": "row_sharded"}
+        out[f"j2_{name}"] = _merged("base.yaml", **blocks)
+    for alpha in MIXUP_ALPHAS:
+        out[f"j3_mixup_{alpha}"] = mixup_config(
+            _merged("base.yaml", "hooks/mixup.yaml", **cut(f"j3_mixup_{alpha}", SLICE_J_SHORT)))
+    out["j3_adv"] = adv_config(_merged(*ADV_FILES, **cut("j3_adv", SLICE_J_SHORT)))
+    for contrast in J_DECODER_CONTRASTS:
+        blocks = cut(f"j4_{contrast}", SLICE_J_SHORT, ft_num_batches=2)
+        blocks["Data"]["ratios"] = [1]
+        blocks["InfonceParams"] = {"global_contrast": contrast}
+        out[f"j4_{contrast}"] = _merged(*DECODER_FILES, **blocks)
+    for defer in (False, True):
+        out[f"j5_{'deferred' if defer else 'eager'}"] = _merged(
+            "base.yaml", **cut(f"j5_{defer}", SLICE_J_SHORT, max_epoch=2, name="ft",
+                               defer_reads=defer))
+    return out
+
+
+def _j_pretrain_decoder(config):
+    """The pretraining phase of main_pretrain_decoder.py alone."""
+    from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs
+    from spcl_torch.utils import fix_all_seed
+    fix_all_seed(config["RandomSeed"])  # as the entry points seed it
+    pre, _ = separate_pretrain_finetune_configs(config)
+    pre["Trainer"]["name"] = "pretrain_decoder"
+    trainer = build_trainer(pre, save_dir=pre["Trainer"]["save_dir"], pretrain=True,
+                            device=DEVICE)
+    trainer.init()
+    trainer.start_training()
+    return trainer
+
+
+def _j_parts(sc, cs, configs, mesh, keep):
+    """Every part of slice J in this process (one rank of the mesh run, or
+    the single process): {part: run}. J1's epoch-1 last.ckpt is kept at
+    `keep` (rank 0's), which the mesh run resumes from."""
+    from spcl_torch.main import run
+    from spcl_torch.main_pretrain_decoder import run as run_decoder
+    out = {}
+
+    def held(what, fn):
+        sc.reset_launch_counts()
+        with _HeldSupcon(sc, what) as h, _Recorder(cs) as rec, _Before() as before:
+            result = fn()
+            torch.cuda.synchronize()
+        return result, rec, before.records, h, dict(sc.LAUNCHES)
+
+    # ---- J1: main.py, production_semi + mt + uda, 2 epochs; then the resume into epoch 2
+    config = configs["j1"]
+    with _KeepEpochCheckpoint(1, keep):
+        score, rec, before, _, _ = held("J1", lambda: run(config, DEVICE))
+    out["j1"] = _j_run(rec.trainers[0], before[0])
+    out["j1"]["ms"] = _timed_ms(rec.events[:SLICE_J_STEPS])
+    out["j1"]["dsc"] = float(score)
+    del rec
+    if mesh:
+        resume = copy.deepcopy(config)
+        resume["trainer_checkpoint"] = str(keep)
+        resume["Trainer"]["save_dir"] = str(Path(config["Trainer"]["save_dir"]) / "resume")
+        _, rec, before, _, _ = held("J1 resume", lambda: run(resume, DEVICE))
+        out["j1_resume"] = _j_run(rec.trainers[0])
+        del rec
+    torch.cuda.empty_cache()
+
+    # ---- J2: the presets, one step each (infonce: row_sharded)
+    for name in SLICE_J_PRESETS:
+        _, rec, before, h, launches = held(f"J2 {name}",
+                                           lambda: run(configs[f"j2_{name}"], DEVICE))
+        out[f"j2_{name}"] = {**_j_run(rec.trainers[0], before[0]), "calls": list(h.calls),
+                             "shapes": list(h.shapes), "launches": launches,
+                             "max_err": dict(h.max_err)}
+        del rec
+    torch.cuda.empty_cache()
+
+    # ---- J3: main_mixup at two alphas, main_adv
+    for alpha in MIXUP_ALPHAS:
+        with _MixUpAlpha(alpha):
+            _, rec, before, _, _ = held(f"J3 mixup {alpha}",
+                                        lambda: run(configs[f"j3_mixup_{alpha}"], DEVICE))
+        out[f"j3_mixup_{alpha}"] = _j_run(rec.trainers[0], before[0])
+        out[f"j3_mixup_{alpha}"]["alpha"] = rec.trainers[0].hooks[0].alpha
+        del rec
+    _, rec, before, _, _ = held("J3 adv", lambda: run(configs["j3_adv"], DEVICE))
+    out["j3_adv"] = _j_run(rec.trainers[0], before[0])
+    del rec
+    torch.cuda.empty_cache()
+
+    # ---- J4: decoder pretraining, row_sharded through both phases of the entry
+    for contrast in J_DECODER_CONTRASTS:
+        config = configs[f"j4_{contrast}"]
+        if mesh and contrast == "row_sharded":
+            fn = lambda: run_decoder(config, DEVICE)  # noqa: E731
+        else:
+            fn = lambda: _j_pretrain_decoder(config)  # noqa: E731
+        _, rec, before, h, launches = held(f"J4 {contrast}", fn)
+        out[f"j4_{contrast}"] = {**_j_run(rec.trainers[0], before[0]), "calls": list(h.calls),
+                                 "shapes": list(h.shapes), "launches": launches,
+                                 "max_err": dict(h.max_err),
+                                 "phases": [type(t).__name__ for t in rec.trainers]}
+        del rec
+    torch.cuda.empty_cache()
+
+    # ---- J5: fine-tuning with defer_reads beside eager (under the mesh)
+    if mesh:
+        for name in ("j5_eager", "j5_deferred"):
+            score, rec, before, _, _ = held(name, lambda: run(configs[name], DEVICE))
+            out[name] = _j_run(rec.trainers[0], before[0])
+            out[name]["dsc"] = float(score)
+            del rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice_j_rank(root, base_dir, device):
+    """One rank of slice J (runs in a spawned process)."""
+    global DEVICE
+    DEVICE = device
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+    from spcl_torch.ops import convstage_cuda as cs
+    from spcl_torch.ops import supcon_cuda as sc
+    from spcl_torch.parallel import mesh
+    my_dir = Path(base_dir) / f"rank{mesh.rank()}"
+    out = _j_parts(sc, cs, _j_configs(my_dir, RANKS_J, shared_dir=base_dir), RANKS_J,
+                   Path(base_dir) / "j1_epoch1.ckpt")
+    out["backend"], out["rank"] = dist.get_backend(), mesh.rank()
+    out["files"] = {part: sorted(str(f.relative_to(my_dir / part))
+                                 for f in (my_dir / part).rglob("*") if f.is_file())
+                    if (my_dir / part).is_dir() else [] for part in ("j1", "j3_adv", "j5_True")}
+    return out
+
+
+def _rel_diff(a, b, floor=0.0):
+    return abs(a - b) / max(abs(b), floor, 1e-30)
+
+
+def _j_compare(what, got, one, tols=None):
+    """Per-step losses and hook metrics of `got` against `one` (relative
+    J_LOSS_TOL, or `tols` by loss name; the gates of J_GATES absolute), and
+    the kept weights within twice what `one`'s run moved them; prints the
+    largest differences, then fails on any beyond the tolerances."""
+    tols = {**J_GATES, **(tols or {})}
+    check(len(got["steps"]) == len(one["steps"]) > 0,
+          f"{what}: {len(got['steps'])} steps against {len(one['steps'])}")
+    diffs = {}
+    for g, w in zip(got["steps"], one["steps"]):
+        for k, v in w.items():
+            if k == "hooks":
+                for name, m in v.items():
+                    for mk, mv in m.items():
+                        key = f"{name}/{mk}"
+                        diff = (abs(g[k][name][mk] - mv) if key in J_GATES
+                                else _rel_diff(g[k][name][mk], mv, J_METRIC_FLOOR))
+                        diffs[key] = max(diffs.get(key, 0.0), diff)
+            elif k != "epoch":
+                diffs[k] = max(diffs.get(k, 0.0), _rel_diff(g[k], v, J_METRIC_FLOOR))
+    weights = {}
+    for part in ("weights", "teacher"):
+        if part not in one:
+            continue
+        for k, v in one[part].items():
+            moved = float(np.abs(v - one["before"]["weights"][k]).max())
+            diff = float(np.abs(got[part][k] - v).max())
+            weights[f"{part}.{k}"] = (diff, max(2.0 * moved, 1e-7))
+    worst = max(weights.items(), key=lambda kv: kv[1][0] / kv[1][1]) if weights else None
+    print(f"{what}: max rel diff "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+          + f" (tol {J_LOSS_TOL}, {tols}) | "
+          + (f"weights worst {worst[0]}: {worst[1][0]:.2e} (moved x2 {worst[1][1]:.2e})"
+             if worst else ""), flush=True)
+    check(all(v <= tols.get(k, J_LOSS_TOL) for k, v in diffs.items()),
+          f"{what}: losses or hook metrics differ")
+    check(all(d <= lim for d, lim in weights.values()), f"{what}: weights differ {weights}")
+
+
+def _j_discriminator(what, got, one, steps):
+    """The discriminator: the gradients its Adam saw, summed over the ranks,
+    through its first moments, within J_D_MOMENT_TOL relative L2 of one
+    process's; its weights within 2 x 1.14 lr a step of one process's (Adam
+    moves a weight by about lr x sign(g), and in its first three steps at
+    b1 0.5, b2 0.999 by at most 1.14 lr, so where g sits at its rounding
+    noise, or at the noise TF32 puts into its inputs, the two runs step it
+    apart: tests/test_torch_adversarial.py holds its update in L2 for that
+    reason, and after several steps on the card that L2 is no bound; on an
+    H100: moments 2.4e-2 to 4.2e-2, weights 4.8e-4 to 6.0e-4 of 6.8e-4,
+    update 0.19 to 0.25)."""
+    moments = max(float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+                  for g, w in zip(got["d_moments"], one["d_moments"]))
+    lim = 2.0 * 1.14 * one["d_lr"] * steps
+    weights, update = 0.0, 0.0
+    for k, v in one["discriminator"].items():
+        b = one["before"]["discriminator"][k]
+        weights = max(weights, float(np.abs(got["discriminator"][k] - v).max()))
+        if np.any(v - b):
+            update = max(update, float(np.linalg.norm((got["discriminator"][k] - b) - (v - b))
+                                       / np.linalg.norm(v - b)))
+    print(f"{what}: discriminator Adam first moments rel L2 {moments:.2e} (tol "
+          f"{J_D_MOMENT_TOL}) | weights max abs diff {weights:.2e} (tol 2 x 1.14 lr x {steps} "
+          f"steps = {lim:.1e}) | update rel L2 {update:.2e}", flush=True)
+    check(moments <= J_D_MOMENT_TOL and weights <= lim, f"{what}: discriminator differs")
+
+
+def slice_j_phase(sc, cs):
+    phase(f"slice J: every trainer under Trainer.mesh={RANKS_J} (UNet-256, 224^2, nhwc): "
+          f"main.py semi (production_semi + mt + uda) 2 epochs x {SLICE_J_STEPS} and its "
+          f"resume, the presets {', '.join(SLICE_J_PRESETS)} (infonce row_sharded), main_mixup "
+          f"(alpha {MIXUP_ALPHAS}), main_adv, main_pretrain_decoder (replicated, row_sharded), "
+          f"fine-tune with defer_reads; each against this process alone")
+    from spcl_torch.models import UNet
+    from spcl_torch.parallel.mesh import spawn_local
+    from spcl_torch.training import load_model_state_dict
+    base_dir = ROOT / "runs" / "chip_smoke_j"
+    shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = spawn_local(RANKS_J, slice_j_rank, (str(ROOT), str(base_dir), DEVICE),
+                        device=DEVICE, timeout_s=900.0, collective_timeout_s=300.0)
+    print(f"two ranks done in {time.perf_counter() - t0:.1f} s (process start included); "
+          f"backend {ranks[0]['backend']}", flush=True)
+    check(ranks[0]["backend"] == ("nccl" if cards >= RANKS_J else "gloo"), ranks[0]["backend"])
+    t0 = time.perf_counter()
+    single_dir = base_dir / "single"
+    with _PaddedLoaders(RANKS_J):
+        one = _j_parts(sc, cs, _j_configs(single_dir, 0), 0, single_dir / "j1_epoch1.ckpt")
+    print(f"the single process done in {time.perf_counter() - t0:.1f} s", flush=True)
+    r0, r1 = ranks
+
+    # ---- every part: 2 shards, the replicas agree to the bit, equal to one process
+    for part, want in one.items():
+        for r in ranks:
+            check(r[part]["n_shards"] == RANKS_J and want["n_shards"] == 1, f"{part} shards")
+        check(r0[part]["steps"] == r1[part]["steps"], f"{part}: the ranks' metrics differ")
+        for key in ("weights", "teacher"):
+            if key in want:
+                check(all(np.array_equal(r0[part][key][k], r1[part][key][k])
+                          for k in want[key]), f"{part}: the replicas' {key} differ")
+        _j_compare(f"J {part}: 2 ranks vs one process", r0[part], want,
+                   J_ADV_TOLS if part == "j3_adv" else None)
+    for part in ("j3_adv",):
+        _j_discriminator(f"J {part}", r0[part], one[part], SLICE_J_SHORT)
+        check(all(np.array_equal(r0[part]["discriminator"][k], r1[part]["discriminator"][k])
+                  for k in r0[part]["discriminator"]), "the replicas' discriminators differ")
+
+    # ---- J1: resume, files, checkpoints, ms/step
+    j1, resumed = r0["j1"], r0["j1_resume"]
+    check([m["epoch"] for m in resumed["steps"]] == [2] * SLICE_J_STEPS,
+          f"J1 resume ran epochs {[m['epoch'] for m in resumed['steps']]}")
+    _j_compare("J1 resume into epoch 2 vs the uninterrupted mesh run",
+               {**resumed, "steps": resumed["steps"]},
+               {**j1, "steps": j1["steps"][SLICE_J_STEPS:]})
+    print(f"files of rank 0: {r0['files']['j1']} | of rank 1: {r1['files']}", flush=True)
+    check(all(f == [] for f in r1["files"].values()), f"rank 1 wrote {r1['files']}")
+    for f in (".success", "best.ckpt", "last.ckpt", "storage.csv", "config.yaml"):
+        check(f in r0["files"]["j1"], f"rank 0 did not write j1/{f}")
+    ckpt = base_dir / "rank0" / "j1" / "last.ckpt"
+    UNet(max_channel=256).load_state_dict(load_model_state_dict(str(ckpt)), strict=True)
+    print(f"J1 best val DSC: 2 ranks {j1['dsc']:.6f}, one process {one['j1']['dsc']:.6f} "
+          f"(tol 1e-3: argmax near-ties)", flush=True)
+    check(0.0 <= j1["dsc"] <= 1.0 and abs(j1["dsc"] - one["j1"]["dsc"]) <= 1e-3,
+          f"J1 DSC {j1['dsc']} against {one['j1']['dsc']}")
+    mesh_ms = max(r["j1"]["ms"] for r in ranks)
+    shared = cards < RANKS_J
+    print(f"J1 semi step (32 + 2 x 32 slices), {SLICE_J_STEPS - 1} timed steps after 1 warm-up: "
+          f"{RANKS_J} ranks over {r0['backend']} {mesh_ms:.3f} ms/step = "
+          f"{96e3 / mesh_ms:.1f} slices/s | single process {one['j1']['ms']:.3f} ms/step = "
+          f"{96e3 / one['j1']['ms']:.1f} slices/s"
+          + (" | both ranks share ONE card and stage their collectives through the host: "
+             "this is no speed-up figure" if shared else ""), flush=True)
+
+    # ---- J2 / J4: the supcon strips, one forward and one dz launch per rank and step
+    launches = {"supcon_fwd": 0, "supcon_bwd": 0}
+    max_err = {"supcon_fwd": 0.0, "supcon_bwd": 0.0}
+    for part, steps in [("j2_infonce", 1)] + [(f"j4_{c}", SLICE_J_SHORT)
+                                              for c in J_DECODER_CONTRASTS]:
+        for r in ranks:
+            run = r[part]
+            kinds = sorted(k for k, _, _ in run["calls"])
+            check(kinds == ["supcon_bwd"] * steps + ["supcon_fwd"] * steps
+                  and run["launches"] == {"supcon_fwd": steps, "supcon_bwd": steps},
+                  f"{part} rank {r['rank']}: supcon calls {run['calls']}, launches "
+                  f"{run['launches']}")
+            print(f"{part} rank {r['rank']}: supcon (kernel, rows, cols) "
+                  f"{sorted(set(run['shapes']))}, calls {len(run['calls'])}, held to plain: "
+                  f"max err fwd {run['max_err']['supcon_fwd']:.2e} dz "
+                  f"{run['max_err']['supcon_bwd']:.2e}", flush=True)
+        for k in launches:
+            launches[k] += r0[part]["launches"][k]
+            max_err[k] = max(max_err[k], *(r[part]["max_err"][k] for r in ranks))
+    check(r0["j4_row_sharded"]["phases"] == ["PretrainDecoderTrainer", "FineTuneTrainer"],
+          f"J4 phases {r0['j4_row_sharded']['phases']}")
+    for part, share in (("j2_infonce", RANKS_J), ("j4_row_sharded", RANKS_J),
+                        ("j4_replicated", 1)):
+        # the strips hold this rank's rows of the views (the operands pad
+        # rows and columns to the kernels' tiles); the replicated loss all
+        for r in ranks:
+            real = {v for _, _, v in r[part]["calls"]}
+            whole = {v for _, _, v in one[part]["calls"]}
+            check(len(real) == len(whole) == 1 and real.pop() * share == whole.pop(),
+                  f"{part} rank {r['rank']}: operand rows {r[part]['calls']} against one "
+                  f"process's {one[part]['calls']}")
+
+    # ---- J3: the alphas took; J5: defer_reads = eager under the mesh
+    check([r0[f"j3_mixup_{a}"]["alpha"] for a in MIXUP_ALPHAS] == list(MIXUP_ALPHAS),
+          "J3 alphas")
+    e, d = r0["j5_eager"], r0["j5_deferred"]
+    worst = max(float(np.abs(d["weights"][k] - e["weights"][k]).max()
+                      / max(1.0, float(np.abs(e["weights"][k]).max()))) for k in e["weights"])
+    print(f"J5 fine-tune under the mesh: best score eager {e['score']:.6f} deferred "
+          f"{d['score']:.6f} | weights max rel diff {worst:.2e} (tol {DEFER_REL_TOL})",
+          flush=True)
+    check(abs(d["score"] - e["score"]) <= DEFER_REL_TOL * max(1.0, abs(e["score"]))
+          and worst <= DEFER_REL_TOL, "J5: defer_reads differs from eager")
+    out = {"launches": launches, "max_err": max_err, "mesh_ms": mesh_ms,
+           "single_ms": one["j1"]["ms"], "backend": r0["backend"], "shared_card": shared}
+    print("slice_j " + json.dumps(out), flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ slice I
 SLICE_I_FT_STEPS = 5          # the fine-tune that writes the served checkpoint
 SLICE_I_WARMUP = 3            # requests before the timed ones
@@ -3750,6 +4289,9 @@ def main():
     if "--serving-only" in sys.argv[1:]:
         slice_i_phase()
         return
+    if "--semi-mesh-only" in sys.argv[1:]:
+        slice_j_phase(sc, cs)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -3778,6 +4320,8 @@ def main():
                                              "nhwc": steps["nhwc_true"]})
     torch.cuda.empty_cache()
     slice_i = slice_i_phase(ROOT / "runs" / "chip_smoke_b" / "pre" / "last.ckpt")
+    torch.cuda.empty_cache()
+    slice_j = slice_j_phase(sc, cs)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -3788,16 +4332,18 @@ def main():
                 "replaces": replaces[name],
                 "launches": (launches[name] + stage_launches[name] + launches_c[name]
                              + slice_d["launches"][name] + preset_launches[name]
-                             + sum(v[name] for v in slice_f["launches"].values())),
+                             + sum(v[name] for v in slice_f["launches"].values())
+                             + slice_j["launches"][name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
                                      "slice_d": slice_d["launches"][name],
                                      "slice_e": preset_launches[name],
                                      **{_f_path(run): v[name]
                                         for run, v in slice_f["launches"].items()
-                                        if run != "finetune"}},
+                                        if run != "finetune"},
+                                     "slice_j_rank_0": slice_j["launches"][name]},
                 "max_abs_err": max(max_err[name], strip_err[name], preset_err[name],
-                                   slice_f["max_err"][name]),
+                                   slice_f["max_err"][name], slice_j["max_err"][name]),
                 "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -3855,8 +4401,11 @@ def main():
           f"{slice_i['inference']['meters_ms_per_scan']:.3f} (meters), served batch 32 "
           f"float32 {slice_i['serving']['float32']['rows'][32]['pred']['slices_per_s']:.1f} "
           f"slices/s, bf16 "
-          f"{slice_i['serving']['bfloat16']['rows'][32]['pred']['slices_per_s']:.1f} slices/s",
-          flush=True)
+          f"{slice_i['serving']['bfloat16']['rows'][32]['pred']['slices_per_s']:.1f} slices/s | "
+          f"slice J semi step (32 + 2 x 32 slices, {RANKS_J} ranks over {slice_j['backend']}"
+          f"{', one shared card' if slice_j['shared_card'] else ''}) "
+          f"{slice_j['mesh_ms']:.3f} ms/step beside the single process "
+          f"{slice_j['single_ms']:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

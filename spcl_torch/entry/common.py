@@ -25,7 +25,6 @@ from ..hooks import (LEGACY_TRAINER_PRESETS, create_hook_from_config,
                      feature_until_from_hooks, get_individual_hooks)
 from ..models import ENCODER_NAMES, UNet
 from ..models.masking import stages_from_range
-from ..parallel import mesh
 from ..training import trainer_zoo
 from ..utils.utils import get_logger
 
@@ -123,17 +122,17 @@ def refuse_incompatible_trainer_keys(trainer_cfg: Dict, name: str) -> None:
                          "Trainer.grad_cache — disable one")
 
 
-def _refuse_decoder_hooks(hooks, ranks: int, grad_cache: int) -> None:
-    """A decoder-stage InfoNCE hook runs in one process and without the
-    gradient cache: its dense draws and SimCLR ids are batch-local."""
+def _refuse_decoder_hooks(hooks, grad_cache: int) -> None:
+    """A decoder-stage hook does not run under the gradient cache, as
+    spcl_tpu refuses it (training/gradcache.py:75-79): its dense point
+    sampling is batch-local."""
     dense = [h.name for h in get_individual_hooks(*hooks)
              if h.feature_name is not None and h.feature_name not in ENCODER_NAMES]
-    if dense and ranks > 1:
-        raise NotImplementedError(f"decoder-stage InfoNCE hooks {dense} under Trainer.mesh "
-                                  "are not ported yet (ROADMAP A12)")
     if dense and grad_cache:
-        raise NotImplementedError(f"decoder-stage InfoNCE hooks {dense} with "
-                                  "Trainer.grad_cache are not ported yet (ROADMAP A12)")
+        raise NotImplementedError(
+            f"decoder-stage hooks {dense} with Trainer.grad_cache: grad_cache supports "
+            "encoder contrastive hooks (dense point sampling is batch-local and does not "
+            "benefit from a global batch; spcl_tpu/training/gradcache.py:75-79)")
 
 
 def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
@@ -154,12 +153,12 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     true) picks the data path; `Trainer.defer_reads` (+ `flush_every`),
     `profile_dir` and, in the pretrain trainers, `dump_matrices` are
     honoured as spcl_tpu honours them (training/trainer.py), and
-    `Arch.dtype` (float32 | bfloat16) is the UNet's compute dtype. `Trainer.mesh: N|auto` makes the pretrain or
-    fine-tune trainer one rank of an N-rank run; the calling process must
-    then be one of N ranks (see `spcl_torch.main_pretrain_encoder` and
-    `parallel.mesh.spawn_local`). Not ported yet, and refused here naming
-    ROADMAP A12: a mesh with the semi, mixup or adversarial trainer, and a
-    decoder-stage InfoNCE hook under a mesh or with `grad_cache`."""
+    `Arch.dtype` (float32 | bfloat16) is the UNet's compute dtype.
+    `Trainer.mesh: N|auto` makes any of these trainers one rank of an N-rank
+    run; the calling process must then be one of N ranks (the entry points
+    start them through `parallel.mesh.run_ranks`, or start one process per
+    rank with the SPCL_* variables). A decoder-stage hook with
+    `Trainer.grad_cache` is refused, in spcl_tpu's words."""
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
@@ -171,10 +170,6 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
         raise NotImplementedError(f"trainer {name!r} is not ported yet "
                                   f"(ported: {sorted(trainer_zoo)})")
     refuse_incompatible_trainer_keys(trainer_cfg, name)
-    ranks = mesh.requested_ranks(trainer_cfg.get("mesh", 0), device)
-    if name in ("semi", "mixup", "adv") and ranks > 1:
-        raise NotImplementedError(f"Trainer.mesh with the {name} trainer is not ported yet "
-                                  "(ROADMAP A12 rest)")
     data_name = data_cfg.get("name", "acdc")
     default_crop = POLICY_ZOO.get(data_name, {"val": None})["val"]
     crop = int(data_cfg.get("crop", default_crop.crop if default_crop else 224))
@@ -193,7 +188,7 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
 
     if name.startswith("pretrain"):
         hooks = create_hook_from_config(config, max_epoch=max_epoch)
-        _refuse_decoder_hooks(hooks, ranks, int(trainer_cfg.get("grad_cache") or 0))
+        _refuse_decoder_hooks(hooks, int(trainer_cfg.get("grad_cache") or 0))
         cl_cfg = config.get("ContrastiveLoaderParams", {})
         contrastive_loader = create_contrastive_loader(
             tra_set, scan_sample_num=int(cl_cfg.get("scan_sample_num", 10)),

@@ -13,12 +13,25 @@ permutation, UC-MT's noise) does so in `sample(generator, ctx)`; the step
 calls it once per step, or takes the draws the caller injected, and hands
 them to `loss_fn` as `ctx["draws"][hook.name]`.
 
+In a multi-rank run (`Trainer.mesh`) `ctx` holds this rank's rows, the draws
+are the global batch's, and every `loss_fn` returns the GLOBAL loss on every
+rank with the gradient convention of `parallel/mesh.py` (the ranks'
+gradients sum to the global loss's gradient): a masked mean is this rank's
+partial sum over the global count through `mesh.global_sum`; a loss that is
+not separable over the batch (IIC's joint, MINE's roll, mixup's
+permutation, InfoNCE) gathers or sums what it needs and enters the backward
+through `mesh.grad_share`. Its metrics are global values too.
+
 The steps provide a `ctx` dict with (the keys of spcl_tpu/hooks/base.py:
 21-35; all tensors NCHW, the class axis second):
   acts        {stage: activation} of the step's model forward; the last
               2*n_unl rows are [view 1, view 2] (pretrain) or [unlabeled,
               unlabeled_tf] (semi)
-  n_unl       int — unlabeled batch size N (slices per view)
+  n_unl       int — unlabeled batch size N (slices per view) of this rank
+  n_global, row_offset   int — the global batch's N and this rank's first
+              row in it (a multi-rank run, `parallel/mesh.py`; without them
+              N and 0). `sample` draws for the global batch, as one process
+              does, and `loss_fn` keeps this rank's rows of the draws
   flip        replayable flip params of this step (data/augment.py)
   partition / patient / cycle / scan_idx / valid   [N] meta labels
   draws       {hook name: what its `sample` drew}
@@ -43,6 +56,18 @@ import torch
 from torch import nn
 
 from ..parallel import mesh
+
+
+def global_rows(ctx: Dict, n_local: int) -> Tuple[int, int]:
+    """(N of the global batch, this rank's first row in it) of the step's
+    unlabeled (contrastive) rows, `n_local` of them on this rank."""
+    return int(ctx.get("n_global", n_local)), int(ctx.get("row_offset", 0))
+
+
+def own_rows(draw: torch.Tensor, ctx: Dict, n_local: int, axis: int = 0) -> torch.Tensor:
+    """This rank's rows (along `axis`) of a draw made for the global batch."""
+    _, offset = global_rows(ctx, n_local)
+    return draw.narrow(axis, offset, n_local)
 
 
 def label_from_contrast_on(ctx: Dict, contrast_on: str) -> torch.Tensor:

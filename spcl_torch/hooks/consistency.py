@@ -10,16 +10,18 @@ from __future__ import annotations
 import torch
 
 from .base import TrainerHook
+from ..parallel import mesh
 
 
 def masked_prob_mse(student: torch.Tensor, target: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """sum((student - target)^2 over valid slices) / (n_valid * C * h * w),
-    on [N, C, h, w] probability maps."""
+    on [N, C, h, w] probability maps. In a multi-rank run n_valid counts the
+    global batch and the value is the global mean (`mesh.global_sum`)."""
     mask = valid[:, None, None, None]
-    denom = torch.clamp(mask.sum() * student.shape[1] * student.shape[2] * student.shape[3],
-                        min=1.0)
-    return (((student - target) ** 2) * mask).sum() / denom
+    denom = torch.clamp(mesh.global_count(mask) * student.shape[1] * student.shape[2]
+                        * student.shape[3], min=1.0)
+    return mesh.global_sum((((student - target) ** 2) * mask).sum() / denom)
 
 
 class ConsistencyTrainerHook(TrainerHook):

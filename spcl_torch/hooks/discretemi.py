@@ -4,7 +4,8 @@ The counterpart of `spcl_tpu/hooks/discretemi.py` (reference
 semi_seg/hooks/discretemi.py:14-114): a multi-subhead cluster head at a UNet
 stage — on an encoder stage the pooled `ClusterHead` + IIDLoss, on a decoder
 stage the `DenseClusterHead` + IIDSegmentationLoss with a displacement
-padding — the loss averaged over subheads. View-1 features are flipped into
+padding — the loss averaged over subheads. Under a mesh the subheads' joints
+are of the global batch (`losses/iic.py`, one collective a step). View-1 features are flipped into
 the transformed frame before the head. `build` reads the stage's channels
 from `model.channel_dim`.
 """
@@ -14,7 +15,7 @@ import torch
 
 from .base import TrainerHook
 from ..data.augment import apply_flip
-from ..losses.iic import iid_loss, iid_segmentation_loss
+from ..losses.iic import iid_losses, iid_segmentation_losses
 from ..models.heads import ClusterHead, DenseClusterHead
 from ..models.unet import ENCODER_NAMES
 
@@ -44,8 +45,8 @@ class DiscreteMITrainHook(TrainerHook):
         # [S, 2n, K] (encoder) or [S, 2n, K, h, w] (decoder)
         p1, p2 = probs[:, :n], probs[:, n:]
         if self.is_encoder:
-            losses = [iid_loss(a, b)[0] for a, b in zip(p1, p2)]
+            losses = iid_losses(list(zip(p1, p2)))
         else:
-            losses = [iid_segmentation_loss(a, b, padding=self.padding) for a, b in zip(p1, p2)]
+            losses = iid_segmentation_losses(list(zip(p1, p2)), padding=self.padding)
         loss = torch.stack(losses).mean()
         return loss * self.weight, {"mi": loss.detach()}

@@ -23,9 +23,9 @@ apply here.)
 on every rank; "row_sharded" computes this rank's [2 n_local, 2N] strip
 (`parallel/contrastive.py`). Both give the same loss and the same metrics on
 every rank; in a single process both are the single-device loss. A decoder
-hook runs in one process only (`entry.build_trainer` refuses it under a
-mesh): its draws and SimCLR ids would have to span the global batch
-(ROADMAP A12).
+hook draws its points for the global batch and keeps its rows'; the SimCLR
+ids of its n·5 points start at this rank's first row times 5, so that they
+are the global batch's ids (spcl_tpu hooks/infonce.py:133-155, 157-171).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .base import TrainerHook, label_from_contrast_on
+from .base import TrainerHook, global_rows, label_from_contrast_on, own_rows
 from ..data.augment import apply_flip
 from ..losses.supcon import self_paced_supcon_loss, supcon_loss
 from ..models.heads import DenseProjectionHead, ProjectionHead
@@ -77,7 +77,7 @@ class INFONCEHook(TrainerHook):
         if self.is_encoder:
             return None
         h, w = self.spatial_size
-        shape = (ctx["n_unl"], self.num_sampled_points)
+        shape = (global_rows(ctx, ctx["n_unl"])[0], self.num_sampled_points)
         device = ctx["valid"].device
         return {"ys": torch.randint(0, h, shape, generator=generator, device=device),
                 "xs": torch.randint(0, w, shape, generator=generator, device=device)}
@@ -127,14 +127,17 @@ class INFONCEHook(TrainerHook):
         """The rows of the sampled points of both views [n·5, 256], their
         SimCLR targets and validity (spcl_tpu hooks/infonce.py:157-171)."""
         draws = ctx["draws"][self.name]
-        ys, xs = draws["ys"].long(), draws["xs"].long()
         n, d = z1.shape[:2]
+        ys, xs = (own_rows(draws[k], ctx, n).long() for k in ("ys", "xs"))
         rows = torch.arange(n, device=z1.device)[:, None]
         # advanced indices apart around a slice: [n, 5, d]
         s1 = z1[rows, :, ys, xs].reshape(-1, d)
         s2 = z2[rows, :, ys, xs].reshape(-1, d)
-        valid = ctx["valid"].repeat_interleave(ys.shape[1])
-        ids = torch.arange(valid.shape[0], dtype=torch.int32, device=valid.device)
+        p = ys.shape[1]
+        valid = ctx["valid"].repeat_interleave(p)
+        first = global_rows(ctx, n)[1] * p
+        ids = torch.arange(first, first + valid.shape[0], dtype=torch.int32,
+                           device=valid.device)
         target = torch.where(valid > 0, ids, torch.full_like(ids, -1))
         return s1, s2, target, valid
 

@@ -4,7 +4,8 @@ The counterpart of `spcl_tpu/hooks/midl.py` (reference MIDLPaperEpocher via
 MIDLTrainer, semi_seg/trainers/trainer.py:39-61): IIDSegmentationSmallPathLoss
 between softmax(the student on the transformed batch) and softmax(the
 student's prediction flipped into that frame); the factory pairs it with the
-consistency hook.
+consistency hook. Under a mesh the patches' joints are of the global batch
+(`losses/iic.py`, one collective a step).
 """
 from __future__ import annotations
 

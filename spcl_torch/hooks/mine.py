@@ -11,6 +11,10 @@ the metric `mi` is -loss.
 
 The statistics net keeps spcl_tpu's deviation from the reference: GroupNorm
 (flax's, eps 1e-6) where the reference has BatchNorm.
+
+In a multi-rank run the roll is over the GLOBAL batch (rank r's last row
+pairs with rank r+1's first, the last rank's with rank 0's, through a
+differentiable gather of the first rows) and both means are global means.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from torch import nn
 
 from .base import TrainerHook
 from ..data.augment import apply_flip
+from ..parallel import mesh
 
 
 class MineStatNet(nn.Module):
@@ -40,6 +45,20 @@ class MineStatNet(nn.Module):
         return self.fc(x.amax(dim=(2, 3)))[:, 0]
 
 
+def roll_back_one(f: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of torch.roll(f, -1, 0) over the global batch."""
+    if not mesh.active():
+        return torch.roll(f, shifts=-1, dims=0)
+    firsts = mesh.all_gather_cat(f[:1])
+    after = firsts[(mesh.rank() + 1) % mesh.world_size()]
+    return torch.cat([f[1:], after[None]], dim=0)
+
+
+def _global_mean(x: torch.Tensor) -> torch.Tensor:
+    # every rank holds the same number of rows of the padded global batch
+    return mesh.global_sum(x.mean() / mesh.world_size())
+
+
 class MineTrainHook(TrainerHook):
     def __init__(self, *, name: str, feature_name: str, weight: float = 1.0):
         super().__init__(name, weight)
@@ -55,8 +74,8 @@ class MineTrainHook(TrainerHook):
         feats = ctx["acts"][self.feature_name][-2 * n:]
         f1 = apply_flip(feats[:n], ctx["flip"])  # align the geometry, as infonce does
         f2 = feats[n:]
-        f2_prime = torch.roll(f2, shifts=-1, dims=0)  # shuffled marginal pairing
-        ej = -F.softplus(self.projector(f1, f2)).mean()
-        em = F.softplus(self.projector(f1, f2_prime)).mean()
+        f2_prime = roll_back_one(f2)  # shuffled marginal pairing
+        ej = -_global_mean(F.softplus(self.projector(f1, f2)))
+        em = _global_mean(F.softplus(self.projector(f1, f2_prime)))
         loss = em - ej
         return loss * self.weight, {"mi": -loss.detach()}

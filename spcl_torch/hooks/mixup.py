@@ -12,6 +12,11 @@ lambda and the permutation are this hook's draw (`sample`) from the step's
 generator. Beta(1, 1), the only alpha a config reaches (the factory passes
 none), is drawn as U(0, 1); any other alpha > 0 as Beta(alpha, alpha) by
 `sample_beta`, since PyTorch's gamma and beta samplers take no generator.
+
+In a multi-rank run the permutation is over the global 2N rows of
+[view 1; view 2] (spcl_tpu hooks/mixup.py:31): each rank mixes its own rows
+of that concatenation with the rows `perm` names, gathered without a
+gradient, and the KL term is a global mean.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from .base import TrainerHook
 from ..losses.kl import kl_div
+from ..parallel import mesh
 
 
 # candidates drawn at once per gamma variate: Marsaglia-Tsang accepts each
@@ -80,7 +86,7 @@ class MixUpHook(TrainerHook):
 
     def sample(self, generator, ctx):
         img = ctx["labeled_image"]
-        n = 2 * img.shape[0]
+        n = 2 * img.shape[0] * mesh.world_size()  # the global [view 1; view 2]
         if self.alpha == 1.0:  # Beta(1, 1) = U(0, 1), the draw every config takes
             lam = torch.rand((), generator=generator, device=img.device)
         else:
@@ -89,12 +95,20 @@ class MixUpHook(TrainerHook):
                 "perm": torch.randperm(n, generator=generator, device=img.device)}
 
     def loss_fn(self, ctx, scalars):
-        x = torch.cat([ctx["labeled_image"], ctx["labeled_image_tf"]], dim=0)
-        y = torch.cat([ctx["labeled_onehot"], ctx["labeled_onehot_tf"]], dim=0)
+        views = ("labeled_image", "labeled_image_tf")
+        onehots = ("labeled_onehot", "labeled_onehot_tf")
+        x = torch.cat([ctx[k] for k in views], dim=0)
+        y = torch.cat([ctx[k] for k in onehots], dim=0)
         draw = ctx["draws"][self.name]
         lam, perm = draw["lam"], draw["perm"]
-        mixed_x = lam * x + (1 - lam) * x[perm]
-        mixed_y = lam * y + (1 - lam) * y[perm]
+        # the partners of this rank's rows in the global [view 1; view 2]
+        n, r = ctx["labeled_image"].shape[0], mesh.world_size()
+        own = torch.arange(n, device=perm.device) + mesh.rank() * n
+        partner = perm[torch.cat([own, own + r * n])]
+        xs = torch.cat([mesh.gather_rows(ctx[k]) for k in views], dim=0)
+        ys = torch.cat([mesh.gather_rows(ctx[k]) for k in onehots], dim=0)
+        mixed_x = lam * x + (1 - lam) * xs[partner]
+        mixed_y = lam * y + (1 - lam) * ys[partner]
         logits = ctx["apply_student"](mixed_x)
-        loss = kl_div(torch.softmax(logits, dim=1), mixed_y)
+        loss = mesh.global_sum(kl_div(torch.softmax(logits, dim=1), mixed_y) / r)
         return loss * self.weight, {"loss": loss.detach()}

@@ -5,7 +5,9 @@ UCMeanTeacherEpocher): the per-pixel MSE between the student's and the
 teacher's predictions, kept where the teacher is certain — the entropy of
 the mean of `num_noise_samples` teacher predictions on noise-perturbed
 inputs, over log(C), at most the ramped threshold. The noise is this hook's
-draw (`sample`): [S, N, C_in, H, W] standard normals, scaled by `noise_std`.
+draw (`sample`): [S, N, C_in, H, W] standard normals for the global batch,
+scaled by `noise_std`; in a multi-rank run each rank keeps its rows, and the
+loss and `uc_ratio` are global.
 The teacher passes run one per noise sample, in train mode with the
 teacher's statistics frozen, as spcl_tpu's unrolled loop does.
 """
@@ -15,8 +17,9 @@ import math
 
 import torch
 
-from .base import TrainerHook
+from .base import TrainerHook, global_rows, own_rows
 from ..data.augment import apply_flip
+from ..parallel import mesh
 from ..schedulers.gamma import RampScheduler
 
 
@@ -42,8 +45,9 @@ class UCMeanTeacherTrainerHook(TrainerHook):
 
     def sample(self, generator, ctx):
         img = ctx["unlabeled_image"]
-        return {"noise": torch.randn((self.num_noise_samples,) + tuple(img.shape),
-                                     generator=generator, device=img.device)}
+        n_global, _ = global_rows(ctx, img.shape[0])
+        shape = (self.num_noise_samples, n_global) + tuple(img.shape[1:])
+        return {"noise": torch.randn(shape, generator=generator, device=img.device)}
 
     def loss_fn(self, ctx, scalars):
         student = torch.softmax(ctx["unlabeled_tf_logits"], dim=1)
@@ -51,7 +55,7 @@ class UCMeanTeacherTrainerHook(TrainerHook):
         per_pixel = ((student - teacher) ** 2).mean(dim=1)  # [N, h, w]
 
         img = ctx["unlabeled_image"]
-        noise = ctx["draws"][self.name]["noise"]
+        noise = own_rows(ctx["draws"][self.name]["noise"], ctx, img.shape[0], axis=1)
         with torch.no_grad():
             preds = [torch.softmax(apply_flip(ctx["apply_teacher"](img + self.noise_std * z),
                                               ctx["flip"]), dim=1)
@@ -62,9 +66,10 @@ class UCMeanTeacherTrainerHook(TrainerHook):
             gate = (entropy <= scalars["threshold"]).float()
 
         v = ctx["valid"][:, None, None]
-        count = torch.clamp(v.sum() * per_pixel.shape[1] * per_pixel.shape[2], min=1.0)
-        loss = (per_pixel * gate * v).sum() / count
-        uc_ratio = (gate * v).sum() / count
+        count = torch.clamp(mesh.global_count(v) * per_pixel.shape[1] * per_pixel.shape[2],
+                            min=1.0)
+        loss = mesh.global_sum((per_pixel * gate * v).sum() / count)
+        uc_ratio = mesh.all_reduce_sum((gate * v).sum()) / count
         return loss * self.weight, {"loss": loss.detach(), "uc_ratio": uc_ratio,
                                     "uc_weight": scalars["threshold"]}
 

@@ -11,29 +11,41 @@ contrastyou/losses/iic_loss.py):
   (:103-128): the dense loss averaged over half-overlapping patches.
 
 Dense inputs are NCHW probability maps [B, K, H, W].
+
+The joints are sums over the batch. In a multi-rank run (`parallel/mesh.py`)
+the inputs are this rank's rows: the unnormalised joints are summed over
+ranks (`mesh.all_reduce_sum`, one collective for all the joints of a call)
+before they are normalised, every rank computes the loss of the global
+batch in full, and the loss enters the backward through `mesh.grad_share`.
+In one process this is the single-device loss.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 
-def compute_joint(x_out: torch.Tensor, x_tf_out: torch.Tensor,
-                  symmetric: bool = True) -> torch.Tensor:
-    """[B, K] x [B, K] simplex inputs -> [K, K] joint distribution."""
-    p = x_out.t() @ x_tf_out
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _normalise_joint(p: torch.Tensor, symmetric: bool = True) -> torch.Tensor:
     if symmetric:
         p = (p + p.t()) / 2.0
     return p / p.sum()
 
 
-def iid_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, lamb: float = 1.0):
-    """Negative mutual information of the paired cluster assignments:
-    (loss, loss_no_lamb), the reference's first two outputs."""
-    k = x_out.shape[1]
-    p_i_j = compute_joint(x_out, x_tf_out)
+def compute_joint(x_out: torch.Tensor, x_tf_out: torch.Tensor,
+                  symmetric: bool = True) -> torch.Tensor:
+    """[B, K] x [B, K] simplex inputs -> [K, K] joint distribution (of the
+    global batch)."""
+    return _normalise_joint(mesh.all_reduce_sum(x_out.t() @ x_tf_out), symmetric)
+
+
+def _mutual_information(p_i_j: torch.Tensor, lamb: float):
+    k = p_i_j.shape[0]
     p_i = p_i_j.sum(dim=1, keepdim=True).expand(k, k)
     p_j = p_i_j.sum(dim=0, keepdim=True).expand(k, k)
     logs = torch.log(p_i_j + 1e-10)
@@ -44,17 +56,34 @@ def iid_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, lamb: float = 1.0):
     return loss, loss_no_lamb
 
 
-def iid_segmentation_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: int = 7,
-                          lamb: float = 1.0, mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """Dense IIC over probability maps [B, K, H, W]: the displacement joint
-    p(k1, k2 | dy, dx), normalised per displacement."""
+def iid_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, lamb: float = 1.0):
+    """Negative mutual information of the paired cluster assignments:
+    (loss, loss_no_lamb), the reference's first two outputs."""
+    loss, loss_no_lamb = _mutual_information(compute_joint(x_out, x_tf_out), lamb)
+    return mesh.grad_share(loss), mesh.grad_share(loss_no_lamb)
+
+
+def iid_losses(pairs: Sequence[Pair], lamb: float = 1.0) -> List[torch.Tensor]:
+    """`iid_loss(x, y, lamb)[0]` of every (x, y) of `pairs` (the subheads of
+    a cluster head), their joints summed over ranks in one collective."""
+    counts = mesh.all_reduce_sum(torch.stack([x.t() @ y for x, y in pairs]))
+    return [mesh.grad_share(_mutual_information(_normalise_joint(c), lamb)[0])
+            for c in counts]
+
+
+def _dense_counts(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The unnormalised displacement joint [k1, k2, T, T] of [B, K, H, W]
+    maps: one `F.conv2d` with the second map as the kernel, summed over B."""
     if mask is not None:
         x_out = x_out * mask
         x_tf_out = x_tf_out * mask
-    t = 2 * padding + 1
     # [K, B, H, W] input (N = k1, C = b) against [K, B, H, W] weight (O = k2, I = b)
-    p = F.conv2d(x_out.transpose(0, 1), x_tf_out.transpose(0, 1), padding=padding)
+    return F.conv2d(x_out.transpose(0, 1), x_tf_out.transpose(0, 1), padding=padding)
+
+
+def _dense_mutual_information(p: torch.Tensor, padding: int, lamb: float) -> torch.Tensor:
+    t = 2 * padding + 1
     p = p - p.min().detach() + 1e-16                     # [k1, k2, T, T]
     p = p.permute(2, 3, 0, 1)                            # [T, T, k1, k2]
     p = p / p.sum(dim=(2, 3), keepdim=True)
@@ -63,6 +92,25 @@ def iid_segmentation_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: 
     p_j = p.sum(dim=3, keepdim=True)
     return -(p * (torch.log(p + 1e-16) - lamb * torch.log(p_i + 1e-16)
                   - lamb * torch.log(p_j + 1e-16))).sum() / (t * t)
+
+
+def iid_segmentation_losses(pairs: Sequence[Pair], padding: int = 7, lamb: float = 1.0,
+                            masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                            ) -> List[torch.Tensor]:
+    """`iid_segmentation_loss` of every (x, y) of `pairs` (equal shapes),
+    their joints summed over ranks in one collective."""
+    masks = masks if masks is not None else [None] * len(pairs)
+    counts = mesh.all_reduce_sum(torch.stack([_dense_counts(x, y, padding, m)
+                                              for (x, y), m in zip(pairs, masks)]))
+    return [mesh.grad_share(_dense_mutual_information(c, padding, lamb)) for c in counts]
+
+
+def iid_segmentation_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: int = 7,
+                          lamb: float = 1.0, mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Dense IIC over probability maps [B, K, H, W]: the displacement joint
+    p(k1, k2 | dy, dx), normalised per displacement."""
+    return iid_segmentation_losses([(x_out, x_tf_out)], padding, lamb, [mask])[0]
 
 
 def _patch_starts(size: int, patch: int, step: int) -> List[int]:
@@ -81,12 +129,11 @@ def iid_segmentation_small_patch_loss(x_out: torch.Tensor, x_tf_out: torch.Tenso
     the mean of the dense loss over half-overlapping patches."""
     step = patch_size // 2
     h, w = x_out.shape[2], x_out.shape[3]
-    losses = []
+    pairs, masks = [], []
     for hs in _patch_starts(h, patch_size, step):
         for ws in _patch_starts(w, patch_size, step):
             sl = (slice(None), slice(None), slice(hs, hs + patch_size),
                   slice(ws, ws + patch_size))
-            m = None if mask is None else mask[sl]
-            losses.append(iid_segmentation_loss(x_out[sl], x_tf_out[sl], padding=padding,
-                                                lamb=lamb, mask=m))
-    return torch.stack(losses).mean()
+            pairs.append((x_out[sl], x_tf_out[sl]))
+            masks.append(None if mask is None else mask[sl])
+    return torch.stack(iid_segmentation_losses(pairs, padding, lamb, masks)).mean()

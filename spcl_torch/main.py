@@ -13,14 +13,25 @@ with that preset's hooks), `mixup`, `ft` or `pretrain`. `trainer_checkpoint=
 <path>/last.ckpt` resumes the run that wrote it. Returns (and prints) the
 best val DSC (0.0 for pretrain). `--device cpu` runs the plain versions of
 the kernels on the CPU.
+
+`Trainer.mesh=N` (or `auto`: one rank per visible card) trains on N ranks:
+this process starts N local ranks (`parallel.mesh.run_ranks`), each trains
+on its rows of every global batch, and rank 0's score comes back. With
+fewer cards than ranks the ranks share cards and the collectives go through
+gloo; `--device cpu` runs the ranks on the CPU. To place the ranks
+yourself, start one process per rank with SPCL_COORDINATOR=host:port,
+SPCL_NUM_PROCESSES=N and SPCL_PROCESS_ID=rank set: such a process starts no
+further ranks. `main_mixup.py` and `main_adv.py` run through `run` too.
 """
 import argparse
+import logging
 import sys
 from pathlib import Path
 
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
 from spcl_torch.entry import build_trainer
+from spcl_torch.parallel import mesh
 from spcl_torch.utils import config_logger, fix_all_seed
 
 
@@ -30,9 +41,19 @@ def main(argv=None, *, device="cuda"):
 
 
 def run(config, device="cuda"):
-    """Build, init, resume (`trainer_checkpoint`) and train from a merged config."""
+    """Build, init, resume (`trainer_checkpoint`) and train from a merged
+    config, in this process or in the ranks `Trainer.mesh` asks for."""
+    return mesh.run_ranks(config.get("Trainer", {}).get("mesh", 0), run_rank,
+                          (config, device), device=device)
+
+
+def run_rank(config, device="cuda"):
+    """`run` in this process: one rank of the run under `Trainer.mesh`."""
     save_dir = config.get("Trainer", {}).get("save_dir", "runs/tmp")
-    config_logger(save_dir)
+    mesh.initialize_distributed(device=device)  # no-op unless SPCL_* name a run
+    master = mesh.on_master()
+    config_logger(save_dir if master else None,
+                  level=logging.INFO if master else logging.WARNING)
     fix_all_seed(int(config.get("RandomSeed", 10)))
     pretrain = str(config.get("Trainer", {}).get("name", "")).startswith("pretrain")
     trainer = build_trainer(config, save_dir=save_dir, pretrain=pretrain, device=device)

@@ -15,9 +15,11 @@ encoder below Conv5 stays at its weights (warm-start it with
 geometry; it writes `<save_dir>/pre/last.ckpt`. Phase 2 (`entry.val`)
 fine-tunes the whole UNet from it at every labeled ratio (`Data.ratios`,
 else the dataset's ratio zoo). Returns and prints {ratio: best val DSC}.
-`--device cpu` runs the plain versions of the kernels. A decoder hook runs
-in one process: `Trainer.mesh` and `Trainer.grad_cache` are refused
-(ROADMAP A12).
+`--device cpu` runs the plain versions of the kernels. `Trainer.mesh=N` (or
+`auto`) starts N local ranks as `main_pretrain_encoder.py` does; the dense
+points and their SimCLR ids span the global batch. `Trainer.grad_cache` is
+refused with a decoder hook, as spcl_tpu refuses it (its dense point
+sampling is batch-local).
 """
 import argparse
 import sys
@@ -26,17 +28,21 @@ from pathlib import Path
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
 from spcl_torch.main_pretrain_encoder import run as run_pipeline
+from spcl_torch.parallel import mesh
 
 
 def main(argv=None, *, device="cuda"):
     cm = ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"),
                        str(Path(CONFIG_PATH) / "pretrain.yaml"),
                        strict=False).parse_args(argv)
-    return run(cm.merged_config, device)
+    config = cm.merged_config
+    return mesh.run_ranks(config.get("Trainer", {}).get("mesh", 0), run, (config, device),
+                          device=device)
 
 
 def run(config, device="cuda"):
-    """Both phases from a merged config, in this process."""
+    """Both phases from a merged config, in this process (one rank of the
+    run under `Trainer.mesh`)."""
     return run_pipeline(config, device, until_check=None, trainer_name="pretrain_decoder")
 
 

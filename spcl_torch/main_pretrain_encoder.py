@@ -16,7 +16,7 @@ zoo) under `<save_dir>/tra_<ratio>/`. Returns and prints {ratio: best val DSC}.
 in both phases; `--device cpu` runs everything on the plain versions.
 
 `Trainer.mesh=N` (or `auto`: one rank per visible card) trains on N ranks:
-this process starts N local ranks (`parallel.mesh.spawn_local`), each runs
+this process starts N local ranks (`parallel.mesh.run_ranks`), each runs
 both phases on its rows of every global batch, and rank 0's scores come back.
 With fewer cards than ranks the ranks share cards and the collectives go
 through gloo; `--device cpu` runs the ranks on the CPU. To place the ranks
@@ -36,20 +36,14 @@ from spcl_torch.entry import build_trainer, separate_pretrain_finetune_configs, 
 from spcl_torch.parallel import mesh
 from spcl_torch.utils import config_logger, fix_all_seed
 
-# a run whose ranks are not all done after this many seconds fails
-RANKS_TIMEOUT_S = 7 * 24 * 3600.0
-
 
 def main(argv=None, *, device="cuda", until_check: str = "Conv5"):
     cm = ConfigManager(str(Path(CONFIG_PATH) / "base.yaml"),
                        str(Path(CONFIG_PATH) / "pretrain.yaml"),
                        strict=False).parse_args(argv)
     config = cm.merged_config
-    ranks = mesh.requested_ranks(config.get("Trainer", {}).get("mesh", 0), device)
-    if ranks > 1 and not mesh.is_rank_process():
-        return mesh.spawn_local(ranks, run, (config, device, until_check), device=device,
-                                timeout_s=RANKS_TIMEOUT_S)[0]
-    return run(config, device, until_check)
+    return mesh.run_ranks(config.get("Trainer", {}).get("mesh", 0), run,
+                          (config, device, until_check), device=device)
 
 
 def run(config, device="cuda", until_check: Optional[str] = "Conv5",

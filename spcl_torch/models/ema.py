@@ -17,6 +17,11 @@ statistics, as spcl_tpu's `apply_teacher` does (`train=True,
 update_stats=False`), and its BatchNorm running statistics never move
 (`models/norm.py::freeze_statistics`). Only parameters are averaged, as the
 JAX teacher holds parameters only.
+
+In a multi-rank run the teacher's norms are copies of the student's
+`CrossRankBatchNorm2d`: its train-mode forward uses the batch statistics of
+the global batch, as the student's does, and every rank updates its teacher
+from the same student weights, so the replicas stay equal.
 """
 from __future__ import annotations
 

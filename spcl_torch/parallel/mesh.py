@@ -12,7 +12,9 @@ ranks' parameter gradients is the gradient of the global loss, and parameter
 gradients are summed (`all_reduce_grads`), never averaged:
 
 - a loss that is a global mean is computed as this rank's partial sum over
-  the GLOBAL count (`training/steps.py::_masked_ce`);
+  the GLOBAL count (`training/steps.py::_masked_ce`, `global_count`); a hook
+  returns it through `global_sum`, whose value is the global loss on every
+  rank and whose gradient is the rank's share's;
 - a loss that every rank computes in full from gathered operands enters the
   backward with 1/R of its cotangent (`grad_share`), and the differentiable
   collectives transpose as the sum convention demands: `all_gather_cat`
@@ -206,6 +208,28 @@ def grad_share(loss: torch.Tensor, group=None) -> torch.Tensor:
     return loss.detach() + (loss - loss.detach()) / r
 
 
+def global_sum(share: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ranks of `share` in value (the same bits on every rank),
+    with the gradient of this rank's `share` alone: for a rank's partial sum
+    of a global mean, so that the value is the global loss and the ranks'
+    gradients sum to its gradient."""
+    if not active():
+        return share
+    return all_reduce_sum(share.detach(), group) + (share - share.detach())
+
+
+def global_count(mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `mask` over every rank's rows (no gradient): the count a
+    masked mean over the global batch divides by."""
+    return all_reduce_sum(mask.detach().sum(), group)
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of `x` concatenated in rank order, without a
+    gradient (mixup's images and targets)."""
+    return all_gather_cat(x.detach(), group)
+
+
 def all_reduce_grads(params: Sequence[torch.Tensor], group=None) -> None:
     """Sum the `.grad` of `params` over ranks, in one collective."""
     if not active():
@@ -365,3 +389,16 @@ def spawn_local(n: int, fn: Callable, args: tuple = (), *, device="cuda",
     if failure is not None:
         raise RuntimeError(f"spawn_local({n} ranks): {failure}")
     return [done[i] for i in range(n)]
+
+
+def run_ranks(spec, fn: Callable, args: tuple = (), *, device="cuda",
+              timeout_s: float = 7 * 24 * 3600.0) -> Any:
+    """The entry points' launcher: `fn(*args)` in this process, or, when
+    `Trainer.mesh=spec` asks for N > 1 ranks and this process is not already
+    one rank of a run (`is_rank_process`), in N local ranks (`spawn_local`),
+    returning rank 0's result. `fn` joins the process group itself
+    (`initialize_distributed`, a no-op without the SPCL_* variables)."""
+    n = requested_ranks(spec, device)
+    if n > 1 and not is_rank_process():
+        return spawn_local(n, fn, args, device=device, timeout_s=timeout_s)[0]
+    return fn(*args)

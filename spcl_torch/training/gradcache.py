@@ -74,10 +74,11 @@ def _check_hooks(hooks: Sequence[TrainerHook]) -> None:
                 f"criterion phases); got {type(h).__name__} ({h.name}) — run it under the "
                 "monolithic pretrain step")
         if h.feature_name not in ENCODER_NAMES:
+            # as spcl_tpu refuses it (training/gradcache.py:75-79)
             raise NotImplementedError(
                 f"grad_cache supports encoder contrastive hooks; {h.name} taps decoder stage "
-                f"{h.feature_name}: a decoder hook under grad_cache is not ported yet "
-                "(ROADMAP A12)")
+                f"{h.feature_name} (dense point sampling is batch-local and does not benefit "
+                "from a global batch)")
 
 
 def _cut(tree, n: int, lo: int, hi: int):

@@ -49,16 +49,20 @@ teacher passes, the `disable_bn` second pass) run in train mode with the
 BatchNorm statistics frozen (`models/norm.py::frozen_statistics`), as
 spcl_tpu's `update_stats=False` does; on the fused stages too.
 
-In a multi-rank run (`parallel/mesh.py`) the pretrain, fine-tune (without
-hooks) and eval steps keep global-batch
+In a multi-rank run (`parallel/mesh.py`) every step keeps global-batch
 semantics, as `spcl_tpu/training/steps.py:12` states them: every rank is
 handed the same GLOBAL batch (or index vector) and makes (or is handed) the
 same global draws, computes on its own rows of both (`shard_rows`; an index
-vector is cut before its rows are gathered), writes its loss so that the
+vector is cut before its rows are gathered; the hooks' draws stay global and
+each hook keeps its rows, `hooks/base.py`), writes its loss so that the
 ranks' gradients sum to the global gradient (a mean over the global count;
-`grad_share` inside the contrastive losses), and sums the parameter gradients
-over ranks before the optimizer step. BatchNorm statistics span the ranks
-(`models/norm.py`). Losses come back as global values, per-slice Dice
+`grad_share` inside the losses that are not separable over the batch), and
+sums the parameter gradients over ranks before the optimizer step (the
+hooks' projectors and the discriminator's included). BatchNorm statistics
+span the ranks (`models/norm.py`), the EMA teacher's and the auxiliary
+forwards' too. Every rank calls the collectives in the same order: the same
+forwards, hooks and discriminator passes in the same order on every rank.
+Losses and hook metrics come back as global values, per-slice Dice
 statistics gathered in global row order, identical on every rank. In one
 process all of this is the identity.
 """
@@ -158,7 +162,7 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
             params = draw_pretrain_params(generator, batch, store, policy=policy,
                                           total_freedom=total_freedom,
                                           flip_threshold=flip_threshold)
-        batch, params = mesh.shard_rows((batch, params), n_global)
+        batch, params = _shard_step_rows(batch, params, n_global)
         batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
         n = image.shape[0]
@@ -167,7 +171,7 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         v2 = apply_flip(v2, fp)
         model.train()
         acts = model(torch.cat([v1, v2], dim=0), until=until)
-        ctx = {"acts": acts, "n_unl": n, "flip": fp}
+        ctx = {"acts": acts, "n_unl": n, "flip": fp, **_global_rows(n)}
         ctx.update({k: batch[k] for k in _META_KEYS})
         total, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
                                            image.device)
@@ -228,8 +232,27 @@ def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: Aug
     return probe
 
 
+def _shard_step_rows(batch, params: Dict, n_global: int):
+    """This rank's rows of a global batch and of the step's draws; the
+    hooks' draws stay global (each hook keeps its own rows)."""
+    hook_draws = params.get("hooks")
+    batch, params = mesh.shard_rows((batch, {k: v for k, v in params.items() if k != "hooks"}),
+                                    n_global)
+    if hook_draws is not None:
+        params["hooks"] = hook_draws
+    return batch, params
+
+
+def _global_rows(n_local: int) -> Dict[str, int]:
+    """The ctx keys of the global batch (`hooks/base.py`): its N and this
+    rank's first row; every rank holds the same number of rows."""
+    return {"n_global": n_local * mesh.world_size(), "row_offset": n_local * mesh.rank()}
+
+
 def _reduce_gradients(optimizer: torch.optim.Optimizer) -> None:
-    """Sum the parameter gradients over ranks (no-op in one process)."""
+    """Sum the parameter gradients over ranks (no-op in one process): the
+    optimizer holds the hooks' projectors too (the trainers build them
+    before it)."""
     mesh.all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]])
 
 
@@ -323,7 +346,7 @@ def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_cl
                         hooks: Sequence[TrainerHook] = ()) -> Callable:
     """Returns step(batch, generator, params=None, hook_scalars=None) ->
     {"sup_loss", "inter", "union"} (detached device tensors; "hooks" too
-    with hooks): the labeled-only step. With hooks (single process only) it
+    with hooks): the labeled-only step. With hooks (the mixup trainer) it
     makes two labeled views (spcl_tpu steps.py:163-200) and adds the hooks'
     losses."""
     hooks = tuple(hooks)
@@ -338,9 +361,7 @@ def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_cl
                     sample_once(generator, n_global, policy, in_size, sizes=sizes,
                                 device=device))
             params = {"aug": draw}
-        if hooks and mesh.active():
-            raise NotImplementedError("a fine-tune step with hooks runs in one process")
-        batch, params = mesh.shard_rows((batch, params), n_global)
+        batch, params = _shard_step_rows(batch, params, n_global)
         batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
         label = batch["label"].long()
@@ -405,7 +426,7 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
     -> {"sup_loss", "reg_loss", "inter", "union", "hooks"} (detached device
     tensors). `teacher` (required when a hook needs_teacher) predicts the
     plain unlabeled batch before the update and takes its EMA step after
-    the optimizer's. One process only: the semi trainer refuses a mesh."""
+    the optimizer's (the same teacher on every rank of a multi-rank run)."""
     hooks = tuple(hooks)
     needs_teacher = any(h.needs_teacher for h in hooks)
     needs_mixup = any(isinstance(h, MixUpHook) for h in hooks)
@@ -415,25 +436,26 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
 
     def step(batch_l, batch_u, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
-        if mesh.active():
-            raise NotImplementedError("the semi step runs in one process")
+        n_l_global, n_u_global = _rows(batch_l), _rows(batch_u)
         if params is None:
             params = draw_semi_params(generator, batch_l, batch_u, store, policy=policy,
                                       two_labeled_views=needs_mixup,
                                       flip_threshold=flip_threshold)
+        batch_l, lab_draws = mesh.shard_rows((batch_l, params["lab"]), n_l_global)
+        batch_u, unl_draws, fp = mesh.shard_rows((batch_u, params["unl"], params["flip"]),
+                                                 n_u_global)
         batch_l = _resolve_batch(store, batch_l)
         batch_u = _resolve_batch(store, batch_u)
         image_l = _as_float_image(batch_l["image"])
         label_l = batch_l["label"].long()
         if needs_mixup:
             (img_l, lab_l), (img_l2, lab_l2) = augment_twice(image_l, label_l, policy,
-                                                             params["lab"])
+                                                             lab_draws)
         else:
-            img_l, lab_l = augment_once(image_l, label_l, policy, params["lab"])
+            img_l, lab_l = augment_once(image_l, label_l, policy, lab_draws)
         (img_u, _), (img_u_cf, _) = augment_twice(_as_float_image(batch_u["image"]), None,
-                                                  policy, params["unl"])
+                                                  policy, unl_draws)
         n_l, n_u = img_l.shape[0], img_u.shape[0]
-        fp = params["flip"]
         img_u_tf = apply_flip(img_u_cf, fp)
 
         model.train()
@@ -450,7 +472,7 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
 
         onehot_l = class2one_hot(lab_l, num_classes)
         sup = _masked_ce(logits_l, onehot_l, batch_l["valid"])
-        ctx = {"acts": acts, "n_unl": n_u, "flip": fp,
+        ctx = {"acts": acts, "n_unl": n_u, "flip": fp, **_global_rows(n_u),
                "unlabeled_tf_logits": logits_u_tf,
                # the same flips replayed on the plain batch's prediction (reference :169-170)
                "unlabeled_logits_tf": apply_flip(logits_u, fp),
@@ -468,12 +490,15 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
                                          image_l.device)
         optimizer.zero_grad(set_to_none=True)
         (sup + reg).backward()
+        _reduce_gradients(optimizer)
         optimizer.step()
         if needs_teacher:
             teacher.update(model)
         inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
                                               num_classes, batch_l["valid"])
-        return {"sup_loss": sup.detach(), "reg_loss": reg.detach(), "inter": inter,
+        sup, inter, union = _global_outputs(sup, inter, union)
+        # the hooks' losses are global values already (hooks/base.py)
+        return {"sup_loss": sup, "reg_loss": reg.detach(), "inter": inter,
                 "union": union, "hooks": hook_metrics}
 
     return step
@@ -490,8 +515,10 @@ def draw_adversarial_params(generator: torch.Generator, batch_l, batch_u,
 
 
 def _bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    """Mean sigmoid BCE against a constant label (optax.sigmoid_binary_cross_entropy)."""
-    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, target))
+    """Mean sigmoid BCE against a constant label (optax.sigmoid_binary_cross_entropy),
+    over the global batch (every rank holds the same number of rows)."""
+    share = F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, target))
+    return mesh.global_sum(share / mesh.world_size())
 
 
 def build_adversarial_step(model: UNet, discriminator: nn.Module,
@@ -512,8 +539,9 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
     scales the gradients, not the loss, and Adam's eps sees the scale).
     `dis_consider_image` puts the view's image channels before the softmax.
     `reg_weight` 0 skips the unlabeled forward and the discriminator step
-    (dis_loss 0). One process only: `entry.build_trainer` refuses `adv`
-    under a mesh."""
+    (dis_loss 0), on every rank alike. In a multi-rank run the BCE terms are
+    global means and the discriminator's gradients are summed over ranks
+    before the `reg_weight` scaling and its Adam step."""
     reg_weight = float(reg_weight)
 
     def d_input(logits: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
@@ -522,11 +550,14 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
 
     def step(batch_l, batch_u, generator: Optional[torch.Generator],
              params: Optional[Dict] = None):
+        n_l_global, n_u_global = _rows(batch_l), _rows(batch_u)
         if params is None:
             params = draw_adversarial_params(generator, batch_l, batch_u, store, policy=policy)
+        batch_l, lab_draws = mesh.shard_rows((batch_l, params["lab"]), n_l_global)
+        batch_u, unl_draws = mesh.shard_rows((batch_u, params["unl"]), n_u_global)
         batch_l = _resolve_batch(store, batch_l)
         img_l, lab_l = augment_once(_as_float_image(batch_l["image"]), batch_l["label"].long(),
-                                    policy, params["lab"])
+                                    policy, lab_draws)
         model.train()
         logits_l = model(img_l)["logits"]
         sup = _masked_ce(logits_l, class2one_hot(lab_l, num_classes), batch_l["valid"])
@@ -534,7 +565,7 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
         if reg_weight > 0:
             batch_u = _resolve_batch(store, batch_u)
             img_u, _ = augment_once(_as_float_image(batch_u["image"]), None, policy,
-                                    params["unl"])
+                                    unl_draws)
             logits_u = model(img_u)["logits"]
             # non-saturating generator objective: D should call it real. Its
             # backward also reaches D's parameters; the discriminator step
@@ -542,6 +573,7 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
             gen = _bce_with_logits(discriminator(d_input(logits_u, img_u)), 1.0)
         optimizer.zero_grad(set_to_none=True)
         (sup + reg_weight * gen).backward()
+        _reduce_gradients(optimizer)
         optimizer.step()
         dis = torch.zeros((), dtype=torch.float32, device=img_l.device)
         if reg_weight > 0:
@@ -549,12 +581,14 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
                    + _bce_with_logits(discriminator(d_input(logits_u.detach(), img_u)), 0.0))
             discr_optimizer.zero_grad(set_to_none=True)
             dis.backward()
+            mesh.all_reduce_grads(list(discriminator.parameters()))
             grads = [p.grad for p in discriminator.parameters() if p.grad is not None]
             torch._foreach_mul_(grads, reg_weight)
             discr_optimizer.step()
         inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
                                               num_classes, batch_l["valid"])
-        return {"sup_loss": sup.detach(), "gen_loss": gen.detach(), "dis_loss": dis.detach(),
+        sup, inter, union = _global_outputs(sup, inter, union)
+        return {"sup_loss": sup, "gen_loss": gen.detach(), "dis_loss": dis.detach(),
                 "inter": inter, "union": union}
 
     return step

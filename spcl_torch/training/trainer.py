@@ -60,7 +60,12 @@ on the rank's rows. The replicas start from rank 0's weights and stay equal
 because every rank applies the same summed gradient. Only rank 0 writes:
 `storage.csv`, checkpoints, `.success`, log lines; a barrier ends
 `start_training` so that no rank reads a checkpoint before it is written.
-One rank is the plain single-process path.
+One rank is the plain single-process path. Every trainer runs so, with
+spcl_tpu's global-batch semantics (`training/steps.py`): the semi trainer
+with any hooks and its EMA teacher, the mixup and adversarial trainers (the
+discriminator starts from rank 0's weights too) and both pretrain trainers,
+with `resume_from_path` and `defer_reads`. `small_c_layout: pallas` is
+refused under a mesh, as spcl_tpu refuses it.
 
 `resume_from_path` (trainer.py:972-987; `trainer_checkpoint` in the entry
 points) restores everything `last.ckpt` holds — the model, the optimizer
@@ -68,7 +73,8 @@ state, the projectors, the hooks' schedulers, the EMA teacher and its step
 count, the epoch, the best score and the storage — and, beyond spcl_tpu,
 the step generator's state and the samplers' numpy generators (and the
 adversarial trainer's discriminator and its Adam state), so that a resumed
-run continues the uninterrupted one to the bit.
+run continues the uninterrupted one to the bit. Under a mesh rank 0 has
+written the file: every rank waits at a barrier, then loads it.
 
 Every trainer writes its run's `config.yaml` (with the git hash) and its
 epochs' scalars to TensorBoard (`writer.py`; spcl_tpu trainer.py:125-137,
@@ -90,9 +96,6 @@ writes `best.ckpt` and `last.ckpt` with the contents the eager loop writes
 (the best epoch's optimizer state and metadata included, where spcl_tpu
 keeps the final optimizer state). `Trainer.flush_every: N` drains and writes
 the checkpoints every N epochs.
-
-Not ported yet: a mesh with the semi, mixup or adversarial trainer or a
-decoder hook, and resume under a mesh.
 """
 from __future__ import annotations
 
@@ -179,8 +182,9 @@ class _TrainerBase:
         if world != want:
             raise RuntimeError(
                 f"Trainer.mesh={spec!r} asks for {want} ranks but this process is part of "
-                f"{world}: start the ranks through an entry point "
-                "(spcl_torch.main_pretrain_encoder), parallel.mesh.spawn_local, or one "
+                f"{world}: start the ranks through an entry point (spcl_torch.main, "
+                "main_mixup, main_adv, main_pretrain_encoder, main_pretrain_decoder), "
+                "parallel.mesh.spawn_local, or one "
                 "process per rank with SPCL_COORDINATOR / SPCL_NUM_PROCESSES / "
                 "SPCL_PROCESS_ID set")
         return world
@@ -426,9 +430,7 @@ class _TrainerBase:
         """Continue the run that wrote checkpoint `path` (after `init()`)."""
         if not self._initialized:
             raise RuntimeError("call init() before resume_from_path")
-        if self._n_shards > 1:
-            raise NotImplementedError("resume under Trainer.mesh is not ported yet "
-                                      "(ROADMAP A12 rest)")
+        mesh_lib.host_barrier()  # rank 0 wrote the file; every rank reads it
         state = load_checkpoint(path)
         self._model.load_state_dict(state["_model"], strict=True)
         for h in self._hooks:
@@ -1067,6 +1069,8 @@ class AdversarialTrainer(SemiTrainer):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self._seed)
             self._discriminator = Discriminator(in_ch).to(self._device)
+        if self._n_shards > 1:
+            mesh_lib.broadcast_tensors(list(self._discriminator.state_dict().values()))
         self._discr_optimizer = Adam(self._discriminator.parameters(), lr=self._discr_lr,
                                      betas=(0.5, 0.999))
         self._train_step = build_adversarial_step(

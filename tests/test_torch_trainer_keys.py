@@ -7,18 +7,24 @@ with 30 chunks), with `dump_matrices` (the matrix probe is built), with
 with `defer_reads` (`start_training` takes the deferred loop).
 `dump_matrices` together with `grad_cache` raises spcl_tpu's ValueError. The
 semi and mixup trainers build (`semi` with production_semi.yaml + mt.yaml +
-uda.yaml, as `chip_smoke.py` runs it); `Trainer.mesh` with either, or with
-the adversarial trainer, raises NotImplementedError until ROADMAP A12
-(rest), and so does a decoder-stage InfoNCE hook under a mesh or with
-`Trainer.grad_cache`. CPU only; the refused cases raise before any data is
-loaded."""
+uda.yaml, as `chip_smoke.py` runs it). Under `Trainer.mesh=2` the semi,
+mixup, meanteacher, adversarial and decoder-pretrain trainers build and
+init in the processes of a 2-rank gloo run (their training under a mesh is
+held in tests/test_torch_parallel_semi.py). A decoder-stage InfoNCE hook
+with `Trainer.grad_cache` raises NotImplementedError with spcl_tpu's reason
+(spcl_tpu/training/gradcache.py:75-79), before any data is loaded. CPU
+only."""
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from spcl_torch import CONFIG_PATH
 from spcl_torch.configure import ConfigManager
 from spcl_torch.entry import build_trainer
+from spcl_torch.parallel.mesh import spawn_local
+
+import torch_parallel_workers as workers
 
 PAPER = str(Path(CONFIG_PATH) / "specific" / "selfpaced_infonce.yaml")
 
@@ -96,30 +102,66 @@ def test_semi_and_mixup_trainers_build(tmp_path, name, hooks):
     assert [h.name for h in trainer.hooks] == hooks
 
 
-@pytest.mark.parametrize("name", ["semi", "mixup", "meanteacher"])
-def test_semi_trainers_under_a_mesh_are_refused(tmp_path, name):
-    config = _semi_config(f"Trainer.name={name}", "Trainer.mesh=2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 rest"):
-        build_trainer(config, save_dir=str(tmp_path), device="cpu")
-
-
-def test_adversarial_trainer_is_refused(tmp_path):
-    """Under a mesh: the adversarial trainer itself builds since it was
-    ported (tests/test_torch_adversarial.py)."""
-    config = _semi_config("Trainer.name=adv", "Trainer.mesh=2")
-    with pytest.raises(NotImplementedError, match="adv trainer is not ported yet "
-                                                  r"\(ROADMAP A12 rest\)"):
-        build_trainer(config, save_dir=str(tmp_path), device="cpu")
-
-
-@pytest.mark.parametrize("override,refused", [("Trainer.mesh=2", "under Trainer.mesh"),
-                                              ("Trainer.grad_cache=2", "with Trainer.grad_cache")])
-def test_decoder_hooks_under_a_mesh_or_grad_cache_are_refused(tmp_path, override, refused):
-    config = _config(override)
+def _decoder_config(*overrides):
+    config = _config(*overrides)
     config["Trainer"]["name"] = "pretrain_decoder"
     del config["SPInfonceParams"]
     config["InfonceParams"] = {"feature_names": "Up_conv3", "weights": 1.0,
                                "contrast_ons": "self"}
-    with pytest.raises(NotImplementedError, match=f"{refused} are not ported yet "
-                                                  r"\(ROADMAP A12\)"):
+    return config
+
+
+SMALL = ["Data.canvas=48", "Data.crop=32", "Arch.max_channel=32", "Data.synthetic_scans=4",
+         "Data.synthetic_test_scans=3"]
+MESH_TRAINERS = {
+    "semi": ("SemiTrainer", ["consistency", "mt"]),
+    "mixup": ("MixUpTrainer", ["mix_reg"]),
+    "meanteacher": ("SemiTrainer", ["consistency", "mt"]),
+    "adv": ("AdversarialTrainer", []),
+    "pretrain_decoder": ("PretrainDecoderTrainer", ["infonce/Up_conv3/self"]),
+}
+
+
+@pytest.fixture(scope="module")
+def mesh_built(tmp_path_factory):
+    """Every trainer of MESH_TRAINERS built and init'ed under Trainer.mesh=2 in
+    the 2 processes of a gloo run."""
+    configs = {}
+    for name in MESH_TRAINERS:
+        if name == "pretrain_decoder":
+            configs[name] = _decoder_config("Trainer.mesh=2", *SMALL,
+                                            "ContrastiveLoaderParams.scan_sample_num=2")
+            continue
+        config = _semi_config(f"Trainer.name={name}", "Trainer.mesh=2", *SMALL)
+        if name == "mixup":
+            config["MixUpParams"] = {"weight": 0.01, "enable_bn": True}
+            del config["MeanTeacherParams"], config["ConsistencyParams"]
+        configs[name] = config
+    return spawn_local(2, workers.build_trainers_worker,
+                       (configs, str(tmp_path_factory.mktemp("built"))), device="cpu",
+                       timeout_s=300.0, collective_timeout_s=120.0)
+
+
+@pytest.mark.parametrize("name", list(MESH_TRAINERS))
+def test_trainers_build_under_a_mesh(mesh_built, name):
+    """Built and init'ed in each rank: the trainer class, its hooks, the EMA
+    teacher where a hook needs it, 2 shards, and replicas that start from
+    rank 0's weights."""
+    kind, hooks = MESH_TRAINERS[name]
+    for rank in mesh_built:
+        got = rank[name]
+        assert got["type"] == kind and got["n_shards"] == 2
+        assert sorted(got["hooks"]) == sorted(hooks)
+        assert got["teacher"] == ("mt" in hooks)
+    np.testing.assert_array_equal(mesh_built[0][name]["conv1"], mesh_built[1][name]["conv1"])
+
+
+@pytest.mark.parametrize("override,refused", [("Trainer.grad_cache=2", "with Trainer.grad_cache")])
+def test_decoder_hooks_under_a_mesh_or_grad_cache_are_refused(tmp_path, override, refused):
+    """A decoder hook under a mesh builds (test_trainers_build_under_a_mesh);
+    with grad_cache it is refused, as spcl_tpu refuses it."""
+    config = _decoder_config(override)
+    with pytest.raises(NotImplementedError,
+                       match=f"{refused}: grad_cache supports encoder contrastive hooks "
+                             r"\(dense point sampling is batch-local"):
         build_trainer(config, save_dir=str(tmp_path), pretrain=True, device="cpu")
