@@ -219,7 +219,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `defer_reads` against the eager one under the mesh.
                Tolerances (stated at `J_LOSS_TOL`): weights slice C's,
                losses and hook metrics 5e-3 relative (TF32).
- 19. report  — the `kernels` JSON line (the bf16 passes as
+ 19. slice K — the paper's effect study through spcl_torch.scripts (UNet-128,
+               crop 48 of a 64 canvas, `synthetic: hard`, 2 labeled scans,
+               Adam 1e-3, `nhwc`), cut to 2 epochs x 10 batches a phase:
+               `effect_study.run_arm` for seed 10 at `scratch` and
+               `spsoft_corrupt` (80% corrupted meta-labels, SP soft gamma
+               8 -> 40: 20 pretrain steps at 2N=60, then the fine-tune from
+               its last.ckpt), then the probe of that checkpoint
+               (`probe_pretrain_features.embed_dataset` + `probe_accuracy`).
+               Checks: one supcon_fwd and one supcon_bwd a pretrain step,
+               none in the fine-tune, each call held to its plain version
+               on its own operands (shape printed); finite losses, DSC in
+               [0, 1], pre/last.ckpt reloading strictly; the card's Conv5
+               embedding within 1e-2 relative L2 of the CPU's (cuDNN's TF32
+               convolutions: 2^-10 a product, through ten of them); under
+               60 s.
+ 20. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -232,7 +247,7 @@ build and phase 11, `--semi-only` the build and phase 12,
 `--decoder-adv-only` the build and phases 13 (without the warm start) and 14,
 `--serving-only` the build and phase 17 (the fine-tune from a fresh UNet,
 weight inspection of its random initialisation), `--semi-mesh-only` the
-build and phase 18.
+build and phase 18, `--effect-only` the build and phase 19.
 """
 import copy
 import json
@@ -4217,6 +4232,85 @@ def slice_i_phase(encoder_ckpt=None):
     return out
 
 
+# ------------------------------------------------------------------ slice K
+SLICE_K_ARMS = ("scratch", "spsoft_corrupt")
+SLICE_K_SEED = 10
+SLICE_K_BUDGET = {"PRE_EPOCHS": 2, "PRE_BATCHES": 10, "FT_EPOCHS": 2, "FT_BATCHES": 10}
+SLICE_K_EMBED_TOL = 1e-2    # relative L2, card (TF32 cuDNN) against the CPU
+SLICE_K_SECONDS = 60.0
+
+
+def slice_k_phase(sc):
+    """The effect study's pipeline at a cut budget: `run_arm` for two arms,
+    then the probe of the pretrained arm's checkpoint, card against CPU."""
+    from spcl_torch.models import UNet
+    from spcl_torch.scripts import effect_study as es
+    from spcl_torch.scripts import probe_pretrain_features as probe
+    from spcl_torch.training import load_model_state_dict
+
+    budget = SLICE_K_BUDGET
+    phase(f"slice K: the effect study (spcl_torch.scripts.effect_study + "
+          f"probe_pretrain_features), UNet-128, crop {es.CROP} of {es.CANVAS}, synthetic hard, "
+          f"seed {SLICE_K_SEED}, arms {', '.join(SLICE_K_ARMS)}, {budget['PRE_EPOCHS']} x "
+          f"{budget['PRE_BATCHES']} pretrain and {budget['FT_EPOCHS']} x "
+          f"{budget['FT_BATCHES']} fine-tune steps")
+    out_dir = ROOT / "runs" / "chip_smoke_k"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    saved = {k: getattr(es, k) for k in budget}
+    t0 = time.perf_counter()
+    recs = {}
+    try:
+        for k, v in budget.items():
+            setattr(es, k, v)
+        sc.reset_launch_counts()
+        with _HeldSupcon(sc, "slice K") as held:
+            for arm in SLICE_K_ARMS:
+                recs[arm] = es.run_arm(arm, SLICE_K_SEED, device=DEVICE, out=out_dir)
+                if arm == "scratch":
+                    check(sum(sc.LAUNCHES.values()) == 0,
+                          f"the fine-tune launched supcon kernels {dict(sc.LAUNCHES)}")
+        launches = dict(sc.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            setattr(es, k, v)
+    run_s = time.perf_counter() - t0
+    steps = budget["PRE_EPOCHS"] * budget["PRE_BATCHES"]
+    check(launches == {"supcon_fwd": steps, "supcon_bwd": steps},
+          f"slice K launches {launches}, want {steps} of each")
+    shapes = sorted(set(held.shapes))
+    views = sorted({v for _, _, v in held.calls})
+    print(f"slice K supcon calls: {len(held.calls)} ({launches}), operands (kernel, rows, "
+          f"columns) {shapes}, real views a call {views} (2N), each held to the plain "
+          f"version: max err {held.max_err}", flush=True)
+    for arm, rec in recs.items():
+        print(f"slice K {arm}: " + json.dumps(rec), flush=True)
+        check(0.0 <= rec["best_val_dice"] <= 1.0, f"{arm} DSC {rec['best_val_dice']}")
+    pre_loss = recs["spsoft_corrupt"]["pretrain_loss"]
+    check(pre_loss is not None and math.isfinite(pre_loss), f"pretrain loss {pre_loss}")
+    check(recs["scratch"]["pretrain_loss"] is None, "scratch pretrained")
+    ckpt = out_dir / f"spsoft_corrupt_s{SLICE_K_SEED}" / "pre" / "last.ckpt"
+    UNet(max_channel=128).load_state_dict(load_model_state_dict(str(ckpt)), strict=True)
+
+    t1 = time.perf_counter()
+    feats, ds = probe.embed_dataset(str(ckpt), es.CANVAS, es.CROP, DEVICE)
+    embed_s = time.perf_counter() - t1
+    feats_cpu, _ = probe.embed_dataset(str(ckpt), es.CANVAS, es.CROP, "cpu")
+    rel = float(np.linalg.norm(feats - feats_cpu) / np.linalg.norm(feats_cpu))
+    acc, acc_cpu = probe.probe_accuracy(feats, ds), probe.probe_accuracy(feats_cpu, ds)
+    print(f"slice K probe: {feats.shape[0]} slices x {feats.shape[1]} features in "
+          f"{embed_s:.3f} s on the card; relative L2 against the CPU {rel:.3e} (tolerance "
+          f"{SLICE_K_EMBED_TOL}); probe accuracy card {acc:.4f}, CPU {acc_cpu:.4f}", flush=True)
+    check(np.all(np.isfinite(feats)) and rel <= SLICE_K_EMBED_TOL,
+          f"card embedding {rel:.3e} from the CPU's")
+    phase_s = time.perf_counter() - t0
+    print(f"slice K: runs {run_s:.1f} s, whole phase {phase_s:.1f} s", flush=True)
+    check(phase_s < SLICE_K_SECONDS, f"slice K took {phase_s:.1f} s")
+    out = {"launches": launches, "max_err": held.max_err, "shapes": shapes, "records": recs,
+           "embed_rel": rel, "probe": acc, "phase_s": phase_s}
+    print("slice_k " + json.dumps(out), flush=True)
+    return out
+
+
 STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
              "pool with its statistics")
 
@@ -4292,6 +4386,9 @@ def main():
     if "--semi-mesh-only" in sys.argv[1:]:
         slice_j_phase(sc, cs)
         return
+    if "--effect-only" in sys.argv[1:]:
+        slice_k_phase(sc)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -4322,6 +4419,8 @@ def main():
     slice_i = slice_i_phase(ROOT / "runs" / "chip_smoke_b" / "pre" / "last.ckpt")
     torch.cuda.empty_cache()
     slice_j = slice_j_phase(sc, cs)
+    torch.cuda.empty_cache()
+    slice_k = slice_k_phase(sc)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -4333,7 +4432,7 @@ def main():
                 "launches": (launches[name] + stage_launches[name] + launches_c[name]
                              + slice_d["launches"][name] + preset_launches[name]
                              + sum(v[name] for v in slice_f["launches"].values())
-                             + slice_j["launches"][name]),
+                             + slice_j["launches"][name] + slice_k["launches"][name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
                                      "slice_d": slice_d["launches"][name],
@@ -4341,9 +4440,11 @@ def main():
                                      **{_f_path(run): v[name]
                                         for run, v in slice_f["launches"].items()
                                         if run != "finetune"},
-                                     "slice_j_rank_0": slice_j["launches"][name]},
+                                     "slice_j_rank_0": slice_j["launches"][name],
+                                     "slice_k": slice_k["launches"][name]},
                 "max_abs_err": max(max_err[name], strip_err[name], preset_err[name],
-                                   slice_f["max_err"][name], slice_j["max_err"][name]),
+                                   slice_f["max_err"][name], slice_j["max_err"][name],
+                                   slice_k["max_err"][name]),
                 "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -4405,7 +4506,10 @@ def main():
           f"slice J semi step (32 + 2 x 32 slices, {RANKS_J} ranks over {slice_j['backend']}"
           f"{', one shared card' if slice_j['shared_card'] else ''}) "
           f"{slice_j['mesh_ms']:.3f} ms/step beside the single process "
-          f"{slice_j['single_ms']:.3f}", flush=True)
+          f"{slice_j['single_ms']:.3f} | slice K effect study (UNet-128, 48^2, 2N=60) "
+          f"pretrain {slice_k['records']['spsoft_corrupt']['pre_ms_per_step']:.3f} ms/step, "
+          f"fine-tune {slice_k['records']['spsoft_corrupt']['ft_ms_per_step']:.3f} ms/step, "
+          f"phase {slice_k['phase_s']:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

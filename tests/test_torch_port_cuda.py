@@ -2,7 +2,9 @@
 versions, on the card. Marked `gpu`: skipped where torch sees no CUDA device
 (the kernels have no CPU mode). On the GPU machine, without jax installed:
 
-    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
+    python -m pytest --noconftest -p no:cacheprovider -m "gpu and not slow" tests/test_torch_port_cuda.py
+
+(`-m "gpu and slow"` runs the effect study on the card, 15-25 minutes.)
 
 Tolerance: 2e-4 absolute on the per-row statistics (rowloss, c, log denom,
 a — all O(1..10)) and on the loss; 2e-4 x max|dz| on dz. float32 sums run in
@@ -1041,3 +1043,28 @@ def test_serving_artifact_on_the_card_matches_the_live_module(cuda, tmp_path, dt
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > tol
     assert torch.equal(out["pred"].long()[clear], ref.argmax(dim=-1)[clear])
+
+
+# ------------------------------------------------------------------ the effect study
+@pytest.mark.slow
+def test_effect_study_on_the_card(cuda):
+    """The float32 effect study (`spcl_torch.scripts.effect_study`) through
+    its orchestrator on the card: the seven arms on the seeds of spcl_tpu's
+    round-5 table (10-50 for scratch, spsoft_clean, plain_corrupt and
+    spsoft_corrupt; 10-30 for plain_clean, sp_clean and sp_corrupt), one
+    worker process per run, three at a time, every record written anew;
+    then the gate: each arm's mean best val DSC within 3 combined standard
+    errors of spcl_tpu's (RESULTS.md:502-510). Marked slow: tier-1 (-m 'not
+    slow') never runs it. About 15-25 minutes on one H100; the records stay
+    under runs/effect_study_torch/ for the probe and `--collect`."""
+    from spcl_torch.scripts import effect_study as es
+
+    five = ("scratch", "spsoft_clean", "plain_corrupt", "spsoft_corrupt")
+    three = ("plain_clean", "sp_clean", "sp_corrupt")
+    for arms, seeds in ((five, "10,20,30,40,50"), (three, "10,20,30")):
+        es.main(["--arms", ",".join(arms), "--seeds", seeds, "--force"])
+    res = es.collect()
+    assert {a: n for a, (_, _, n) in res["rows"].items()} == \
+        {**{a: 5 for a in five}, **{a: 3 for a in three}}
+    missed = {a: v for a, v in res["gate"].items() if not v["pass"]}
+    assert set(res["gate"]) == set(es.ARMS) and not missed, missed
