@@ -225,7 +225,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `effect_study.run_arm` for seed 10 at `scratch` and
                `spsoft_corrupt` (80% corrupted meta-labels, SP soft gamma
                8 -> 40: 20 pretrain steps at 2N=60, then the fine-tune from
-               its last.ckpt), then the probe of that checkpoint
+               its last.ckpt; `run_arm` trains under its
+               `deterministic_backends`), then the probe of that checkpoint
                (`probe_pretrain_features.embed_dataset` + `probe_accuracy`).
                Checks: one supcon_fwd and one supcon_bwd a pretrain step,
                none in the fine-tune, each call held to its plain version
@@ -234,7 +235,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                embedding within 1e-2 relative L2 of the CPU's (cuDNN's TF32
                convolutions: 2^-10 a product, through ten of them); under
                60 s.
- 20. report  — the `kernels` JSON line (the bf16 passes as
+ 20. slice L — (a) `Trainer.name: infoncepretrain` on slice A's path
+               (CONFIG with the `infonce` preset's InfonceParams in place
+               of SPInfonceParams: UNet-256, crop 224 of 256, 2N=60, `nhwc`),
+               1 epoch x 5 steps through build_trainer: the encoder-pretrain
+               trainer to Conv5, one supcon_fwd and one supcon_bwd a step,
+               each call held to its plain version, finite losses, a
+               last.ckpt that reloads strictly. (b) two ranks started by
+               hand, `python3 chip_smoke.py --slice-l-rank` with
+               SPCL_COORDINATOR, SPCL_NUM_PROCESSES, SPCL_PROCESS_ID,
+               SPCL_LOCAL_RANK and SPCL_LOCAL_WORLD_SIZE set, under
+               `Trainer.mesh: auto`, beside one process alone, twice
+               (cuDNN TF32 off in all four): infoncepretrain 2 epochs x 2 steps at
+               RAdam 1e-4, then a fine-tune of 2 steps at batch 4 with eval.
+               Two local ranks on one card take gloo and both compute on
+               cuda:0 (NCCL with a card each); the ranks report world 2 and
+               2 shards; their losses, DSC and pretrain weight moves agree
+               to 1e-6 and match the one process to 1e-5 (weight moves
+               2e-3); files from rank 0 only. NCCL across hosts is not shown
+               (one host).
+ 21. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -247,7 +267,8 @@ build and phase 11, `--semi-only` the build and phase 12,
 `--decoder-adv-only` the build and phases 13 (without the warm start) and 14,
 `--serving-only` the build and phase 17 (the fine-tune from a fresh UNet,
 weight inspection of its random initialisation), `--semi-mesh-only` the
-build and phase 18, `--effect-only` the build and phase 19.
+build and phase 18, `--effect-only` the build and phase 19,
+`--multihost-only` the build and phase 20.
 """
 import copy
 import json
@@ -4311,6 +4332,257 @@ def slice_k_phase(sc):
     return out
 
 
+# ------------------------------------------------------------------ slice L
+SLICE_L_STEPS = 5           # (a): 1 epoch of slice A's 5 steps
+SLICE_L_RANKS = 2           # (b): ranks started by hand, as on several hosts
+SLICE_L_RANK_S = 300.0      # a rank process's time limit
+SLICE_L_HOOK = "infonce/Conv5/partition"
+# (b) holds the ranks to each other and to one process at the bounds of
+# tests/test_torch_multihost.py, with cuDNN's TF32 off in all three
+# processes (TF32 keeps ~3 digits; slice C, with it on, needs 1e-3)
+SLICE_L_RANKS_RTOL = 1e-6
+SLICE_L_ONE_RTOL = 1e-5
+# (b) pretrains at tests/torch_multihost_worker.py's rate, not CONFIG's
+# 1e-7: there a step moves a weight by ~1e-11, under float32's resolution at
+# the weights' size, so that neither the losses nor the weights could show a
+# wrong reduction of the gradients. The pretrain's weight moves are held
+# between the ranks at SLICE_L_RANKS_RTOL and against one process at
+# SLICE_L_MOVES_RTOL, above the distance of two runs of one process (cuDNN's
+# non-deterministic algorithms), which (b) measures and prints, and far
+# below that of ranks that average the gradients instead of summing them
+# (PERF.md, slice L). The fine-tune keeps CONFIG's rate:
+# at 1e-4 its DSC of ~0.02 moves by ~1e-5 between runs of one process, the
+# bound it is held to
+SLICE_L_OPTIM = {"name": "RAdam", "lr": 1e-4, "weight_decay": 1e-5}
+SLICE_L_MOVES_RTOL = 2e-3
+SLICE_L_PROJECTIONS = 4
+
+
+def _moves(trainer, start):
+    """Per tensor of the optimizer: its move since `start` as its L2 norm
+    and SLICE_L_PROJECTIONS projections on fixed Gaussian directions (seeded
+    by the tensor's index), float64 on the host; two runs' rows differ by
+    about the distance of their moves."""
+    params = [p for g in trainer._optimizer.param_groups for p in g["params"]]
+    out = []
+    for i, (p, p0) in enumerate(zip(params, start)):
+        d = (p.detach() - p0).double().cpu().reshape(-1)
+        dirs = torch.randn(SLICE_L_PROJECTIONS, d.numel(), dtype=torch.float64,
+                           generator=torch.Generator().manual_seed(i))
+        out.append([float(d.norm())] + (dirs @ d).tolist())
+    return out
+
+
+def _apart(a, b) -> float:
+    """Distance of two runs' `_moves` relative to the second's size."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _config_l(name="infoncepretrain", **trainer):
+    """CONFIG (selfpaced_infonce.yaml's UNet-256 at 224 of 256, 2N=60)
+    without its SPInfonceParams, under `Trainer.name` (infoncepretrain: the
+    `infonce` preset's InfonceParams take their place)."""
+    config = copy.deepcopy(CONFIG)
+    del config["SPInfonceParams"]
+    config["Trainer"].update(name=name, **trainer)
+    return config
+
+
+def slice_l_rank(out_dir, nprocs):
+    """One process of slice L (b), started as `python3 chip_smoke.py
+    --slice-l-rank OUT_DIR NPROCS`: with NPROCS 2 one rank of a run whose
+    SPCL_* variables its starter set, joined through
+    `initialize_distributed`; with 1 the process alone. A pretrain pair
+    under infoncepretrain and a fine-tune with eval, `Trainer.mesh: auto`
+    (0 alone); prints one JSON line."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.ops import supcon_cuda as sc
+    from spcl_torch.parallel import mesh
+    from spcl_torch.utils import fix_all_seed
+    if nprocs > 1:
+        mesh.initialize_distributed(device=DEVICE, timeout_s=SLICE_L_RANK_S)
+    me = Path(out_dir) / f"p{mesh.rank()}"
+    spec = "auto" if nprocs > 1 else 0
+
+    def build(config):
+        fix_all_seed(config["RandomSeed"])
+        trainer = build_trainer(config, save_dir=config["Trainer"]["save_dir"], device=DEVICE)
+        trainer.init()
+        start = [p.detach().clone() for g in trainer._optimizer.param_groups
+                 for p in g["params"]]
+        return trainer, start
+
+    pre_config = _config_l(mesh=spec, max_epoch=2, num_batches=2, save_dir=str(me / "pre"))
+    pre_config["Optim"] = dict(SLICE_L_OPTIM)
+    pre, pre_start = build(pre_config)
+    sc.reset_launch_counts()
+    with _HeldSupcon(sc, f"slice L rank {mesh.rank()}") as held:
+        pre.start_training()
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    ft_config = _config_l("finetune", mesh=spec, max_epoch=1, num_batches=2,
+                          save_dir=str(me / "ft"))
+    ft_config["LabeledLoader"]["batch_size"] = 4   # no pad row in the BatchNorm sums
+    ft, _ = build(ft_config)
+    best = float(ft.start_training())
+    print(json.dumps({
+        "rank": mesh.rank(), "world": mesh.world_size(),
+        "backend": dist.get_backend() if mesh.active() else None,
+        "device": str(pre._device), "n_shards": [pre.n_shards, ft.n_shards],
+        "trainer": type(pre).__name__, "forward_until": pre._forward_until,
+        "hooks": [h.name for h in pre._hooks], "launches": launches, "max_err": held.max_err,
+        "pre_losses": [m["reg_loss"] for m in pre.step_metrics],
+        "ft_losses": [m["sup_loss"] for m in ft.step_metrics], "best_dice": best,
+        "moves": _moves(pre, pre_start),
+        "files": sorted(str(f.relative_to(me)) for f in me.rglob("*") if f.is_file())
+        if me.is_dir() else []}), flush=True)
+    mesh.shutdown()
+
+
+def _start_ranks_by_hand(out_dir):
+    """Slice L (b)'s processes: SLICE_L_RANKS ranks with the SPCL_* and local
+    variables set, as a user starts them on each host, and two alone;
+    returns their records (ranks in order, then the two alone)."""
+    import os
+    from spcl_torch.parallel import mesh
+    port = mesh.free_port()
+    base = {k: v for k, v in os.environ.items() if not k.startswith("SPCL_")}
+    starts = [({**base, mesh.ENV_COORDINATOR: f"localhost:{port}",
+                mesh.ENV_NUM_PROCESSES: str(SLICE_L_RANKS), mesh.ENV_PROCESS_ID: str(r),
+                mesh.ENV_LOCAL_RANK: str(r), mesh.ENV_LOCAL_WORLD_SIZE: str(SLICE_L_RANKS)},
+               out_dir / "mh", SLICE_L_RANKS) for r in range(SLICE_L_RANKS)]
+    starts += [(base, out_dir / "one", 1), (base, out_dir / "one_again", 1)]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for i, (env, where, n) in enumerate(starts):
+            log = out_dir / f"process{i}.log"
+            with open(log, "w") as f:
+                procs.append((log, subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--slice-l-rank", str(where),
+                     str(n)], env=env, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT)))
+        for log, p in procs:
+            rc = p.wait(timeout=SLICE_L_RANK_S)
+            check(rc == 0, f"slice L process {log.name} exited {rc}:\n"
+                  + log.read_text()[-4000:])
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [json.loads([line for line in log.read_text().splitlines()
+                        if line.startswith("{")][-1]) for log, _ in procs]
+
+
+def slice_l_phase(sc):
+    """(a) `Trainer.name: infoncepretrain` on slice A's path; (b) ranks
+    started by hand with the SPCL_* variables under `Trainer.mesh: auto`,
+    against one process."""
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.models import UNet
+    from spcl_torch.training import PretrainEncoderTrainer, load_model_state_dict
+    out_dir = ROOT / "runs" / "chip_smoke_l"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    phase(f"slice L (a): Trainer.name infoncepretrain, UNet-256, 224^2, 2N={MAIN_2N}, nhwc, "
+          f"{SLICE_L_STEPS} steps")
+    config = _config_l(max_epoch=1, num_batches=SLICE_L_STEPS, save_dir=str(out_dir / "a"))
+    trainer = build_trainer(config, save_dir=str(out_dir / "a"), device=DEVICE)
+    check(type(trainer) is PretrainEncoderTrainer and trainer._forward_until == "Conv5",
+          f"infoncepretrain built {type(trainer).__name__} to {trainer._forward_until}")
+    check([h.name for h in trainer._hooks] == [SLICE_L_HOOK],
+          f"hooks {[h.name for h in trainer._hooks]}")
+    trainer.init()
+    sc.reset_launch_counts()
+    with _HeldSupcon(sc, "slice L") as held:
+        trainer.start_training()
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    check(launches == {"supcon_fwd": SLICE_L_STEPS, "supcon_bwd": SLICE_L_STEPS},
+          f"slice L launches {launches}, want {SLICE_L_STEPS} of each")
+    losses = [m["reg_loss"] for m in trainer.step_metrics]
+    check(len(losses) == SLICE_L_STEPS and all(math.isfinite(v) for v in losses),
+          f"slice L losses {losses}")
+    UNet(input_dim=1, num_classes=4, max_channel=CONFIG["Arch"]["max_channel"]).load_state_dict(
+        load_model_state_dict(str(out_dir / "a" / "last.ckpt")), strict=True)
+    a_s = time.perf_counter() - t0
+    print(f"slice L (a): {type(trainer).__name__}, forward_until {trainer._forward_until}, "
+          f"hooks {[h.name for h in trainer._hooks]}; launches {launches}, operands (kernel, "
+          f"rows, columns) {sorted(set(held.shapes))}, each call held to the plain version: "
+          f"max err {held.max_err}; reg_loss {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"last.ckpt reloads strictly; {a_s:.1f} s", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cards = torch.cuda.device_count()
+    phase(f"slice L (b): {SLICE_L_RANKS} ranks started by hand (SPCL_COORDINATOR, "
+          f"SPCL_NUM_PROCESSES, SPCL_PROCESS_ID, SPCL_LOCAL_RANK, SPCL_LOCAL_WORLD_SIZE) under "
+          f"Trainer.mesh: auto beside one process (twice), infoncepretrain 2 x 2 steps at "
+          f"RAdam {SLICE_L_OPTIM['lr']:g} then a fine-tune of 2 steps with eval, UNet-256, "
+          f"224^2, cuDNN TF32 off")
+    t1 = time.perf_counter()
+    *ranks, one, again = _start_ranks_by_hand(out_dir / "b")
+    b_s = time.perf_counter() - t1
+    want_backend = "nccl" if cards >= SLICE_L_RANKS else "gloo"
+    print(f"slice L (b): {cards} card(s) on this host, {SLICE_L_RANKS} local ranks: backend "
+          f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; NCCL across hosts "
+          f"is not shown here (one host)", flush=True)
+    for r in ranks + [one]:
+        print(f"slice L (b) {'rank ' + str(r['rank']) if r['world'] > 1 else 'one process'}: "
+              f"world {r['world']}, n_shards {r['n_shards']}, launches {r['launches']}, "
+              f"max err {r['max_err']}, reg_loss {r['pre_losses']}, sup_loss {r['ft_losses']}, "
+              f"best DSC {r['best_dice']}", flush=True)
+    check(all(r["world"] == SLICE_L_RANKS and r["n_shards"] == [SLICE_L_RANKS] * 2
+              for r in ranks), "a rank trained outside the 2-rank run")
+    check(one["world"] == 1 and one["n_shards"] == [1, 1], f"one process: {one['n_shards']}")
+    check(all(r["backend"] == want_backend for r in ranks),
+          f"backends {[r['backend'] for r in ranks]}, want {want_backend}")
+    if cards < SLICE_L_RANKS:
+        check(all(r["device"] == "cuda:0" for r in ranks), "the ranks do not share card 0")
+    steps = 2 * 2
+    for r in ranks + [one]:
+        check(r["trainer"] == "PretrainEncoderTrainer" and r["forward_until"] == "Conv5"
+              and r["hooks"] == [SLICE_L_HOOK], f"process {r['rank']} built {r['trainer']}")
+        check(r["launches"] == {"supcon_fwd": steps, "supcon_bwd": steps},
+              f"launches {r['launches']}")
+        check(0.0 <= r["best_dice"] <= 1.0, f"DSC {r['best_dice']}")
+    for key in ("pre_losses", "ft_losses", "best_dice"):
+        a, b, c = (np.asarray(x[key], np.float64) for x in (ranks[0], ranks[1], one))
+        check(np.all(np.isfinite(a)) and np.all(np.isfinite(c)), f"non-finite {key}")
+        ranks_rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+        one_rel = float(np.max(np.abs(a - c) / np.maximum(np.abs(c), 1e-30)))
+        print(f"slice L (b) {key}: ranks apart by {ranks_rel:.2e} (rtol {SLICE_L_RANKS_RTOL}), "
+              f"rank 0 from one process {one_rel:.2e} (rtol {SLICE_L_ONE_RTOL})", flush=True)
+        check(ranks_rel <= SLICE_L_RANKS_RTOL and one_rel <= SLICE_L_ONE_RTOL,
+              f"slice L (b) {key} disagree")
+    a, b, c = (x["moves"] for x in (ranks[0], ranks[1], one))
+    size = float(np.linalg.norm(np.asarray(c)[:, 0]))
+    ranks_rel, one_rel = _apart(a, b), _apart(a, c)
+    print(f"slice L (b) weights moved by the pretrain: {size:.3e} (L2, one process); ranks "
+          f"apart by {ranks_rel:.2e} (rtol {SLICE_L_RANKS_RTOL}), rank 0 from one process "
+          f"{one_rel:.2e} (rtol {SLICE_L_MOVES_RTOL}); one process from itself "
+          f"{_apart(again['moves'], c):.2e}", flush=True)
+    check(size > 0 and ranks_rel <= SLICE_L_RANKS_RTOL and one_rel <= SLICE_L_MOVES_RTOL,
+          "slice L (b) pretrain weights disagree")
+    print(f"slice L (b) files of rank 0: {ranks[0]['files']} | of rank 1: {ranks[1]['files']}",
+          flush=True)
+    check(ranks[1]["files"] == [], f"rank 1 wrote {ranks[1]['files']}")
+    for f in ("pre/last.ckpt", "ft/best.ckpt", "ft/storage.csv"):
+        check(f in ranks[0]["files"], f"rank 0 did not write {f}")
+    phase_s = time.perf_counter() - t0
+    print(f"slice L: (a) {a_s:.1f} s, (b) {b_s:.1f} s, whole phase {phase_s:.1f} s", flush=True)
+    return {"launches": launches, "max_err": held.max_err, "rank_launches": ranks[0]["launches"],
+            "rank_max_err": {k: max(r["max_err"][k] for r in ranks + [one])
+                             for k in held.max_err},
+            "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+            "a_s": a_s, "b_s": b_s}
+
+
 STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
              "pool with its statistics")
 
@@ -4343,6 +4615,9 @@ def _stage_entry(cs, name, suffix, results, launches, by_path):
 
 
 def main():
+    if sys.argv[1:2] == ["--slice-l-rank"]:  # a process of slice L (b)
+        slice_l_rank(sys.argv[2], int(sys.argv[3]))
+        return
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
     from spcl_torch.ops import convstage_cuda as cs
@@ -4389,6 +4664,9 @@ def main():
     if "--effect-only" in sys.argv[1:]:
         slice_k_phase(sc)
         return
+    if "--multihost-only" in sys.argv[1:]:
+        slice_l_phase(sc)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -4421,6 +4699,8 @@ def main():
     slice_j = slice_j_phase(sc, cs)
     torch.cuda.empty_cache()
     slice_k = slice_k_phase(sc)
+    torch.cuda.empty_cache()
+    slice_l = slice_l_phase(sc)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -4432,7 +4712,8 @@ def main():
                 "launches": (launches[name] + stage_launches[name] + launches_c[name]
                              + slice_d["launches"][name] + preset_launches[name]
                              + sum(v[name] for v in slice_f["launches"].values())
-                             + slice_j["launches"][name] + slice_k["launches"][name]),
+                             + slice_j["launches"][name] + slice_k["launches"][name]
+                             + slice_l["launches"][name] + slice_l["rank_launches"][name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
                                      "slice_d": slice_d["launches"][name],
@@ -4441,10 +4722,13 @@ def main():
                                         for run, v in slice_f["launches"].items()
                                         if run != "finetune"},
                                      "slice_j_rank_0": slice_j["launches"][name],
-                                     "slice_k": slice_k["launches"][name]},
+                                     "slice_k": slice_k["launches"][name],
+                                     "slice_l": slice_l["launches"][name],
+                                     "slice_l_rank_0": slice_l["rank_launches"][name]},
                 "max_abs_err": max(max_err[name], strip_err[name], preset_err[name],
                                    slice_f["max_err"][name], slice_j["max_err"][name],
-                                   slice_k["max_err"][name]),
+                                   slice_k["max_err"][name], slice_l["max_err"][name],
+                                   slice_l["rank_max_err"][name]),
                 "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -4509,7 +4793,10 @@ def main():
           f"{slice_j['single_ms']:.3f} | slice K effect study (UNet-128, 48^2, 2N=60) "
           f"pretrain {slice_k['records']['spsoft_corrupt']['pre_ms_per_step']:.3f} ms/step, "
           f"fine-tune {slice_k['records']['spsoft_corrupt']['ft_ms_per_step']:.3f} ms/step, "
-          f"phase {slice_k['phase_s']:.1f} s", flush=True)
+          f"phase {slice_k['phase_s']:.1f} s | slice L infoncepretrain (2N={MAIN_2N}) "
+          f"{slice_l['a_s']:.1f} s, {SLICE_L_RANKS} ranks started by hand over "
+          f"{slice_l['backend']} on {', '.join(slice_l['devices'])} {slice_l['b_s']:.1f} s "
+          f"(NCCL across hosts not shown: one host)", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -109,11 +109,13 @@ def gdrive_opener(url: str, dest: Path, _base: Optional[str] = None) -> None:
         return
     html = r.read().decode("utf-8", "replace")
     r.close()
+    # the URL that served the interstitial, after any redirect
+    served = getattr(r, "url", None) or first
     # legacy cookie flow: retry the uc endpoint with &confirm=<token>
     token = next((c.value for c in jar if c.name.startswith("download_warning")),
                  None)
     if token:
-        nxt = f"{first}&confirm={token}"
+        nxt = f"{served}&confirm={token}"
     else:
         action, params = _parse_gdrive_confirm_form(html)
         if action is None:
@@ -123,7 +125,7 @@ def gdrive_opener(url: str, dest: Path, _base: Optional[str] = None) -> None:
         # Drive's interstitial may use a relative action (e.g. "/uc?...");
         # resolve against the URL that served the form, not just the
         # test-only _base override.
-        action = urllib.parse.urljoin(getattr(r, "url", None) or first, action)
+        action = urllib.parse.urljoin(served, action)
         nxt = action + ("&" if "?" in action else "?") + \
             urllib.parse.urlencode(params)
     r2 = fetch(nxt)

@@ -139,7 +139,9 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
                   pretrain: bool = False, device="cuda"):
     """Construct a wired (not yet init'ed) trainer from a config: the
     encoder-pretrain trainer (`pretrain`, `pretrain_encoder`: the stages up to
-    the hooks' deepest train), the decoder-pretrain trainer
+    the hooks' deepest train; `infoncepretrain`: the same with the `infonce`
+    preset's InfonceParams under the config's, explicit blocks winning), the
+    decoder-pretrain trainer
     (`pretrain_decoder`: Conv5 up to the hooks' deepest stage train, the
     encoder below Conv5 is frozen, spcl_tpu entry/common.py:165-171), the
     fine-tune trainer (`ft`), the mixup trainer (`mixup`), the adversarial
@@ -162,7 +164,13 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     data_cfg = config.get("Data", {})
     trainer_cfg = config.get("Trainer", {})
     name = trainer_cfg.get("name") or ("pretrain" if pretrain else "semi")
-    if name in LEGACY_TRAINER_PRESETS:
+    if name == "infoncepretrain":
+        # the infonce preset's hook block under the encoder-pretrain trainer,
+        # explicit blocks winning (spcl_tpu entry/common.py:111-115)
+        config = dictionary_merge_by_hierachy(LEGACY_TRAINER_PRESETS["infonce"], config)
+        name = "pretrain"
+        pretrain = True
+    elif name in LEGACY_TRAINER_PRESETS:
         # legacy trainer zoo (reference semi_seg/trainers/__init__.py:5-23)
         config = dictionary_merge_by_hierachy(LEGACY_TRAINER_PRESETS[name], config)
         name = "semi"

@@ -35,12 +35,14 @@ def feature_until_from_hooks(*hooks: TrainerHook, default: str = "Deconv_1x1") -
 def create_infonce_hooks(*, feature_names: Union[str, List[str]],
                          weights: Union[float, List[float]] = 1.0,
                          contrast_ons: Union[str, List[str], None] = None,
-                         global_contrast: str = "replicated",
+                         temperature: float = 0.07, global_contrast: str = "replicated",
                          **kwargs) -> CombineTrainerHook:
+    # honours `temperature`, which spcl_tpu drops (as for SPInfonceParams, ROADMAP C2)
     n = 1 if isinstance(feature_names, str) else len(feature_names)
     brd = ntuple(n)
     hooks = [INFONCEHook(name=f"infonce/{f}/{c}", feature_name=f, weight=w,
-                         contrast_on=c, global_contrast=global_contrast)
+                         contrast_on=c, temperature=temperature,
+                         global_contrast=global_contrast)
              for f, w, c in zip(brd(feature_names), brd(weights), brd(contrast_ons))]
     return CombineTrainerHook(*hooks)
 

@@ -9,19 +9,25 @@ Merges config/base.yaml (+ --opt-path files + dotted CLI overrides; needs
 pyyaml) and trains `Trainer.name`: `semi` (the default), a legacy preset
 name (`uda`, `entropy`, `meanteacher`, `ucmeanteacher`, `iic`, `udaiic`,
 `midl`, `mine`, `infonce`, `infoncemt`, `iicmeanteacher`: the semi trainer
-with that preset's hooks), `mixup`, `ft` or `pretrain`. `trainer_checkpoint=
-<path>/last.ckpt` resumes the run that wrote it. Returns (and prints) the
-best val DSC (0.0 for pretrain). `--device cpu` runs the plain versions of
-the kernels on the CPU.
+with that preset's hooks), `mixup`, `ft`, `pretrain` or `infoncepretrain`
+(the encoder-pretrain trainer with the `infonce` preset's InfonceParams
+under the config's). `trainer_checkpoint=<path>/last.ckpt` resumes the run
+that wrote it. Returns (and prints) the best val DSC (0.0 for pretrain).
+`--device cpu` runs the plain versions of the kernels on the CPU.
 
 `Trainer.mesh=N` (or `auto`: one rank per visible card) trains on N ranks:
 this process starts N local ranks (`parallel.mesh.run_ranks`), each trains
 on its rows of every global batch, and rank 0's score comes back. With
 fewer cards than ranks the ranks share cards and the collectives go through
 gloo; `--device cpu` runs the ranks on the CPU. To place the ranks
-yourself, start one process per rank with SPCL_COORDINATOR=host:port,
-SPCL_NUM_PROCESSES=N and SPCL_PROCESS_ID=rank set: such a process starts no
-further ranks. `main_mixup.py` and `main_adv.py` run through `run` too.
+yourself, on one host or several, start one process per rank with
+SPCL_COORDINATOR=host:port (rank 0's host), SPCL_NUM_PROCESSES=N and
+SPCL_PROCESS_ID=rank set, and on several hosts also SPCL_LOCAL_RANK (the
+rank's index on its host) and SPCL_LOCAL_WORLD_SIZE (the ranks of its host;
+the same on every host): such a process starts no further ranks, and
+`mesh: auto` there means all N ranks. A host whose ranks each have a card
+of their own uses NCCL, else gloo (`parallel/mesh.py`). `main_mixup.py`
+and `main_adv.py` run through `run` too.
 """
 import argparse
 import logging

@@ -25,20 +25,36 @@ Without a process group every function here is the single-process identity
 (as `spcl_tpu`'s `_build_mesh` returns None on one device). With a group of
 one rank the collectives do run.
 
-Backends: `nccl` where every rank has a card of its own, `gloo` otherwise
-(CPU ranks, or several ranks sharing one card). gloo moves host memory, so a
-CUDA tensor is staged through the host for the collective only; no rank
-computes on the CPU because of it.
+Ranks on several hosts. A run is N ranks (SPCL_NUM_PROCESSES), numbered
+0..N-1 (SPCL_PROCESS_ID), that meet at SPCL_COORDINATOR ("host:port", the
+host of rank 0). The backend and the card are decided by the ranks of THIS
+host, which each rank reads from SPCL_LOCAL_RANK (its index among them) and
+SPCL_LOCAL_WORLD_SIZE (how many they are): torchrun's LOCAL_RANK and
+LOCAL_WORLD_SIZE under the prefix the other variables carry. Without them
+every rank is on one host: local rank = SPCL_PROCESS_ID, local count =
+SPCL_NUM_PROCESSES. `spawn_local` sets them for the ranks it starts. Every
+host starts the same number of ranks (the local count divides N) and, on
+CUDA, the same number per card.
+
+Backends: `nccl` where every rank of this host has a card of its own (local
+count <= `torch.cuda.device_count()`), `gloo` otherwise (CPU ranks, or
+several ranks sharing one card). A rank computes on card local rank %
+cards. Before the group forms, the ranks compare their choices through the
+coordinator's store and every rank raises if two hosts chose differently
+(they would otherwise wait on each other until the timeout). gloo moves
+host memory, so a CUDA tensor is staged through the host for the
+collective only; no rank computes on the CPU because of it.
 """
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +63,17 @@ import torch.distributed as dist
 ENV_COORDINATOR = "SPCL_COORDINATOR"
 ENV_NUM_PROCESSES = "SPCL_NUM_PROCESSES"
 ENV_PROCESS_ID = "SPCL_PROCESS_ID"
+ENV_LOCAL_RANK = "SPCL_LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "SPCL_LOCAL_WORLD_SIZE"
+
+
+class _Joined:
+    """What `initialize_distributed` decided for this process: its local
+    (rank, count), None before it has joined a group."""
+    layout: Optional[Tuple[int, int]] = None
+
+
+_JOINED = _Joined()
 
 
 # ------------------------------------------------------------------ the group
@@ -72,25 +99,88 @@ def is_rank_process() -> bool:
 
 
 def rank_device(device) -> torch.device:
-    """The device this rank computes on: CUDA ranks take card
-    rank % device_count (several ranks share a card when there are fewer
-    cards than ranks); anything else passes through."""
+    """The device this rank computes on: a CUDA rank takes card local rank %
+    cards (`backend_and_card`), with the local layout `initialize_distributed`
+    read, also when it joined on the CPU, or else (a group the caller formed)
+    `local_layout`'s from the environment; anything else passes through."""
     device = torch.device(device)
     if device.type == "cuda" and active():
-        return torch.device("cuda", rank() % torch.cuda.device_count())
+        local = _JOINED.layout or local_layout(rank(), world_size())
+        return torch.device("cuda", backend_and_card(device, *local)[1])
     return device
+
+
+def local_layout(process_id: int, num_processes: int,
+                 local_rank: Optional[int] = None,
+                 local_world_size: Optional[int] = None) -> Tuple[int, int]:
+    """(this rank's index among the ranks of its host, how many ranks its
+    host starts). Arguments default to SPCL_LOCAL_RANK / SPCL_LOCAL_WORLD_SIZE;
+    without either, every rank is on this host: (process_id, num_processes)."""
+    if local_rank is None and local_world_size is None:
+        env = [os.environ.get(k) for k in (ENV_LOCAL_RANK, ENV_LOCAL_WORLD_SIZE)]
+        if env == [None, None]:
+            return int(process_id), int(num_processes)
+        if None in env:
+            raise ValueError(f"set both {ENV_LOCAL_RANK} and {ENV_LOCAL_WORLD_SIZE}, or neither "
+                             "(then every rank is on one host)")
+        local_rank, local_world_size = (int(v) for v in env)
+    if local_rank is None or local_world_size is None:
+        raise ValueError("give both local_rank and local_world_size, or neither")
+    local_rank, local_world_size = int(local_rank), int(local_world_size)
+    if not 0 <= local_rank < local_world_size:
+        raise ValueError(f"local rank {local_rank} is not one of the host's "
+                         f"{local_world_size} ranks")
+    if local_world_size > num_processes or num_processes % local_world_size:
+        raise ValueError(f"{local_world_size} ranks a host do not divide the run's "
+                         f"{num_processes}: every host must start the same number of ranks")
+    return local_rank, local_world_size
+
+
+def backend_and_card(device, local_rank: int, local_world_size: int
+                     ) -> Tuple[str, Optional[int]]:
+    """The process group's backend and this rank's card: gloo and no card
+    off CUDA; on CUDA card local_rank % cards, and nccl when every rank of
+    this host has a card of its own, else gloo (NCCL refuses two ranks on
+    one card)."""
+    if torch.device(device).type != "cuda":
+        return "gloo", None
+    cards = torch.cuda.device_count()
+    if cards == 0:
+        raise RuntimeError("device 'cuda' requested but no CUDA device is visible")
+    return ("nccl" if local_world_size <= cards else "gloo"), local_rank % cards
+
+
+def _agree_on_backend(store, process_id: int, num_processes: int, mine: dict) -> None:
+    """Post this rank's choice (`mine`: backend, host, local layout, cards)
+    to the coordinator's store, read every rank's, and raise on every rank
+    if they name more than one backend."""
+    store.set(f"spcl_layout/{process_id}", json.dumps(mine))
+    layouts = [json.loads(store.get(f"spcl_layout/{r}")) for r in range(num_processes)]
+    backends = sorted({lay["backend"] for lay in layouts})
+    if len(backends) > 1:
+        by = {b: [f"rank {r} on {lay['host']} (local {lay['local_rank']} of "
+                  f"{lay['local_world_size']}, {lay['cards']} cards)"
+                  for r, lay in enumerate(layouts) if lay["backend"] == b]
+              for b in backends}
+        raise RuntimeError(
+            "the hosts of this run chose different backends: "
+            + "; ".join(f"{b}: {', '.join(ranks)}" for b, ranks in by.items())
+            + ". nccl needs every rank of every host to have a card of its own: start "
+            "the same number of ranks per card on every host")
 
 
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, *, device="cuda",
-                           timeout_s: float = 600.0) -> int:
+                           timeout_s: float = 600.0, local_rank: Optional[int] = None,
+                           local_world_size: Optional[int] = None) -> int:
     """Join this process to the run's process group. Arguments default to the
-    SPCL_COORDINATOR ("host:port") / SPCL_NUM_PROCESSES / SPCL_PROCESS_ID
-    environment variables; with no coordinator this is the single-process
-    no-op. Idempotent. Returns the world size. `timeout_s` bounds every
-    collective: a rank that never arrives fails the others instead of hanging
-    them."""
+    SPCL_COORDINATOR ("host:port") / SPCL_NUM_PROCESSES / SPCL_PROCESS_ID /
+    SPCL_LOCAL_RANK / SPCL_LOCAL_WORLD_SIZE environment variables
+    (`local_layout`); with no coordinator this is the single-process no-op.
+    Idempotent. Returns the world size. `timeout_s` bounds the meeting and
+    every collective: a rank that never arrives fails the others instead of
+    hanging them."""
     coordinator = coordinator or os.environ.get(ENV_COORDINATOR)
     if coordinator is None or active():
         return world_size()
@@ -98,31 +188,43 @@ def initialize_distributed(coordinator: Optional[str] = None,
         num_processes = int(os.environ[ENV_NUM_PROCESSES])
     if process_id is None:
         process_id = int(os.environ[ENV_PROCESS_ID])
-    backend = "gloo"
-    if torch.device(device).type == "cuda":
-        cards = torch.cuda.device_count()
-        if cards == 0:
-            raise RuntimeError("device 'cuda' requested but no CUDA device is visible")
-        torch.cuda.set_device(process_id % cards)
-        if cards >= num_processes:
-            backend = "nccl"  # NCCL refuses two ranks on one card
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=int(num_processes), rank=int(process_id),
-                            timeout=datetime.timedelta(seconds=timeout_s))
+    num_processes, process_id = int(num_processes), int(process_id)
+    local_rank, local_world_size = local_layout(process_id, num_processes, local_rank,
+                                                local_world_size)
+    _JOINED.layout = (local_rank, local_world_size)
+    backend, card = backend_and_card(device, local_rank, local_world_size)
+    if card is not None:
+        torch.cuda.set_device(card)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    host, port = coordinator.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), num_processes, process_id == 0, timeout,
+                          multi_tenant=True)
+    _agree_on_backend(store, process_id, num_processes, {
+        "backend": backend, "host": socket.gethostname(), "local_rank": local_rank,
+        "local_world_size": local_world_size,
+        "cards": torch.cuda.device_count() if card is not None else 0})
+    dist.init_process_group(backend, store=store, world_size=num_processes, rank=process_id,
+                            timeout=timeout)
     return world_size()
 
 
 def shutdown() -> None:
     if active():
         dist.destroy_process_group()
+    _JOINED.layout = None
 
 
 def requested_ranks(spec, device) -> int:
-    """Ranks that `Trainer.mesh=spec` asks a launcher to start: 0 / None /
-    False -> 1 (no mesh), "auto" -> one per visible card, N -> N."""
+    """Ranks that `Trainer.mesh=spec` asks for: 0 / None / False -> 1 (no
+    mesh), N -> N, and "auto" (or True) -> every rank of the run in a process
+    that is already one of them (`is_rank_process`: SPCL_NUM_PROCESSES, on
+    every host, as spcl_tpu's `jax.devices()` spans every process), else the
+    ranks a launcher starts here: one per visible card (1 off CUDA)."""
     if spec is None or spec is False or spec == 0:
         return 1
     if spec is True or str(spec).lower() == "auto":
+        if is_rank_process():
+            return int(os.environ[ENV_NUM_PROCESSES])
         return max(torch.cuda.device_count(), 1) if torch.device(device).type == "cuda" else 1
     return int(spec)
 
@@ -318,6 +420,8 @@ def _rank_main(process_id, n, port, device, group_timeout_s, fn, args, results):
     os.environ[ENV_COORDINATOR] = f"localhost:{port}"
     os.environ[ENV_NUM_PROCESSES] = str(n)
     os.environ[ENV_PROCESS_ID] = str(process_id)
+    os.environ[ENV_LOCAL_RANK] = str(process_id)
+    os.environ[ENV_LOCAL_WORLD_SIZE] = str(n)
     try:
         initialize_distributed(device=device, timeout_s=group_timeout_s)
         out = fn(*args)
@@ -333,7 +437,8 @@ def _rank_main(process_id, n, port, device, group_timeout_s, fn, args, results):
 def spawn_local(n: int, fn: Callable, args: tuple = (), *, device="cuda",
                 timeout_s: float = 600.0, collective_timeout_s: float = 600.0) -> List[Any]:
     """Run `fn(*args)` in `n` local ranks (new processes, `spawn` start
-    method), each with its SPCL_* environment and its process group up, and
+    method), each with its SPCL_* environment (the local ones included: all
+    `n` ranks are on this host) and its process group up, and
     return the ranks' results in rank order. `fn` must be importable (it is
     pickled by its path) and return something picklable. A rank's exception
     is re-raised here with its traceback; a rank that dies silently or is not

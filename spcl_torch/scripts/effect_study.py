@@ -4,6 +4,7 @@ counterpart of `scripts/effect_study.py`.
 
     python -m spcl_torch.scripts.effect_study [--device cuda] [--dtype float32]
         [--seeds 10,20,30,40,50] [--arms scratch,spsoft_corrupt] [--jobs 3] [--force]
+        [--backends deterministic|defaults]
     python -m spcl_torch.scripts.effect_study --arm spsoft_corrupt --seed 10
     python -m spcl_torch.scripts.effect_study --collect [--dtype bfloat16]
 
@@ -19,15 +20,20 @@ UNet-128, crop 48 of a 64 canvas, `synthetic: hard` (20 train scans, 8
 test), pretraining 15 epochs x 30 contrastive batches (10 scans x 3
 partitions = 30 slices, 2N = 60 views), fine-tuning 25 epochs x 30 batches
 of 8 labeled slices, Adam 1e-3, best per-scan val DSC. Each (arm, seed)
-runs in its own process, on the card unless `--device cpu`; `--dtype
-bfloat16` sets only `Arch.dtype`. Records land in `runs/effect_study_torch/`
-(bf16: its `bfloat16/` folder), one `<arm>_s<seed>.json` each.
+runs in its own process, on the card unless `--device cpu`. `run_arm`
+trains under `deterministic_backends` (cuDNN deterministic, TF32 off), so
+that a run on the card repeats to the bit; `--backends defaults` keeps
+PyTorch's, under which one seed's best DSC spreads from run to run (ROADMAP
+C12). `--dtype bfloat16` sets only `Arch.dtype`. Records land in
+`runs/effect_study_torch/` (bf16: its `bfloat16/` folder), one
+`<arm>_s<seed>.json` each.
 
 `collect` prints the table, the paired deltas (a), (a'), (b), (b') with their
 per-seed values, and `gate`: each arm's mean against spcl_tpu's round-5
 table (RESULTS.md:502-510) within 3 combined standard errors.
 """
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -40,6 +46,7 @@ OUT = REPO / "runs" / "effect_study_torch"
 SEEDS = (10, 20, 30)
 CORRUPT = 0.8
 DTYPES = ("float32", "bfloat16")
+BACKENDS = ("deterministic", "defaults")
 
 # small-but-not-saturating budget (spcl_tpu's calibration, RESULTS.md round 5)
 CANVAS, CROP = 64, 48
@@ -157,16 +164,50 @@ def card_name(device) -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def run_arm(arm: str, seed: int, *, device="cuda", dtype="float32", out=None) -> dict:
+@contextlib.contextmanager
+def deterministic_backends():
+    """cuDNN's deterministic algorithms, its benchmark off, and TF32 off for
+    cuDNN and matmuls (float32 products, as spcl_tpu's study on the CPU)
+    inside the block; the previous settings after it."""
+    import torch
+    b = torch.backends
+    saved = (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+             b.cuda.matmul.allow_tf32)
+    b.cudnn.deterministic, b.cudnn.benchmark = True, False
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+         b.cuda.matmul.allow_tf32) = saved
+
+
+def run_arm(arm: str, seed: int, *, device="cuda", dtype="float32", out=None,
+            backends="deterministic") -> dict:
     """One (arm, seed): pretraining (unless `scratch`), then fine-tuning
-    warm-started from its last.ckpt. Writes and returns the record."""
+    warm-started from its last.ckpt, under `deterministic_backends` (or
+    PyTorch's settings with `backends="defaults"`). Writes and returns the
+    record."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
+    if backends not in BACKENDS:
+        raise ValueError(f"backends must be one of {BACKENDS}, got {backends!r}")
+    out = Path(out) if out is not None else out_dir(dtype)
+    with deterministic_backends() if backends == "deterministic" else contextlib.nullcontext():
+        rec = _train_arm(arm, seed, device, dtype, out)
+    rec["backends"] = backends
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{arm}_s{seed}.json").write_text(json.dumps(rec))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def _train_arm(arm, seed, device, dtype, out) -> dict:
+    """`run_arm`'s training; returns the record without its backends."""
     from spcl_torch.entry import build_trainer
     from spcl_torch.meters.storage import flatten_dict
     from spcl_torch.utils import fix_all_seed
 
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
-    out = Path(out) if out is not None else out_dir(dtype)
     spec = ARMS[arm]
     base = out / f"{arm}_s{seed}"
     t0 = time.time()
@@ -190,13 +231,9 @@ def run_arm(arm: str, seed: int, *, device="cuda", dtype="float32", out=None) ->
     best = float(tr.start_training())
     timing["ft_ms_per_step"] = _ms_per_step(tr.last_epoch_stats)
     timing["ft_s"] = time.time() - t_ft
-    rec = {"arm": arm, "seed": seed, "best_val_dice": best,
-           "pretrain_loss": pre_loss, "wall_s": round(time.time() - t0, 1),
-           "device": str(device), "dtype": dtype, "card": card_name(device), **timing}
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{arm}_s{seed}.json").write_text(json.dumps(rec))
-    print(json.dumps(rec), flush=True)
-    return rec
+    return {"arm": arm, "seed": seed, "best_val_dice": best,
+            "pretrain_loss": pre_loss, "wall_s": round(time.time() - t0, 1),
+            "device": str(device), "dtype": dtype, "card": card_name(device), **timing}
 
 
 def gate(rows: dict, reference: dict) -> dict:
@@ -263,7 +300,7 @@ def _worker_cmd(arm, seed, args):
     """The command of one (arm, seed) worker."""
     return [sys.executable, "-m", "spcl_torch.scripts.effect_study", "--arm", arm,
             "--seed", str(seed), "--device", args.device, "--dtype", args.dtype,
-            "--out", str(args.out)]
+            "--backends", args.backends, "--out", str(args.out)]
 
 
 def orchestrate(args) -> dict:
@@ -322,6 +359,8 @@ def main(argv=None):
                     help="comma-separated arm subset for orchestration")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32", choices=DTYPES)
+    ap.add_argument("--backends", default="deterministic", choices=BACKENDS,
+                    help="cuDNN deterministic and TF32 off, or PyTorch's defaults")
     ap.add_argument("--out", default=None,
                     help="record folder (default runs/effect_study_torch, bf16: its bfloat16/)")
     args = ap.parse_args(argv)
@@ -330,7 +369,8 @@ def main(argv=None):
         return collect(args.out)
     if args.arm is not None:
         return run_arm(args.arm, args.seed if args.seed is not None else SEEDS[0],
-                       device=args.device, dtype=args.dtype, out=args.out)
+                       device=args.device, dtype=args.dtype, out=args.out,
+                       backends=args.backends)
     if args.seed is not None:
         ap.error("--seed only applies with --arm; use --seeds for orchestration")
     return orchestrate(args)

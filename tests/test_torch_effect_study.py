@@ -46,6 +46,10 @@
   for scratch), a pre/last.ckpt that reloads strictly, `collect` and the
   gate over the records; the orchestrator collects what its workers wrote
   and raises on a worker that fails.
+- Backends: `run_arm` trains under `deterministic_backends` (cuDNN
+  deterministic, benchmark off, TF32 off), or under the settings it was
+  given with `backends="defaults"`, and restores them after; the record
+  names its backends, and `--backends` reaches the workers.
 
 Torch runs on one thread (module fixture). The slow study on the card is
 `tests/test_torch_port_cuda.py::test_effect_study_on_the_card`.
@@ -691,6 +695,7 @@ def test_gate_is_three_combined_standard_errors(sign, passes):
 
 
 REAL_WORKER_CMD = es._worker_cmd
+REAL_RUN_ARM = es.run_arm
 
 
 def _fake_worker(fail):
@@ -722,3 +727,58 @@ def test_orchestrator_collects_and_fails_on_a_worker(tmp_path, monkeypatch):
     assert (tmp_path / "bad" / "scratch_s20.json").exists()
     with pytest.raises(SystemExit, match="unknown arms"):
         es.main(["--arms", "nope", "--device", "cpu", "--out", str(tmp_path / "x")])
+
+
+# ---------------------------------------------------------------- backends
+def _backend_flags():
+    b = torch.backends
+    return (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+            b.cuda.matmul.allow_tf32)
+
+
+DETERMINISTIC = (True, False, False, False)
+
+
+def test_deterministic_backends_set_the_flags_and_restore_them():
+    before = _backend_flags()
+    assert before != DETERMINISTIC  # PyTorch's defaults let cuDNN use TF32
+    with es.deterministic_backends():
+        assert _backend_flags() == DETERMINISTIC
+    assert _backend_flags() == before
+    with pytest.raises(KeyError):
+        with es.deterministic_backends():
+            raise KeyError("a failed run")
+    assert _backend_flags() == before
+
+
+@pytest.mark.parametrize("backends", es.BACKENDS)
+def test_run_arm_trains_under_its_backends(backends, tmp_path, monkeypatch):
+    seen = []
+
+    def train(arm, seed, device, dtype, out):
+        seen.append(_backend_flags())
+        return {"arm": arm, "seed": seed, "best_val_dice": 0.5}
+
+    monkeypatch.setattr(es, "_train_arm", train)
+    before = _backend_flags()
+    rec = es.run_arm("scratch", 10, device="cpu", out=tmp_path, backends=backends)
+    assert seen == [DETERMINISTIC if backends == "deterministic" else before]
+    assert _backend_flags() == before
+    assert rec["backends"] == backends
+    assert json.loads((tmp_path / "scratch_s10.json").read_text()) == rec
+
+
+def test_backends_reach_the_workers(tmp_path, monkeypatch):
+    seen = []
+    monkeypatch.setattr(es, "run_arm", lambda *a, **k: seen.append((a, k)))
+    base = ["--arm", "scratch", "--seed", "20", "--device", "cpu", "--out", str(tmp_path)]
+    es.main(base + ["--backends", "defaults"])
+    es.main(base)
+    assert [(a, k["backends"]) for a, k in seen] == [(("scratch", 20), "defaults"),
+                                                      (("scratch", 20), "deterministic")]
+    args = es.argparse.Namespace(device="cuda", dtype="float32", backends="defaults",
+                                 out=tmp_path)
+    cmd = es._worker_cmd("scratch", 20, args)
+    assert cmd[cmd.index("--backends") + 1] == "defaults"
+    with pytest.raises(ValueError, match="backends must be one of"):
+        REAL_RUN_ARM("scratch", 10, device="cpu", out=tmp_path, backends="fast")

@@ -261,6 +261,16 @@ def hanging_worker():
     return True
 
 
+def env_worker():
+    """What a rank of `spawn_local` sees of its run: the SPCL_* variables,
+    its group, its host layout and what `Trainer.mesh: auto` asks there."""
+    keys = (mesh.ENV_COORDINATOR, mesh.ENV_NUM_PROCESSES, mesh.ENV_PROCESS_ID,
+            mesh.ENV_LOCAL_RANK, mesh.ENV_LOCAL_WORLD_SIZE)
+    return {"env": {k: os.environ.get(k) for k in keys}, "rank": mesh.rank(),
+            "world": mesh.world_size(), "layout": mesh.local_layout(mesh.rank(), mesh.world_size()),
+            "auto": [mesh.requested_ranks("auto", "cpu"), mesh.requested_ranks(True, "cuda")]}
+
+
 def run_calls(calls):
     """[(function name, args), ...] of this module in one set of ranks
     (starting ranks costs seconds): the list of their results."""
