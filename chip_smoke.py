@@ -226,7 +226,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                `spsoft_corrupt` (80% corrupted meta-labels, SP soft gamma
                8 -> 40: 20 pretrain steps at 2N=60, then the fine-tune from
                its last.ckpt; `run_arm` trains under its
-               `deterministic_backends`), then the probe of that checkpoint
+               `backend_corner("deterministic")`), then the probe of that checkpoint
                (`probe_pretrain_features.embed_dataset` + `probe_accuracy`).
                Checks: one supcon_fwd and one supcon_bwd a pretrain step,
                none in the fine-tune, each call held to its plain version
@@ -254,7 +254,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                to 1e-6 and match the one process to 1e-5 (weight moves
                2e-3); files from rank 0 only. NCCL across hosts is not shown
                (one host).
- 21. report  — the `kernels` JSON line (the bf16 passes as
+ 21. slice M — `Arch.small_c_layout: packed` (spcl_tpu's lane-packed stages:
+               their BatchNorm at Conv1/Conv2, biased running variance, x *
+               inv + shift) on slice B's configuration (CONFIG: UNet-256,
+               crop 224 of 256, 2N=60) beside `nhwc`, from the same weights
+               and draws, cuDNN TF32 off: 1 epoch x 3 pretrain steps each
+               through build_trainer, one supcon_fwd and one supcon_bwd a
+               step, each call held to its plain version; the losses agree
+               (train-mode BatchNorm uses batch statistics); Conv1/Conv2's
+               running variances stand in Bessel's ratio n/(n-1) to nhwc's,
+               Conv3's equal (at n = 3.0M and 0.75M values a channel the
+               factor is within float32's rounding of the statistics: the
+               CPU test tests/test_torch_packed_layout.py separates it);
+               eval-mode logits equal those of an nhwc copy given packed's
+               running statistics; then the step times, 10 steps a turn in
+               the turns packed, nhwc, nhwc, packed, and 5 steps of each
+               under torch.profiler (kernel time by kernel).
+ 22. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -268,7 +284,8 @@ build and phase 11, `--semi-only` the build and phase 12,
 `--serving-only` the build and phase 17 (the fine-tune from a fresh UNet,
 weight inspection of its random initialisation), `--semi-mesh-only` the
 build and phase 18, `--effect-only` the build and phase 19,
-`--multihost-only` the build and phase 20.
+`--multihost-only` the build and phase 20, `--packed-only` the build and
+phase 21.
 """
 import copy
 import json
@@ -4583,6 +4600,141 @@ def slice_l_phase(sc):
             "a_s": a_s, "b_s": b_s}
 
 
+SLICE_M_STEPS = 3
+SLICE_M_TIMED = 10           # steps a turn, in the turns packed, nhwc, nhwc, packed
+SLICE_M_PROFILED = 5         # steps under torch.profiler, each layout
+SLICE_M_LOSS_RTOL = 1e-4     # per-step reg_loss, packed against nhwc (TF32 off)
+SLICE_M_STAT_TOL = 1e-4      # running variances' batch shares, x the layer's largest
+SLICE_M_LOGIT_TOL = 1e-4     # x max|logits|: packed against nhwc given its statistics
+SLICE_M_EVAL_SLICES = 8
+
+
+def _bessel_shares(trainer, stage):
+    """The batches' share of a BatchNorm pair's running variance after its k
+    updates from the initial ones (all 1): r - (1 - m)^k, float64."""
+    block = trainer._model.stage(stage).conv
+    return [(bn.running_var.double() - (1.0 - bn.momentum) ** int(bn.num_batches_tracked)).cpu()
+            for bn in (block[1], block[4])]
+
+
+def slice_m_phase(sc):
+    """`Arch.small_c_layout: packed` on slice B's configuration beside
+    `nhwc`, from the same weights and draws, cuDNN TF32 off."""
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.models import UNet
+    from spcl_torch.training import load_model_state_dict
+    from spcl_torch.utils import fix_all_seed
+    phase(f"slice M: small_c_layout packed beside nhwc, UNet-256, 224^2, 2N={MAIN_2N}, "
+          f"{SLICE_M_STEPS} pretrain steps each, cuDNN TF32 off")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "runs" / "chip_smoke_m"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainers, launches, losses, held = {}, {}, {}, {}
+    start = None
+    for layout in ("packed", "nhwc"):
+        config = copy.deepcopy(CONFIG)
+        config["Arch"]["small_c_layout"] = layout
+        config["Trainer"].update(max_epoch=1, num_batches=SLICE_M_STEPS,
+                                 save_dir=str(out_dir / layout))
+        fix_all_seed(config["RandomSeed"])  # the same draws in both runs
+        trainer = build_trainer(config, save_dir=str(out_dir / layout), pretrain=True,
+                                device=DEVICE)
+        check(trainer._model.small_c_layout == layout, trainer._model.small_c_layout)
+        if start is None:
+            start = copy.deepcopy(trainer._model.state_dict())
+        trainer._model.load_state_dict(start)
+        trainer.init()
+        sc.reset_launch_counts()
+        with _HeldSupcon(sc, f"slice M {layout}") as h:
+            trainer.start_training()
+        torch.cuda.synchronize()
+        launches[layout], held[layout] = dict(sc.LAUNCHES), h
+        check(launches[layout] == {"supcon_fwd": SLICE_M_STEPS, "supcon_bwd": SLICE_M_STEPS},
+              f"slice M {layout} launches {launches[layout]}")
+        losses[layout] = [m["reg_loss"] for m in trainer.step_metrics]
+        check(len(losses[layout]) == SLICE_M_STEPS
+              and all(math.isfinite(v) for v in losses[layout]), f"{layout} {losses[layout]}")
+        UNet(input_dim=1, num_classes=4, max_channel=CONFIG["Arch"]["max_channel"]).load_state_dict(
+            load_model_state_dict(str(out_dir / layout / "last.ckpt")), strict=True)
+        trainers[layout] = trainer
+    packed, nhwc = trainers["packed"], trainers["nhwc"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["packed"], losses["nhwc"])]
+    print(f"slice M reg_loss packed {losses['packed']} | nhwc {losses['nhwc']} | apart by "
+          f"{max(rel):.2e} (rtol {SLICE_M_LOSS_RTOL}); launches {launches['packed']} a run, "
+          f"each call held to the plain version: max err {held['packed'].max_err}", flush=True)
+    check(max(rel) <= SLICE_M_LOSS_RTOL, "slice M losses disagree")
+
+    # running variances: Conv1/Conv2's batch shares stand in Bessel's ratio
+    # n/(n-1) (n values a channel: 2N x H x W), Conv3's (nhwc in both) equal
+    crop = CONFIG["Data"]["crop"]
+    n_values = {"Conv1": VIEWS * crop * crop, "Conv2": VIEWS * (crop // 2) ** 2, "Conv3": None}
+    for stage, n in n_values.items():
+        ratio = n / (n - 1) if n else 1.0
+        got = max(float((b - a * ratio).abs().max() / a.abs().max()) for a, b in zip(
+            _bessel_shares(packed, stage), _bessel_shares(nhwc, stage)))
+        print(f"slice M {stage} running variance, |nhwc share - packed share x "
+              f"{'n/(n-1)' if n else '1'}| / max packed share: {got:.2e} (tol "
+              f"{SLICE_M_STAT_TOL}; Bessel's factor - 1 = {ratio - 1:.2e}"
+              f"{', n = %d' % n if n else ''})", flush=True)
+        check(got <= SLICE_M_STAT_TOL, f"slice M {stage} running variances")
+    tracked = {layout: [int(t._model.stage(st).conv[i].num_batches_tracked)
+                        for st in ("Conv1", "Conv2", "Conv3") for i in (1, 4)]
+               for layout, t in trainers.items()}
+    check(tracked["packed"] == tracked["nhwc"] and min(tracked["packed"]) > 0,
+          f"slice M BatchNorm updates {tracked}")
+
+    # eval mode: packed's logits are nhwc's given packed's running statistics
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    x = torch.rand(SLICE_M_EVAL_SLICES, 1, crop, crop, device=DEVICE, generator=gen)
+    twin = UNet(input_dim=1, num_classes=4, max_channel=CONFIG["Arch"]["max_channel"]).to(DEVICE)
+    twin.load_state_dict(packed._model.state_dict(), strict=True)
+    logits = {}
+    with torch.no_grad():
+        for what, model in (("packed", packed._model), ("nhwc", nhwc._model),
+                            ("twin", twin)):
+            model.eval()
+            logits[what] = model(x)["logits"].double()
+            model.train()
+    scale = float(logits["packed"].abs().max())
+    twin_err = float((logits["packed"] - logits["twin"]).abs().max())
+    own_err = float((logits["packed"] - logits["nhwc"]).abs().max())
+    print(f"slice M eval logits (max {scale:.3f}): packed against nhwc given packed's running "
+          f"statistics {twin_err:.2e} (tol {SLICE_M_LOGIT_TOL} x max), against nhwc's own "
+          f"run {own_err:.2e}", flush=True)
+    check(twin_err <= SLICE_M_LOGIT_TOL * scale, "slice M eval logits disagree")
+
+    ms = {"packed": [], "nhwc": []}
+    for layout in ("packed", "nhwc", "nhwc", "packed"):
+        run = _pretrain_epochs(trainers[layout])
+        run(1)
+        ms[layout].append(run(SLICE_M_TIMED))
+    steps_ms = {k: min(v) for k, v in ms.items()}
+    print(f"slice M step times (H100 card above, TF32 off, {SLICE_M_TIMED} steps a turn, "
+          f"turns packed, nhwc, nhwc, packed, best turn): packed {steps_ms['packed']:.3f} "
+          f"ms/step, nhwc {steps_ms['nhwc']:.3f} ms/step (turns: packed "
+          f"{', '.join(f'{v:.3f}' for v in ms['packed'])}; nhwc "
+          f"{', '.join(f'{v:.3f}' for v in ms['nhwc'])})", flush=True)
+    # device time by kernel: the wall of this host-bound step moves from run
+    # to run by more than the two layouts differ
+    kernel_ms = {}
+    for layout in ("packed", "nhwc"):
+        prof = _print_profile(f"slice M {layout}", _profiled(
+            _pretrain_epochs(trainers[layout]), SLICE_M_PROFILED), steps_ms[layout], top=8)
+        kernel_ms[layout] = prof[0] if prof else float("nan")
+    phase_s = time.perf_counter() - t0
+    print(f"slice M kernel time: packed {kernel_ms['packed']:.3f} ms/step, nhwc "
+          f"{kernel_ms['nhwc']:.3f} ms/step; phase {phase_s:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults again
+    del trainers, packed, nhwc, twin
+    torch.cuda.empty_cache()
+    return {"launches": launches["packed"], "nhwc_launches": launches["nhwc"],
+            "max_err": {k: max(h.max_err[k] for h in held.values())
+                        for k in held["packed"].max_err},
+            "ms": steps_ms, "kernel_ms": kernel_ms, "phase_s": phase_s}
+
+
 STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
              "pool with its statistics")
 
@@ -4667,6 +4819,9 @@ def main():
     if "--multihost-only" in sys.argv[1:]:
         slice_l_phase(sc)
         return
+    if "--packed-only" in sys.argv[1:]:
+        slice_m_phase(sc)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -4701,6 +4856,8 @@ def main():
     slice_k = slice_k_phase(sc)
     torch.cuda.empty_cache()
     slice_l = slice_l_phase(sc)
+    torch.cuda.empty_cache()
+    slice_m = slice_m_phase(sc)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -4713,7 +4870,8 @@ def main():
                              + slice_d["launches"][name] + preset_launches[name]
                              + sum(v[name] for v in slice_f["launches"].values())
                              + slice_j["launches"][name] + slice_k["launches"][name]
-                             + slice_l["launches"][name] + slice_l["rank_launches"][name]),
+                             + slice_l["launches"][name] + slice_l["rank_launches"][name]
+                             + slice_m["launches"][name] + slice_m["nhwc_launches"][name]),
                 "launches_by_path": {"slice_a": launches[name], "slice_b": stage_launches[name],
                                      "slice_c_rank_0": launches_c[name],
                                      "slice_d": slice_d["launches"][name],
@@ -4724,11 +4882,13 @@ def main():
                                      "slice_j_rank_0": slice_j["launches"][name],
                                      "slice_k": slice_k["launches"][name],
                                      "slice_l": slice_l["launches"][name],
-                                     "slice_l_rank_0": slice_l["rank_launches"][name]},
+                                     "slice_l_rank_0": slice_l["rank_launches"][name],
+                                     "slice_m": slice_m["launches"][name],
+                                     "slice_m_nhwc": slice_m["nhwc_launches"][name]},
                 "max_abs_err": max(max_err[name], strip_err[name], preset_err[name],
                                    slice_f["max_err"][name], slice_j["max_err"][name],
                                    slice_k["max_err"][name], slice_l["max_err"][name],
-                                   slice_l["rank_max_err"][name]),
+                                   slice_l["rank_max_err"][name], slice_m["max_err"][name]),
                 "ms": main_t[name]["ms"],
                 "plain_ms": main_t[name]["plain_ms"], "bound_ms": main_t[name]["bound_ms"],
                 "bound_by": main_t[name]["bound_by"],
@@ -4796,7 +4956,10 @@ def main():
           f"phase {slice_k['phase_s']:.1f} s | slice L infoncepretrain (2N={MAIN_2N}) "
           f"{slice_l['a_s']:.1f} s, {SLICE_L_RANKS} ranks started by hand over "
           f"{slice_l['backend']} on {', '.join(slice_l['devices'])} {slice_l['b_s']:.1f} s "
-          f"(NCCL across hosts not shown: one host)", flush=True)
+          f"(NCCL across hosts not shown: one host) | slice M pretrain step (TF32 off) packed "
+          f"{slice_m['ms']['packed']:.3f} ms/step ({slice_m['kernel_ms']['packed']:.3f} of "
+          f"kernels), nhwc {slice_m['ms']['nhwc']:.3f} ({slice_m['kernel_ms']['nhwc']:.3f})",
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -53,13 +53,6 @@ def build_model_from_config(config: Dict) -> UNet:
     if dtype not in ARCH_DTYPES:
         raise ValueError(f"Arch.dtype must be one of {sorted(ARCH_DTYPES)}, got {dtype!r}")
     layout = str(arch.get("small_c_layout", "nhwc"))
-    if layout == "packed":
-        # the pure-jnp lane-packed layout fills the TPU's 128 lanes and has no
-        # kernel behind it: there is nothing to port. "pallas" selects the
-        # fused stage kernels; nhwc/nchw compute the same function plainly
-        raise NotImplementedError(
-            "Arch.small_c_layout='packed' is a TPU lane layout without a kernel; "
-            "use 'pallas' (fused CUDA stages) or 'nhwc'")
     return UNet(
         small_c_layout=layout,
         input_dim=int(arch.get("input_dim", data2input_dim.get(data_name, 1))),

@@ -29,6 +29,15 @@ block: the gradient-cache step (`training/gradcache.py`) normalises each
 chunk with the rank's own statistics, as spcl_tpu's does (its UNet runs
 without an `axis_name` inside the step's `shard_map`).
 
+`CrossRankBatchNorm2d.packed(x)` is the BatchNorm of spcl_tpu's `packed`
+layout (`experimental/packed_stage.py::_PackedBN`, :199-235), which the
+UNet runs at Conv1 and Conv2 under `Arch.small_c_layout: packed`. It is not
+this module's function: in train mode the one-pass statistics above (across
+ranks too), but the running variance takes the **biased** batch variance;
+in eval mode the running statistics; and the apply is x * inv + shift with
+inv = weight * rsqrt(var + eps) and shift = bias - mean * inv, both rounded
+to x's dtype, where `forward` subtracts the mean first.
+
 `frozen_statistics(model)` keeps the running statistics where they are for
 a block: a train-mode forward still normalises with the batch statistics but
 updates no running mean, variance or count. It is spcl_tpu's `train=True,
@@ -69,14 +78,36 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if not self.training:
             return self._normalise(x, self.running_mean, self.running_var)
+        mean, var = self._batch_statistics(x, cross_rank, unbiased=True)
+        return self._normalise(x, mean, var)
+
+    def packed(self, x: torch.Tensor) -> torch.Tensor:
+        """spcl_tpu's `_PackedBN` on NCHW `x`: batch statistics (running
+        variance updated with the biased one) in train mode, the running
+        statistics in eval mode; x * inv + shift in x's dtype."""
+        if self.training:
+            cross_rank = mesh.active() and not self.rank_local
+            mean, var = self._batch_statistics(x, cross_rank, unbiased=False)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * inv
+        shape = (1, -1, 1, 1)
+        return x * inv.to(x.dtype).reshape(shape) + shift.to(x.dtype).reshape(shape)
+
+    def _batch_statistics(self, x: torch.Tensor, cross_rank: bool, unbiased: bool):
+        """(mean, var) of a train-mode batch in float32: the one-pass E[x^2] -
+        mean^2 clamped at 0, averaged over the ranks when `cross_rank`; the
+        running statistics move with them unless frozen, the variance with
+        Bessel's factor when `unbiased`."""
         world = mesh.world_size() if cross_rank else 1
         xf = x.float()
         local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
         mean, mean2 = (mesh.all_reduce_sum(local) / world) if cross_rank else local
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if not self.frozen_statistics:
-            self._update_running(x, world, mean, var)
-        return self._normalise(x, mean, var)
+            self._update_running(x, world, mean, var, unbiased)
+        return mean, var
 
     def _normalise(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
         """(x - mean) * w + bias in x's dtype, w = weight * rsqrt(var + eps) in
@@ -86,12 +117,14 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
         return ((x - mean.to(x.dtype).reshape(shape)) * w.to(x.dtype).reshape(shape)
                 + self.bias.to(x.dtype).reshape(shape))
 
-    def _update_running(self, x, world, mean, var) -> None:
+    def _update_running(self, x, world, mean, var, unbiased=True) -> None:
         with torch.no_grad():
             n = world * x.numel() // x.shape[1]
             m = self.momentum
+            if unbiased:
+                var = var * (n / max(n - 1, 1))
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked += 1
 
 

@@ -21,6 +21,17 @@ only in train mode and only for packable shapes, as
 `spcl_tpu/models/unet.py:189-213` dispatches; eval mode and odd shapes take
 the plain path. Parameters and state_dict keys are the same either way.
 
+`small_c_layout="packed"` computes the function of spcl_tpu's lane-packed
+stages (`experimental/packed_stage.py::PackedConvStage`, dispatched at
+`spcl_tpu/models/unet.py:189-193`, :214-237) with PyTorch's own ops: Conv1
+and Conv2 pool as the plain path does, but their BatchNorms are
+`_PackedBN`'s (`CrossRankBatchNorm2d.packed`: the running variance takes
+the biased batch variance; x * inv + shift) and, in bf16, their 3x3
+convolutions round where the packed matmuls do (`packed_layout.py`), in
+train AND eval mode, for the same packable shapes as `pallas`; other shapes
+and the other stages take the plain path, as in spcl_tpu. The TPU's lane
+layout itself has no counterpart on the GPU: the activations stay NCHW.
+
 `dtype` is the compute dtype (`Arch.dtype`), as in spcl_tpu's UNet
 (models/unet.py:148-176): float32 or bfloat16. The input is cast to it, the
 convolutions take their float32 weights cast to it (`Conv2d`), and the
@@ -39,6 +50,7 @@ import torch
 from torch import nn
 
 from .norm import batch_norm
+from .packed_layout import packed_conv
 from ..experimental.packed_stage import packable, run_conv_stage
 
 ENCODER_NAMES: Tuple[str, ...] = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5")
@@ -53,8 +65,10 @@ LAYER_DIMENSION = {"Conv1": 1, "Conv2": 2, "Conv3": 4, "Conv4": 8, "Conv5": 16,
 
 
 # "nhwc" / "nchw": the plain path (one function in NCHW PyTorch); "pallas":
-# the fused train-mode stage kernels for Conv1 / Conv2
-SMALL_C_LAYOUTS: Tuple[str, ...] = ("nhwc", "nchw", "pallas")
+# the fused train-mode stage kernels for Conv1 / Conv2; "packed": the plain
+# path with the arithmetic of spcl_tpu's packed stages (their BatchNorm; bf16
+# convolutions rounded as theirs) at Conv1 / Conv2
+SMALL_C_LAYOUTS: Tuple[str, ...] = ("nhwc", "nchw", "pallas", "packed")
 DTYPES: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
 
 
@@ -107,6 +121,15 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+    def packed(self, x, first: bool = False):
+        """The block as spcl_tpu's `PackedConvStage` computes it: its
+        convolutions (`packed_conv`; with `first`, the stage-1 input conv is
+        the plain one, `first_conv_nhwc`) and BatchNorm (`_PackedBN`)."""
+        conv = self.conv
+        z = conv[0](x) if first else packed_conv(x, conv[0].weight)
+        x = torch.relu(conv[1].packed(z))
+        return torch.relu(conv[4].packed(packed_conv(x, conv[3].weight)))
 
 
 class UpConv(nn.Module):
@@ -164,14 +187,16 @@ class UNet(nn.Module):
         """The submodule of a stage name (`Conv1` -> `_Conv1`)."""
         return getattr(self, f"_{name}")
 
+    def _packable(self, x: torch.Tensor) -> bool:
+        """spcl_tpu's `shapes_ok` (models/unet.py:189-191) on NCHW `x`."""
+        return (x.shape[2] % 4 == 0
+                and packable(x.shape[3], self.channel_dim("Conv1"), self.channel_dim("Conv2")))
+
     def _use_fused_stages(self, x: torch.Tensor) -> bool:
         """The dispatch of `spcl_tpu/models/unet.py:189-196`: the fused
         stages run in train mode on packable shapes; eval mode (running
         statistics) and odd shapes take the plain path."""
-        return (self.small_c_layout == "pallas" and self.training
-                and x.shape[2] % 4 == 0
-                and packable(x.shape[3], self.channel_dim("Conv1"),
-                             self.channel_dim("Conv2")))
+        return self.small_c_layout == "pallas" and self.training and self._packable(x)
 
     def forward(self, x: torch.Tensor, until: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Run the net on NCHW `x`, returning `{stage: activation}` for every
@@ -194,11 +219,13 @@ class UNet(nn.Module):
                 return acts
             p2 = p2.permute(0, 3, 1, 2)
         else:
-            e1 = self._Conv1(x)
+            packed = self.small_c_layout == "packed" and self._packable(x)
+            e1 = self._Conv1.packed(x, first=True) if packed else self._Conv1(x)
             acts["Conv1"] = e1
             if until == "Conv1":
                 return acts
-            e2 = self._Conv2(self._pool(e1))
+            p1 = self._pool(e1)
+            e2 = self._Conv2.packed(p1) if packed else self._Conv2(p1)
             acts["Conv2"] = e2
             if until == "Conv2":
                 return acts

@@ -4,9 +4,10 @@ counterpart of `scripts/effect_study.py`.
 
     python -m spcl_torch.scripts.effect_study [--device cuda] [--dtype float32]
         [--seeds 10,20,30,40,50] [--arms scratch,spsoft_corrupt] [--jobs 3] [--force]
-        [--backends deterministic|defaults]
+        [--backends deterministic|deterministic_tf32|defaults|defaults_fp32]
     python -m spcl_torch.scripts.effect_study --arm spsoft_corrupt --seed 10
     python -m spcl_torch.scripts.effect_study --collect [--dtype bfloat16]
+    python -m spcl_torch.scripts.effect_study --pair DIR_A DIR_B
 
 Claims measured (means +/- np.std over seeds):
   (a) fine-tuning from SP-InfoNCE pretraining beats training from scratch
@@ -20,17 +21,30 @@ UNet-128, crop 48 of a 64 canvas, `synthetic: hard` (20 train scans, 8
 test), pretraining 15 epochs x 30 contrastive batches (10 scans x 3
 partitions = 30 slices, 2N = 60 views), fine-tuning 25 epochs x 30 batches
 of 8 labeled slices, Adam 1e-3, best per-scan val DSC. Each (arm, seed)
-runs in its own process, on the card unless `--device cpu`. `run_arm`
-trains under `deterministic_backends` (cuDNN deterministic, TF32 off), so
-that a run on the card repeats to the bit; `--backends defaults` keeps
-PyTorch's, under which one seed's best DSC spreads from run to run (ROADMAP
-C12). `--dtype bfloat16` sets only `Arch.dtype`. Records land in
-`runs/effect_study_torch/` (bf16: its `bfloat16/` folder), one
-`<arm>_s<seed>.json` each.
+runs in its own process, on the card unless `--device cpu`. `--dtype
+bfloat16` sets only `Arch.dtype`. Records land in `runs/effect_study_torch/`
+(bf16: its `bfloat16/` folder), one `<arm>_s<seed>.json` each.
+
+`run_arm` trains inside one corner of cuDNN's settings (`BACKENDS`; matmul
+TF32 stays off in each, as PyTorch's default has it), so that each setting
+can change alone (ROADMAP C12):
+
+    corner               deterministic algorithms   TF32 in cuDNN
+    deterministic        on (benchmark off)         off   (the default)
+    deterministic_tf32   on (benchmark off)         on
+    defaults             off (PyTorch's)            on    (PyTorch's)
+    defaults_fp32        off                        off
+
+Under a deterministic corner a run on the card repeats to the bit. The
+flags reach cuDNN's convolutions only: the port's own kernels do not read
+them, and the self-paced SupCon kernels run in 3xTF32 in every corner.
 
 `collect` prints the table, the paired deltas (a), (a'), (b), (b') with their
 per-seed values, and `gate`: each arm's mean against spcl_tpu's round-5
-table (RESULTS.md:502-510) within 3 combined standard errors.
+table (RESULTS.md:502-510) within 3 combined standard errors. `pair` holds
+two record folders seed by seed (B - A for each arm and seed both hold: the
+mean difference and its standard error) and by the gate's rule (B's
+distribution against A's); A or B may be spcl_tpu's `runs/effect_study/`.
 """
 import argparse
 import contextlib
@@ -46,7 +60,14 @@ OUT = REPO / "runs" / "effect_study_torch"
 SEEDS = (10, 20, 30)
 CORRUPT = 0.8
 DTYPES = ("float32", "bfloat16")
-BACKENDS = ("deterministic", "defaults")
+# corner -> (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32) inside
+# `run_arm`; cuda.matmul.allow_tf32 is False in every corner
+BACKENDS = {
+    "deterministic": (True, False, False),
+    "deterministic_tf32": (True, False, True),
+    "defaults": (False, False, True),
+    "defaults_fp32": (False, False, False),
+}
 
 # small-but-not-saturating budget (spcl_tpu's calibration, RESULTS.md round 5)
 CANVAS, CROP = 64, 48
@@ -165,16 +186,16 @@ def card_name(device) -> str:
 
 
 @contextlib.contextmanager
-def deterministic_backends():
-    """cuDNN's deterministic algorithms, its benchmark off, and TF32 off for
-    cuDNN and matmuls (float32 products, as spcl_tpu's study on the CPU)
-    inside the block; the previous settings after it."""
+def backend_corner(corner: str):
+    """cuDNN's deterministic, benchmark and TF32 flags of `corner`
+    (`BACKENDS`), and matmul TF32 off, inside the block; the previous
+    settings after it."""
     import torch
     b = torch.backends
     saved = (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
              b.cuda.matmul.allow_tf32)
-    b.cudnn.deterministic, b.cudnn.benchmark = True, False
-    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32 = BACKENDS[corner]
+    b.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
@@ -185,15 +206,14 @@ def deterministic_backends():
 def run_arm(arm: str, seed: int, *, device="cuda", dtype="float32", out=None,
             backends="deterministic") -> dict:
     """One (arm, seed): pretraining (unless `scratch`), then fine-tuning
-    warm-started from its last.ckpt, under `deterministic_backends` (or
-    PyTorch's settings with `backends="defaults"`). Writes and returns the
-    record."""
+    warm-started from its last.ckpt, inside `backend_corner(backends)`.
+    Writes and returns the record."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
     if backends not in BACKENDS:
-        raise ValueError(f"backends must be one of {BACKENDS}, got {backends!r}")
+        raise ValueError(f"backends must be one of {tuple(BACKENDS)}, got {backends!r}")
     out = Path(out) if out is not None else out_dir(dtype)
-    with deterministic_backends() if backends == "deterministic" else contextlib.nullcontext():
+    with backend_corner(backends):
         rec = _train_arm(arm, seed, device, dtype, out)
     rec["backends"] = backends
     out.mkdir(parents=True, exist_ok=True)
@@ -258,6 +278,13 @@ def _paired(records: dict, arm: str, base: str):
     return deltas, (sum(deltas.values()) / len(deltas) if deltas else None)
 
 
+def _records(out) -> dict:
+    """{arm: [record, ...]} of the records in a folder, arms in `ARMS`'s order."""
+    recs = {arm: [json.loads(p.read_text()) for p in sorted(Path(out).glob(f"{arm}_s*.json"))]
+            for arm in ARMS}
+    return {arm: r for arm, r in recs.items() if r}
+
+
 def collect(out=None, dtype: str = "float32") -> dict:
     """The table of a study's records, the paired deltas and the gate.
     Returns {"rows": {arm: (mean, std, n)}, "gate": ..., "deltas": ...,
@@ -266,10 +293,7 @@ def collect(out=None, dtype: str = "float32") -> dict:
 
     out = Path(out) if out is not None else out_dir(dtype)
     records, rows, timing = {}, {}, {}
-    for arm in ARMS:
-        recs = [json.loads(p.read_text()) for p in sorted(out.glob(f"{arm}_s*.json"))]
-        if not recs:
-            continue
+    for arm, recs in _records(out).items():
         records[arm] = {r["seed"]: r["best_val_dice"] for r in recs}
         vals = list(records[arm].values())
         rows[arm] = (float(np.mean(vals)), float(np.std(vals)), len(vals))
@@ -294,6 +318,43 @@ def collect(out=None, dtype: str = "float32") -> dict:
         print(f"gate {arm}: port {v['port']:.4f} jax {v['jax']:.4f} diff {v['diff']:+.4f} "
               f"bound {v['bound']:.4f} {'pass' if v['pass'] else 'MISS'}")
     return {"rows": rows, "gate": verdict, "deltas": deltas, "timing": timing}
+
+
+def pair(out_a, out_b) -> dict:
+    """Every arm that two record folders both hold, seed by seed and by the
+    gate's rule. Per seed d = B - A over the seeds both hold; its mean, SE =
+    std(d, ddof=1) / sqrt(n) and the mean in SEs; and B's (mean, np.std, n)
+    over all its seeds against A's within GATE_SE combined standard errors
+    (`gate`). Prints and returns {arm: {...}}."""
+    import numpy as np
+
+    dsc = [{arm: {r["seed"]: r["best_val_dice"] for r in recs}
+            for arm, recs in _records(out).items()} for out in (out_a, out_b)]
+    res = {}
+    for arm in ARMS:
+        if arm not in dsc[0] or arm not in dsc[1]:
+            continue
+        a, b = dsc[0][arm], dsc[1][arm]
+        seeds = sorted(set(a) & set(b))
+        d = np.array([b[s] - a[s] for s in seeds])
+        se = float(np.std(d, ddof=1) / math.sqrt(len(d))) if len(d) > 1 else float("nan")
+        rows = {k: (float(np.mean(list(v.values()))), float(np.std(list(v.values()))), len(v))
+                for k, v in (("a", a), ("b", b))}
+        res[arm] = {"a": rows["a"], "b": rows["b"],
+                    "per_seed": {s: (a[s], b[s], float(b[s] - a[s])) for s in seeds},
+                    "mean_d": float(d.mean()) if len(d) else float("nan"), "se": se,
+                    "gate": gate({arm: rows["b"]}, {arm: rows["a"]})[arm]}
+        r = res[arm]
+        print(f"{arm}: A {rows['a'][0]:.4f} +- {rows['a'][1]:.4f} (n={rows['a'][2]}), "
+              f"B {rows['b'][0]:.4f} +- {rows['b'][1]:.4f} (n={rows['b'][2]})")
+        for s, (va, vb, ds) in r["per_seed"].items():
+            print(f"  seed {s}: A {va:.4f} B {vb:.4f} d {ds:+.4f}")
+        print(f"  paired d over {len(seeds)} seeds: {r['mean_d']:+.4f}, SE {se:.4f}, "
+              f"{r['mean_d'] / se:+.2f} SE")
+        g = r["gate"]
+        print(f"  gate B against A: diff {g['diff']:+.4f} bound {g['bound']:.4f} "
+              f"{'pass' if g['pass'] else 'MISS'}", flush=True)
+    return res
 
 
 def _worker_cmd(arm, seed, args):
@@ -359,12 +420,16 @@ def main(argv=None):
                     help="comma-separated arm subset for orchestration")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32", choices=DTYPES)
-    ap.add_argument("--backends", default="deterministic", choices=BACKENDS,
-                    help="cuDNN deterministic and TF32 off, or PyTorch's defaults")
+    ap.add_argument("--backends", default="deterministic", choices=tuple(BACKENDS),
+                    help="the corner of cuDNN's settings to train in (see BACKENDS)")
+    ap.add_argument("--pair", nargs=2, metavar=("DIR_A", "DIR_B"),
+                    help="hold two record folders seed by seed and by the gate")
     ap.add_argument("--out", default=None,
                     help="record folder (default runs/effect_study_torch, bf16: its bfloat16/)")
     args = ap.parse_args(argv)
     args.out = Path(args.out) if args.out else out_dir(args.dtype)
+    if args.pair:
+        return pair(*args.pair)
     if args.collect:
         return collect(args.out)
     if args.arm is not None:

@@ -289,8 +289,9 @@ def build_eval_step(model: UNet, *, num_classes: int, crop: int,
     resize-based datasets) -> eval-mode forward -> masked CE + per-slice dice
     statistics. `out_size` > crop: shortest-side val resize on non-square
     slices; the frame pads into the canvas and loss and dice restrict to
-    frame pixels. Eval mode takes the UNet's plain path whatever
-    `small_c_layout` is."""
+    frame pixels. Eval mode takes the UNet's plain path under every
+    `small_c_layout` but `packed`, whose Conv1 / Conv2 normalise with their
+    running statistics as spcl_tpu's packed stages do."""
     shortest_side = val_policy is not None and isinstance(val_policy.resize, int)
     out = crop if out_size is None else int(out_size)
     pol = val_policy if val_policy is not None else AugmentPolicy(crop=crop)

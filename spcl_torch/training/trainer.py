@@ -64,8 +64,8 @@ One rank is the plain single-process path. Every trainer runs so, with
 spcl_tpu's global-batch semantics (`training/steps.py`): the semi trainer
 with any hooks and its EMA teacher, the mixup and adversarial trainers (the
 discriminator starts from rank 0's weights too) and both pretrain trainers,
-with `resume_from_path` and `defer_reads`. `small_c_layout: pallas` is
-refused under a mesh, as spcl_tpu refuses it.
+with `resume_from_path` and `defer_reads`. `small_c_layout: pallas` and
+`packed` are refused under a mesh, as spcl_tpu refuses them.
 
 `resume_from_path` (trainer.py:972-987; `trainer_checkpoint` in the entry
 points) restores everything `last.ckpt` holds — the model, the optimizer
@@ -321,11 +321,11 @@ class _TrainerBase:
 
     # ----------------------------------------------------------------- init
     def init(self) -> None:
-        if self._n_shards > 1 and self._model.small_c_layout == "pallas":
-            # as spcl_tpu refuses it (training/trainer.py:245-253): the fused
+        if self._n_shards > 1 and self._model.small_c_layout in ("pallas", "packed"):
+            # as spcl_tpu refuses both (training/trainer.py:245-253): the fused
             # stages compute single-device BatchNorm statistics
-            raise ValueError("Arch.small_c_layout='pallas' is incompatible with "
-                             "Trainer.mesh — use 'nhwc'")
+            raise ValueError(f"Arch.small_c_layout={self._model.small_c_layout!r} is "
+                             "incompatible with Trainer.mesh — use 'nhwc'")
         self._model.to(self._device)
         ckpt = (self._config.get("Arch") or {}).get("checkpoint")
         if ckpt:

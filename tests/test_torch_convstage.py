@@ -251,8 +251,8 @@ def test_config_passes_the_layout_through():
     assert build_model_from_config({"Arch": {"small_c_layout": "pallas"}}).small_c_layout \
         == "pallas"
     assert build_model_from_config({"Arch": {}}).small_c_layout == "nhwc"
-    with pytest.raises(NotImplementedError, match="TPU lane layout"):
-        build_model_from_config({"Arch": {"small_c_layout": "packed"}})
+    assert build_model_from_config({"Arch": {"small_c_layout": "packed"}}).small_c_layout \
+        == "packed"
     with pytest.raises(ValueError):
         UNet(small_c_layout="lanes")
 

@@ -46,10 +46,11 @@
   for scratch), a pre/last.ckpt that reloads strictly, `collect` and the
   gate over the records; the orchestrator collects what its workers wrote
   and raises on a worker that fails.
-- Backends: `run_arm` trains under `deterministic_backends` (cuDNN
-  deterministic, benchmark off, TF32 off), or under the settings it was
-  given with `backends="defaults"`, and restores them after; the record
-  names its backends, and `--backends` reaches the workers.
+- Backends: `run_arm` trains inside `backend_corner` of one of four
+  corners (cuDNN deterministic or not, TF32 in cuDNN or not; matmul TF32
+  off in each), refuses any other, and restores the settings after; the
+  record names its corner, and `--backends` reaches the workers. `pair`
+  holds two record folders seed by seed and by the gate's rule.
 
 Torch runs on one thread (module fixture). The slow study on the card is
 `tests/test_torch_port_cuda.py::test_effect_study_on_the_card`.
@@ -737,17 +738,36 @@ def _backend_flags():
 
 
 DETERMINISTIC = (True, False, False, False)
+# corner -> (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+# cuda.matmul.allow_tf32) inside the block, written out from the table of
+# spcl_torch/scripts/effect_study.py's docstring
+CORNERS = {
+    "deterministic": DETERMINISTIC,
+    "deterministic_tf32": (True, False, True, False),
+    "defaults": (False, False, True, False),
+    "defaults_fp32": (False, False, False, False),
+}
 
 
 def test_deterministic_backends_set_the_flags_and_restore_them():
     before = _backend_flags()
     assert before != DETERMINISTIC  # PyTorch's defaults let cuDNN use TF32
-    with es.deterministic_backends():
-        assert _backend_flags() == DETERMINISTIC
-    assert _backend_flags() == before
-    with pytest.raises(KeyError):
-        with es.deterministic_backends():
-            raise KeyError("a failed run")
+    assert set(es.BACKENDS) == set(CORNERS)
+    for corner, flags in CORNERS.items():
+        with es.backend_corner(corner):
+            assert _backend_flags() == flags, corner
+        assert _backend_flags() == before
+        with pytest.raises(KeyError):
+            with es.backend_corner(corner):
+                raise KeyError("a failed run")
+        assert _backend_flags() == before
+    # the block sets every flag, whatever the process had before it
+    torch.backends.cudnn.benchmark = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with es.backend_corner("defaults"):
+            assert _backend_flags() == CORNERS["defaults"]
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32 = before[1], before[3]
     assert _backend_flags() == before
 
 
@@ -762,7 +782,7 @@ def test_run_arm_trains_under_its_backends(backends, tmp_path, monkeypatch):
     monkeypatch.setattr(es, "_train_arm", train)
     before = _backend_flags()
     rec = es.run_arm("scratch", 10, device="cpu", out=tmp_path, backends=backends)
-    assert seen == [DETERMINISTIC if backends == "deterministic" else before]
+    assert seen == [CORNERS[backends]]
     assert _backend_flags() == before
     assert rec["backends"] == backends
     assert json.loads((tmp_path / "scratch_s10.json").read_text()) == rec
@@ -773,12 +793,57 @@ def test_backends_reach_the_workers(tmp_path, monkeypatch):
     monkeypatch.setattr(es, "run_arm", lambda *a, **k: seen.append((a, k)))
     base = ["--arm", "scratch", "--seed", "20", "--device", "cpu", "--out", str(tmp_path)]
     es.main(base + ["--backends", "defaults"])
+    es.main(base + ["--backends", "deterministic_tf32"])
     es.main(base)
     assert [(a, k["backends"]) for a, k in seen] == [(("scratch", 20), "defaults"),
+                                                      (("scratch", 20), "deterministic_tf32"),
                                                       (("scratch", 20), "deterministic")]
-    args = es.argparse.Namespace(device="cuda", dtype="float32", backends="defaults",
+    args = es.argparse.Namespace(device="cuda", dtype="float32", backends="defaults_fp32",
                                  out=tmp_path)
     cmd = es._worker_cmd("scratch", 20, args)
-    assert cmd[cmd.index("--backends") + 1] == "defaults"
+    assert cmd[cmd.index("--backends") + 1] == "defaults_fp32"
     with pytest.raises(ValueError, match="backends must be one of"):
         REAL_RUN_ARM("scratch", 10, device="cpu", out=tmp_path, backends="fast")
+
+
+def test_run_arm_refuses_an_unknown_corner(tmp_path, monkeypatch):
+    called = []
+    monkeypatch.setattr(es, "_train_arm", lambda *a: called.append(a))
+    before = _backend_flags()
+    for corner in ("fast", "tf32", "Deterministic", "defaults_tf32"):
+        with pytest.raises(ValueError, match="backends must be one of"):
+            es.run_arm("scratch", 10, device="cpu", out=tmp_path, backends=corner)
+    assert called == [] and _backend_flags() == before
+    assert not list(tmp_path.iterdir())
+    with pytest.raises(SystemExit):
+        es.main(["--arm", "scratch", "--device", "cpu", "--backends", "fast",
+                 "--out", str(tmp_path)])
+
+
+def _write_records(folder, arm, values):
+    folder.mkdir(parents=True, exist_ok=True)
+    for seed, v in values.items():
+        (folder / f"{arm}_s{seed}.json").write_text(json.dumps(
+            {"arm": arm, "seed": seed, "best_val_dice": v}))
+
+
+def test_pair_holds_two_folders_seed_by_seed_and_by_the_gate(tmp_path, capsys):
+    a = {10: 0.30, 20: 0.25, 30: 0.35, 40: 0.28}
+    b = {10: 0.40, 20: 0.36, 30: 0.44, 40: 0.39, 50: 0.41}  # seed 50 unpaired
+    _write_records(tmp_path / "a", "plain_clean", a)
+    _write_records(tmp_path / "b", "plain_clean", b)
+    _write_records(tmp_path / "a", "scratch", {10: 0.2})  # only in A: skipped
+    res = es.main(["--pair", str(tmp_path / "a"), str(tmp_path / "b")])
+    assert set(res) == {"plain_clean"}
+    r = res["plain_clean"]
+    d = np.array([b[s] - a[s] for s in (10, 20, 30, 40)])
+    assert r["mean_d"] == pytest.approx(d.mean())
+    assert r["se"] == pytest.approx(d.std(ddof=1) / 2.0)
+    assert r["per_seed"][20] == (0.25, 0.36, pytest.approx(0.11))
+    assert r["a"] == (pytest.approx(np.mean(list(a.values()))),
+                      pytest.approx(np.std(list(a.values()))), 4)
+    assert r["b"][2] == 5
+    assert r["gate"] == es.gate({"plain_clean": r["b"]}, {"plain_clean": r["a"]})["plain_clean"]
+    assert not r["gate"]["pass"]  # B lies ~0.1 above A, beyond 3 combined SEs
+    out = capsys.readouterr().out
+    assert "seed 20: A 0.2500 B 0.3600 d +0.1100" in out and "MISS" in out
