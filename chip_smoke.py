@@ -270,7 +270,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                running statistics; then the step times, 10 steps a turn in
                the turns packed, nhwc, nhwc, packed, and 5 steps of each
                under torch.profiler (kernel time by kernel).
- 22. report  — the `kernels` JSON line (the bf16 passes as
+ 22. slice N — the last of spcl_tpu's public surface, card against the CPU at
+               the main path's shapes, no kernel of spcl_torch.ops launched:
+               Cutout (`sample_cutout` boxes 16..112 + `apply_cutout`) and
+               Sobel (`sobel_process`, include_origin) on slice A's 2N=60
+               one-channel 224^2 slices (Cutout bit-equal, the erased
+               pixels 4 half^2 a slice; Sobel within 1e-6 x max|g|);
+               `ProjectionHead(pool_name="adaptive_max")` at 1x1 and 2x2 on
+               Conv5-shaped [60, 256, 14, 14] features and
+               `DenseProjectionHead(pool_name="adaptive_max")` at 10x10 on
+               slice F's Up_conv3 shape [18, 32, 112, 112], both on
+               relu(N(0, 1) - 2) (tied all-zero windows): forward, input
+               and parameter gradients (tolerances at SLICE_N_HEAD_TOL);
+               the ms of each call, and of the max pool beside
+               F.adaptive_max_pool2d.
+ 23. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
@@ -285,7 +299,7 @@ build and phase 11, `--semi-only` the build and phase 12,
 weight inspection of its random initialisation), `--semi-mesh-only` the
 build and phase 18, `--effect-only` the build and phase 19,
 `--multihost-only` the build and phase 20, `--packed-only` the build and
-phase 21.
+phase 21, `--surface-only` the build and phase 22.
 """
 import copy
 import json
@@ -4735,6 +4749,181 @@ def slice_m_phase(sc):
             "ms": steps_ms, "kernel_ms": kernel_ms, "phase_s": phase_s}
 
 
+SLICE_N_CUTOUT = (16, 112)   # Cutout box sizes: up to half the 224^2 crop
+SLICE_N_PAD = -1.0           # the Cutout fill: no input pixel has it (inputs in [0, 1))
+SLICE_N_SOBEL_TOL = 1e-6     # x max|g|, card against the CPU
+SLICE_N_SPARSE = 2.0         # features relu(N(0, 1) - 2): 2.3% non-zero, tied zero windows
+SLICE_N_DECODER = (18, 32, 112, 112)   # slice F's Up_conv3 features (2 x 3 scans x 3)
+# card against the CPU, both in float32 (TF32 off in cuBLAS, PyTorch's default, and in
+# cuDNN around the dense head): outputs and the projection head's gradients x the CPU's
+# max|.|, float32 sums in another order (~2^-24 x sqrt(K), K <= 1024 summed terms)
+SLICE_N_HEAD_TOL = 1e-5
+SLICE_N_PARAM_RTOL = 1e-4    # the dense head's parameter gradients, relative L2
+# the dense head's input gradient, relative L2: its 1x1 convolutions run before the max,
+# so a bin whose top two values lie within float32 rounding may keep its maximum at
+# another pixel on the card (~3e-3 of the norm per such bin; their count is printed)
+SLICE_N_DX_RTOL = 1e-2
+SLICE_N_REPS = 20
+
+
+def _rel_l2(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30))
+
+
+def _maxima(heads, y, size):
+    """Where each adaptive bin of [B, C, H, W] `y` takes its maximum, as the
+    pool's own gathered windows [B, C, oh, kh, ow, kw]."""
+    win = heads.bin_windows(y, size)
+    return win == torch.amax(win, dim=(3, 5), keepdim=True)
+
+
+def _head_on_both(head_cpu, feats, ct, pre_pool=None):
+    """Forward and backward of `head_cpu` and of its copy on the card on the
+    same features and cotangent: {"cpu" | "card": (out, dx, param grads,
+    pre-pool)}."""
+    head_card = copy.deepcopy(head_cpu).to(DEVICE)
+    results = {}
+    for where, dev, head in (("cpu", "cpu", head_cpu), ("card", DEVICE, head_card)):
+        kept = []
+        hook = (getattr(head, pre_pool).register_forward_hook(
+            lambda m, i, o: kept.append(o.detach())) if pre_pool else None)
+        x = feats.detach().to(dev).requires_grad_(True)
+        out = head(x)
+        out.backward(ct.to(dev))
+        if hook is not None:
+            hook.remove()
+        results[where] = (out.detach().cpu(), x.grad.cpu(),
+                        {n: p.grad.cpu() for n, p in head.named_parameters()},
+                        kept[0] if kept else None)
+    return results, head_card
+
+
+def slice_n_phase(sc, cs, smi):
+    """The last of spcl_tpu's public surface on the card: Cutout and Sobel on
+    slice A's batch, the projection heads pooling by maximum (JAX's tie
+    rule) at Conv5's and slice F's Up_conv3's shapes, card against the CPU."""
+    from spcl_torch.data import augment as aug
+    from spcl_torch.models import heads
+    from spcl_torch.models.heads import DenseProjectionHead, ProjectionHead
+    crop = CONFIG["Data"]["crop"]
+    phase(f"slice N: Cutout and Sobel on 2N={MAIN_2N} one-channel {crop}^2 slices; "
+          f"ProjectionHead / DenseProjectionHead pooling by maximum; card against the CPU")
+    t0 = time.perf_counter()
+    sc.reset_launch_counts()
+    cs.reset_launch_counts()
+    print(f"slice N precision: cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    ms = {}
+
+    # (a) Cutout and Sobel
+    gen = torch.Generator(device=DEVICE).manual_seed(CONFIG["RandomSeed"])
+    x = torch.rand(MAIN_2N, 1, crop, crop, device=DEVICE, generator=gen)
+    params = aug.sample_cutout(gen, MAIN_2N, crop, crop, *SLICE_N_CUTOUT, device=DEVICE)
+    cut = aug.apply_cutout(x, params, pad_value=SLICE_N_PAD)
+    cut_cpu = aug.apply_cutout(x.cpu(), {k: v.cpu() for k, v in params.items()},
+                               pad_value=SLICE_N_PAD)
+    check(torch.equal(cut.cpu(), cut_cpu), "slice N Cutout: card and CPU differ")
+    half = params["box"] // 2
+    check(((params["box"] >= SLICE_N_CUTOUT[0]) & (params["box"] <= SLICE_N_CUTOUT[1])).all()
+          and (params["yc"] - half >= 0).all() and (params["yc"] + half <= crop).all()
+          and (params["xc"] - half >= 0).all() and (params["xc"] + half <= crop).all(),
+          f"slice N Cutout boxes leave the image: {params}")
+    erased = (cut == SLICE_N_PAD).sum(dim=(1, 2, 3))
+    check(torch.equal(erased, 4 * half * half), "slice N Cutout erased other pixels")
+    sob = aug.sobel_process(cut, include_origin=True)
+    sob_cpu = aug.sobel_process(cut_cpu, include_origin=True)
+    check(sob.shape == (MAIN_2N, 3, crop, crop) and bool(torch.isfinite(sob).all()),
+          f"slice N Sobel {tuple(sob.shape)}")
+    scale = float(sob_cpu[:, :2].abs().max())
+    sobel_err = float((sob[:, :2].cpu() - sob_cpu[:, :2]).abs().max())
+    check(torch.equal(sob[:, 2:].cpu(), cut_cpu), "slice N Sobel's origin channel")
+    print(f"slice N Cutout boxes {SLICE_N_CUTOUT[0]}..{SLICE_N_CUTOUT[1]}: card = CPU to the "
+          f"bit, {int(erased.sum())} pixels erased in {MAIN_2N} slices; Sobel (include_origin) "
+          f"card against CPU {sobel_err:.2e} (max|g| {scale:.3f}, tol {SLICE_N_SOBEL_TOL} x "
+          f"max|g|)", flush=True)
+    check(sobel_err <= SLICE_N_SOBEL_TOL * scale, "slice N Sobel: card and CPU differ")
+    ms["sample_cutout"] = _time_ms(lambda: aug.sample_cutout(
+        gen, MAIN_2N, crop, crop, *SLICE_N_CUTOUT, device=DEVICE), SLICE_N_REPS)
+    ms["apply_cutout"] = _time_ms(lambda: aug.apply_cutout(x, params), SLICE_N_REPS)
+    ms["sobel_process"] = _time_ms(lambda: aug.sobel_process(x), SLICE_N_REPS)
+
+    # (b) the heads, pooling by maximum, on sparse post-ReLU features
+    cpu_gen = torch.Generator().manual_seed(CONFIG["RandomSeed"])
+    holds = {}
+    conv5 = torch.relu(torch.randn(MAIN_2N, 256, 14, 14, generator=cpu_gen) - SLICE_N_SPARSE)
+    for spatial in ((1, 1), (2, 2)):
+        torch.manual_seed(spatial[0])
+        head = ProjectionHead(256, output_dim=256, hidden_dim=256, pool_name="adaptive_max",
+                              spatial_size=spatial)
+        pooled = heads.adaptive_max_pool(conv5, spatial)
+        tied = int((pooled == 0).sum())  # all-zero bins: every position a maximum
+        ct = torch.randn(MAIN_2N, 256, generator=cpu_gen)
+        res, head_card = _head_on_both(head, conv5, ct)
+        (out_c, dx_c, g_c, _), (out_g, dx_g, g_g, _) = res["cpu"], res["card"]
+        errs = {"out": float((out_g - out_c).abs().max() / out_c.abs().max()),
+                "dx": float((dx_g - dx_c).abs().max() / dx_c.abs().max()),
+                "params": max(float((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max())
+                              for n in g_c)}
+        what = f"ProjectionHead {spatial[0]}x{spatial[1]}"
+        print(f"slice N {what} on [{MAIN_2N}, 256, 14, 14] ({tied} tied all-zero bins of "
+              f"{pooled.numel()}): card against CPU, x max|CPU|: out {errs['out']:.2e}, dx "
+              f"{errs['dx']:.2e}, parameter grads {errs['params']:.2e} (tol "
+              f"{SLICE_N_HEAD_TOL})", flush=True)
+        check(tied > 0 and max(errs.values()) <= SLICE_N_HEAD_TOL, f"slice N {what} {errs}")
+        holds[what] = errs
+        feats = conv5.detach().to(DEVICE).requires_grad_(True)
+        ct_card = ct.to(DEVICE)
+        ms[f"{what} fwd+bwd"] = _time_ms(
+            lambda: head_card(feats).backward(ct_card), SLICE_N_REPS)
+
+    torch.manual_seed(3)
+    # slice F's head as the InfoNCE hook builds it (output 256, hidden 256)
+    dense = DenseProjectionHead(SLICE_N_DECODER[1], output_dim=256, hidden_dim=256,
+                                pool_name="adaptive_max", spatial_size=(10, 10))
+    up3 = torch.relu(torch.randn(*SLICE_N_DECODER, generator=cpu_gen) - SLICE_N_SPARSE)
+    zero_px = float((up3.abs().sum(dim=1) == 0).float().mean())
+    ct = torch.randn(SLICE_N_DECODER[0], 256, 10, 10, generator=cpu_gen)
+    torch.backends.cudnn.allow_tf32 = False
+    res, dense_card = _head_on_both(dense, up3, ct, pre_pool="conv1")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default again
+    (out_c, dx_c, g_c, y_c), (out_g, dx_g, g_g, y_g) = res["cpu"], res["card"]
+    moved = int((_maxima(heads, y_c, (10, 10)) != _maxima(heads, y_g.cpu(), (10, 10)))
+                .any(dim=(3, 5)).sum())
+    errs = {"out": float((out_g - out_c).abs().max() / out_c.abs().max()),
+            "params": max(_rel_l2(g_g[n], g_c[n]) for n in g_c), "dx": _rel_l2(dx_g, dx_c)}
+    print(f"slice N DenseProjectionHead 10x10 on {list(SLICE_N_DECODER)} ({zero_px:.1%} of "
+          f"pixels all-zero: equal MLP outputs, tied maxima; {moved} of {y_c.shape[0] * 25600} "
+          f"bins with their maxima elsewhere on the card), cuDNN TF32 off: out "
+          f"{errs['out']:.2e} x max|CPU| (tol {SLICE_N_HEAD_TOL}), parameter grads "
+          f"{errs['params']:.2e} relative L2 (tol {SLICE_N_PARAM_RTOL}), dx {errs['dx']:.2e} "
+          f"relative L2 (tol {SLICE_N_DX_RTOL})", flush=True)
+    check(errs["out"] <= SLICE_N_HEAD_TOL and errs["params"] <= SLICE_N_PARAM_RTOL
+          and errs["dx"] <= SLICE_N_DX_RTOL, f"slice N DenseProjectionHead {errs}")
+    holds["DenseProjectionHead 10x10"] = dict(errs, moved_bins=moved)
+    feats = up3.detach().to(DEVICE).requires_grad_(True)
+    ct_card = ct.to(DEVICE)
+    ms["DenseProjectionHead 10x10 fwd+bwd"] = _time_ms(
+        lambda: dense_card(feats).backward(ct_card), SLICE_N_REPS)
+    # the pool alone beside the library's max pool (one index at ties)
+    y = y_g.requires_grad_(True)
+    g = torch.randn(SLICE_N_DECODER[0], 256, 10, 10, device=DEVICE)
+    for name, pool in (("adaptive_max_pool", heads.adaptive_max_pool),
+                       ("F.adaptive_max_pool2d", torch.nn.functional.adaptive_max_pool2d)):
+        ms[f"{name} 10x10 fwd+bwd"] = _time_ms(lambda: pool(y, (10, 10)).backward(g),
+                                               SLICE_N_REPS)
+    torch.cuda.synchronize()
+    launched = {**sc.LAUNCHES, **cs.LAUNCHES, **cs.LAUNCHES_BF16}
+    check(not any(launched.values()), f"slice N launched kernels {launched}")
+    phase_s = time.perf_counter() - t0
+    print(f"slice N ms a call ({smi}; cuDNN TF32 on, PyTorch's default; CUDA events, "
+          f"{SLICE_N_REPS} calls): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; phase {phase_s:.1f} s", flush=True)
+    del dense_card, feats, y
+    torch.cuda.empty_cache()
+    return {"ms": ms, "holds": holds, "sobel_err": sobel_err, "phase_s": phase_s}
+
+
 STAGE_WHY = ("no single PyTorch call computes this pass: it fuses BatchNorm, ReLU or the "
              "pool with its statistics")
 
@@ -4822,6 +5011,9 @@ def main():
     if "--packed-only" in sys.argv[1:]:
         slice_m_phase(sc)
         return
+    if "--surface-only" in sys.argv[1:]:
+        slice_n_phase(sc, cs, smi)
+        return
     max_err, timings = kernel_phase(sc)
     stage = stage_kernel_phase(cs)
     stage_bf16 = stage_kernel_phase(cs, torch.bfloat16)
@@ -4858,6 +5050,8 @@ def main():
     slice_l = slice_l_phase(sc)
     torch.cuda.empty_cache()
     slice_m = slice_m_phase(sc)
+    torch.cuda.empty_cache()
+    slice_n = slice_n_phase(sc, cs, smi)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -4958,7 +5152,9 @@ def main():
           f"{slice_l['backend']} on {', '.join(slice_l['devices'])} {slice_l['b_s']:.1f} s "
           f"(NCCL across hosts not shown: one host) | slice M pretrain step (TF32 off) packed "
           f"{slice_m['ms']['packed']:.3f} ms/step ({slice_m['kernel_ms']['packed']:.3f} of "
-          f"kernels), nhwc {slice_m['ms']['nhwc']:.3f} ({slice_m['kernel_ms']['nhwc']:.3f})",
+          f"kernels), nhwc {slice_m['ms']['nhwc']:.3f} ({slice_m['kernel_ms']['nhwc']:.3f}) | "
+          f"slice N Sobel {slice_n['ms']['sobel_process']:.4f} ms, dense head max-pooled "
+          f"10x10 fwd+bwd {slice_n['ms']['DenseProjectionHead 10x10 fwd+bwd']:.3f} ms",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,14 @@ to their plain PyTorch versions.
 
 This package imports torch and numpy, never jax and never `spcl_tpu`.
 """
+import os
 from pathlib import Path
 
 __version__ = "0.1.0"
 
 PROJECT_PATH = str(Path(__file__).parents[1])
+DATA_PATH = os.environ.get("SPCL_DATA_PATH", str(Path(PROJECT_PATH) / ".data"))
+OUTPUT_PATH = os.environ.get("SPCL_OUTPUT_PATH", str(Path(PROJECT_PATH) / "runs"))
 CONFIG_PATH = str(Path(PROJECT_PATH) / "config")
 
 

@@ -12,8 +12,15 @@ Random numbers come from an explicit `torch.Generator`. Every function that
 draws has a counterpart that takes the drawn values (`sample_geometric` ->
 `apply_geometric`, `sample_jitter` -> `apply_jitter`, `sample_once` ->
 `augment_once`, `sample_twice` -> `augment_twice`, `flip_params` ->
-`apply_flip`), so a test can inject the
+`apply_flip`, `sample_cutout` -> `apply_cutout`), so a test can inject the
 parameters drawn by the JAX package and compare the pixels.
+
+`apply_cutout` (the reference's PILCutout) erases one square a sample;
+`sobel_process` (SobelProcess) gives the x / y Sobel gradients of the
+channel mean. Sobel is written as shifted slices and adds of the zero-padded
+image, not as a convolution: its coefficients are exact in float32, and so
+are the slices and adds on either device, where a convolution on the card
+would round its input to TF32 under cuDNN's default setting.
 """
 from __future__ import annotations
 
@@ -356,3 +363,60 @@ def apply_flip(x: torch.Tensor, params: Params) -> torch.Tensor:
     x = torch.where(fv, torch.flip(x, dims=(2,)), x)
     x = torch.where(fh, torch.flip(x, dims=(3,)), x)
     return x
+
+
+# --------------------------------------------------------------------------- cutout / sobel
+def sample_cutout(gen: torch.Generator, batch: int, h: int, w: int, min_box: int,
+                  max_box: int, device=None) -> Params:
+    """Per-sample Cutout boxes {"box", "yc", "xc"} [B]: box ~ U{min_box..max_box},
+    half = box // 2, and a centre that keeps [c - half, c + half) inside the
+    image (np.random.randint(half, dim - half) as spcl_tpu draws it)."""
+    if not 0 <= min_box <= max_box <= min(h, w):
+        raise ValueError(f"cutout boxes {min_box}..{max_box} do not fit a {h}x{w} image")
+    box = torch.randint(min_box, max_box + 1, (batch,), generator=gen, device=device)
+    half = box // 2
+    u = torch.rand((2, batch), generator=gen, device=device)
+    yc = half + torch.floor(u[0] * (h - 2 * half)).long()
+    xc = half + torch.floor(u[1] * (w - 2 * half)).long()
+    return {"box": box, "yc": yc, "xc": xc}
+
+
+def apply_cutout(image: torch.Tensor, params: Params, pad_value: float = 0.0) -> torch.Tensor:
+    """PILCutout parity on [B, C, H, W]: erase [yc - half, yc + half) x
+    [xc - half, xc + half) in every channel (half = box // 2), filled with
+    `pad_value` in the image's dtype."""
+    h, w = image.shape[-2:]
+    half = (params["box"] // 2).reshape(-1, 1, 1)
+    yc = params["yc"].reshape(-1, 1, 1)
+    xc = params["xc"].reshape(-1, 1, 1)
+    gy = torch.arange(h, device=image.device).reshape(1, h, 1)
+    gx = torch.arange(w, device=image.device).reshape(1, 1, w)
+    hole = (gy >= yc - half) & (gy < yc + half) & (gx >= xc - half) & (gx < xc + half)
+    return image.masked_fill(hole[:, None], pad_value)
+
+
+_SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
+_SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
+
+
+def _correlate3x3(padded: torch.Tensor, kernel, h: int, w: int) -> torch.Tensor:
+    """A 3x3 cross-correlation of a 1-padded [B, 1, H+2, W+2] plane, tap by
+    tap in row-major order, zero taps skipped."""
+    out = None
+    for i, row in enumerate(kernel):
+        for j, k in enumerate(row):
+            if k:
+                term = k * padded[..., i:i + h, j:j + w]
+                out = term if out is None else out + term
+    return out
+
+
+def sobel_process(image: torch.Tensor, include_origin: bool = False) -> torch.Tensor:
+    """SobelProcess parity on [B, C, H, W]: the fixed 3x3 Sobel kernels over
+    the channel mean with zero "SAME" padding -> [B, 2, H, W] as (gx, gy),
+    followed by the input channels when `include_origin`."""
+    h, w = image.shape[-2:]
+    padded = torch.nn.functional.pad(image.mean(dim=1, keepdim=True), (1, 1, 1, 1))
+    grads = torch.cat([_correlate3x3(padded, _SOBEL_X, h, w),
+                       _correlate3x3(padded, _SOBEL_Y, h, w)], dim=1)
+    return torch.cat([grads, image], dim=1) if include_origin else grads

@@ -12,16 +12,7 @@ import csv
 from pathlib import Path
 from typing import Dict, List
 
-
-def flatten_dict(d: Dict, parent_key: str = "", sep: str = "/") -> Dict:
-    items = []
-    for k, v in d.items():
-        key = f"{parent_key}{sep}{k}" if parent_key else str(k)
-        if isinstance(v, dict):
-            items.extend(flatten_dict(v, key, sep=sep).items())
-        else:
-            items.append((key, v))
-    return dict(items)
+from ..utils.utils import flatten_dict
 
 
 class Storage:

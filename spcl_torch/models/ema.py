@@ -8,8 +8,8 @@ deepclustering2's `ema_updater` (reference semi_seg/hooks/mt.py:13-55):
     alpha = min(1 - 1/(step + 2), alpha_max)
 
 after every optimizer step, `step` the number of steps before it (0 at the
-first), in float32 as the JAX step computes it. (spcl_tpu's module-level
-`ramped_alpha`, with `step + 1`, is used by no step and has no counterpart.)
+first), in float32 as the JAX step computes it. `ramped_alpha` is spcl_tpu's
+module-level ramp, min(1 - 1/(step + 1), alpha_max), which no step uses.
 
 The teacher is a deep copy of the student UNet, its parameters frozen and
 never given to the optimizer. It predicts in train mode, with batch
@@ -52,6 +52,11 @@ def ema_update(teacher_params: Sequence[torch.Tensor], student_params: Sequence[
 def semi_step_alpha(step: int, alpha_max: float = 0.999) -> float:
     """The semi step's alpha: min(1 - 1/(step + 2), alpha_max) in float32."""
     return float(min(_F32(1) - _F32(1) / (_F32(step) + _F32(2)), _F32(alpha_max)))
+
+
+def ramped_alpha(global_step: int, alpha_max: float = 0.999) -> float:
+    """spcl_tpu's `ramped_alpha`: min(1 - 1/(step + 1), alpha_max) in float32."""
+    return float(min(_F32(1) - _F32(1) / (_F32(global_step) + _F32(1)), _F32(alpha_max)))
 
 
 class EMATeacher:

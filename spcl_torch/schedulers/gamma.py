@@ -2,7 +2,9 @@
 
 - `PScheduler`: gamma(t) = begin + (end-begin) * (t/T)^p, the self-paced age
   schedule (reference semi_seg/hooks/infonce.py:34-53);
-- `RampScheduler`: the deepclustering2 sigmoid-style ramp, UC-MT's threshold.
+- `RampScheduler`: the deepclustering2 sigmoid-style ramp, UC-MT's threshold;
+- `LinearScheduler`, `ExpScheduler`, `InverseExpScheduler`: the rest of the
+  deepclustering2 scheduler family, each clamped at `max_epoch`.
 
 Their values enter the step as plain floats.
 """
@@ -71,3 +73,43 @@ class RampScheduler(_EpochScheduler):
         # sigmoid-style ramp (deepclustering2 convention)
         return self.min_value + (self.max_value - self.min_value) * float(
             np.exp(self.ramp_mult * (1.0 - frac) ** 2))
+
+
+class LinearScheduler(_EpochScheduler):
+    def __init__(self, max_epoch: int, begin_value: float, end_value: float):
+        super().__init__()
+        self.max_epoch = int(max_epoch)
+        self.begin_value = float(begin_value)
+        self.end_value = float(end_value)
+
+    def get_value(self, epoch: int) -> float:
+        frac = min(epoch / self.max_epoch, 1.0)
+        return self.begin_value + (self.end_value - self.begin_value) * frac
+
+
+class ExpScheduler(_EpochScheduler):
+    def __init__(self, max_epoch: int, begin_value: float, end_value: float, p: float = 5.0):
+        super().__init__()
+        self.max_epoch = int(max_epoch)
+        self.begin_value = float(begin_value)
+        self.end_value = float(end_value)
+        self.p = float(p)
+
+    def get_value(self, epoch: int) -> float:
+        frac = min(epoch / self.max_epoch, 1.0)
+        w = (np.exp(self.p * frac) - 1.0) / (np.exp(self.p) - 1.0)
+        return self.begin_value + (self.end_value - self.begin_value) * float(w)
+
+
+class InverseExpScheduler(_EpochScheduler):
+    def __init__(self, max_epoch: int, begin_value: float, end_value: float, p: float = 5.0):
+        super().__init__()
+        self.max_epoch = int(max_epoch)
+        self.begin_value = float(begin_value)
+        self.end_value = float(end_value)
+        self.p = float(p)
+
+    def get_value(self, epoch: int) -> float:
+        frac = min(epoch / self.max_epoch, 1.0)
+        w = 1.0 - (np.exp(self.p * (1 - frac)) - 1.0) / (np.exp(self.p) - 1.0)
+        return self.begin_value + (self.end_value - self.begin_value) * float(w)

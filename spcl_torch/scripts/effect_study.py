@@ -225,7 +225,7 @@ def run_arm(arm: str, seed: int, *, device="cuda", dtype="float32", out=None,
 def _train_arm(arm, seed, device, dtype, out) -> dict:
     """`run_arm`'s training; returns the record without its backends."""
     from spcl_torch.entry import build_trainer
-    from spcl_torch.meters.storage import flatten_dict
+    from spcl_torch.utils import flatten_dict
     from spcl_torch.utils import fix_all_seed
 
     spec = ARMS[arm]

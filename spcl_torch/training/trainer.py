@@ -24,7 +24,7 @@ The counterparts of `spcl_tpu/training/trainer.py`:
   the discriminator (`models/discriminator.py`) and its Adam (b1 0.5, b2
   0.999, lr 1e-4) made at `init()` and kept in the checkpoints.
 
-All share `_TrainerBase`: `init()` moves the UNet and the hooks' projectors
+All share `_TrainerBase` (exported as `Trainer`, spcl_tpu's name): `init()` moves the UNet and the hooks' projectors
 to the device, warm-starts from `Arch.checkpoint`, freezes the stages outside
 `set_trainable_stages` (no update, no weight decay), and builds the `Optim`
 block's optimizer (`training/optim.py`) over the trainable parameters and the
@@ -467,6 +467,9 @@ class _TrainerBase:
     def teacher(self) -> Optional[EMATeacher]:
         """The EMA teacher (semi trainer with a teacher hook), else None."""
         return self._teacher
+
+
+Trainer = _TrainerBase  # spcl_tpu's name of the base class
 
 
 class PretrainEncoderTrainer(_TrainerBase):

@@ -1,5 +1,7 @@
 """Host-side utilities: seeding, scalar-or-list broadcasting, yaml io, the
-git hash, logging.
+git hash, logging, and deepclustering2's small helpers (`path2Path`,
+`class_name`, `to_numpy`, `to_float`, `to_device`, `item2str`,
+`flatten_dict`, `ExceptionIgnorer`), as spcl_tpu's utils/utils.py has them.
 
 `fix_all_seed` pins python, numpy and torch. Randomness inside a training
 step comes from explicit `torch.Generator`s owned by the trainer, not from
@@ -65,6 +67,82 @@ def ntuple(n: int):
         return tuple(repeat(x, n))
 
     return parse
+
+
+def nlist(n: int):
+    """`ntuple` returning a list."""
+    f = ntuple(n)
+
+    def parse(x):
+        return list(f(x))
+
+    return parse
+
+
+# ----------------------------------------------------------------------------- misc
+def path2Path(path: PathLike) -> Path:
+    return path if isinstance(path, Path) else Path(path)
+
+
+def class_name(obj) -> str:
+    return obj.__class__.__name__
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (any device, with or without grad) or array-like -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_float(x) -> float:
+    """The first element of a tensor or array, or a scalar, as a float."""
+    x = to_numpy(x)
+    return float(x.reshape(-1)[0]) if x.ndim else float(x)
+
+
+def to_device(x, device="cuda"):
+    """Tensors, alone or in nested dicts, lists and tuples, moved with
+    `.to(device)`; other leaves are returned as they are."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, Mapping):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, device) for v in x)
+    return x
+
+
+def item2str(item: Mapping) -> str:
+    """dict -> 'k1:v1, k2:v2' (deepclustering2's progress-bar format)."""
+    return ", ".join(f"{k}:{v}" for k, v in item.items())
+
+
+def flatten_dict(d: Mapping, parent_key: str = "", sep: str = "/") -> Dict[str, Any]:
+    """A nested dict -> `{a/b/c: leaf}` (the storage columns and the
+    TensorBoard scalar tags)."""
+    items = {}
+    for k, v in d.items():
+        new_key = f"{parent_key}{sep}{k}" if parent_key else str(k)
+        if isinstance(v, Mapping):
+            items.update(flatten_dict(v, new_key, sep=sep))
+        else:
+            items[new_key] = v
+    return items
+
+
+class ExceptionIgnorer:
+    """A context manager that swallows the given exception types (all
+    `Exception`s when none are given)."""
+
+    def __init__(self, *exceptions):
+        self._exceptions = exceptions or (Exception,)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return exc_type is not None and issubclass(exc_type, self._exceptions)
 
 
 # ----------------------------------------------------------------------------- yaml io

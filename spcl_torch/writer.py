@@ -16,8 +16,7 @@ from typing import Dict
 
 import numpy as np
 
-from .meters.storage import flatten_dict
-from .utils.utils import get_logger
+from .utils.utils import flatten_dict, get_logger
 
 logger = get_logger("writer")
 _warned = False

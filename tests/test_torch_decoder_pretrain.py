@@ -115,7 +115,7 @@ def _dense_head_params(rng, c_in):
 
 
 def _port_head(jparams, c_in, spatial=(10, 10)):
-    head = DenseProjectionHead(c_in, spatial_size=spatial)
+    head = DenseProjectionHead(c_in, hidden_dim=256, spatial_size=spatial)
     head.load_state_dict({k: torch.from_numpy(v)
                           for k, v in head_state_dict_from_flax(jparams).items()}, strict=True)
     return head
