@@ -1001,6 +1001,11 @@ def stage_kernel_phase(cs, dtype=torch.float32):
         torch.cuda.empty_cache()
     if not bf16:
         finetune_poolsums(cs, gen, results)
+    print(f"poolsums plan{', bf16' if bf16 else ''}: " + " | ".join(
+        f"{n}, de {'present' if de else 'absent'} "
+        f"{cs.poolsums_plan(b, h, w, c, True, de, dtype)}" for n, b, h, w, c in
+        (("stage1", 60, 224, 224, 16), ("stage2", 60, 112, 112, 32)) + FINETUNE_SHAPES
+        for de in (True, False)), flush=True)
     print(f"stage_timings{'_bf16' if bf16 else ''} " + json.dumps(results), flush=True)
     torch.backends.cudnn.allow_tf32 = True
     return results
@@ -1063,11 +1068,6 @@ def finetune_poolsums(cs, gen, results):
         results["poolsums"]["max_abs_err"] = max(results["poolsums"]["max_abs_err"], err)
         results["poolsums"]["shapes"][shape_name] = _pool_entry(cs, "poolsums", inputs,
                                                                 (b, h, w, c), True, 20)
-    print("poolsums plan: " + " | ".join(
-        f"{n}, de {'present' if de else 'absent'} {cs.poolsums_plan(b, h, w, c, True, de)}"
-        for n, b, h, w, c in
-        (("stage1", 60, 224, 224, 16), ("stage2", 60, 112, 112, 32)) + FINETUNE_SHAPES
-        for de in (True, False)), flush=True)
 
 
 # ------------------------------------------------------------------ slice
@@ -1222,8 +1222,8 @@ def _time_finetune_and_eval(ft_config, ckpt, save_dir):
 # demangles them ("(anonymous namespace)::poolsums_kernel<16>(...)"), so that
 # PyTorch's at::native::reduce_kernel is none of them
 STAGE_KERNEL_NAMES = ("conv_fwd_kernel", "conv_bwd_kernel", "conv_fwd_bf16_kernel",
-                      "conv_bwd_bf16_kernel", "bnpool_kernel", "poolsums_kernel", "dz1_kernel",
-                      "convstage_reduce_kernel")
+                      "conv_bwd_bf16_kernel", "bnpool_kernel", "poolsums_kernel",
+                      "poolsums_bf16_kernel", "dz1_kernel", "convstage_reduce_kernel")
 STAGE_KERNEL_RE = re.compile(r"(?:^|[\s:])(%s)\b" % "|".join(STAGE_KERNEL_NAMES))
 # launches of convstage_reduce_kernel in one train step: one after each
 # forward convolution (conv, 2 x bnconv), two after each dwprev, one after

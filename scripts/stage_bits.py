@@ -14,11 +14,9 @@ in DIR (a directory holding a `spcl_torch/`, e.g. `git archive <commit>
 spcl_torch | tar -x -C DIR`) each run in their own process on the same
 inputs. The passes in SAME must agree bit for bit; the script exits 1 if one
 does not. They are those whose results the last kernel change left alone:
-the float32 conv, bnconv, bnpool, poolsums and dwprev, and the bf16 bnconv,
-bnpool, poolsums and dwprev (bnconv and dwprev now run in the templates of
-the bf16 conv and dwdx kernels; dz1 and dwdx in both dtypes form the
-BatchNorm backward in another order). The card's name and power limit are
-printed beside the result.
+every pass in both dtypes but the bf16 poolsums, whose kernel of its own
+(16-byte lanes of 8 channels) adds its terms in another order. The card's
+name and power limit are printed beside the result.
 """
 import argparse
 import hashlib
@@ -31,8 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("S1", 60, 224, 224, 16, 16, True), ("S2", 60, 112, 112, 16, 32, False),
           ("small", 3, 20, 36, 16, 32, False))
 PASSES = ("conv", "bnconv", "bnpool", "poolsums", "dz1", "dwprev", "dwdx")
-SAME = ("conv", "bnconv", "bnpool", "poolsums", "dwprev",
-        "bnconv_bf16", "bnpool_bf16", "poolsums_bf16", "dwprev_bf16")
+SAME = ("conv", "bnconv", "bnpool", "poolsums", "dz1", "dwprev", "dwdx",
+        "conv_bf16", "bnconv_bf16", "bnpool_bf16", "dz1_bf16", "dwprev_bf16", "dwdx_bf16")
 
 
 def _digest(out):

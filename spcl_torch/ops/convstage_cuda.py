@@ -119,8 +119,9 @@ def _load() -> ctypes.CDLL:
 
 def _check(tensors, *, pooled: bool = False):
     """Checks before pointers reach a kernel: contiguous [B, H, W, C] tensors
-    of one dtype (float32 or bfloat16) on one CUDA device with C in {16, 32}
-    (H, W even for the pool passes). Returns (B, H, W) of the first tensor."""
+    of one dtype (float32 or bfloat16) on one CUDA device, starting on a
+    16-byte boundary, with C in {16, 32} (H, W even for the pool passes).
+    Returns (B, H, W) of the first tensor."""
     first = tensors[0]
     for t in tensors:
         if (not t.is_cuda or t.device != first.device or t.dtype not in _DTYPES
@@ -129,6 +130,9 @@ def _check(tensors, *, pooled: bool = False):
                              "[B, H, W, C] tensors of one dtype on one CUDA device; got "
                              f"{t.dtype} {t.device} {tuple(t.shape)} "
                              f"contiguous={t.is_contiguous()}")
+        if t.data_ptr() % 16:
+            raise ValueError("convstage kernels load 16 bytes at a time: the tensors must "
+                             f"start on a 16-byte boundary, got {t.data_ptr():#x}")
         if t.shape[3] not in _CHANNELS:
             raise ValueError(f"convstage kernels are built for C in {_CHANNELS}, "
                              f"got C={t.shape[3]}")
@@ -464,15 +468,16 @@ def poolsums_plan(b: int, h: int, w: int, c: int, dp: bool, de: bool,
                   dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """The launch of convstage_poolsums at [b, h, w, c] with dp / de present
     or absent and activations of `dtype`, on the current card: clusters,
-    blocks a cluster, clusters resident at once, and the chunks (a pixel's 4
-    channels, two terms each) a float32 run holds before it is added to
-    float64."""
-    out = (ctypes.c_int * 4)()
+    blocks a cluster, clusters resident at once (the float32 and bfloat16
+    kernels differ), the chunks (a lane's channels of a row pair, two terms
+    a channel) a float32 run holds before it is added to float64, and the
+    channels a lane owns (4 in float32, 8 in bfloat16)."""
+    out = (ctypes.c_int * 5)()
     err = _load().convstage_poolsums_plan(b, h, w, c, int(dp), int(de),
                                           int(dtype == torch.bfloat16),
                                           ctypes.cast(out, ctypes.c_void_p))
     _build.raise_on(err, "convstage_poolsums_plan")
-    return dict(zip(("clusters", "cluster", "resident", "run"), out))
+    return dict(zip(("clusters", "cluster", "resident", "run", "lane_channels"), out))
 
 
 def poolsums_kernel(z1, coef, dp, de):

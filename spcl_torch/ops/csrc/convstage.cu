@@ -84,12 +84,13 @@
 // feeds the fragments. The same implicit GEMMs and the same flush structure
 // as the float32 kernels: dW per tile and d_in per (v, k chunk) added on the
 // CUDA cores. The byte-bound passes read and write 2-byte elements (8-byte
-// loads of 4 channels). What bounds the bf16 convolutions: their bytes
-// (2-byte activations, 0.02-0.09 ms at B=60) lie above their operations at
-// the bf16 tensor-core peak (989 TFLOP/s). By instruction count, not
-// profiled, the instructions around the MMAs (fragment loads, the tile
-// transforms, the epilogue's stores and sums) outweigh the MMAs on mma.sync
-// (PERF.md, open questions).
+// loads of 4 channels), except poolsums, whose bf16 kernel of its own
+// (poolsums_bf16_kernel) loads 16 bytes (8 channels) a lane. What bounds
+// the bf16 convolutions: their bytes (2-byte activations, 0.02-0.09 ms at
+// B=60) lie above their operations at the bf16 tensor-core peak (989
+// TFLOP/s). By instruction count, not profiled, the instructions around the
+// MMAs (fragment loads, the tile transforms, the epilogue's stores and sums)
+// outweigh the MMAs on mma.sync (PERF.md, open questions).
 //
 // Reductions across blocks. The TPU grid is sequential and carries its sums
 // in scratch; Hopper blocks run in no order. Chosen here: no atomics. Every
@@ -1481,9 +1482,11 @@ __device__ __forceinline__ void window_dy(const Window& wd, const E* __restrict_
 //     (16 terms a channel and sum), then adds that run to float64; every
 //     later sum is float64 in a fixed order: a shuffle butterfly over the
 //     lanes that share channels, the 8 warps in order, the 8 blocks of a
-//     cluster in block-rank order through distributed shared memory, and the
-//     clusters by a fixed tree (thread t adds clusters t / 2C, t / 2C + K,
-//     ... for sum t % 2C, K = 256 / 2C; then the K slots in order).
+//     cluster in block-rank order (each block stores its sums into the
+//     rank-0 block's shared memory through distributed shared memory; one
+//     cluster barrier), and the clusters by a fixed tree (thread t adds
+//     clusters t / 2C, t / 2C + K, ... for sum t % 2C, K = 256 / 2C; then
+//     the K slots in order).
 //   - One launch. The cluster's rank-0 block writes its cluster's partial,
 //     fences, and takes a ticket from a counter; the block that takes the
 //     last ticket adds every cluster's partial in the order above and sets
@@ -1497,8 +1500,115 @@ __device__ __forceinline__ void window_dy(const Window& wd, const E* __restrict_
 //     (cudaLaunchKernelEx, as supcon.cu) are captured in CUDA graphs like
 //     any kernel; here all blocks but one leave as soon as their cluster's
 //     partial is written.
+// poolsums_kernel is the float32 kernel; bfloat16 activations go to
+// poolsums_bf16_kernel (below), whose lanes own 8 channels. Both end in
+// poolsums_combine.
 constexpr int PS_CLUSTER = 8;  // blocks of a cluster (the portable most)
 constexpr int PS_RUN = 8;      // chunks a float32 run holds before it goes to float64
+
+// The cluster barrier in two halves (PTX barrier.cluster): the poolsums
+// kernels arrive at entry and wait before the first store into another
+// block's shared memory, which must have started by then; the wait costs
+// nothing after the stream.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The fixed-order combine of the poolsums kernels after their stream: each
+// thread holds the float64 sums of its V channels (d0: sum dy, d1: sum
+// dy*z; lane l holds channels (l % (C / V)) * V ..), added by the butterfly,
+// the warps, the cluster's blocks and the tree over clusters described
+// above; the ticket elects the block that adds the clusters. The butterfly
+// runs as a reduce-scatter: at each lane bit, a lane keeps half of its
+// values and adds its partner's of that half, so that it shuffles half as
+// many as the step before; each sum is added in the butterfly's pairs (and
+// a + b == b + a), to the same bits, with C / 16 values a lane left.
+template <int C, int V>
+__device__ __forceinline__ void poolsums_combine(double (&d0)[V], double (&d1)[V],
+                                                 double* __restrict__ cluster_part,
+                                                 unsigned int* __restrict__ ticket,
+                                                 double* __restrict__ sums) {
+  constexpr int L = C / V;         // lanes of one pixel
+  constexpr int S = 2 * C;         // the sums: [sum dy | sum dy*z] x C
+  constexpr int K = NT / S;        // slots of the final tree
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ double s_warp[NWARP][S];
+  __shared__ double s_gather[PS_CLUSTER][S];  // the lead's: each block's sums, by rank
+  __shared__ double s_tree[NT];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // lanes that share channels: the lane bits above L
+  double vals[2 * V];  // [sum dy | sum dy*z] of the lane's channels
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    vals[k] = d0[k];
+    vals[V + k] = d1[k];
+  }
+  int at = 0;          // vals[t] holds the lane's value at + t
+  constexpr int STEPS = L == 2 ? 4 : L == 4 ? 3 : 2;  // log2(32 / L) lane bits
+#pragma unroll
+  for (int step = 0; step < STEPS; ++step) {
+    const int off = 16 >> step, n = (2 * V) >> step;
+    const bool upper = lane & off;
+#pragma unroll
+    for (int t = 0; t < V; ++t) {  // a constant bound, so that vals stays in registers
+      if (t < n / 2) {
+        const double keep = upper ? vals[n / 2 + t] : vals[t],
+                     give = upper ? vals[t] : vals[n / 2 + t];
+        vals[t] = keep + __shfl_xor_sync(FULL, give, off);
+      }
+    }
+    at += upper ? n / 2 : 0;
+  }
+#pragma unroll
+  for (int t = 0; t < C / 16; ++t) {
+    const int j = at + t;
+    s_warp[warp][(j < V ? 0 : C - V) + (lane % L) * V + j] = vals[t];
+  }
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_wait();  // every block of the cluster has started (cluster_arrive at entry)
+  if (tid < S) {  // this block's sums, into the lead's shared memory
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) v += s_warp[w][tid];
+    cluster.map_shared_rank(&s_gather[0][0], 0)[cluster.block_rank() * S + tid] = v;
+  }
+  cluster.sync();  // the lead's gather is whole; the other blocks leave
+  if (cluster.block_rank() != 0) return;
+  const unsigned clusters = gridDim.x / PS_CLUSTER;
+  if (tid < S) {  // the cluster's partial, in block-rank order
+    double v = 0.0;
+#pragma unroll
+    for (int b = 0; b < PS_CLUSTER; ++b) v += s_gather[b][tid];
+    cluster_part[(size_t)(blockIdx.x / PS_CLUSTER) * S + tid] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket, 1u) == clusters - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  {
+    double v = 0.0;
+#pragma unroll 8
+    for (unsigned p = tid / S; p < clusters; p += K)  // loads ahead of the adds
+      v += __ldcg(cluster_part + (size_t)p * S + tid % S);
+    s_tree[tid] = v;
+  }
+  __syncthreads();
+  if (tid < S) {
+    double v = 0.0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v += s_tree[k * S + tid];
+    sums[tid] = v;
+  }
+  if (tid == 0) *ticket = 0u;
+}
 
 template <int C, bool DP, bool DE, class E>
 __global__ void __launch_bounds__(NT, 3)
@@ -1507,14 +1617,9 @@ poolsums_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
                 double* __restrict__ cluster_part, unsigned int* __restrict__ ticket,
                 double* __restrict__ sums, int B, int H, int W) {
   constexpr int C4 = C / 4;        // chunks of one pixel
-  constexpr int S = 2 * C;         // the sums: [sum dy | sum dy*z] x C
-  constexpr int K = NT / S;        // slots of the final tree
   constexpr unsigned FULL = 0xffffffffu;
   __shared__ double s_acc[8][NT];  // this thread's float64 sums of its runs
-  __shared__ double s_warp[NWARP][S];
-  __shared__ double s_block[S];
-  __shared__ double s_tree[NT];
-  __shared__ int s_last;
+  cluster_arrive();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c4 = lane % C4;                 // the grid stride keeps a thread's channels
@@ -1600,60 +1705,198 @@ poolsums_kernel(const E* __restrict__ z1, const float* __restrict__ coef,
     d0[k] = s_acc[k][tid] + (double)f0[k];
     d1[k] = s_acc[4 + k][tid] + (double)f1[k];
   }
-  // lanes that share channels: a butterfly over the lane bits above C4
+  poolsums_combine<C, 4>(d0, d1, cluster_part, ticket, sums);
+}
+
+// Two floats rounded to bf16 (to nearest even) with negatives clamped to 0;
+// hi in the upper half.
+__device__ __forceinline__ uint32_t relu_bf16x2(float hi, float lo) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the lane's coefficients (a pair) from shared memory, at each use: volatile,
+// so that they are not hoisted into 16 registers for the whole loop
+__device__ __forceinline__ float2 ld_shared2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"((unsigned)__cvta_generic_to_shared(p)));
+  return v;
+}
+
+// One chunk of poolsums_bf16_kernel (zc, ec: z1 and de of rows 0 and 1; gc:
+// dp) into the thread's float32 runs f0 (sum dy) and f1 (sum dy*z), a pair
+// of channels at a time; coef: the lane's 8 inv, then its 8 shift, in
+// shared memory. code0 / code1: 3 - the scan position of the lane's rows 0
+// and 1.
+template <int C, bool DP, bool DE>
+__device__ __forceinline__ void poolsums_bf16_chunk(const uint4 (&zc)[2], const uint4 (&ec)[2],
+                                                    uint4 gc, const float* coef,
+                                                    uint32_t code0, uint32_t code1,
+                                                    float (&f0)[8], float (&f1)[8]) {
+  const uint32_t zw[2][4] = {{zc[0].x, zc[0].y, zc[0].z, zc[0].w},
+                             {zc[1].x, zc[1].y, zc[1].z, zc[1].w}};
+  const uint32_t ew[2][4] = {{ec[0].x, ec[0].y, ec[0].z, ec[0].w},
+                             {ec[1].x, ec[1].y, ec[1].z, ec[1].w}};
+  const uint32_t gw[4] = {gc.x, gc.y, gc.z, gc.w};
 #pragma unroll
-  for (int off = 16; off >= C4; off >>= 1)
+  for (int j = 0; j < 4; ++j) {  // channels 2j (low halves) and 2j + 1 (high)
+    const float2 inv = ld_shared2(coef + 2 * j), sh = ld_shared2(coef + 8 + 2 * j);
+    float z[2][2], y[2][2], dy[2][2];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      d0[k] += __shfl_xor_sync(FULL, d0[k], off);
-      d1[k] += __shfl_xor_sync(FULL, d1[k], off);
+    for (int r = 0; r < 2; ++r) {
+      const float2 zf = bf2_to_f2(zw[r][j]);
+      z[r][0] = zf.x;
+      z[r][1] = zf.y;
+      y[r][0] = bn_apply(zf.x, inv.x, sh.x);
+      y[r][1] = bn_apply(zf.y, inv.y, sh.y);
+      const float2 ef = DE ? bf2_to_f2(ew[r][j]) : make_float2(0.f, 0.f);
+      dy[r][0] = ef.x;
+      dy[r][1] = ef.y;
     }
-  if (lane < C4) {
+    if (DP) {
+      const float2 g = bf2_to_f2(gw[j]);
+      const uint32_t w0 = relu_bf16x2(y[0][1], y[0][0]) & 0x7fff7fffu;
+      const uint32_t w1 = relu_bf16x2(y[1][1], y[1][0]) & 0x7fff7fffu;
+      const uint32_t k0[2] = {w0 << 16 | code0, (w0 & 0xffff0000u) | code0};
+      const uint32_t k1[2] = {w1 << 16 | code1, (w1 & 0xffff0000u) | code1};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s_warp[warp][lane * 4 + k] = d0[k];
-      s_warp[warp][C + lane * 4 + k] = d1[k];
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t mine = max(k0[h], k1[h]);
+        const uint32_t m = max(mine, __shfl_xor_sync(0xffffffffu, mine, C / 8));
+        const float gh = h ? g.y : g.x;
+        if (k0[h] == m) dy[0][h] += gh;
+        if (k1[h] == m) dy[1][h] += gh;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (y[r][h] >= 0.f) {
+          f0[2 * j + h] += dy[r][h];
+          f1[2 * j + h] = fmaf(dy[r][h], z[r][h], f1[2 * j + h]);
+        }
+  }
+}
+
+// poolsums_bf16_kernel: the same sums from bfloat16 z1, dp and de, with a
+// lane layout of its own. Made as poolsums_kernel<bf16>, a lane loaded 8
+// bytes (4 channels) a chunk: half a float32 lane's bytes for the same index
+// division, shuffles and float64 spills, so its time followed the elements,
+// not the bytes (93% of float32's time for half the bytes, 42-45% of its
+// byte bound without de). Here:
+//   - Sixteen-byte lanes. A lane owns one uint4 (8 channels) of the upper
+//     row of a row pair and the uint4 below it; C/8 lanes make a pixel, the
+//     window's other column is lane l ^ C/8, and the window's dp is one
+//     uint4 that both lanes of the pair load in one request. A warp load is
+//     512 contiguous bytes, as in float32.
+//   - Loads ahead, registers kept. Without de (the pretrain path) a thread
+//     issues the loads of its next chunk (i + stride) before it computes
+//     chunk i; with de the chunk's own loads are the ones in flight (a
+//     prefetch would take 20 more registers than the 80 of three blocks an
+//     SM, and spill). A chunk is computed two channels at a time, and the
+//     lane's BN coefficients are read from shared memory at each use, not
+//     held in 16 registers. The place of a chunk in its pixel row is kept by
+//     increments of the stride (one division before the loop), and the upper
+//     row's chunk is q = 2i - that place.
+//   - Routing by keys. An element's key is its rounded e = relu(y) (bf16
+//     bits, two at a time by cvt.rn.relu.bf16x2, the sign bit cleared so
+//     that -0 is 0) above 3 - its scan position: the four keys of a window
+//     differ, and the largest is its first maximum in scan order. The larger
+//     of the lane's two keys goes to the partner in one shuffle a channel;
+//     an element whose key is the window's takes dp.
+//   - Order. As float32: a thread adds its chunks i, i + stride, ... in
+//     turn (row 0, then row 1, a channel), in float32 runs of PS_RUN chunks
+//     (16 terms a channel-sum), each run then added to float64; the loads
+//     ahead change no order. Its 16 float64 sums live in shared memory
+//     (s_acc[16][NT], 32 KB a block), not in registers, as in float32.
+//   - Residency. 72-80 registers a thread and 39-43 KB of shared memory a
+//     block: three blocks an SM, 45 clusters of 8 resident on an H100 with
+//     de and without (the float32 kernel without de: 62). Capped at 64
+//     registers for four blocks an SM (62 clusters), it was slower.
+//   - The combine is poolsums_combine with V = 8, on the same cluster grid.
+template <int C, bool DP, bool DE>
+__global__ void __launch_bounds__(NT, 3)
+poolsums_bf16_kernel(const bf16* __restrict__ z1, const float* __restrict__ coef,
+                     const bf16* __restrict__ dp, const bf16* __restrict__ de,
+                     double* __restrict__ cluster_part, unsigned int* __restrict__ ticket,
+                     double* __restrict__ sums, int B, int H, int W) {
+  constexpr int C8 = C / 8;         // chunks of one pixel
+  constexpr bool PREFETCH = !DE;    // the next chunk's loads ahead (see above)
+  __shared__ double s_acc[16][NT];  // this thread's float64 sums of its runs
+  __shared__ __align__(16) float s_coef[C8][16];  // a lane group's 8 inv, then 8 shift
+  cluster_arrive();
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c8 = lane % C8;                 // the grid stride keeps a thread's channels
+  const bool right = (lane / C8) & 1;       // column 1 of its window (W is even)
+  const uint32_t code0 = right ? 2u : 3u, code1 = right ? 0u : 1u;
+  const unsigned wc8 = (unsigned)W * C8;    // chunks of one pixel row
+  const unsigned total = (unsigned)B * (unsigned)(H / 2) * wc8;
+  const unsigned stride = gridDim.x * NT, step = stride % wc8;
+  const uint4* zq = reinterpret_cast<const uint4*>(z1);
+  const uint4* eq = reinterpret_cast<const uint4*>(de);
+  const uint4* gq = reinterpret_cast<const uint4*>(dp);
+  unsigned base = blockIdx.x * NT + (tid - lane);
+  unsigned rem = (base + lane) % wc8;       // chunk i's place in its pixel row
+  // pairs are whole (total is a multiple of 2 * C8): a lane and its partner
+  // are live together; dead lanes hold zeros and still shuffle
+  auto load = [&](unsigned i, uint4 (&zc)[2], uint4 (&ec)[2], uint4& gc) {
+    zc[0] = zc[1] = ec[0] = ec[1] = gc = make_uint4(0u, 0u, 0u, 0u);
+    if (i < total) {
+      const unsigned q = 2 * i - rem;       // upper chunk: i + (row pair) * wc8
+      zc[0] = __ldcs(zq + q);
+      zc[1] = __ldcs(zq + q + wc8);
+      if (DE) {
+        ec[0] = __ldcs(eq + q);
+        ec[1] = __ldcs(eq + q + wc8);
+      }
+      if (DP) gc = __ldg(gq + (i / (2 * C8)) * C8 + c8);
+    }
+    rem += step;
+    if (rem >= wc8) rem -= wc8;
+  };
+  uint4 zc[2], ec[2], gc;
+  load(base + lane, zc, ec, gc);  // in flight while the block stages its coefficients
+  if (tid < 2 * C) s_coef[(tid % C) / 8][(tid / C) * 8 + tid % 8] = coef[tid];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s_acc[j][tid] = 0.0;
+  __syncthreads();
+
+  float f0[8], f1[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f0[k] = f1[k] = 0.f;
+  int run = 0;
+  for (; base < total; base += stride) {
+    uint4 zn[2], en[2], gn;
+    if (PREFETCH) load(base + stride + lane, zn, en, gn);  // in flight while chunk i computes
+    poolsums_bf16_chunk<C, DP, DE>(zc, ec, gc, s_coef[c8], code0, code1, f0, f1);
+    if (++run == PS_RUN) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s_acc[k][tid] += (double)f0[k];
+        s_acc[8 + k][tid] += (double)f1[k];
+        f0[k] = f1[k] = 0.f;
+      }
+      run = 0;
+    }
+    if (PREFETCH) {
+      zc[0] = zn[0];
+      zc[1] = zn[1];
+      gc = gn;
+    } else {
+      load(base + stride + lane, zc, ec, gc);
     }
   }
-  __syncthreads();
-  if (tid < S) {
-    double v = 0.0;
+  double d0[8], d1[8];
 #pragma unroll
-    for (int w = 0; w < NWARP; ++w) v += s_warp[w][tid];
-    s_block[tid] = v;
+  for (int k = 0; k < 8; ++k) {
+    d0[k] = s_acc[k][tid] + (double)f0[k];
+    d1[k] = s_acc[8 + k][tid] + (double)f1[k];
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const bool lead = cluster.block_rank() == 0;
-  const unsigned clusters = gridDim.x / PS_CLUSTER;
-  if (lead && tid < S) {  // the cluster's partial, in block-rank order
-    double v = 0.0;
-#pragma unroll
-    for (int b = 0; b < PS_CLUSTER; ++b) v += cluster.map_shared_rank(s_block, b)[tid];
-    cluster_part[(size_t)(blockIdx.x / PS_CLUSTER) * S + tid] = v;
-    __threadfence();
-  }
-  cluster.sync();  // no block leaves while the lead reads its partial
-  if (!lead) return;
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(ticket, 1u) == clusters - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  {
-    double v = 0.0;
-    for (unsigned p = tid / S; p < clusters; p += K)
-      v += __ldcg(cluster_part + (size_t)p * S + tid % S);
-    s_tree[tid] = v;
-  }
-  __syncthreads();
-  if (tid < S) {
-    double v = 0.0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) v += s_tree[k * S + tid];
-    sums[tid] = v;
-  }
-  if (tid == 0) *ticket = 0u;
+  poolsums_combine<C, 8>(d0, d1, cluster_part, ticket, sums);
 }
 
 template <class E>
@@ -1822,6 +2065,17 @@ int grid_for_windows(int B, int H, int W, int C, int max_blocks) {
   return (int)(blocks < max_blocks ? blocks : max_blocks);
 }
 
+// The poolsums kernel of a variant: float32 or bfloat16 activations.
+template <int C, bool DP, bool DE, class E>
+constexpr auto poolsums_fn() {
+  if constexpr (is_bf16<E>) return poolsums_bf16_kernel<C, DP, DE>;
+  else return poolsums_kernel<C, DP, DE, E>;
+}
+
+// channels a lane of the poolsums kernel owns
+template <class E>
+constexpr int PS_LANE_CHANNELS = is_bf16<E> ? 8 : 4;
+
 // poolsums: clusters of PS_CLUSTER blocks the card holds at once, per
 // kernel variant, found once per process.
 template <int C, bool DP, bool DE, class E>
@@ -1839,7 +2093,7 @@ cudaError_t poolsums_resident(int* clusters) {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int n = 0;
-    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, poolsums_kernel<C, DP, DE, E>, &cfg);
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, poolsums_fn<C, DP, DE, E>(), &cfg);
     if (err != cudaSuccess) return err;
     if (n <= 0) return cudaErrorInvalidConfiguration;
     resident = n;
@@ -1875,7 +2129,7 @@ cudaError_t poolsums_clusters(int B, int H, int W, int C, bool dp, bool de, int*
   PoolsumsResident<E> fn{resident};
   cudaError_t err = poolsums_variant(C, dp, de, fn);
   if (err != cudaSuccess) return err;
-  const long chunks = (long)B * (H / 2) * W * (C / 4);
+  const long chunks = (long)B * (H / 2) * W * (C / PS_LANE_CHANNELS<E>);
   const long per_cluster = (long)PS_CLUSTER * NT;
   const long need = (chunks + per_cluster - 1) / per_cluster;
   if (chunks + (long)*resident * per_cluster >= (1L << 31)) return cudaErrorInvalidValue;
@@ -1906,7 +2160,7 @@ struct PoolsumsLaunch {
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, poolsums_kernel<C, DP, DE, E>, z1, coef, dp, de,
+    cudaError_t err = cudaLaunchKernelEx(&cfg, poolsums_fn<C, DP, DE, E>(), z1, coef, dp, de,
                                          cluster_part, ticket, sums, B, H, W);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
@@ -1918,8 +2172,8 @@ int poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int* out) 
   int clusters = 0, resident = 0;
   cudaError_t err = poolsums_clusters<E>(B, H, W, c, has_dp, has_de, &clusters, &resident);
   if (err != cudaSuccess) return (int)err;
-  const int v[4] = {clusters, PS_CLUSTER, resident, PS_RUN};
-  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  const int v[5] = {clusters, PS_CLUSTER, resident, PS_RUN, PS_LANE_CHANNELS<E>};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -2054,7 +2308,8 @@ int convstage_bnpool(const void* z1, const float* coef, void* e, void* p, int B,
 
 // The launch plan of convstage_poolsums at this shape, with dp and de
 // present (1) or absent (0): out = {clusters, blocks a cluster, clusters
-// resident at once, chunks a float32 run holds}. Returns a cudaError_t.
+// resident at once, chunks a float32 run holds, channels a lane owns}.
+// Returns a cudaError_t.
 int convstage_poolsums_plan(int B, int H, int W, int c, int has_dp, int has_de, int bf,
                             int* out) {
   return bf ? poolsums_plan<bf16>(B, H, W, c, has_dp, has_de, out)

@@ -517,48 +517,63 @@ def test_stage_kernels_reject_malformed_operands(cuda):
 
 
 # ------------------------------------------------------------------ poolsums in one launch
-def _pool_inputs(b, h, w, c, seed):
+def _pool_inputs(b, h, w, c, seed, dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
     coef = torch.stack([1 + 0.1 * rn(c), 0.1 * rn(c)]).contiguous()
-    return rn(b, h, w, c), coef, rn(b, h // 2, w // 2, c), rn(b, h, w, c)
+    return (rn(b, h, w, c).to(dtype), coef, rn(b, h // 2, w // 2, c).to(dtype),
+            rn(b, h, w, c).to(dtype))
 
 
 POOL_SHAPES = [(60, 224, 224, 16), (60, 112, 112, 32), (5, 224, 224, 16), (5, 112, 112, 32),
-               (3, 20, 36, 16), (3, 20, 36, 32)]
+               (3, 20, 36, 16), (3, 20, 36, 32),
+               # C32 rows of 26 pixels: 104 bf16 lanes (3.25 warps), 208 float32 lanes;
+               # the last warp of the grid half live
+               (2, 18, 26, 32)]
+POOL_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                      ids=["float32", "bfloat16"])
+# the kernel by the profiler's name, and its launch counter, for each dtype
+POOL_KERNEL = {torch.float32: ("poolsums_kernel", cs.LAUNCHES, "convstage_poolsums"),
+               torch.bfloat16: ("poolsums_bf16_kernel", cs.LAUNCHES_BF16,
+                                "convstage_poolsums_bf16")}
 
 
+@POOL_DTYPES
 @pytest.mark.parametrize("cotangents", ["dp and de", "de absent", "dp absent"])
 @pytest.mark.parametrize("b,h,w,c", POOL_SHAPES)
-def test_poolsums_kernel_matches_plain(cuda, b, h, w, c, cotangents):
-    """The main path's stage shapes (B=60 pretrain, B=5 fine-tune) and a small
-    odd batch whose rows are no multiple of a warp, within the stage
-    tolerance; one launch a call; two runs give the same bits."""
-    z1, coef, dp, de = _pool_inputs(b, h, w, c, seed=b + h + c)
+def test_poolsums_kernel_matches_plain(cuda, b, h, w, c, cotangents, dtype):
+    """The main path's stage shapes (B=60 pretrain, B=5 fine-tune) and small
+    odd batches whose rows are no multiple of a warp, within the stage
+    tolerance (the sums are float64 in both dtypes: 2e-4 x max|plain|); one
+    launch a call; two runs give the same bits."""
+    z1, coef, dp, de = _pool_inputs(b, h, w, c, seed=b + h + c, dtype=dtype)
     dp = None if cotangents == "dp absent" else dp
     de = None if cotangents == "de absent" else de
-    before = cs.LAUNCHES["convstage_poolsums"]
+    _, counts, key = POOL_KERNEL[dtype]
+    before = counts[key]
     got = cs.poolsums_kernel(z1, coef, dp, de)
-    assert cs.LAUNCHES["convstage_poolsums"] == before + 1
-    _assert_stage_close((got,), (cs.poolsums_plain(z1, coef, dp, de),))
+    assert counts[key] == before + 1
+    _assert_stage_close((got,), (cs.poolsums_plain(z1, coef, dp, de),), chained=False)
     assert torch.equal(got, cs.poolsums_kernel(z1, coef, dp, de))
 
 
-def test_poolsums_back_to_back_calls_equal_the_first(cuda):
+@POOL_DTYPES
+def test_poolsums_back_to_back_calls_equal_the_first(cuda, dtype):
     """The arrival counter is zero again after every launch: 100 calls in a
     row on one stream give the first call's bits."""
-    z1, coef, dp, de = _pool_inputs(60, 112, 112, 32, seed=3)
+    z1, coef, dp, de = _pool_inputs(60, 112, 112, 32, seed=3, dtype=dtype)
     first = cs.poolsums_kernel(z1, coef, dp, de)
     outs = [cs.poolsums_kernel(z1, coef, dp, de) for _ in range(100)]
     assert all(torch.equal(first, o) for o in outs)
     assert int(cs._ticket(z1.device).item()) == 0
 
 
-def test_poolsums_graph_replays_equal_the_eager_call(cuda):
-    z1, coef, dp, de = _pool_inputs(5, 224, 224, 16, seed=4)
+@POOL_DTYPES
+def test_poolsums_graph_replays_equal_the_eager_call(cuda, dtype):
+    z1, coef, dp, de = _pool_inputs(5, 224, 224, 16, seed=4, dtype=dtype)
     eager = cs.poolsums_kernel(z1, coef, dp, None)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -575,18 +590,20 @@ def test_poolsums_graph_replays_equal_the_eager_call(cuda):
     assert torch.equal(cs.poolsums_kernel(z1, coef, dp, None), eager)
 
 
-def test_poolsums_is_one_kernel_launch(cuda):
-    """No second pass: the profiler sees one kernel for one call."""
+@POOL_DTYPES
+def test_poolsums_is_one_kernel_launch(cuda, dtype):
+    """No second pass: the profiler sees one kernel for one call, the
+    dtype's own (float32: poolsums_kernel; bfloat16: poolsums_bf16_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    z1, coef, dp, de = _pool_inputs(3, 20, 36, 32, seed=5)
+    z1, coef, dp, de = _pool_inputs(3, 20, 36, 32, seed=5, dtype=dtype)
     cs.poolsums_kernel(z1, coef, dp, de)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         cs.poolsums_kernel(z1, coef, dp, de)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 1 and "poolsums_kernel" in names[0], names
+    assert len(names) == 1 and f"{POOL_KERNEL[dtype][0]}<" in names[0], names
 
 
 def test_poolsums_rejects_malformed_operands(cuda):
