@@ -56,6 +56,7 @@ import torch
 from torch import nn
 
 from ..parallel import mesh
+from ..utils.profiling import span
 
 
 def global_rows(ctx: Dict, n_local: int) -> Tuple[int, int]:
@@ -114,7 +115,13 @@ class TrainerHook:
         return {}
 
     def on_epoch_end(self) -> None:
-        pass
+        """The end of an epoch: `step_schedulers` in the span
+        `spcl.epoch.schedule`."""
+        with span("spcl.epoch.schedule"):
+            self.step_schedulers()
+
+    def step_schedulers(self) -> None:
+        """Step the hook's per-epoch schedulers (a subclass's override)."""
 
     # -- per-step -------------------------------------------------------------
     def sample(self, generator: Optional[torch.Generator], ctx: Dict) -> Optional[Dict]:

@@ -184,7 +184,7 @@ class SelfPacedINFONCEHook(INFONCEHook):
         # reference :133-136: gamma read then scheduler stepped each epoch
         return {"gamma": float(self.scheduler.get_value(epoch))}
 
-    def on_epoch_end(self) -> None:
+    def step_schedulers(self) -> None:
         self.scheduler.step()
 
     def _criterion(self, z1, z2, target, valid, scalars):

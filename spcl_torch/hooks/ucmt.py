@@ -40,7 +40,7 @@ class UCMeanTeacherTrainerHook(TrainerHook):
     def epoch_scalars(self, epoch: int):
         return {"threshold": float(self.threshold.get_value(epoch))}
 
-    def on_epoch_end(self):
+    def step_schedulers(self):
         self.threshold.step()
 
     def sample(self, generator, ctx):

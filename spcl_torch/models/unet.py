@@ -52,6 +52,7 @@ from torch import nn
 from .norm import batch_norm
 from .packed_layout import packed_conv
 from ..experimental.packed_stage import packable, run_conv_stage
+from ..utils.profiling import span
 
 ENCODER_NAMES: Tuple[str, ...] = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5")
 DECODER_NAMES: Tuple[str, ...] = ("Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3",
@@ -201,65 +202,83 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, until: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Run the net on NCHW `x`, returning `{stage: activation}` for every
         computed stage; stops after `until`. The final logits live under both
-        "Deconv_1x1" and "logits"."""
+        "Deconv_1x1" and "logits".
+
+        Each stage runs in the span `spcl.unet.<stage>` (`utils/profiling.py`:
+        open only while the torch profiler runs). Conv1's and Conv2's spans
+        cover the 2x2 pool after them, which the fused path computes inside
+        its stage; Conv4's and Conv5's the pool before them; a decoder
+        stage's its upsampling block and the concatenation before it."""
         stages_up_to(until)  # validates `until`
         x = x.to(self.dtype)
         acts: Dict[str, torch.Tensor] = {}
         if self._use_fused_stages(x):
             # channels-last inside the two stages; `acts` holds NCHW views
-            p1, e1 = run_conv_stage(self._Conv1, x, first_conv_plain=True)
-            e1 = e1.permute(0, 3, 1, 2)
-            acts["Conv1"] = e1
-            if until == "Conv1":
-                return acts
-            p2, e2 = run_conv_stage(self._Conv2, p1)
-            e2 = e2.permute(0, 3, 1, 2)
-            acts["Conv2"] = e2
-            if until == "Conv2":
-                return acts
-            p2 = p2.permute(0, 3, 1, 2)
+            with span("spcl.unet.Conv1"):
+                p1, e1 = run_conv_stage(self._Conv1, x, first_conv_plain=True)
+                e1 = e1.permute(0, 3, 1, 2)
+                acts["Conv1"] = e1
+                if until == "Conv1":
+                    return acts
+            with span("spcl.unet.Conv2"):
+                p2, e2 = run_conv_stage(self._Conv2, p1)
+                e2 = e2.permute(0, 3, 1, 2)
+                acts["Conv2"] = e2
+                if until == "Conv2":
+                    return acts
+                p2 = p2.permute(0, 3, 1, 2)
         else:
             packed = self.small_c_layout == "packed" and self._packable(x)
-            e1 = self._Conv1.packed(x, first=True) if packed else self._Conv1(x)
-            acts["Conv1"] = e1
-            if until == "Conv1":
+            with span("spcl.unet.Conv1"):
+                e1 = self._Conv1.packed(x, first=True) if packed else self._Conv1(x)
+                acts["Conv1"] = e1
+                if until == "Conv1":
+                    return acts
+                p1 = self._pool(e1)
+            with span("spcl.unet.Conv2"):
+                e2 = self._Conv2.packed(p1) if packed else self._Conv2(p1)
+                acts["Conv2"] = e2
+                if until == "Conv2":
+                    return acts
+                p2 = self._pool(e2)
+        with span("spcl.unet.Conv3"):
+            e3 = self._Conv3(p2)
+            acts["Conv3"] = e3
+            if until == "Conv3":
                 return acts
-            p1 = self._pool(e1)
-            e2 = self._Conv2.packed(p1) if packed else self._Conv2(p1)
-            acts["Conv2"] = e2
-            if until == "Conv2":
+        with span("spcl.unet.Conv4"):
+            e4 = self._Conv4(self._pool(e3))
+            acts["Conv4"] = e4
+            if until == "Conv4":
                 return acts
-            p2 = self._pool(e2)
-        e3 = self._Conv3(p2)
-        acts["Conv3"] = e3
-        if until == "Conv3":
-            return acts
-        e4 = self._Conv4(self._pool(e3))
-        acts["Conv4"] = e4
-        if until == "Conv4":
-            return acts
-        e5 = self._Conv5(self._pool(e4))
-        acts["Conv5"] = e5
-        if until == "Conv5":
-            return acts
+        with span("spcl.unet.Conv5"):
+            e5 = self._Conv5(self._pool(e4))
+            acts["Conv5"] = e5
+            if until == "Conv5":
+                return acts
 
-        d5 = self._Up_conv5(torch.cat([e4, self._Up5(e5)], dim=1))
-        acts["Up_conv5"] = d5
-        if until == "Up_conv5":
-            return acts
-        d4 = self._Up_conv4(torch.cat([e3, self._Up4(d5)], dim=1))
-        acts["Up_conv4"] = d4
-        if until == "Up_conv4":
-            return acts
-        d3 = self._Up_conv3(torch.cat([e2, self._Up3(d4)], dim=1))
-        acts["Up_conv3"] = d3
-        if until == "Up_conv3":
-            return acts
-        d2 = self._Up_conv2(torch.cat([e1, self._Up2(d3)], dim=1))
-        acts["Up_conv2"] = d2
-        if until == "Up_conv2":
-            return acts
-        logits = self._Deconv_1x1(d2).float()
+        with span("spcl.unet.Up_conv5"):
+            d5 = self._Up_conv5(torch.cat([e4, self._Up5(e5)], dim=1))
+            acts["Up_conv5"] = d5
+            if until == "Up_conv5":
+                return acts
+        with span("spcl.unet.Up_conv4"):
+            d4 = self._Up_conv4(torch.cat([e3, self._Up4(d5)], dim=1))
+            acts["Up_conv4"] = d4
+            if until == "Up_conv4":
+                return acts
+        with span("spcl.unet.Up_conv3"):
+            d3 = self._Up_conv3(torch.cat([e2, self._Up3(d4)], dim=1))
+            acts["Up_conv3"] = d3
+            if until == "Up_conv3":
+                return acts
+        with span("spcl.unet.Up_conv2"):
+            d2 = self._Up_conv2(torch.cat([e1, self._Up2(d3)], dim=1))
+            acts["Up_conv2"] = d2
+            if until == "Up_conv2":
+                return acts
+        with span("spcl.unet.Deconv_1x1"):
+            logits = self._Deconv_1x1(d2).float()
         acts["Deconv_1x1"] = logits
         acts["logits"] = logits
         return acts

@@ -15,7 +15,8 @@ spcl_tpu's `_device_val_score`, `_update_best` and the end-of-run drain
   schedulers, generator and sampler states, learning rates) is copied on the
   host every epoch, and the drain picks the best epoch's copy.
 - `drain`: one device -> host copy per leaf of a list of equally shaped
-  metric trees (one per epoch), stacked on the device first.
+  metric trees (one per epoch), stacked on the device first, in the span
+  `spcl.epoch.drain`.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 Path_ = Tuple
 
@@ -126,12 +129,13 @@ def drain(trees: List) -> List:
     leaf stacked over the trees on the device and copied once."""
     if not trees:
         return []
-    flat = [dict(_leaves(t)) for t in trees]
-    host = {}
-    for p in flat[0]:
-        leaves = [f[p] for f in flat]
-        if torch.is_tensor(leaves[0]):
-            host[p] = torch.stack([t.detach() for t in leaves]).cpu().numpy()
-        else:  # already on the host
-            host[p] = leaves
-    return [_map(trees[0], lambda p, _: host[p][e]) for e in range(len(trees))]
+    with span("spcl.epoch.drain"):
+        flat = [dict(_leaves(t)) for t in trees]
+        host = {}
+        for p in flat[0]:
+            leaves = [f[p] for f in flat]
+            if torch.is_tensor(leaves[0]):
+                host[p] = torch.stack([t.detach() for t in leaves]).cpu().numpy()
+            else:  # already on the host
+                host[p] = leaves
+        return [_map(trees[0], lambda p, _: host[p][e]) for e in range(len(trees))]

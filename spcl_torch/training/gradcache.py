@@ -41,6 +41,15 @@ artefact of its own autodiff and has no counterpart here). The running
 statistics are averaged over ranks at the end of the step, as spcl_tpu's
 `pmean` does.
 
+Spans (`utils/profiling.py::span`, open only while the torch profiler
+runs), inside the step's `spcl.step`: `spcl.step.input` (the draws and the
+store's gather), `spcl.gradcache.pass_a` around pass A, then
+`spcl.step.loss` and `spcl.step.backward` (dL/dz), and in pass B each
+chunk's `spcl.step.input`, `spcl.step.forward` and `spcl.step.backward`;
+`spcl.step.optimizer` ends the step. Pass A holds each chunk's
+`spcl.step.input` and `spcl.step.forward` (the projection heads included)
+too, so the forward's spans cover both passes.
+
 The step carries two test oracles, as spcl_tpu's does:
 `direct_value_and_grad` (ordinary autograd through pass A and the loss,
 every chunk's activations kept) and `cached_value_and_grad` (the two
@@ -55,13 +64,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from .steps import _as_float_image, _reduce_gradients, _resolve_batch, _rows, \
-    draw_pretrain_params
+    _spanned_step, draw_pretrain_params
 from ..data.augment import AugmentPolicy, apply_flip, augment_twice
 from ..data.device_store import DeviceStore
 from ..hooks.base import TrainerHook, label_from_contrast_on
 from ..models.norm import rank_local_statistics
 from ..models.unet import ENCODER_NAMES, UNet
 from ..parallel import mesh
+from ..utils.profiling import span
 
 
 def _check_hooks(hooks: Sequence[TrainerHook]) -> None:
@@ -151,18 +161,22 @@ def build_gradcache_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         """Chunk c: two views, view 2 flipped, partial forward, each hook's
         (z1_c, z2_c). Deterministic in (batch, params, c)."""
         m = n // num_chunks
-        bc, pc = _cut((batch, params), n, c * m, (c + 1) * m)
-        (v1, _), (v2, _) = augment_twice(_as_float_image(bc["image"]), None, policy, pc["aug"])
-        v2 = apply_flip(v2, pc["flip"])
-        acts = model(torch.cat([v1, v2], dim=0), until=until)
-        ctx = {"acts": acts, "n_unl": m, "flip": pc["flip"]}
-        return {h.name: h._projected_views(ctx) for h in hooks}
+        with span("spcl.step.input"):
+            bc, pc = _cut((batch, params), n, c * m, (c + 1) * m)
+            (v1, _), (v2, _) = augment_twice(_as_float_image(bc["image"]), None, policy,
+                                             pc["aug"])
+            v2 = apply_flip(v2, pc["flip"])
+        with span("spcl.step.forward"):
+            acts = model(torch.cat([v1, v2], dim=0), until=until)
+            ctx = {"acts": acts, "n_unl": m, "flip": pc["flip"]}
+            return {h.name: h._projected_views(ctx) for h in hooks}
 
     def embed(batch, params, n):
         """Every chunk in turn: the hooks' (z1, z2) over the rank's rows."""
         chunks = [encode(batch, params, n, c) for c in range(num_chunks)]
-        return {h.name: tuple(torch.cat([z[h.name][i] for z in chunks], dim=0)
-                              for i in (0, 1)) for h in hooks}
+        with span("spcl.step.forward"):
+            return {h.name: tuple(torch.cat([z[h.name][i] for z in chunks], dim=0)
+                                  for i in (0, 1)) for h in hooks}
 
     def loss_on_z(zs, batch, hook_scalars):
         """Everything downstream of the embeddings: the monolithic step's
@@ -177,33 +191,48 @@ def build_gradcache_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
             metrics[h.name] = {k: v.detach() if torch.is_tensor(v) else v for k, v in m.items()}
         return total, metrics
 
-    def close(loss, metrics):
-        """Gradients summed and running statistics averaged over ranks."""
-        _reduce_gradients(optimizer)
-        _average_running_statistics(model)
+    def close(loss, metrics, update=False):
+        """Gradients summed and running statistics averaged over ranks; with
+        `update`, the optimizer's step."""
+        with span("spcl.step.optimizer"):
+            _reduce_gradients(optimizer)
+            _average_running_statistics(model)
+            if update:
+                optimizer.step()
         return {"reg_loss": loss.detach(), "hooks": metrics}
 
-    def cached(batch, generator, hook_scalars, params=None):
-        batch, params, n = prepare(batch, generator, params)
+    def two_passes(batch, generator, hook_scalars, params=None):
+        """Pass A, the loss on the cached embeddings and pass B: (loss,
+        metrics), the gradients in the parameters. `close` and the
+        optimizer's step run after this frame has returned: the passes'
+        tensors are freed before them."""
+        with span("spcl.step.input"):
+            batch, params, n = prepare(batch, generator, params)
         model.train()
         with rank_local_statistics(model):
-            with torch.no_grad():
+            with torch.no_grad(), span("spcl.gradcache.pass_a"):
                 zs = embed(batch, params, n)
-            after_pass_a = _buffers(model)
-            leaves = {k: tuple(z.detach().requires_grad_(True) for z in pair)
-                      for k, pair in zs.items()}
-            loss, metrics = loss_on_z(leaves, batch, hook_scalars)
-            flat = [z for pair in leaves.values() for z in pair]
-            dz = torch.autograd.grad(loss, flat, allow_unused=True)
-            dz = [torch.zeros_like(z) if d is None else d for z, d in zip(flat, dz)]
-            optimizer.zero_grad(set_to_none=True)
+                after_pass_a = _buffers(model)
+            with span("spcl.step.loss"):
+                leaves = {k: tuple(z.detach().requires_grad_(True) for z in pair)
+                          for k, pair in zs.items()}
+                loss, metrics = loss_on_z(leaves, batch, hook_scalars)
+            with span("spcl.step.backward"):
+                flat = [z for pair in leaves.values() for z in pair]
+                dz = torch.autograd.grad(loss, flat, allow_unused=True)
+                dz = [torch.zeros_like(z) if d is None else d for z, d in zip(flat, dz)]
+                optimizer.zero_grad(set_to_none=True)
             m = n // num_chunks
             for c in range(num_chunks):
                 zc = encode(batch, params, n, c)
-                outs = [z for h in hooks for z in zc[h.name]]
-                torch.autograd.backward(outs, [d[c * m:(c + 1) * m] for d in dz])
+                with span("spcl.step.backward"):
+                    outs = [z for h in hooks for z in zc[h.name]]
+                    torch.autograd.backward(outs, [d[c * m:(c + 1) * m] for d in dz])
             _restore(model, after_pass_a)
-        return close(loss, metrics)
+        return loss, metrics
+
+    def cached(batch, generator, hook_scalars, params=None):
+        return close(*two_passes(batch, generator, hook_scalars, params))
 
     def direct(batch, generator, hook_scalars, params=None):
         batch, params, n = prepare(batch, generator, params)
@@ -214,11 +243,10 @@ def build_gradcache_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
             loss.backward()
         return close(loss, metrics)
 
+    @_spanned_step
     def step(batch, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
-        out = cached(batch, generator, hook_scalars, params)
-        optimizer.step()
-        return out
+        return close(*two_passes(batch, generator, hook_scalars, params), update=True)
 
     def oracle(fn):
         def value_and_grad(batch, generator, hook_scalars, params=None):

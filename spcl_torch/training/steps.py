@@ -44,6 +44,19 @@ dict>}` (`draw_adversarial_params`) for the adversarial step, each
 optionally with `"hooks": {name: draws}` for the hooks that draw
 (`TrainerHook.sample`) — so a test can replay the JAX step's draws exactly.
 
+Spans (`utils/profiling.py::span`, open only while the torch profiler
+runs): every train step's call is `spcl.step`, and the pretrain, fine-tune
+and semi steps split it into `spcl.step.input` (the draws, the store's
+gather, augmentation and flips), `spcl.step.forward` (the student's
+forward of the views' concatenation), `spcl.step.teacher` (the EMA
+teacher's prediction), `spcl.step.loss` (the hooks' losses, the
+cross-entropy; after the update, the Dice statistics and the global
+outputs, so that their temporaries never sit on top of the activations),
+`spcl.step.backward` (`zero_grad`, which does no device work, and the
+backward), `spcl.step.optimizer` (the gradients summed over ranks, the
+optimizer's step) and `spcl.step.ema` (the teacher's update). The
+adversarial step has `spcl.step` alone.
+
 Auxiliary forwards (the EMA teacher, the mixup forward, UC-MT's noisy
 teacher passes, the `disable_bn` second pass) run in train mode with the
 BatchNorm statistics frozen (`models/norm.py::frozen_statistics`), as
@@ -69,6 +82,7 @@ process all of this is the identity.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -88,6 +102,7 @@ from ..models.ema import EMATeacher
 from ..models.norm import frozen_statistics
 from ..models.unet import UNet
 from ..parallel import mesh
+from ..utils.profiling import span
 
 _META_KEYS = ("partition", "patient", "cycle", "scan_idx", "valid")
 
@@ -158,30 +173,31 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
     def step(batch, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
         n_global = _rows(batch)
-        if params is None:
-            params = draw_pretrain_params(generator, batch, store, policy=policy,
-                                          total_freedom=total_freedom,
-                                          flip_threshold=flip_threshold)
-        batch, params = _shard_step_rows(batch, params, n_global)
-        batch = _resolve_batch(store, batch)
-        image = _as_float_image(batch["image"])
-        n = image.shape[0]
-        (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
-        fp = params["flip"]
-        v2 = apply_flip(v2, fp)
-        model.train()
-        acts = model(torch.cat([v1, v2], dim=0), until=until)
-        ctx = {"acts": acts, "n_unl": n, "flip": fp, **_global_rows(n)}
-        ctx.update({k: batch[k] for k in _META_KEYS})
-        total, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
-                                           image.device)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        _reduce_gradients(optimizer)
-        optimizer.step()
+        with span("spcl.step.input"):
+            if params is None:
+                params = draw_pretrain_params(generator, batch, store, policy=policy,
+                                              total_freedom=total_freedom,
+                                              flip_threshold=flip_threshold)
+            batch, params = _shard_step_rows(batch, params, n_global)
+            batch = _resolve_batch(store, batch)
+            image = _as_float_image(batch["image"])
+            n = image.shape[0]
+            (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
+            fp = params["flip"]
+            v2 = apply_flip(v2, fp)
+        with span("spcl.step.forward"):
+            model.train()
+            acts = model(torch.cat([v1, v2], dim=0), until=until)
+        with span("spcl.step.loss"):
+            ctx = {"acts": acts, "n_unl": n, "flip": fp, **_global_rows(n)}
+            ctx.update({k: batch[k] for k in _META_KEYS})
+            total, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
+                                               image.device)
+        _backward(optimizer, total)
+        _optimizer_step(optimizer)
         return {"reg_loss": total.detach(), "hooks": hook_metrics}
 
-    return step
+    return _spanned_step(step)
 
 
 def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: AugmentPolicy,
@@ -254,6 +270,31 @@ def _reduce_gradients(optimizer: torch.optim.Optimizer) -> None:
     optimizer holds the hooks' projectors too (the trainers build them
     before it)."""
     mesh.all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]])
+
+
+def _spanned_step(step: Callable) -> Callable:
+    """`step` with its whole call in the span `spcl.step`."""
+    @functools.wraps(step)
+    def spanned(*args, **kwargs):
+        with span("spcl.step"):
+            return step(*args, **kwargs)
+    return spanned
+
+
+def _backward(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+    """The parameters' gradients of `loss`, in the span `spcl.step.backward`
+    (`zero_grad(set_to_none=True)` before it does no device work)."""
+    with span("spcl.step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+
+
+def _optimizer_step(optimizer: torch.optim.Optimizer) -> None:
+    """The gradients summed over ranks, then the optimizer's step, in the
+    span `spcl.step.optimizer`."""
+    with span("spcl.step.optimizer"):
+        _reduce_gradients(optimizer)
+        optimizer.step()
 
 
 def _masked_ce(logits: torch.Tensor, onehot: torch.Tensor, valid: torch.Tensor,
@@ -355,48 +396,50 @@ def build_finetune_step(model: UNet, optimizer: torch.optim.Optimizer, *, num_cl
     def step(batch, generator: Optional[torch.Generator], params: Optional[Dict] = None,
              hook_scalars: Optional[Dict] = None):
         n_global = _rows(batch)
-        if params is None:
-            _, in_size, sizes, device = _global_view(store, batch)
-            draw = (sample_twice(generator, n_global, policy, in_size, total_freedom=True,
-                                 sizes=sizes, device=device) if hooks else
-                    sample_once(generator, n_global, policy, in_size, sizes=sizes,
-                                device=device))
-            params = {"aug": draw}
-        batch, params = _shard_step_rows(batch, params, n_global)
-        batch = _resolve_batch(store, batch)
-        image = _as_float_image(batch["image"])
-        label = batch["label"].long()
-        if hooks:
-            (img, lab), (img2, lab2) = augment_twice(image, label, policy, params["aug"])
-        else:
-            img, lab = augment_once(image, label, policy, params["aug"])
-        model.train()
-        acts = model(img)
-        logits = acts["logits"]
-        onehot = class2one_hot(lab, num_classes)
-        sup = _masked_ce(logits, onehot, batch["valid"])
-        total = sup
-        if hooks:
-            ctx = {"acts": acts, "num_classes": num_classes, "valid": batch["valid"],
-                   "apply_student": _student_fn(model), "labeled_image": img,
-                   "labeled_onehot": onehot, "labeled_image_tf": img2,
-                   "labeled_onehot_tf": class2one_hot(lab2, num_classes)}
-            reg, hook_metrics = _hook_losses(hooks, ctx, generator, params,
-                                             hook_scalars or {}, image.device)
-            total = sup + reg
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        _reduce_gradients(optimizer)
-        optimizer.step()
-        inter, union = dice_stats_from_labels(logits.detach().argmax(dim=1), lab,
-                                              num_classes, batch["valid"])
-        sup, inter, union = _global_outputs(sup, inter, union)
+        with span("spcl.step.input"):
+            if params is None:
+                _, in_size, sizes, device = _global_view(store, batch)
+                draw = (sample_twice(generator, n_global, policy, in_size, total_freedom=True,
+                                     sizes=sizes, device=device) if hooks else
+                        sample_once(generator, n_global, policy, in_size, sizes=sizes,
+                                    device=device))
+                params = {"aug": draw}
+            batch, params = _shard_step_rows(batch, params, n_global)
+            batch = _resolve_batch(store, batch)
+            image = _as_float_image(batch["image"])
+            label = batch["label"].long()
+            if hooks:
+                (img, lab), (img2, lab2) = augment_twice(image, label, policy, params["aug"])
+            else:
+                img, lab = augment_once(image, label, policy, params["aug"])
+        with span("spcl.step.forward"):
+            model.train()
+            acts = model(img)
+            logits = acts["logits"]
+        with span("spcl.step.loss"):
+            onehot = class2one_hot(lab, num_classes)
+            sup = _masked_ce(logits, onehot, batch["valid"])
+            total = sup
+            if hooks:
+                ctx = {"acts": acts, "num_classes": num_classes, "valid": batch["valid"],
+                       "apply_student": _student_fn(model), "labeled_image": img,
+                       "labeled_onehot": onehot, "labeled_image_tf": img2,
+                       "labeled_onehot_tf": class2one_hot(lab2, num_classes)}
+                reg, hook_metrics = _hook_losses(hooks, ctx, generator, params,
+                                                 hook_scalars or {}, image.device)
+                total = sup + reg
+        _backward(optimizer, total)
+        _optimizer_step(optimizer)
+        with span("spcl.step.loss"):
+            inter, union = dice_stats_from_labels(logits.detach().argmax(dim=1), lab,
+                                                  num_classes, batch["valid"])
+            sup, inter, union = _global_outputs(sup, inter, union)
         out = {"sup_loss": sup, "inter": inter, "union": union}
         if hooks:
             out["hooks"] = hook_metrics
         return out
 
-    return step
+    return _spanned_step(step)
 
 
 def draw_semi_params(generator: torch.Generator, batch_l, batch_u,
@@ -438,71 +481,79 @@ def build_semi_step(model: UNet, hooks: Sequence[TrainerHook],
     def step(batch_l, batch_u, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
         n_l_global, n_u_global = _rows(batch_l), _rows(batch_u)
-        if params is None:
-            params = draw_semi_params(generator, batch_l, batch_u, store, policy=policy,
-                                      two_labeled_views=needs_mixup,
-                                      flip_threshold=flip_threshold)
-        batch_l, lab_draws = mesh.shard_rows((batch_l, params["lab"]), n_l_global)
-        batch_u, unl_draws, fp = mesh.shard_rows((batch_u, params["unl"], params["flip"]),
-                                                 n_u_global)
-        batch_l = _resolve_batch(store, batch_l)
-        batch_u = _resolve_batch(store, batch_u)
-        image_l = _as_float_image(batch_l["image"])
-        label_l = batch_l["label"].long()
-        if needs_mixup:
-            (img_l, lab_l), (img_l2, lab_l2) = augment_twice(image_l, label_l, policy,
-                                                             lab_draws)
-        else:
-            img_l, lab_l = augment_once(image_l, label_l, policy, lab_draws)
-        (img_u, _), (img_u_cf, _) = augment_twice(_as_float_image(batch_u["image"]), None,
-                                                  policy, unl_draws)
-        n_l, n_u = img_l.shape[0], img_u.shape[0]
-        img_u_tf = apply_flip(img_u_cf, fp)
+        with span("spcl.step.input"):
+            if params is None:
+                params = draw_semi_params(generator, batch_l, batch_u, store, policy=policy,
+                                          two_labeled_views=needs_mixup,
+                                          flip_threshold=flip_threshold)
+            batch_l, lab_draws = mesh.shard_rows((batch_l, params["lab"]), n_l_global)
+            batch_u, unl_draws, fp = mesh.shard_rows((batch_u, params["unl"], params["flip"]),
+                                                     n_u_global)
+            batch_l = _resolve_batch(store, batch_l)
+            batch_u = _resolve_batch(store, batch_u)
+            image_l = _as_float_image(batch_l["image"])
+            label_l = batch_l["label"].long()
+            if needs_mixup:
+                (img_l, lab_l), (img_l2, lab_l2) = augment_twice(image_l, label_l, policy,
+                                                                 lab_draws)
+            else:
+                img_l, lab_l = augment_once(image_l, label_l, policy, lab_draws)
+            (img_u, _), (img_u_cf, _) = augment_twice(_as_float_image(batch_u["image"]), None,
+                                                      policy, unl_draws)
+            n_l, n_u = img_l.shape[0], img_u.shape[0]
+            img_u_tf = apply_flip(img_u_cf, fp)
 
-        model.train()
-        if not two_stage:
-            acts = model(torch.cat([img_l, img_u, img_u_tf], dim=0))
-            logits = acts["logits"]
-            logits_l = logits[:n_l]
-            logits_u, logits_u_tf = logits[n_l:n_l + n_u], logits[n_l + n_u:]
-        else:
-            logits_l = model(img_l)["logits"]
-            with frozen_statistics(model) if disable_bn else contextlib.nullcontext():
-                acts = model(torch.cat([img_u, img_u_tf], dim=0))
-            logits_u, logits_u_tf = acts["logits"][:n_u], acts["logits"][n_u:]
+        with span("spcl.step.forward"):
+            model.train()
+            if not two_stage:
+                acts = model(torch.cat([img_l, img_u, img_u_tf], dim=0))
+                logits = acts["logits"]
+                logits_l = logits[:n_l]
+                logits_u, logits_u_tf = logits[n_l:n_l + n_u], logits[n_l + n_u:]
+            else:
+                logits_l = model(img_l)["logits"]
+                with frozen_statistics(model) if disable_bn else contextlib.nullcontext():
+                    acts = model(torch.cat([img_u, img_u_tf], dim=0))
+                logits_u, logits_u_tf = acts["logits"][:n_u], acts["logits"][n_u:]
 
-        onehot_l = class2one_hot(lab_l, num_classes)
-        sup = _masked_ce(logits_l, onehot_l, batch_l["valid"])
-        ctx = {"acts": acts, "n_unl": n_u, "flip": fp, **_global_rows(n_u),
-               "unlabeled_tf_logits": logits_u_tf,
-               # the same flips replayed on the plain batch's prediction (reference :169-170)
-               "unlabeled_logits_tf": apply_flip(logits_u, fp),
-               "unlabeled_image": img_u, "unlabeled_image_tf": img_u_tf,
-               "apply_student": apply_student, "num_classes": num_classes,
-               "labeled_image": img_l, "labeled_onehot": onehot_l}
-        ctx.update({k: batch_u[k] for k in _META_KEYS})
         if needs_teacher:
-            ctx["teacher_logits_tf"] = apply_flip(teacher.logits(img_u), fp)
-            ctx["apply_teacher"] = teacher.logits
-        if needs_mixup:
-            ctx["labeled_image_tf"] = img_l2
-            ctx["labeled_onehot_tf"] = class2one_hot(lab_l2, num_classes)
-        reg, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
-                                         image_l.device)
-        optimizer.zero_grad(set_to_none=True)
-        (sup + reg).backward()
-        _reduce_gradients(optimizer)
-        optimizer.step()
+            with span("spcl.step.teacher"):
+                teacher_logits_tf = apply_flip(teacher.logits(img_u), fp)
+        with span("spcl.step.loss"):
+            onehot_l = class2one_hot(lab_l, num_classes)
+            sup = _masked_ce(logits_l, onehot_l, batch_l["valid"])
+            ctx = {"acts": acts, "n_unl": n_u, "flip": fp, **_global_rows(n_u),
+                   "unlabeled_tf_logits": logits_u_tf,
+                   # the same flips replayed on the plain batch's prediction (reference
+                   # :169-170)
+                   "unlabeled_logits_tf": apply_flip(logits_u, fp),
+                   "unlabeled_image": img_u, "unlabeled_image_tf": img_u_tf,
+                   "apply_student": apply_student, "num_classes": num_classes,
+                   "labeled_image": img_l, "labeled_onehot": onehot_l}
+            ctx.update({k: batch_u[k] for k in _META_KEYS})
+            if needs_teacher:
+                ctx["teacher_logits_tf"] = teacher_logits_tf
+                ctx["apply_teacher"] = teacher.logits
+            if needs_mixup:
+                ctx["labeled_image_tf"] = img_l2
+                ctx["labeled_onehot_tf"] = class2one_hot(lab_l2, num_classes)
+            reg, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
+                                             image_l.device)
+            total = sup + reg
+        _backward(optimizer, total)
+        _optimizer_step(optimizer)
         if needs_teacher:
-            teacher.update(model)
-        inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
-                                              num_classes, batch_l["valid"])
-        sup, inter, union = _global_outputs(sup, inter, union)
+            with span("spcl.step.ema"):
+                teacher.update(model)
+        with span("spcl.step.loss"):
+            inter, union = dice_stats_from_labels(logits_l.detach().argmax(dim=1), lab_l,
+                                                  num_classes, batch_l["valid"])
+            sup, inter, union = _global_outputs(sup, inter, union)
         # the hooks' losses are global values already (hooks/base.py)
         return {"sup_loss": sup, "reg_loss": reg.detach(), "inter": inter,
                 "union": union, "hooks": hook_metrics}
 
-    return step
+    return _spanned_step(step)
 
 
 def draw_adversarial_params(generator: torch.Generator, batch_l, batch_u,
@@ -592,4 +643,4 @@ def build_adversarial_step(model: UNet, discriminator: nn.Module,
         return {"sup_loss": sup, "gen_loss": gen.detach(), "dis_loss": dis.detach(),
                 "inter": inter, "union": union}
 
-    return step
+    return _spanned_step(step)

@@ -80,7 +80,15 @@ Every trainer writes its run's `config.yaml` (with the git hash) and its
 epochs' scalars to TensorBoard (`writer.py`; spcl_tpu trainer.py:125-137,
 :935-944) on rank 0. `Trainer.profile_dir` traces epoch start + 1 under
 torch.profiler, writes the chrome trace there and logs the device ms per step
-(`utils/profiling.py`; spcl_tpu trainer.py:897-911). `Trainer.dump_matrices`
+(`utils/profiling.py`; spcl_tpu trainer.py:897-911). The trace holds the
+program's spans, on the clock of the kernels they launch: each step's
+`spcl.step` and its phases (`training/steps.py`, `training/gradcache.py`),
+each UNet stage's `spcl.unet.<stage>` (`models/unet.py`, the student's and
+the teacher's forward; read by name in such a trace past Conv2), and the
+epoch's `spcl.epoch.schedule` (`_hook_scalars`, `_set_epoch_lr`, the hooks'
+`on_epoch_end`), `spcl.epoch.rows` (`_index_rows`), `spcl.epoch.upload`
+(`_step_inputs`), `spcl.epoch.drain` (`_stack_metrics`, `deferred.drain`)
+and `spcl.epoch.stats` (`_epoch_stats`). `Trainer.dump_matrices`
 (pretrain trainers, `device_data` true) runs `build_matrix_probe` on batch 0
 of each epoch and writes its matrices as images (spcl_tpu trainer.py:
 1151-1240).
@@ -127,6 +135,7 @@ from ..models.unet import UNet
 from ..parallel import mesh as mesh_lib
 from ..schedulers.lr import warmup_cosine_epoch_schedule
 from ..utils import profiling
+from ..utils.profiling import span
 from ..utils.utils import get_logger, gethash, yaml_write
 from ..writer import NullWriter, SummaryWriter
 
@@ -207,9 +216,10 @@ class _TrainerBase:
     def _index_rows(self, loader: HostLoader, n: int) -> np.ndarray:
         """The next `n` index vectors of the loader's sampler (indices into
         its dataset), right-padded with -1 (`valid=0`) to a rank multiple."""
-        it = iter(loader.sampler)
-        return np.stack([mesh_lib.pad_multiple(np.asarray(next(it)), self._n_shards)
-                         for _ in range(n)])
+        with span("spcl.epoch.rows"):
+            it = iter(loader.sampler)
+            return np.stack([mesh_lib.pad_multiple(np.asarray(next(it)), self._n_shards)
+                             for _ in range(n)])
 
     def _upload_rows(self, rows: Sequence[np.ndarray]) -> Sequence[torch.Tensor]:
         """Index vectors on the device, uploaded in one copy (pinned on a card)."""
@@ -224,10 +234,11 @@ class _TrainerBase:
         """What the steps take for these local index vectors: their global
         indices on the device (`device_data`), or host batches copied through
         `device_prefetch`."""
-        ds = loader.dataset
-        if self._device_data:
-            return self._upload_rows([ds.to_global(r) for r in rows])
-        return device_prefetch((ds.batch(r) for r in rows), self._device)
+        with span("spcl.epoch.upload"):
+            ds = loader.dataset
+            if self._device_data:
+                return self._upload_rows([ds.to_global(r) for r in rows])
+            return device_prefetch((ds.batch(r) for r in rows), self._device)
 
     def _log(self, msg: str, *args) -> None:
         if self._is_master:
@@ -270,14 +281,15 @@ class _TrainerBase:
                 return torch.stack(values)
             return np.asarray(values, dtype=np.float32)
 
-        out = {}
-        for k, v in pending[0].items():
-            if k == "hooks":
-                out[k] = {name: {m: stack([p[k][name][m] for p in pending]) for m in hm}
-                          for name, hm in v.items()}
-            else:
-                out[k] = stack([p[k] for p in pending])
-        return out
+        with span("spcl.epoch.drain"):
+            out = {}
+            for k, v in pending[0].items():
+                if k == "hooks":
+                    out[k] = {name: {m: stack([p[k][name][m] for p in pending]) for m in hm}
+                              for name, hm in v.items()}
+                else:
+                    out[k] = stack([p[k] for p in pending])
+            return out
 
     def _finish(self) -> None:
         """End of `start_training`: the TensorBoard events flushed, the
@@ -372,18 +384,20 @@ class _TrainerBase:
 
     # ----------------------------------------------------------------- epochs
     def _hook_scalars(self) -> Dict[str, Dict[str, float]]:
-        # _cur_epoch is 1-based; epoch e uses the scheduler value at e-1
-        # (reference semi_seg/hooks/infonce.py:133-136), as spcl_tpu does
-        return {h.name: h.epoch_scalars(self._cur_epoch - 1) for h in self._hooks}
+        with span("spcl.epoch.schedule"):
+            # _cur_epoch is 1-based; epoch e uses the scheduler value at e-1
+            # (reference semi_seg/hooks/infonce.py:133-136), as spcl_tpu does
+            return {h.name: h.epoch_scalars(self._cur_epoch - 1) for h in self._hooks}
 
     def _epoch_lr(self) -> float:
         return float(self._lr_schedule(max(self._cur_epoch - 1, 0) * self._num_batches))
 
     def _set_epoch_lr(self) -> float:
-        lr = self._epoch_lr()
-        for group in self._optimizer.param_groups:
-            group["lr"] = lr
-        return lr
+        with span("spcl.epoch.schedule"):
+            lr = self._epoch_lr()
+            for group in self._optimizer.param_groups:
+                group["lr"] = lr
+            return lr
 
     def _synchronize(self) -> None:
         if self._device.type == "cuda":
@@ -543,37 +557,38 @@ class PretrainEncoderTrainer(_TrainerBase):
     def _epoch_stats(self, record: Dict, host: Dict) -> Dict:
         """Meters, `step_metrics` and TensorBoard of one epoch from its
         record and its drained metrics; fails on a non-finite loss."""
-        meters = MeterInterface(default_focus=self.train_meter_focus)
-        with meters.focus_on(self.train_meter_focus):
-            meters.register_meter("lr", AverageValueMeter())
-            meters.register_meter("reg_loss", AverageValueMeter())
-        reg = host["metrics"]["reg_loss"]
-        hook_vals = host["metrics"].get("hooks", {})
-        for b in range(record["steps"]):
-            # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
-            if not np.isfinite(reg[b]):
-                raise RuntimeError(f"non-finite pretrain reg_loss at batch {b}: {reg[b]}")
-            step = {"epoch": record["epoch"], "reg_loss": float(reg[b]),
-                    "hooks": {n: {k: float(v[b]) for k, v in hv.items()}
-                              for n, hv in hook_vals.items()}}
-            self.step_metrics.append(step)
+        with span("spcl.epoch.stats"):
+            meters = MeterInterface(default_focus=self.train_meter_focus)
             with meters.focus_on(self.train_meter_focus):
-                meters["reg_loss"].add(step["reg_loss"])
-            self._add_hook_meters(meters, step["hooks"])
-        with meters.focus_on(self.train_meter_focus):
-            meters["lr"].add(record["lr"])
-        stats = meters.statistics()
-        elapsed = max(record["elapsed"], 1e-9)
-        stats.setdefault(self.train_meter_focus, {})["throughput"] = {
-            "slices_per_sec": record["n_slices"] / elapsed,
-            "steps_per_sec": record["steps"] / elapsed}
-        self._writer.add_scalars_from_meter_interface(record["epoch"], **stats)
-        if host.get("matrices") is not None:
-            self.last_matrices = host["matrices"]
-            for hname, mats in host["matrices"].items():
-                for mname, m in mats.items():
-                    self._writer.add_matrix_image(f"{hname}/{mname}", m, record["epoch"])
-        return stats
+                meters.register_meter("lr", AverageValueMeter())
+                meters.register_meter("reg_loss", AverageValueMeter())
+            reg = host["metrics"]["reg_loss"]
+            hook_vals = host["metrics"].get("hooks", {})
+            for b in range(record["steps"]):
+                # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
+                if not np.isfinite(reg[b]):
+                    raise RuntimeError(f"non-finite pretrain reg_loss at batch {b}: {reg[b]}")
+                step = {"epoch": record["epoch"], "reg_loss": float(reg[b]),
+                        "hooks": {n: {k: float(v[b]) for k, v in hv.items()}
+                                  for n, hv in hook_vals.items()}}
+                self.step_metrics.append(step)
+                with meters.focus_on(self.train_meter_focus):
+                    meters["reg_loss"].add(step["reg_loss"])
+                self._add_hook_meters(meters, step["hooks"])
+            with meters.focus_on(self.train_meter_focus):
+                meters["lr"].add(record["lr"])
+            stats = meters.statistics()
+            elapsed = max(record["elapsed"], 1e-9)
+            stats.setdefault(self.train_meter_focus, {})["throughput"] = {
+                "slices_per_sec": record["n_slices"] / elapsed,
+                "steps_per_sec": record["steps"] / elapsed}
+            self._writer.add_scalars_from_meter_interface(record["epoch"], **stats)
+            if host.get("matrices") is not None:
+                self.last_matrices = host["matrices"]
+                for hname, mats in host["matrices"].items():
+                    for mname, m in mats.items():
+                        self._writer.add_matrix_image(f"{hname}/{mname}", m, record["epoch"])
+            return stats
 
     def _run_train_epoch(self) -> Dict:
         record = self._dispatch_train_epoch()
@@ -747,48 +762,49 @@ class FineTuneTrainer(_TrainerBase):
     def _epoch_stats(self, record: Dict, host: Dict) -> Dict:
         """Meters and `step_metrics` of one train epoch from its record and
         its drained metrics; fails on a non-finite loss."""
-        C = self._model.num_classes
-        keys = self._loss_keys()
-        meters = MeterInterface(default_focus=self.train_meter_focus)
-        with meters.focus_on(self.train_meter_focus):
-            meters.register_meter("lr", AverageValueMeter())
-        for k in keys:
-            with meters.focus_on(self._loss_focus(k)):
-                meters.register_meter(k, AverageValueMeter())
-        with meters.focus_on(self.train_meter_focus):
-            meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
-        # Dice groups by scan name through the root (a subset's scan_idx is
-        # its own numbering, the store's the root's)
-        names = self._labeled_loader.dataset.root.scan_names
-        stacked = host["metrics"]
-        hook_vals = stacked.get("hooks", {})
-        for b, gidx in enumerate(record["rows"]):
-            step = {"epoch": record["epoch"]}
-            for k in keys:
-                step[k] = float(stacked[k][b])
-                # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
-                if not np.isfinite(step[k]):
-                    raise RuntimeError(f"non-finite {k} at batch {b}: {step[k]}")
-            if hook_vals:
-                step["hooks"] = {n: {k: float(v[b]) for k, v in hv.items()}
-                                 for n, hv in hook_vals.items()}
-                self._add_hook_meters(meters, step["hooks"])
-            self.step_metrics.append(step)
+        with span("spcl.epoch.stats"):
+            C = self._model.num_classes
+            keys = self._loss_keys()
+            meters = MeterInterface(default_focus=self.train_meter_focus)
+            with meters.focus_on(self.train_meter_focus):
+                meters.register_meter("lr", AverageValueMeter())
             for k in keys:
                 with meters.focus_on(self._loss_focus(k)):
-                    meters[k].add(step[k])
+                    meters.register_meter(k, AverageValueMeter())
             with meters.focus_on(self.train_meter_focus):
-                keep = gidx >= 0
-                meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
-                                       group_name=[names[i] for i in gidx[keep]])
-        with meters.focus_on(self.train_meter_focus):
-            meters["lr"].add(record["lr"])
-        stats = meters.statistics()
-        elapsed = max(record["elapsed"], 1e-9)
-        stats.setdefault(self.train_meter_focus, {})["throughput"] = {
-            "slices_per_sec": record["n_slices"] / elapsed,
-            "steps_per_sec": record["steps"] / elapsed}
-        return stats
+                meters.register_meter("sup_dice", UniversalDice(C, report_axises=list(range(1, C))))
+            # Dice groups by scan name through the root (a subset's scan_idx is
+            # its own numbering, the store's the root's)
+            names = self._labeled_loader.dataset.root.scan_names
+            stacked = host["metrics"]
+            hook_vals = stacked.get("hooks", {})
+            for b, gidx in enumerate(record["rows"]):
+                step = {"epoch": record["epoch"]}
+                for k in keys:
+                    step[k] = float(stacked[k][b])
+                    # fail fast on NaN like the reference criterion (contrast_loss3.py:108)
+                    if not np.isfinite(step[k]):
+                        raise RuntimeError(f"non-finite {k} at batch {b}: {step[k]}")
+                if hook_vals:
+                    step["hooks"] = {n: {k: float(v[b]) for k, v in hv.items()}
+                                     for n, hv in hook_vals.items()}
+                    self._add_hook_meters(meters, step["hooks"])
+                self.step_metrics.append(step)
+                for k in keys:
+                    with meters.focus_on(self._loss_focus(k)):
+                        meters[k].add(step[k])
+                with meters.focus_on(self.train_meter_focus):
+                    keep = gidx >= 0
+                    meters["sup_dice"].add(stacked["inter"][b][keep], stacked["union"][b][keep],
+                                           group_name=[names[i] for i in gidx[keep]])
+            with meters.focus_on(self.train_meter_focus):
+                meters["lr"].add(record["lr"])
+            stats = meters.statistics()
+            elapsed = max(record["elapsed"], 1e-9)
+            stats.setdefault(self.train_meter_focus, {})["throughput"] = {
+                "slices_per_sec": record["n_slices"] / elapsed,
+                "steps_per_sec": record["steps"] / elapsed}
+            return stats
 
     def _run_train_epoch(self) -> Dict:
         record = self._dispatch_train_epoch()

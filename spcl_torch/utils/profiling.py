@@ -1,35 +1,67 @@
-"""Device time from `torch.profiler`: the counterpart of
-`spcl_tpu/utils/profiling.py` (which reads jax.profiler's device plane).
+"""Device time and the program's spans under `torch.profiler`: the
+counterpart of `spcl_tpu/utils/profiling.py` (which reads jax.profiler's
+device plane).
 
 One definition of what counts as device time, shared by `Trainer.profile_dir`
 and `chip_smoke.py`: the device events of CUDA kernels, memory copies and
 memory sets, never the device-side ranges of user annotations (they span
 kernels that are counted already).
 
+- `span(name)`: a `record_function` range while the torch profiler runs, a
+  shared null context otherwise (a flag test, no profiler call). The
+  program's spans (`spcl.step.*`, `spcl.unet.*`, `spcl.gradcache.*`,
+  `spcl.epoch.*`) appear exactly when something profiles, on the clock of
+  the kernels they launch.
+- `allocator_counts()`: the caching allocator's own counts of device
+  allocations and of retries after freeing its cache.
 - `kernel_times(run, steps)`: run(steps) under the profiler (CPU + CUDA
   activities) -> {event name: (ms per step, launches per step)}.
 - `device_ms_per_step(trace_dir, calls)`: the device ms per call of a chrome
   trace that the profiler exported into `trace_dir` (`export_chrome_trace`),
   summed over every `*.json` file there; None for a trace that holds no
   device event, as a CPU trace does.
-- `device_op_breakdown(trace_dir, top)`: {kernel name: total ms} of such a
-  trace, largest first.
-- `profile_device_time(run_one, reps)`: trace `reps` calls of run_one() and
-  return the device ms per call (None without device events).
+- `trace(run, trace_dir)`: run() under the profiler, its chrome trace
+  written to `trace_dir`.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
-import shutil
-import tempfile
 from pathlib import Path
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 # chrome-trace categories of device work (torch.profiler / kineto)
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# what `span` hands out while nothing profiles: one context, built once
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("spcl.step.forward"): ...`: a `record_function` range named
+    `name` while the torch profiler is on, else a shared null context.
+    `record_function` costs microseconds a call even with the profiler off;
+    the flag test costs a module attribute read."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def allocator_counts(device=None) -> Dict[str, int]:
+    """{"device_allocs", "alloc_retries"}: the caching allocator's counts of
+    cudaMalloc calls and of allocations retried after it freed its cache,
+    since the process started (`torch.cuda.memory_stats`); zeros without a
+    card."""
+    if not torch.cuda.is_available():
+        return {"device_allocs": 0, "alloc_retries": 0}
+    stats = torch.cuda.memory_stats(device)
+    return {"device_allocs": int(stats.get("num_device_alloc", 0)),
+            "alloc_retries": int(stats.get("num_alloc_retries", 0))}
 
 
 def activities():
@@ -90,19 +122,6 @@ def device_ms_per_step(trace_dir: str, calls: Optional[int] = None) -> Optional[
     return total_us / 1e3 / max(int(calls or 1), 1)
 
 
-def device_op_breakdown(trace_dir: str, top: int = 0) -> Optional[Dict[str, float]]:
-    """{device event name: total ms}, largest first (all, or the `top`
-    first); None when the traces hold no device event."""
-    totals: Dict[str, float] = {}
-    for e in _device_events(trace_dir):
-        totals[e.get("name", "?")] = totals.get(e.get("name", "?"), 0.0) + float(
-            e.get("dur", 0.0)) / 1e3
-    if not totals:
-        return None
-    items = sorted(totals.items(), key=lambda kv: -kv[1])
-    return dict(items[:top] if top else items)
-
-
 def trace(run: Callable[[], object], trace_dir: str) -> None:
     """run() under torch.profiler (CPU + CUDA activities), its chrome trace
     written to trace_dir/trace.json."""
@@ -112,13 +131,3 @@ def trace(run: Callable[[], object], trace_dir: str) -> None:
         run()
         _sync()
     prof.export_chrome_trace(str(Path(trace_dir) / "trace.json"))
-
-
-def profile_device_time(run_one: Callable[[], object], reps: int = 20) -> Optional[float]:
-    """Trace `reps` calls of run_one() and return the device ms per call."""
-    d = tempfile.mkdtemp(prefix="spcl_trace_")
-    try:
-        trace(lambda: [run_one() for _ in range(reps)], d)
-        return device_ms_per_step(d, calls=reps)
-    finally:
-        shutil.rmtree(d, ignore_errors=True)

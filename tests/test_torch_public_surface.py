@@ -114,6 +114,12 @@ BY_DESIGN = {
         "jit, buffer donation and the epoch-batched entry of a JAX step; the port's steps are "
         "plain callables (training/steps.py::build_pretrain_step, training/gradcache.py) "
         "and the trainer loops over the batches",
+    "utils/profiling.py::profile_device_time":
+        "spcl_tpu's one-call device timer, read by its pre-port scripts and bench.py; the "
+        "port's device time is utils/profiling.py::kernel_times and the benchmark's trace",
+    "utils/profiling.py::device_op_breakdown":
+        "spcl_tpu's per-kernel totals of a trace directory; the port's are "
+        "utils/profiling.py::kernel_times (chip_smoke.py) and portbench/trace.py",
     "training/steps.py::isinstance_name":
         "a class-name probe of spcl_tpu's semi step; the port's step tests "
         "isinstance(h, MixUpHook) (training/steps.py::build_semi_step)",

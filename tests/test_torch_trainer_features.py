@@ -15,8 +15,8 @@
   the same (and the device's float32 score within float32 rounding of it);
   also with `flush_every`, for the pretrain trainer, and resumed at
   `max_epoch`;
-- `Trainer.profile_dir` writes a chrome trace, whose device time is None on
-  the CPU.
+- `Trainer.profile_dir` writes a chrome trace that holds the steps' spans,
+  whose device time is None on the CPU.
 """
 import copy
 import csv
@@ -336,7 +336,8 @@ def test_profile_dir_writes_a_trace_without_device_time_on_the_cpu(tmp_path):
     events = json.loads((prof / "trace.json").read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
     assert profiling.device_ms_per_step(str(prof), calls=2) is None
-    assert profiling.device_op_breakdown(str(prof)) is None and tr.profile_ms is None
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert spans.count("spcl.step") == 2 and tr.profile_ms is None
     # dump_matrices on the same run: batch 0's matrices, also as images
     mats = tr.last_matrices["spinfonce/Conv5/partition"]
     assert {k: v.shape for k, v in mats.items()} == {k: (12, 12) for k in
