@@ -141,6 +141,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                losses, a DSC in [0, 1], pre/last.ckpt reloading strictly;
                ms/step, slices/s, a profile. Then the same pretraining under
                `nhwc` and 2 steps with SPInfonceParams at Up_conv3 (soft).
+               The held runs take their steps eagerly (holding a call reads
+               the device, which a CUDA graph capture forbids); then 3 steps
+               of the pallas decoder pretraining replayed as a CUDA graph
+               against the same steps run eagerly (`_graphed_against_eager`).
  14. slice G — the adversarial baseline of main_adv.py (base.yaml +
                hooks/adv.yaml: 5 + 5 slices, reg_weight 0.01) under `pallas`,
                1 warm-up + 5 steps and one eval epoch, then
@@ -269,7 +273,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                eval-mode logits equal those of an nhwc copy given packed's
                running statistics; then the step times, 10 steps a turn in
                the turns packed, nhwc, nhwc, packed, and 5 steps of each
-               under torch.profiler (kernel time by kernel).
+               under torch.profiler (kernel time by kernel), where each
+               kernel of spcl_torch.ops launches a step what its `LAUNCHES`
+               count (the steps replay a CUDA graph there: the counts a
+               replay adds are its capture's). The held runs take their steps
+               eagerly; then packed and nhwc float32 and pallas bf16, 3 steps
+               each, replayed as a CUDA graph against the same steps run
+               eagerly (`_graphed_against_eager`: TF32 off, cuDNN
+               deterministic; losses and weights within SLICE_GRAPH_RTOL,
+               captures 1, replays 2, every kernel's launches equal).
  22. slice N — the last of spcl_tpu's public surface, card against the CPU at
                the main path's shapes, no kernel of spcl_torch.ops launched:
                Cutout (`sample_cutout` boxes 16..112 + `apply_cutout`) and
@@ -284,8 +296,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                and parameter gradients (tolerances at SLICE_N_HEAD_TOL);
                the ms of each call, and of the max pool beside
                F.adaptive_max_pool2d.
- 23. report  — the `kernels` JSON line (the bf16 passes as
-               `convstage_<pass>_bf16`), the nvidia-smi line, a device line
+ 23. slice O — the fused BatchNorm + ReLU (`ops/bnrelu_cuda.py`) at the
+               encoder shapes of a 2N=60 pretrain step (Conv1..Conv5, two
+               a stage) and at a gradient-cache chunk of 128 views: the four
+               kernels against their plain versions (statistics and running
+               statistics within BNRELU_TOL, the apply passes equal to the
+               bit given the same statistics), then per stage the least
+               time of its eight passes at 3.35 TB/s, the kernels' forward +
+               backward, the plain versions' and cuDNN's BatchNorm + in-place
+               ReLU (the library yardstick, never called by the port), by
+               CUDA-graph replay, and the step's totals; then a short run
+               of each benchmark cell (`portbench.harness.run_cell`,
+               BNRELU_CELL_SECONDS of window) with the train step's
+               CUDA-graph counters and the kernels' launches a step.
+ 24. report  — the `kernels` JSON line (the bf16 passes as
+               `convstage_<pass>_bf16`; the four `bnrelu_*` kernels with
+               slice O's times), the nvidia-smi line, a device line
                with the slices' throughput, and last
                {"ok": true, "device": {...}}.
 
@@ -299,8 +325,10 @@ build and phase 11, `--semi-only` the build and phase 12,
 weight inspection of its random initialisation), `--semi-mesh-only` the
 build and phase 18, `--effect-only` the build and phase 19,
 `--multihost-only` the build and phase 20, `--packed-only` the build and
-phase 21, `--surface-only` the build and phase 22.
+phase 21, `--surface-only` the build and phase 22, `--bnrelu-only` the
+build and phase 23.
 """
+import contextlib
 import copy
 import json
 import math
@@ -1985,9 +2013,13 @@ def slice_c_phase(sc):
     trainer, one = _pretrain_c(sc, _config_c("row_sharded"),
                                str(base_dir / "single"), 0, recorder)
     steps = CONFIG["Trainer"]["max_epoch"] * CONFIG["Trainer"]["num_batches"]
-    check(one["n_shards"] == 1 and one["shapes"] == [("supcon_fwd", 128, 128),
-                                                     ("supcon_bwd", 128, 128)] * steps,
-          f"single process: {one['shapes']}")
+    # the single process replays its step as a CUDA graph: the launchers run at
+    # a layout's first step and at each capture, and every replay launches what
+    # its capture recorded (counted in LAUNCHES)
+    check(one["n_shards"] == 1
+          and set(one["shapes"]) == {("supcon_fwd", 128, 128), ("supcon_bwd", 128, 128)}
+          and one["launches"] == {"supcon_fwd": steps, "supcon_bwd": steps},
+          f"single process: {one['shapes']}, launches {one['launches']}")
 
     # ---- launches: per rank and step one forward and one dz launch at 64 x 128
     for r in ranks:
@@ -2466,7 +2498,7 @@ def _semi_resumed(trainer, saved):
     return {"teacher_step": teacher["step"],
             "teacher_equal": all(torch.equal(v.cpu(), saved["_teacher"]["model"][k])
                                  for k, v in teacher["model"].items()),
-            "radam_steps": sorted({s["step"] for s in trainer._optimizer.state.values()}),
+            "radam_steps": sorted({int(s["step"]) for s in trainer._optimizer.state.values()}),
             "radam_equal": all(torch.equal(s["mu"].cpu(), saved["_optimizer"]["state"][i]["mu"])
                                for i, s in trainer._optimizer.state_dict()["state"].items())}
 
@@ -2477,7 +2509,7 @@ def _adv_resumed(trainer, saved):
     adam = trainer._discr_optimizer.state_dict()["state"]
     return {"discriminator": all(torch.equal(v.cpu(), saved["_discriminator"][k])
                                  for k, v in trainer.discriminator.state_dict().items()),
-            "adam_steps": sorted({s["step"] for s in adam.values()}),
+            "adam_steps": sorted({int(s["step"]) for s in adam.values()}),
             "adam": all(torch.equal(s[m].cpu(), saved["_discr_optimizer"]["state"][i][m])
                         for i, s in adam.items() for m in ("mu", "nu"))}
 
@@ -2615,12 +2647,114 @@ def slice_e_phase(cs):
     return out
 
 
+class _EagerSteps:
+    """Inside the block the train steps run eagerly (`GraphedStep.engages`
+    false): no CUDA graph is captured or replayed."""
+
+    def __enter__(self):
+        from spcl_torch.training.steps import GraphedStep
+        self._cls, self._engages = GraphedStep, GraphedStep.engages
+        GraphedStep.engages = lambda step, batch: False
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.engages = self._engages
+
+
+# graphed against eager, TF32 off and cuDNN deterministic: each step's
+# reg_loss (relative) and each weight after the run (relative L2). The same
+# kernels in the same order on the same values, apart from the atomics of
+# cuDNN's and the kernels' sums (~1e-7)
+SLICE_GRAPH_RTOL = 1e-5
+
+
+def _graphed_against_eager(what, make_trainer, steps):
+    """make_trainer() -> a fresh pretrain trainer (fixed weights and seed, one
+    epoch of `steps` steps), trained twice: its steps eager, then replayed
+    as a CUDA graph (the first step eager, the second captured). Holds
+    reg_loss a step and every weight and buffer after it within
+    SLICE_GRAPH_RTOL (integer buffers equal), the graph's counters
+    (eager: none; graphed: captures 1, replays steps - 1) and every kernel's
+    launches equal."""
+    from spcl_torch.utils import profiling
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic = True
+    runs = {}
+    try:
+        for mode in ("eager", "graphed"):
+            trainer = make_trainer()
+            profiling.reset_graph_counts()
+            before = [dict(c) for c in profiling.LAUNCH_COUNTERS]
+            with _EagerSteps() if mode == "eager" else contextlib.nullcontext():
+                trainer.start_training()
+            torch.cuda.synchronize()
+            runs[mode] = {
+                "losses": [r["reg_loss"] for r in trainer.step_metrics],
+                "graph": dict(profiling.GRAPH_COUNTS),
+                "launches": {k: c[k] - n[k] for c, n in zip(profiling.LAUNCH_COUNTERS, before)
+                             for k in c if c[k] != n[k]},
+                "state": {k: v.detach().cpu() for k, v in trainer._model.state_dict().items()}}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic = saved
+    e, g = runs["eager"], runs["graphed"]
+    loss_rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(g["losses"], e["losses"]))
+    floats = [k for k, v in e["state"].items() if v.is_floating_point()]
+    state_rel = max(_rel_l2(g["state"][k], e["state"][k]) for k in floats)
+    ints_equal = all(torch.equal(g["state"][k], v) for k, v in e["state"].items()
+                     if not v.is_floating_point())
+    print(f"{what} graphed against eager ({steps} steps, TF32 off, cuDNN deterministic): "
+          f"reg_loss {g['losses']} | eager {e['losses']} | apart by {loss_rel:.2e}, weights "
+          f"and buffers by {state_rel:.2e} (rtol {SLICE_GRAPH_RTOL}) | graph {g['graph']} "
+          f"(eager {e['graph']}) | launches {g['launches']}", flush=True)
+    check(len(g["losses"]) == len(e["losses"]) == steps, f"{what}: {g['losses']}")
+    check(e["graph"] == {"captures": 0, "replays": 0}
+          and g["graph"] == {"captures": 1, "replays": steps - 1},
+          f"{what}: graph counters {g['graph']}, eager {e['graph']}")
+    check(g["launches"] == e["launches"], f"{what}: launches graphed {g['launches']}, eager "
+                                          f"{e['launches']}")
+    check(loss_rel <= SLICE_GRAPH_RTOL and state_rel <= SLICE_GRAPH_RTOL and ints_equal,
+          f"{what}: graphed and eager steps disagree")
+    return {"loss_rel": loss_rel, "state_rel": state_rel, "graph": g["graph"],
+            "launches": g["launches"]}
+
+
+def _launches_against_profile(what, run, steps):
+    """run(steps) under torch.profiler: each kernel of spcl_torch.ops that its
+    `LAUNCHES` counted launches as often a step in the profiler's device
+    events (kernel symbol `<name>_kernel`). Returns the profile
+    (`_profiled`) and {name: launches a step}."""
+    from spcl_torch.utils import profiling
+    before = [dict(c) for c in profiling.LAUNCH_COUNTERS]
+    graph = dict(profiling.GRAPH_COUNTS)
+    kernels = _profiled(run, steps)
+    counted = {k: (c[k] - n[k]) / steps for c, n in zip(profiling.LAUNCH_COUNTERS, before)
+               for k in c if c[k] != n[k]}
+    if not any(ms for ms, _ in kernels.values()):
+        print(f"{what}: the profiler recorded no device time; launches not compared (not "
+              f"measured)", flush=True)
+        return kernels, counted
+    seen = {k: sum(n for name, (_, n) in kernels.items() if f"{k}_kernel" in name)
+            for k in counted}
+    graph = {k: v - graph[k] for k, v in profiling.GRAPH_COUNTS.items()}
+    print(f"{what}: launches a step by LAUNCHES {counted} | in the profiler's device events "
+          f"{seen} | graph captures and replays in the profiled steps {graph}", flush=True)
+    check(counted == seen, f"{what}: LAUNCHES {counted} against the profiler's {seen}")
+    return kernels, counted
+
+
 class _HeldSupcon:
     """Inside the block, each supcon kernel call through the wrappers is
     recorded in `calls` as (kernel, operand rows, real views: label != the
     pad's -7), and in `shapes` as (kernel, rows, columns), and held to the plain version on the same operands at the
     kernels phase's tolerances; `max_err` keeps the largest error per
-    kernel. The held calls are not timed."""
+    kernel. The held calls are not timed. Holding a call reads the device,
+    which a CUDA graph capture forbids, and a replay calls no wrapper: inside
+    the block the train steps run eagerly (`_EagerSteps`). Slices F and M
+    hold the graphed steps to such eager ones (`_graphed_against_eager`)."""
 
     def __init__(self, sc, what):
         self.sc, self.what = sc, what
@@ -2630,6 +2764,7 @@ class _HeldSupcon:
     def __enter__(self):
         sc = self.sc
         self._saved = (sc.fwd_stats_kernel, sc.bwd_dz_kernel)
+        self._eager = _EagerSteps().__enter__()
         plain = {"supcon_fwd": sc.fwd_stats_plain, "supcon_bwd": sc.bwd_dz_plain}
 
         def noted(kernel, fn):
@@ -2661,6 +2796,7 @@ class _HeldSupcon:
 
     def __exit__(self, *exc):
         self.sc.fwd_stats_kernel, self.sc.bwd_dz_kernel = self._saved
+        self._eager.__exit__(*exc)
 
 
 def preset_phase(sc):
@@ -3122,6 +3258,9 @@ def slice_h_phase(sc, cs, float32=None):
     return out
 
 
+SLICE_F_GRAPH_STEPS = 3      # steps of the graphed decoder pretraining, and of its eager twin
+
+
 def _f_path(run):
     """The kernels line's name of a slice F run."""
     return "slice_f" if run == "pallas" else f"slice_f_{run}"
@@ -3140,6 +3279,7 @@ def slice_f_phase(sc, cs, encoder_ckpt=None):
     from spcl_torch.main_pretrain_decoder import run
     from spcl_torch.models import UNet
     from spcl_torch.training import load_checkpoint
+    from spcl_torch.utils import fix_all_seed
     base_dir = ROOT / "runs" / "chip_smoke_f"
     shutil.rmtree(base_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3263,6 +3403,28 @@ def slice_f_phase(sc, cs, encoder_ckpt=None):
         out["max_err"][k] = max(out["max_err"][k], held.max_err[k])
     del trainer, rec
     torch.cuda.empty_cache()
+
+    # ---- the held runs' steps were eager: the pallas decoder pretraining (the
+    # hook draws its points every step) replayed as a CUDA graph against eager steps
+    start = {}
+
+    def make_trainer():
+        pre, _ = separate_pretrain_finetune_configs(config_for("pallas", "graphed",
+                                                               SLICE_F_GRAPH_STEPS))
+        pre["Trainer"]["name"] = "pretrain_decoder"
+        fix_all_seed(pre["RandomSeed"])
+        trainer = build_trainer(pre, save_dir=pre["Trainer"]["save_dir"], pretrain=True,
+                                device=DEVICE)
+        if not start:
+            start.update({k: v.clone() for k, v in trainer._model.state_dict().items()})
+        trainer._model.load_state_dict(start)
+        trainer.init()
+        return trainer
+
+    out["graphed"] = _graphed_against_eager("slice F pallas decoder", make_trainer,
+                                            SLICE_F_GRAPH_STEPS)
+    del start
+    torch.cuda.empty_cache()
     print("slice_f " + json.dumps(out), flush=True)
     return out
 
@@ -3347,7 +3509,7 @@ def slice_g_phase(sc, cs):
     trainer = check_run("slice G resume", r, 2)
     check([m["epoch"] for m in trainer.step_metrics] == [2] * ADV_STEPS,
           f"resume ran epochs {[m['epoch'] for m in trainer.step_metrics]}")
-    adam_steps = {s["step"] for s in trainer._discr_optimizer.state.values()}
+    adam_steps = {int(s["step"]) for s in trainer._discr_optimizer.state.values()}
     check(adam_steps == {2 * ADV_STEPS}, f"discriminator Adam steps {adam_steps}")
     out["launches"]["resume"] = dict(r["launches"])
     print(f"resume from {ckpt.name}: epoch 2 only ({ADV_STEPS} steps), the discriminator and "
@@ -4719,6 +4881,23 @@ def slice_m_phase(sc):
           f"run {own_err:.2e}", flush=True)
     check(twin_err <= SLICE_M_LOGIT_TOL * scale, "slice M eval logits disagree")
 
+    # the held runs' steps were eager: the same steps replayed as a CUDA graph
+    # against eager ones, both layouts here and the bf16 pallas path
+    graphed = {}
+    for layout, dtype in (("packed", "float32"), ("nhwc", "float32"), ("pallas", "bfloat16")):
+        def make_trainer(layout=layout, dtype=dtype):
+            config = copy.deepcopy(CONFIG)
+            config["Arch"].update(small_c_layout=layout, dtype=dtype)
+            save = out_dir / f"graphed_{layout}_{dtype}"
+            config["Trainer"].update(max_epoch=1, num_batches=SLICE_M_STEPS, save_dir=str(save))
+            fix_all_seed(config["RandomSeed"])
+            trainer = build_trainer(config, save_dir=str(save), pretrain=True, device=DEVICE)
+            trainer._model.load_state_dict(start)
+            trainer.init()
+            return trainer
+        graphed[f"{layout}_{dtype}"] = _graphed_against_eager(
+            f"slice M {layout} {dtype}", make_trainer, SLICE_M_STEPS)
+
     ms = {"packed": [], "nhwc": []}
     for layout in ("packed", "nhwc", "nhwc", "packed"):
         run = _pretrain_epochs(trainers[layout])
@@ -4732,10 +4911,11 @@ def slice_m_phase(sc):
           f"{', '.join(f'{v:.3f}' for v in ms['nhwc'])})", flush=True)
     # device time by kernel: the wall of this host-bound step moves from run
     # to run by more than the two layouts differ
-    kernel_ms = {}
+    kernel_ms, profiled_launches = {}, {}
     for layout in ("packed", "nhwc"):
-        prof = _print_profile(f"slice M {layout}", _profiled(
-            _pretrain_epochs(trainers[layout]), SLICE_M_PROFILED), steps_ms[layout], top=8)
+        kernels, profiled_launches[layout] = _launches_against_profile(
+            f"slice M {layout} profiled", _pretrain_epochs(trainers[layout]), SLICE_M_PROFILED)
+        prof = _print_profile(f"slice M {layout}", kernels, steps_ms[layout], top=8)
         kernel_ms[layout] = prof[0] if prof else float("nan")
     phase_s = time.perf_counter() - t0
     print(f"slice M kernel time: packed {kernel_ms['packed']:.3f} ms/step, nhwc "
@@ -4746,7 +4926,8 @@ def slice_m_phase(sc):
     return {"launches": launches["packed"], "nhwc_launches": launches["nhwc"],
             "max_err": {k: max(h.max_err[k] for h in held.values())
                         for k in held["packed"].max_err},
-            "ms": steps_ms, "kernel_ms": kernel_ms, "phase_s": phase_s}
+            "ms": steps_ms, "kernel_ms": kernel_ms, "phase_s": phase_s, "graphed": graphed,
+            "profiled_launches": profiled_launches}
 
 
 SLICE_N_CUTOUT = (16, 112)   # Cutout box sizes: up to half the 224^2 crop
@@ -4955,17 +5136,150 @@ def _stage_entry(cs, name, suffix, results, launches, by_path):
         "at": shapes[at]["at"], "shapes": shapes}
 
 
+# the encoder's BatchNorm + ReLU of a 2N=60 pretrain step (two of each shape
+# a stage) and one gradient-cache chunk of 128 views
+BNRELU_SHAPES = {"Conv1": (60, 16, 224, 224), "Conv2": (60, 32, 112, 112),
+                 "Conv3": (60, 64, 56, 56), "Conv4": (60, 128, 28, 28),
+                 "Conv5": (60, 256, 14, 14), "chunk128": (128, 16, 224, 224)}
+# float64 sums in another order: the statistics and the backward sums round
+# to float32 within a few ulps of the plain versions'
+BNRELU_TOL = 1e-6
+BNRELU_REPS = 20
+BNRELU_CELL_SECONDS = 4
+BNRELU_CELLS = ("pretrain-2n60-nhwc", "semi-mt-b32-pallas", "pretrain-2n3840-gradcache")
+ENCODER_STAGES = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5")
+
+
+def _bnrelu_hold(br, shape, gen):
+    """The four kernels against their plain versions on one shape."""
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=DEVICE) * 0.7 + 0.3
+    dy = torch.randn(shape, generator=gen, device=DEVICE)
+    w = torch.rand(c, generator=gen, device=DEVICE) + 0.5
+    b = torch.randn(c, generator=gen, device=DEVICE) * 0.2
+    start = (torch.randn(c, generator=gen, device=DEVICE) * 0.1,
+             torch.rand(c, generator=gen, device=DEVICE) + 0.5,
+             torch.zeros((), dtype=torch.int64, device=DEVICE))
+    runs = {}
+    for name, fn in (("kernel", br.fwd_stats_kernel), ("plain", br.fwd_stats_plain)):
+        running = tuple(t.clone() for t in start)
+        runs[name] = (fn(x, running, 0.1, 1e-5, True), running)
+    (sk, rk), (sp, rp) = runs["kernel"], runs["plain"]
+    torch.testing.assert_close(sk, sp, rtol=BNRELU_TOL, atol=0)
+    for a, b_ in zip(rk, rp):
+        torch.testing.assert_close(a, b_, rtol=BNRELU_TOL, atol=1e-9)
+    y = br.fwd_apply_kernel(x, sk, w, b)
+    check(torch.equal(y, br.fwd_apply_plain(x, sk, w, b)), f"bnrelu_fwd_apply at {shape}")
+    bk, dwk, dbk = br.bwd_sums_kernel(dy, x, sk, w, b)
+    bp, dwp, dbp = br.bwd_sums_plain(dy, x, sk, w, b)
+    for a, b_ in ((bk, bp), (dwk, dwp), (dbk, dbp)):
+        torch.testing.assert_close(a, b_, rtol=BNRELU_TOL, atol=1e-6 * float(b_.abs().max()))
+    dx = br.bwd_apply_kernel(dy, x, sk, bk, w, b)
+    check(torch.equal(dx, br.bwd_apply_plain(dy, x, sk, bk, w, b)),
+          f"bnrelu_bwd_apply at {shape}")
+    return x, dy, w, b
+
+
+def bnrelu_phase(br):
+    """Slice O: the fused BatchNorm + ReLU held to its plain versions, timed
+    beside its byte bound and cuDNN, and counted in the benchmark's cells."""
+    import torch.nn.functional as F
+    phase("slice O: fused BatchNorm + ReLU, float32 NCHW, train mode")
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    rows = {}
+    for stage, shape in BNRELU_SHAPES.items():
+        x, dy, w, b = _bnrelu_hold(br, shape, gen)
+        c = shape[1]
+        xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+        rm, rv = torch.zeros(c, device=DEVICE), torch.ones(c, device=DEVICE)
+        tracked = torch.zeros((), dtype=torch.int64, device=DEVICE)
+
+        def fused():
+            torch.autograd.grad(br.bn_relu(xg, wg, bg, (rm, rv, tracked), momentum=0.1,
+                                           eps=1e-5), (xg, wg, bg), dy)
+
+        def cudnn():
+            y = F.relu(F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5), inplace=True)
+            torch.autograd.grad(y, (xg, wg, bg), dy)
+
+        def plain():
+            stats = br.fwd_stats_plain(x, (rm, rv, tracked), 0.1, 1e-5, True)
+            br.fwd_apply_plain(x, stats, w, b)
+            bstats, _, _ = br.bwd_sums_plain(dy, x, stats, w, b)
+            br.bwd_apply_plain(dy, x, stats, bstats, w, b)
+
+        rows[stage] = {"shape": list(shape),
+                       "bound_ms": 8 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+                       "kernel_ms": _graph_ms(fused, BNRELU_REPS),
+                       "plain_ms": _graph_ms(plain, 3),
+                       "cudnn_ms": _graph_ms(cudnn, BNRELU_REPS)}
+        r = rows[stage]
+        print(f"{stage} {tuple(shape)}: bound {r['bound_ms']:.4f} ms, kernels "
+              f"{r['kernel_ms']:.4f} ms ({100 * r['bound_ms'] / r['kernel_ms']:.1f}% of bound), "
+              f"plain {r['plain_ms']:.4f} ms, cuDNN + ReLU {r['cudnn_ms']:.4f} ms; "
+              "kernels = plain", flush=True)
+        del x, dy, xg
+        torch.cuda.empty_cache()
+    step = {k: 2 * sum(rows[s][k] for s in ENCODER_STAGES)
+            for k in ("bound_ms", "kernel_ms", "plain_ms", "cudnn_ms")}
+    print(f"2N=60 step (two of each Conv1..Conv5): bound {step['bound_ms']:.4f} ms, kernels "
+          f"{step['kernel_ms']:.4f} ms ({100 * step['bound_ms'] / step['kernel_ms']:.1f}% of "
+          f"bound), plain {step['plain_ms']:.4f} ms, cuDNN + ReLU {step['cudnn_ms']:.4f} ms",
+          flush=True)
+    cells = bnrelu_cells(br)
+    print("bnrelu " + json.dumps({"stages": rows, "step": step, "cells": cells}), flush=True)
+    return {"stages": rows, "step": step, "cells": cells}
+
+
+def bnrelu_cells(br):
+    """A short run of each benchmark cell: its result, the train step's CUDA
+    graph captures and replays, and the BatchNorm + ReLU launches a step."""
+    import io
+    from portbench import harness
+    from spcl_torch.utils import profiling
+    out = {}
+    for cell in BNRELU_CELLS:
+        br.reset_launch_counts()
+        profiling.reset_graph_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = harness.run_cell(cell, 2 ** 31 + 17, BNRELU_CELL_SECONDS, False,
+                               out=io.StringIO(), err=io.StringIO())
+        steps = res["attempted"]
+        out[cell] = {"correct": res["correct"], "failed": res["failed"], "steps": steps,
+                     "samples_per_s": res["metrics"]["samples_per_s"]["value"],
+                     "graph": dict(profiling.GRAPH_COUNTS), "launches": dict(br.LAUNCHES),
+                     "launches_per_step": {k: v / steps for k, v in br.LAUNCHES.items()},
+                     "memory_peak_bytes": res["device"]["memory_peak_bytes"],
+                     "max_memory_reserved": torch.cuda.max_memory_reserved()}
+        o = out[cell]
+        print(f"{cell}: {steps} steps, correct {o['correct']}, failed {o['failed']}, "
+              f"{o['samples_per_s']:.1f} slices/s, peak allocated (set-up and window) "
+              f"{o['memory_peak_bytes'] / 2 ** 30:.4f} GiB, peak reserved (the run and its "
+              f"reference) {o['max_memory_reserved'] / 2 ** 30:.4f} GiB, "
+              f"graph captures {o['graph']['captures']} "
+              f"replays {o['graph']['replays']}, bnrelu launches a step "
+              f"{json.dumps({k: round(v, 3) for k, v in o['launches_per_step'].items()})}",
+              flush=True)
+        check(res["correct"] and res["failed"] == 0, f"{cell}: {res}")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--slice-l-rank"]:  # a process of slice L (b)
         slice_l_rank(sys.argv[2], int(sys.argv[3]))
         return
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
+    from spcl_torch.ops import bnrelu_cuda as br
     from spcl_torch.ops import convstage_cuda as cs
     from spcl_torch.ops import supcon_cuda as sc
 
-    build_phase(sc, cs)
+    build_phase(sc, cs, br)
     supcon_plans(sc)
+    if "--bnrelu-only" in sys.argv[1:]:
+        bnrelu_phase(br)
+        return
     if "--stage-kernels-only" in sys.argv[1:]:  # development aids: one phase
         stage_kernel_phase(cs)
         stage_kernel_phase(cs, torch.bfloat16)
@@ -5052,6 +5366,8 @@ def main():
     slice_m = slice_m_phase(sc)
     torch.cuda.empty_cache()
     slice_n = slice_n_phase(sc, cs, smi)
+    torch.cuda.empty_cache()
+    slice_o = bnrelu_phase(br)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -5110,6 +5426,24 @@ def main():
         by_path = {path: v[f"{key}_bf16"] for path, v in slice_h["launches_by_path"].items()}
         kernels.append(_stage_entry(cs, name, "_bf16", stage_bf16, by_path["slice_h"],
                                     by_path))
+    for name in br.PASSES:
+        key = f"bnrelu_{name}"
+        by_path = {"slice_m_" + k: v["launches"].get(key, 0) for k, v in slice_m["graphed"].items()}
+        by_path.update({cell: v["launches"][key] for cell, v in slice_o["cells"].items()})
+        kernels.append({
+            "name": key, "route": "cuda", "source": "spcl_torch/ops/csrc/bnrelu.cu",
+            "replaces": ("none in spcl_tpu (TorchBatchNorm + relu, spcl_tpu/models/norm.py:39, "
+                         "which XLA fuses); on the card cuDNN's NCHW BatchNorm + ReLU"),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": f"within BNRELU_TOL ({BNRELU_TOL}) of the plain versions; the apply "
+                           "passes bit-equal",
+            "ms_four_kernels": {st: r["kernel_ms"] for st, r in slice_o["stages"].items()},
+            "plain_ms_four": {st: r["plain_ms"] for st, r in slice_o["stages"].items()},
+            "bound_ms_four": {st: r["bound_ms"] for st, r in slice_o["stages"].items()},
+            "library_ms_four": {st: r["cudnn_ms"] for st, r in slice_o["stages"].items()},
+            "library_call": "F.batch_norm + F.relu(inplace=True), forward + backward (cuDNN)",
+            "step": slice_o["step"], "at": "per stage, the four kernels of one BatchNorm + ReLU "
+                                           "together; step: a 2N=60 step's ten"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(f"device: {smi} | slice A (nhwc) {1e3 / steps['nhwc_ms']:.3f} steps/s, "
@@ -5154,7 +5488,9 @@ def main():
           f"{slice_m['ms']['packed']:.3f} ms/step ({slice_m['kernel_ms']['packed']:.3f} of "
           f"kernels), nhwc {slice_m['ms']['nhwc']:.3f} ({slice_m['kernel_ms']['nhwc']:.3f}) | "
           f"slice N Sobel {slice_n['ms']['sobel_process']:.4f} ms, dense head max-pooled "
-          f"10x10 fwd+bwd {slice_n['ms']['DenseProjectionHead 10x10 fwd+bwd']:.3f} ms",
+          f"10x10 fwd+bwd {slice_n['ms']['DenseProjectionHead 10x10 fwd+bwd']:.3f} ms | "
+          f"slice O BatchNorm + ReLU of a 2N=60 step {slice_o['step']['kernel_ms']:.3f} ms "
+          f"(bound {slice_o['step']['bound_ms']:.3f}, cuDNN {slice_o['step']['cudnn_ms']:.3f})",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,15 @@ in eval mode the running statistics; and the apply is x * inv + shift with
 inv = weight * rsqrt(var + eps) and shift = bias - mean * inv, both rounded
 to x's dtype, where `forward` subtracts the mean first.
 
+On a CUDA tensor BatchNorm and the ReLU after it run as one function
+(`bn_relu`, the kernels of `ops/bnrelu_cuda.py`) where the input is float32,
+NCHW-contiguous, in train mode and without cross-rank statistics: the UNet's
+`ConvBlock` and `UpConv` call it, and their ReLU modules stay in place, so
+that state_dict keys and stage outputs are those of the plain path.
+Channels-last inputs (cuDNN's NHWC kernels), bfloat16 (`_normalise`),
+cross-rank statistics (`_batch_statistics`), eval mode and the `packed`
+BatchNorm keep their paths.
+
 `frozen_statistics(model)` keeps the running statistics where they are for
 a block: a train-mode forward still normalises with the batch statistics but
 updates no running mean, variance or count. It is spcl_tpu's `train=True,
@@ -54,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bnrelu_cuda
 from ..parallel import mesh
 
 BN_EPS = 1e-5  # TorchBatchNorm.epsilon
@@ -80,6 +90,15 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
             return self._normalise(x, self.running_mean, self.running_var)
         mean, var = self._batch_statistics(x, cross_rank, unbiased=True)
         return self._normalise(x, mean, var)
+
+    def fused_relu(self, x: torch.Tensor) -> torch.Tensor:
+        """relu(self(x)) in train mode as one function (`ops/bnrelu_cuda.py`):
+        the batch statistics of this process, the running statistics moved
+        unless frozen."""
+        return bnrelu_cuda.bn_relu(
+            x, self.weight, self.bias, (self.running_mean, self.running_var,
+                                        self.num_batches_tracked),
+            momentum=self.momentum, eps=self.eps, update=not self.frozen_statistics)
 
     def packed(self, x: torch.Tensor) -> torch.Tensor:
         """spcl_tpu's `_PackedBN` on NCHW `x`: batch statistics (running
@@ -126,6 +145,29 @@ class CrossRankBatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked += 1
+
+
+def fusable(norm: CrossRankBatchNorm2d, x: torch.Tensor) -> bool:
+    """What the fused BatchNorm + ReLU needs, the device aside: a float32
+    NCHW-contiguous input in train mode and statistics of this process
+    alone."""
+    return (x.dtype == torch.float32 and x.dim() == 4 and x.is_contiguous()
+            and norm.training and norm.momentum is not None
+            and not (mesh.active() and not norm.rank_local))
+
+
+def fused_bn_relu_engages(norm: CrossRankBatchNorm2d, x: torch.Tensor) -> bool:
+    """Whether `bn_relu` runs `norm` and its ReLU as one function on `x`: a
+    `fusable` input on a card."""
+    return x.is_cuda and fusable(norm, x)
+
+
+def bn_relu(norm: CrossRankBatchNorm2d, relu: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """relu(norm(x)): one function where `fused_bn_relu_engages`, else the
+    two modules."""
+    if fused_bn_relu_engages(norm, x):
+        return norm.fused_relu(x)
+    return relu(norm(x))
 
 
 def batch_norm(channels: int, momentum: float = 0.1) -> nn.BatchNorm2d:

@@ -7,6 +7,8 @@ reference's (`_Conv1.conv.0.weight`, `_Up5.up.1.weight`, ...):
 
 - ConvBlock `_ConvK.conv`: (conv3x3 -> BN -> ReLU) x 2, bias-free convs;
 - UpConv `_UpK.up`: nearest-upsample x2 -> conv3x3 -> BN -> ReLU;
+  each BN -> ReLU pair runs as one function on a CUDA float32 NCHW input in
+  train mode (`models/norm.py::bn_relu`);
 - `_Deconv_1x1`: 1x1 conv with bias, f32 logits.
 
 `forward` returns a `{stage: activation}` dict (logits also under
@@ -49,7 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .norm import batch_norm
+from .norm import batch_norm, bn_relu
 from .packed_layout import packed_conv
 from ..experimental.packed_stage import packable, run_conv_stage
 from ..utils.profiling import span
@@ -121,7 +123,9 @@ class ConvBlock(nn.Module):
             batch_norm(out_ch, momentum), nn.ReLU(inplace=True))
 
     def forward(self, x):
-        return self.conv(x)
+        conv = self.conv
+        x = bn_relu(conv[1], conv[2], conv[0](x))
+        return bn_relu(conv[4], conv[5], conv[3](x))
 
     def packed(self, x, first: bool = False):
         """The block as spcl_tpu's `PackedConvStage` computes it: its
@@ -142,7 +146,8 @@ class UpConv(nn.Module):
             batch_norm(out_ch, momentum), nn.ReLU(inplace=True))
 
     def forward(self, x):
-        return self.up(x)
+        up = self.up
+        return bn_relu(up[2], up[3], up[1](up[0](x)))
 
 
 class UNet(nn.Module):

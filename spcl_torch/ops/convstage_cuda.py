@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..utils.profiling import launch_counts
 
 _TILE = 16          # side of the pixel tile of one block (convstage_tile())
 _CHANNELS = (16, 32)
@@ -71,8 +72,8 @@ SOURCE = _build.CSRC_DIR / "convstage.cu"
 PASSES = ("conv", "bnconv", "bnpool", "poolsums", "dz1", "dwprev", "dwdx")
 _DTYPES = (torch.float32, torch.bfloat16)
 # kernel name -> launches since the last reset, float32 and bfloat16 apart
-LAUNCHES: Dict[str, int] = {f"convstage_{name}": 0 for name in PASSES}
-LAUNCHES_BF16: Dict[str, int] = {f"convstage_{name}_bf16": 0 for name in PASSES}
+LAUNCHES: Dict[str, int] = launch_counts(f"convstage_{name}" for name in PASSES)
+LAUNCHES_BF16: Dict[str, int] = launch_counts(f"convstage_{name}_bf16" for name in PASSES)
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ..utils.profiling import launch_counts
 from ..parallel import mesh
 
 _TILE = 32          # rows/cols padding of the operands (supcon_tile() in the source)
@@ -49,7 +50,7 @@ _MODES = {"none": 0, "hard": 1, "soft": 2}
 SOURCE = _build.CSRC_DIR / "supcon.cu"
 
 # kernel name -> launches since the last reset
-LAUNCHES: Dict[str, int] = {"supcon_fwd": 0, "supcon_bwd": 0}
+LAUNCHES: Dict[str, int] = launch_counts(("supcon_fwd", "supcon_bwd"))
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -18,9 +18,17 @@ lr=1e-7 with tiny second moments.
 Each update runs over all parameters of a group at once with
 `torch._foreach_*` ops (one launch per op, not per parameter, on the card),
 in the op order of a per-parameter loop: mu*b1 + (1-b1)*g,
-nu*b2 + (1-b2)*(g*g), r*mu_hat / (sqrt(nu_hat) + eps). The step-count
-scalars are computed once per step on the host, in float32 as optax does.
-Parameters without a gradient (frozen stages) are skipped.
+nu*b2 + (1-b2)*(g*g), r*mu_hat / (sqrt(nu_hat) + eps). Parameters without a
+gradient (frozen stages) are skipped.
+
+The step count is a float32 tensor on the parameters' device
+(`state["step"]`, one tensor shared by the parameters that have taken the
+same number of steps), and the step-count terms (b**t, RAdam's rho and r) are
+computed from it on the device, in float32 as optax does; RAdam's branch at
+the rectification threshold is a select. So no step reads a host value that
+changes from step to step, and a step captured in a CUDA graph
+(`training/steps.py`) replays as the next step. The learning rate and the
+other group settings are host floats, read when a step runs (or is captured).
 """
 from __future__ import annotations
 
@@ -84,15 +92,14 @@ class _Chain(torch.optim.Optimizer):
 
     def _moments(self, group, params, grads):
         """Advance the first and second moments and the step counts; returns
-        [(t, mus, nus, indices into params)] grouped by step count t (one
-        group in practice)."""
+        [(t, mus, nus, indices into params)] grouped by the step-count tensor
+        t the parameters share (one group in practice)."""
         b1, b2 = group["betas"]
-        for p in params:
-            state = self.state[p]
-            if not state:
-                state["step"] = 0
-                state["mu"] = torch.zeros_like(p)
-                state["nu"] = torch.zeros_like(p)
+        fresh = [p for p in params if not self.state[p]]
+        if fresh:
+            t0 = torch.zeros((), dtype=torch.float32, device=fresh[0].device)
+            for p in fresh:
+                self.state[p].update(step=t0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
         mus = [self.state[p]["mu"] for p in params]
         nus = [self.state[p]["nu"] for p in params]
         torch._foreach_mul_(mus, b1)
@@ -101,14 +108,31 @@ class _Chain(torch.optim.Optimizer):
         torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
         by_step = {}
         for i, p in enumerate(params):
-            self.state[p]["step"] += 1
-            by_step.setdefault(self.state[p]["step"], []).append(i)
+            t = self.state[p]["step"]
+            by_step.setdefault(id(t), (t, []))[1].append(i)
+        torch._foreach_add_([t for t, _ in by_step.values()], 1.0)
         return [(t, [mus[i] for i in ix], [nus[i] for i in ix], ix)
-                for t, ix in by_step.items()]
+                for t, ix in by_step.values()]
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's, then every step count as a float32 tensor on its
+        parameter's device, one tensor for the parameters of one group that
+        have taken the same number of steps (a checkpoint may hold ints)."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            shared = {}
+            for p in group["params"]:
+                state = self.state.get(p)
+                if state and "step" in state:
+                    n = float(state["step"])
+                    if n not in shared:
+                        shared[n] = torch.tensor(n, dtype=torch.float32, device=p.device)
+                    state["step"] = shared[n]
 
 
 def _adaptive(mu_hat, nu_hat, eps, r=None):
-    """r * mu_hat / (sqrt(nu_hat) + eps), elementwise over the lists."""
+    """r * mu_hat / (sqrt(nu_hat) + eps), elementwise over the lists (r a
+    float32 scalar tensor)."""
     den = torch._foreach_sqrt(nu_hat)
     torch._foreach_add_(den, eps)
     num = mu_hat if r is None else torch._foreach_mul(mu_hat, r)
@@ -123,24 +147,44 @@ def _scatter(n, parts):
     return out
 
 
+def _bias_correction(b: float, t: torch.Tensor) -> torch.Tensor:
+    """1 - b**t in float32 (t a float32 step-count tensor)."""
+    return 1.0 - torch.pow(float(_F32(b)), t)
+
+
+def radam_terms(b2: float, threshold: float, t: torch.Tensor):
+    """(1 - b2**t, r, rectified) of optax.scale_by_radam at step count t, on
+    t's device in float32: r = sqrt((rho-4)(rho-2)rho_inf /
+    ((rho_inf-4)(rho_inf-2)rho)) where rho >= threshold, else 1, and
+    `rectified` 1.0 there, else 0.0 (r is NaN below rho = 4, so the select
+    drops it)."""
+    ro_inf = _F32(2.0 / (1.0 - b2) - 1.0)
+    b2t = torch.pow(float(_F32(b2)), t)
+    ro = float(ro_inf) - 2.0 * t * b2t / (1.0 - b2t)
+    rectified = ro >= threshold
+    r = torch.sqrt((ro - 4.0) * (ro - 2.0) * float(ro_inf)
+                   / (float((ro_inf - _F32(4)) * (ro_inf - _F32(2))) * ro))
+    return 1.0 - b2t, torch.where(rectified, r, torch.ones_like(r)), rectified.float()
+
+
 class RAdam(_Chain):
-    """Rectified Adam, optax.scale_by_radam semantics."""
+    """Rectified Adam, optax.scale_by_radam semantics. Below the threshold the
+    update is mu_hat, above it r * mu_hat / (sqrt(nu_hat) + eps). Both are
+    computed (r is 1 below the threshold, so the adaptive update is finite)
+    and the select is adaptive * k + mu_hat * (1 - k) with k the 0/1
+    `rectified`, which is the bits of the branch taken."""
 
     def _scale(self, group, params, grads):
         b1, b2 = group["betas"]
-        ro_inf = _F32(2.0 / (1.0 - b2) - 1.0)
         parts = []
         for t, mus, nus, ix in self._moments(group, params, grads):
-            b2t = _F32(b2) ** _F32(t)
-            ro = ro_inf - _F32(2) * _F32(t) * b2t / (_F32(1) - b2t)
-            mu_hat = torch._foreach_div(mus, float(_F32(1) - _F32(b1) ** _F32(t)))
-            if ro >= group["threshold"]:
-                nu_hat = torch._foreach_div(nus, float(_F32(1) - b2t))
-                r = np.sqrt((ro - _F32(4)) * (ro - _F32(2)) * ro_inf
-                            / ((ro_inf - _F32(4)) * (ro_inf - _F32(2)) * ro))
-                parts.append((ix, _adaptive(mu_hat, nu_hat, group["eps"], float(r))))
-            else:
-                parts.append((ix, mu_hat))
+            bc2, r, rectified = radam_terms(b2, group["threshold"], t)
+            mu_hat = torch._foreach_div(mus, _bias_correction(b1, t))
+            nu_hat = torch._foreach_div(nus, bc2)
+            adaptive = _adaptive(mu_hat, nu_hat, group["eps"], r)
+            torch._foreach_mul_(adaptive, rectified)
+            parts.append((ix, torch._foreach_add(
+                adaptive, torch._foreach_mul(mu_hat, 1.0 - rectified))))
         return _scatter(len(params), parts)
 
 
@@ -151,8 +195,8 @@ class Adam(_Chain):
         b1, b2 = group["betas"]
         parts = []
         for t, mus, nus, ix in self._moments(group, params, grads):
-            mu_hat = torch._foreach_div(mus, float(_F32(1) - _F32(b1) ** _F32(t)))
-            nu_hat = torch._foreach_div(nus, float(_F32(1) - _F32(b2) ** _F32(t)))
+            mu_hat = torch._foreach_div(mus, _bias_correction(b1, t))
+            nu_hat = torch._foreach_div(nus, _bias_correction(b2, t))
             parts.append((ix, _adaptive(mu_hat, nu_hat, group["eps"])))
         return _scatter(len(params), parts)
 

@@ -86,6 +86,7 @@ import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
 import torch.nn.functional as F
 from torch import nn
@@ -102,7 +103,7 @@ from ..models.ema import EMATeacher
 from ..models.norm import frozen_statistics
 from ..models.unet import UNet
 from ..parallel import mesh
-from ..utils.profiling import span
+from ..utils.profiling import GRAPH_COUNTS, LAUNCH_COUNTERS, span
 
 _META_KEYS = ("partition", "patient", "cycle", "scan_idx", "valid")
 
@@ -136,13 +137,26 @@ def _resolve_batch(store: Optional[DeviceStore], batch) -> Dict[str, torch.Tenso
 
 def draw_pretrain_params(generator: torch.Generator, batch, store: Optional[DeviceStore], *,
                          policy: AugmentPolicy, total_freedom: bool,
-                         flip_threshold: float = 0.8) -> Dict:
+                         flip_threshold: float = 0.8,
+                         hooks: Optional[Sequence[TrainerHook]] = None,
+                         params: Optional[Dict] = None) -> Dict:
     """The pretrain step's draws for a global batch: {"aug": <sample_twice
-    dict>, "flip": <flip_params dict>}."""
-    n, in_size, sizes, device = _global_view(store, batch)
-    return {"aug": sample_twice(generator, n, policy, in_size, total_freedom=total_freedom,
-                                sizes=sizes, device=device),
-            "flip": flip_params(generator, n, threshold=flip_threshold, device=device)}
+    dict>, "flip": <flip_params dict>}, unless `params` (draws a caller
+    injected) holds them; with `hooks`, also {"hooks": {name: draws}} of the
+    hooks that draw (`TrainerHook.sample`, in hook order, after the views'
+    draws), unless `params` holds "hooks"."""
+    if params is None:
+        n, in_size, sizes, device = _global_view(store, batch)
+        params = {"aug": sample_twice(generator, n, policy, in_size,
+                                      total_freedom=total_freedom, sizes=sizes, device=device),
+                  "flip": flip_params(generator, n, threshold=flip_threshold, device=device)}
+    if hooks is None or "hooks" in params:
+        return params
+    n = _rows(batch)
+    valid = batch["valid"] if isinstance(batch, dict) else (batch >= 0).to(torch.float32)
+    ctx = {"n_unl": n, "valid": valid, "n_global": n, "row_offset": 0}
+    draws = {h.name: h.sample(generator, ctx) for h in hooks}
+    return {**params, "hooks": {k: v for k, v in draws.items() if v is not None}}
 
 
 def _as_float_image(img: torch.Tensor) -> torch.Tensor:
@@ -167,17 +181,26 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
 
     `batch` holds device tensors (`batch_to_device`), or is an index vector
     into `store`; metrics are detached device tensors — {"reg_loss": ...,
-    "hooks": {name: {...}}} — so the caller decides when to synchronise."""
+    "hooks": {name: {...}}} — so the caller decides when to synchronise.
+
+    Every draw of the step, the hooks' included, is made first
+    (`draw_pretrain_params`). On a card in a single process the step is
+    replayed as a CUDA graph (`GraphedStep`): the draws are made eagerly,
+    the rest of the step (gather, augmentation, forward, loss, backward,
+    optimizer) replays."""
     hooks = tuple(hooks)
+
+    def draw(batch, generator: Optional[torch.Generator],
+             params: Optional[Dict] = None) -> Dict:
+        return draw_pretrain_params(generator, batch, store, policy=policy,
+                                    total_freedom=total_freedom,
+                                    flip_threshold=flip_threshold, hooks=hooks, params=params)
 
     def step(batch, generator: Optional[torch.Generator],
              hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
         n_global = _rows(batch)
         with span("spcl.step.input"):
-            if params is None:
-                params = draw_pretrain_params(generator, batch, store, policy=policy,
-                                              total_freedom=total_freedom,
-                                              flip_threshold=flip_threshold)
+            params = draw(batch, generator, params)
             batch, params = _shard_step_rows(batch, params, n_global)
             batch = _resolve_batch(store, batch)
             image = _as_float_image(batch["image"])
@@ -191,13 +214,13 @@ def build_pretrain_step(model: UNet, hooks: Sequence[TrainerHook],
         with span("spcl.step.loss"):
             ctx = {"acts": acts, "n_unl": n, "flip": fp, **_global_rows(n)}
             ctx.update({k: batch[k] for k in _META_KEYS})
-            total, hook_metrics = _hook_losses(hooks, ctx, generator, params, hook_scalars,
+            total, hook_metrics = _hook_losses(hooks, ctx, None, params, hook_scalars,
                                                image.device)
         _backward(optimizer, total)
         _optimizer_step(optimizer)
         return {"reg_loss": total.detach(), "hooks": hook_metrics}
 
-    return _spanned_step(step)
+    return GraphedStep(step, draw, optimizer)
 
 
 def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: AugmentPolicy,
@@ -224,10 +247,10 @@ def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: Aug
     @torch.no_grad()
     def probe(batch, generator: Optional[torch.Generator],
               hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
-        if params is None:
-            params = draw_pretrain_params(generator, batch, store, policy=policy,
-                                          total_freedom=total_freedom,
-                                          flip_threshold=flip_threshold)
+        params = draw_pretrain_params(generator, batch, store, policy=policy,
+                                      total_freedom=total_freedom,
+                                      flip_threshold=flip_threshold, hooks=drawing,
+                                      params=params)
         batch = _resolve_batch(store, batch)
         image = _as_float_image(batch["image"])
         (v1, _), (v2, _) = augment_twice(image, None, policy, params["aug"])
@@ -240,12 +263,192 @@ def build_matrix_probe(model: UNet, hooks: Sequence[TrainerHook], *, policy: Aug
             model.train(was_training)
         ctx = {"acts": acts, "n_unl": image.shape[0], "flip": fp}
         ctx.update({k: batch[k] for k in _META_KEYS})
-        injected = params.get("hooks") or {}
-        ctx["draws"] = {h.name: injected[h.name] if h.name in injected
-                        else h.sample(generator, ctx) for h in drawing}
+        ctx["draws"] = {h.name: params["hooks"].get(h.name) for h in drawing}
         return {h.name: h.matrices_fn(ctx, hook_scalars.get(h.name, {})) for h in hooks}
 
     return probe
+
+
+def _by_path(tree) -> Dict[str, object]:
+    """{key path: leaf} of a tree of dicts, lists and tuples."""
+    return {pytree.keystr(path): leaf for path, leaf in pytree.tree_flatten_with_path(tree)[0]}
+
+
+def _layout(tree) -> tuple:
+    """What a capture is specific to in `tree`: each leaf's key path with,
+    for a tensor, its shape, dtype and device, else its value; in path
+    order, so that the order of a dict's keys does not matter."""
+    return tuple(sorted((k, (tuple(v.shape), v.dtype, v.device) if torch.is_tensor(v) else v)
+                        for k, v in _by_path(tree).items()))
+
+
+def _state_tensors(optimizer: torch.optim.Optimizer) -> Dict[int, tuple]:
+    """{id(parameter): ids of its state's tensors} of the parameters that
+    have optimizer state."""
+    return {id(p): tuple(id(v) for v in s.values() if torch.is_tensor(v))
+            for p, s in optimizer.state.items() if s}
+
+
+class GraphedStep:
+    """A train step replayed as one CUDA graph in a single process on a card.
+
+    `eager(batch, generator, hook_scalars, params)` is the eager step and
+    `draw(batch, generator, params)` completes `params` with every random
+    draw the step takes (augmentation, flips, the hooks' `sample`), as the
+    eager step does first. Where the step engages (a CUDA batch, no process
+    group: `mesh.active()` false), a call draws eagerly, copies the batch and
+    the draws into static buffers and replays:
+
+    - the first call at a new layout (shapes and dtypes of the batch and the
+      draws, the backends' precision settings) is an ordinary eager step on
+      the capture stream, which warms up what a capture cannot (kernel
+      builds, cuDNN's plans, the optimizer's state);
+    - the next call captures the step on those buffers (gather,
+      augmentation, forward, loss, backward, optimizer) and replays it once;
+      later calls replay;
+    - the host values a capture freezes (each group's learning rate and
+      settings, the hooks' scalars such as gamma, the optimizer's `step`
+      method) are read at every call, and a change (an epoch boundary)
+      captures anew into the same memory pool, before the old graph is
+      released, so that reserved memory does not grow with the epochs;
+    - a capture that made optimizer state (a parameter that took no step
+      before it, whose moments the graph would zero at every replay) is
+      thrown away with that state: the call runs eagerly and the next one
+      captures. One that replaced existing state raises.
+
+    The optimizer must take no host value that changes from step to step
+    (`training/optim.py` keeps its step counts on the device). A call returns
+    fresh metric tensors: one copy of the graph's outputs a step. Elsewhere
+    (the CPU, a process group) a call is the eager step. `GRAPH_COUNTS` in
+    `utils/profiling.py` counts captures and replays; a replay adds the
+    kernel launches its capture counted to every registered `LAUNCHES`
+    (`utils/profiling.py::LAUNCH_COUNTERS`), so that they count every
+    launch, replayed or not."""
+
+    def __init__(self, step: Callable, draw: Callable, optimizer: torch.optim.Optimizer):
+        self.eager, self.draw, self._optimizer = step, draw, optimizer
+        self._warm = None        # the layout warmed up last
+        self._key = None         # what the graph was captured with
+        self._graph = self._pool = self._stream = None
+        self._static = None      # {key path: static input tensor}
+        self._out = None         # (outputs' tree spec, leaves, their tensors in one buffer)
+        self._launches = []
+
+    def engages(self, batch) -> bool:
+        device = (batch["image"] if isinstance(batch, dict) else batch).device
+        return device.type == "cuda" and not mesh.active() and torch.is_grad_enabled()
+
+    def _host_values(self, hook_scalars) -> tuple:
+        groups = tuple(tuple(sorted((k, repr(v)) for k, v in g.items() if k != "params"))
+                       for g in self._optimizer.param_groups)
+        step = getattr(self._optimizer.step, "__func__", self._optimizer.step)
+        return groups, _layout(hook_scalars), step
+
+    def __call__(self, batch, generator: Optional[torch.Generator],
+                 hook_scalars: Dict[str, Dict[str, float]], params: Optional[Dict] = None):
+        with span("spcl.step"):
+            if not self.engages(batch):
+                return self.eager(batch, generator, hook_scalars, params)
+            return self._graphed(batch, generator, hook_scalars, params)
+
+    def _graphed(self, batch, generator, hook_scalars, params):
+        with span("spcl.step.input"):
+            inputs = (batch, self.draw(batch, generator, params))
+            b = torch.backends
+            layout = (_layout(inputs), b.cudnn.allow_tf32, b.cudnn.deterministic,
+                      b.cudnn.benchmark, b.cuda.matmul.allow_tf32)
+            key = (layout, self._host_values(hook_scalars))
+        if self._stream is None:
+            device = (batch["image"] if isinstance(batch, dict) else batch).device
+            self._stream = torch.cuda.Stream(device=device)
+            self._pool = torch.cuda.graph_pool_handle()
+        if layout != self._warm:
+            self._release()
+            self._warm = layout
+            return self._eager_on_stream(inputs, hook_scalars)
+        if key != self._key:
+            if not self._capture(inputs, hook_scalars, key):
+                return self._eager_on_stream(inputs, hook_scalars)
+        else:
+            with span("spcl.step.input"):
+                flat = _by_path(inputs)
+                torch._foreach_copy_(list(self._static.values()), [flat[k] for k in self._static])
+        self._graph.replay()
+        GRAPH_COUNTS["replays"] += 1
+        for counts, name, n in self._launches:
+            counts[name] += n
+        spec, leaves, buffer = self._out
+        pieces = iter(buffer.clone().split([t.numel() for t in leaves if torch.is_tensor(t)]))
+        return pytree.tree_unflatten([next(pieces).view(t.shape).to(t.dtype)
+                                      if torch.is_tensor(t) else t for t in leaves], spec)
+
+    def _on_stream(self, fn):
+        """fn() on the capture stream, ordered after and before the current."""
+        current = torch.cuda.current_stream()
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            out = fn()
+        current.wait_stream(self._stream)
+        return out
+
+    def _eager_on_stream(self, inputs, hook_scalars):
+        out = self._on_stream(lambda: self.eager(inputs[0], None, hook_scalars, inputs[1]))
+        for t in pytree.tree_leaves(out):
+            if torch.is_tensor(t):
+                t.record_stream(torch.cuda.current_stream())
+        return out
+
+    def _capture(self, inputs, hook_scalars, key) -> bool:
+        """Capture the step on fresh static copies of `inputs`; the previous
+        graph is released only after, so that its pool's blocks serve this
+        capture instead of new ones. False where the capture made optimizer
+        state: graph and state are dropped, and the caller runs eagerly."""
+        old = self._graph
+        self._graph = self._key = self._static = self._out = None
+        static = pytree.tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, inputs)
+        state = _state_tensors(self._optimizer)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                out = self.eager(static[0], None, hook_scalars, static[1])
+                leaves, spec = pytree.tree_flatten(out)
+                buffer = torch.cat([t.reshape(-1).float() for t in leaves if torch.is_tensor(t)])
+            finally:
+                graph.capture_end()
+            return spec, leaves, buffer
+
+        counted = [dict(c) for c in LAUNCH_COUNTERS]
+        out = self._on_stream(capture)
+        # a capture launches nothing: its calls count at each replay
+        launches = [(c, k, c[k] - b[k]) for c, b in zip(LAUNCH_COUNTERS, counted)
+                    for k in c if c[k] != b[k]]
+        for counts, name, n in launches:
+            counts[name] -= n
+        if old is not None:
+            old.reset()
+        made = _state_tensors(self._optimizer)
+        if made != state:
+            graph.reset()  # no graph holds the pool now: the next capture takes a new one
+            self._pool = torch.cuda.graph_pool_handle()
+            if any(made.get(p) != ids for p, ids in state.items()):
+                raise RuntimeError("the optimizer replaced its state inside a captured step: "
+                                   "the step cannot be replayed as a CUDA graph")
+            for p in [p for p in self._optimizer.state if id(p) not in state]:
+                del self._optimizer.state[p]
+            return False
+        self._graph, self._key, self._launches, self._out = graph, key, launches, out
+        self._static = {k: v for k, v in _by_path(static).items() if torch.is_tensor(v)}
+        GRAPH_COUNTS["captures"] += 1
+        return True
+
+    def _release(self) -> None:
+        """Drop the graph and start a new pool for the next capture."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._pool = torch.cuda.graph_pool_handle()
+        self._graph = self._key = self._static = self._out = None
 
 
 def _shard_step_rows(batch, params: Dict, n_global: int):

@@ -14,6 +14,12 @@ kernels that are counted already).
   the kernels they launch.
 - `allocator_counts()`: the caching allocator's own counts of device
   allocations and of retries after freeing its cache.
+- `GRAPH_COUNTS`: how often the train steps engaged a CUDA graph
+  (`training/steps.py::GraphedStep`): captures and replays, plain integers
+  since the process started or `reset_graph_counts()`.
+- `launch_counts(names)`: a kernel module's `LAUNCHES` ({kernel: launches}),
+  registered in `LAUNCH_COUNTERS`, whose counts a graph replay advances by
+  the launches its capture counted.
 - `kernel_times(run, steps)`: run(steps) under the profiler (CPU + CUDA
   activities) -> {event name: (ms per step, launches per step)}.
 - `device_ms_per_step(trace_dir, calls)`: the device ms per call of a chrome
@@ -29,7 +35,7 @@ import contextlib
 import gzip
 import json
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -62,6 +68,28 @@ def allocator_counts(device=None) -> Dict[str, int]:
     stats = torch.cuda.memory_stats(device)
     return {"device_allocs": int(stats.get("num_device_alloc", 0)),
             "alloc_retries": int(stats.get("num_alloc_retries", 0))}
+
+
+GRAPH_COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
+
+
+def reset_graph_counts() -> None:
+    for k in GRAPH_COUNTS:
+        GRAPH_COUNTS[k] = 0
+
+
+# every kernel module's launch counts, in the order the modules were imported
+LAUNCH_COUNTERS: List[Dict[str, int]] = []
+
+
+def launch_counts(names: Iterable[str]) -> Dict[str, int]:
+    """{name: 0} for each kernel, registered in `LAUNCH_COUNTERS`: a module's
+    wrappers add one at each launch, and a CUDA graph replay adds the
+    launches its capture counted, so that the counts hold every launch,
+    replayed or not."""
+    counts = {name: 0 for name in names}
+    LAUNCH_COUNTERS.append(counts)
+    return counts
 
 
 def activities():

@@ -24,6 +24,13 @@ round through x * (1/s) on one and x / s on the other); the cached gradient
 equals `direct_value_and_grad` at 2N=240 in 4 chunks (TF32 off) to relative
 L2 1e-4 per tensor, the loss to rtol 1e-5 (the chunks' gradients are added
 in another order).
+
+The fused BatchNorm + ReLU (`bnrelu_cuda`): statistics and sums within 1e-6
+of the plain versions (float64 sums in another order, rounded once), the
+apply passes equal to the bit; against nn.BatchNorm2d + ReLU (cuDNN, float32
+sums) 2e-5 of each tensor's largest value. The graphed pretrain step against
+the same steps run eagerly (cuDNN deterministic): 1e-6 of each tensor's
+scale.
 """
 import pytest
 import torch
@@ -1085,3 +1092,313 @@ def test_effect_study_on_the_card(cuda):
         {**{a: 5 for a in five}, **{a: 3 for a in three}}
     missed = {a: v for a, v in res["gate"].items() if not v["pass"]}
     assert set(res["gate"]) == set(es.ARMS) and not missed, missed
+
+
+# ------------------------------------------------------------------ fused BatchNorm + ReLU
+# the encoder's BatchNorm shapes at 2N=60 (Conv1..Conv5), a gradient-cache
+# chunk of 128 views, and one shape whose H * W is not a multiple of 4 (the
+# kernels' float path)
+BNRELU_SHAPES = [(60, 16, 224, 224), (60, 32, 112, 112), (60, 64, 56, 56), (60, 128, 28, 28),
+                 (60, 256, 14, 14), (128, 16, 224, 224), (5, 24, 7, 9)]
+
+
+def _bnrelu_operands(shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=g, device="cuda") * 0.7 + 0.3
+    dy = torch.randn(shape, generator=g, device="cuda")
+    w = torch.rand(c, generator=g, device="cuda") + 0.5
+    b = torch.randn(c, generator=g, device="cuda") * 0.2
+    running = (torch.randn(c, generator=g, device="cuda") * 0.1,
+               torch.rand(c, generator=g, device="cuda") + 0.5,
+               torch.zeros((), dtype=torch.int64, device="cuda"))
+    return x, dy, w, b, running
+
+
+@pytest.mark.parametrize("shape", BNRELU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bnrelu_kernels_match_plain(cuda, shape):
+    """Each of the four kernels against its plain version on the same CUDA
+    inputs: the statistics, the running statistics and the backward sums
+    within 1e-6 (float64 sums added in another order, rounded once to
+    float32), the apply passes equal to the bit given the same statistics
+    (the same float32 operations in the same order); one launch each."""
+    from spcl_torch.ops import bnrelu_cuda as br
+    br.build()
+    x, dy, w, b, start = _bnrelu_operands(shape, seed=sum(shape))
+    rk, rp = (tuple(t.clone() for t in start) for _ in range(2))
+    br.reset_launch_counts()
+    sk = br.fwd_stats_kernel(x, rk, 0.1, 1e-5, True)
+    sp = br.fwd_stats_plain(x, rp, 0.1, 1e-5, True)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(rk[0], rp[0], rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(rk[1], rp[1], rtol=1e-6, atol=0)
+    assert int(rk[2]) == int(rp[2]) == 1
+    y = br.fwd_apply_kernel(x, sk, w, b)
+    assert torch.equal(y, br.fwd_apply_plain(x, sk, w, b))
+    bk, dwk, dbk = br.bwd_sums_kernel(dy, x, sk, w, b)
+    bp, dwp, dbp = br.bwd_sums_plain(dy, x, sk, w, b)
+    for got, want in ((bk, bp), (dwk, dwp), (dbk, dbp)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    dx = br.bwd_apply_kernel(dy, x, sk, bk, w, b)
+    assert torch.equal(dx, br.bwd_apply_plain(dy, x, sk, bk, w, b))
+    assert br.LAUNCHES == {f"bnrelu_{p}": 1 for p in br.PASSES}
+    # the arrival counters are zero again: a second call gives the same bits
+    assert torch.equal(br.fwd_stats_kernel(x, rk, 0.1, 1e-5, False), sk)
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["update", "frozen"])
+@pytest.mark.parametrize("shape", [(60, 16, 224, 224), (60, 256, 14, 14), (5, 24, 7, 9)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bnrelu_module_matches_batchnorm2d_on_card(cuda, shape, frozen):
+    """The UNet's BatchNorm + ReLU pair on the card (`models/norm.py::bn_relu`
+    on a CUDA float32 NCHW input: the kernels) against nn.BatchNorm2d +
+    in-place ReLU (cuDNN) from the same state: output, dx, dweight, dbias
+    within 2e-5 of their largest value (cuDNN adds in float32), the running
+    statistics within 1e-5, num_batches_tracked equal; frozen statistics
+    move nothing."""
+    from torch import nn
+    from spcl_torch.models.norm import (CrossRankBatchNorm2d, bn_relu,
+                                        fused_bn_relu_engages, frozen_statistics)
+    from spcl_torch.ops import bnrelu_cuda as br
+    x, dy, w, b, start = _bnrelu_operands(shape, seed=7)
+    c = shape[1]
+    ours, ref = CrossRankBatchNorm2d(c).cuda(), nn.BatchNorm2d(c).cuda()
+    for m in (ours, ref):
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+            m.running_mean.copy_(start[0])
+            m.running_var.copy_(start[1])
+    xo, xr = (x.clone().requires_grad_(True) for _ in range(2))
+    assert fused_bn_relu_engages(ours, xo)
+    br.reset_launch_counts()
+    if frozen:
+        with frozen_statistics(ours):
+            yo = bn_relu(ours, nn.ReLU(inplace=True), xo)
+        yr = torch.relu(torch.nn.functional.batch_norm(xr, None, None, ref.weight, ref.bias,
+                                                       True, 0.0, 1e-5))
+    else:
+        yo = bn_relu(ours, nn.ReLU(inplace=True), xo)
+        yr = torch.relu_(ref(xr))
+    assert br.LAUNCHES["bnrelu_fwd_stats"] == br.LAUNCHES["bnrelu_fwd_apply"] == 1
+    yo.backward(dy)
+    yr.backward(dy)
+    assert br.LAUNCHES["bnrelu_bwd_sums"] == br.LAUNCHES["bnrelu_bwd_apply"] == 1
+    for got, want in ((yo, yr), (xo.grad, xr.grad), (ours.weight.grad, ref.weight.grad),
+                      (ours.bias.grad, ref.bias.grad)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-5 * float(want.detach().abs().max()))
+    if frozen:
+        assert torch.equal(ours.running_mean, start[0]) and torch.equal(ours.running_var,
+                                                                           start[1])
+        assert int(ours.num_batches_tracked) == 0
+    else:
+        torch.testing.assert_close(ours.running_mean, ref.running_mean, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(ours.running_var, ref.running_var, rtol=1e-5, atol=0)
+        assert int(ours.num_batches_tracked) == int(ref.num_batches_tracked) == 1
+
+
+def test_bnrelu_dispatch_on_card(cuda):
+    """The fused pair engages on CUDA float32 NCHW-contiguous train-mode
+    inputs only: channels-last, bf16 and eval mode keep their paths, and a
+    CUDA call into the kernels with a malformed operand raises."""
+    from spcl_torch.models.norm import CrossRankBatchNorm2d, fused_bn_relu_engages
+    from spcl_torch.ops import bnrelu_cuda as br
+    norm = CrossRankBatchNorm2d(16).cuda()
+    x = torch.randn(4, 16, 12, 12, device="cuda")
+    assert fused_bn_relu_engages(norm, x)
+    assert not fused_bn_relu_engages(norm, x.to(memory_format=torch.channels_last))
+    assert not fused_bn_relu_engages(norm, x.bfloat16())
+    assert not fused_bn_relu_engages(norm.eval(), x)
+    running = (norm.running_mean, norm.running_var, norm.num_batches_tracked)
+    with pytest.raises(ValueError):  # channels-last
+        br.fwd_stats_kernel(x.to(memory_format=torch.channels_last), running, 0.1, 1e-5, True)
+    with pytest.raises(ValueError):  # float64
+        br.fwd_stats_kernel(x.double(), running, 0.1, 1e-5, True)
+    with pytest.raises(ValueError):  # statistics of another width
+        br.fwd_apply_kernel(x, torch.zeros(2, 8, device="cuda"), norm.weight.detach(),
+                            norm.bias.detach())
+
+
+# ------------------------------------------------------------------ the pretrain step as a CUDA graph
+def _graph_setup(layout, dtype, feature="Conv5", seed=0):
+    import copy
+    from spcl_torch.data import DeviceStore, synthetic_dataset
+    from spcl_torch.data.augment import AugmentPolicy
+    from spcl_torch.hooks import SelfPacedINFONCEHook
+    from spcl_torch.models import UNet, set_trainable_stages, stages_from_range
+    from spcl_torch.training import build_optimizer, build_pretrain_step
+    torch.manual_seed(seed)
+    root = synthetic_dataset("acdc", num_scans=6, slices_per_scan=(9, 10), canvas=48, seed=seed)
+    store = DeviceStore(root, "cuda")
+    base = UNet(max_channel=256, small_c_layout=layout, dtype=dtype)
+    set_trainable_stages(base, stages_from_range(None, feature))
+
+    def new_hook():  # a decoder stage's hook draws points (`sample`) every step
+        dense = {} if feature == "Conv5" else {"contrast_on": "self", "spatial_size": (4, 4)}
+        return SelfPacedINFONCEHook(name="sp", feature_name=feature, mode="hard",
+                                    begin_value=3.0, end_value=14.0, max_epoch=4, **dense)
+
+    head = new_hook().build(base, "cpu")
+    runs = []
+    for _ in range(2):
+        net = copy.deepcopy(base).cuda()
+        hook = new_hook()
+        hook.projector = copy.deepcopy(head).cuda()
+        opt = build_optimizer([p for p in net.parameters() if p.requires_grad]
+                              + hook.parameters(), name="RAdam", lr=1e-4, weight_decay=1e-5)
+        step = build_pretrain_step(net, [hook], opt, policy=AugmentPolicy(crop=32),
+                                   total_freedom=True, until=feature, store=store)
+        runs.append((net, hook, opt, step))
+    return runs
+
+
+# (layout, dtype, the hook's stage, fused BatchNorm + ReLU pairs a step): the
+# encoder's ten pairs to Conv5 under nhwc float32; none in bf16, nor under
+# pallas, whose fused stages hand channels-last activations to Conv3; packed
+# normalises Conv1 / Conv2 its own way (Conv3..Conv5: six); to Up_conv3 the
+# decoder adds Up5, Up4, Up3 (one each) and their ConvBlocks (two each)
+GRAPHED_CASES = {"nhwc-float32": ("nhwc", torch.float32, "Conv5", 10),
+                 "pallas-float32": ("pallas", torch.float32, "Conv5", 0),
+                 "nhwc-bfloat16": ("nhwc", torch.bfloat16, "Conv5", 0),
+                 "packed-float32": ("packed", torch.float32, "Conv5", 6),
+                 "pallas-bfloat16": ("pallas", torch.bfloat16, "Conv5", 0),
+                 "nhwc-float32-Up_conv3": ("nhwc", torch.float32, "Up_conv3", 19)}
+
+
+@pytest.mark.parametrize("case", list(GRAPHED_CASES))
+def test_graphed_pretrain_step_equals_eager_steps(cuda, case):
+    """Five pretrain steps over an epoch change (gamma and the learning rate
+    move after step 3), replayed as a CUDA graph, against the same steps
+    run eagerly from the same generator state (cuDNN deterministic): losses,
+    parameters, running statistics and RAdam's state (step counts equal,
+    moments) within 1e-6 of their scale, under every layout and dtype and
+    with a decoder stage's hook, whose points are drawn every step. The
+    first call warms up eagerly, the second captures and replays: captures
+    1 and replays 2 after the first epoch's three steps, one capture more at
+    the epoch change, and replays = steps - 1 throughout; every call returns
+    its own metric tensors, and every call adds to each kernel's `LAUNCHES`
+    what the eager step adds. Then three more epochs of the graphed step
+    alone: each captures anew into the same pool, and reserved memory stays
+    within one 2 MiB segment of where the first of them left it."""
+    layout, dtype, feature, pairs = GRAPHED_CASES[case]
+    from spcl_torch.ops import bnrelu_cuda as br
+    from spcl_torch.utils import profiling
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (net_g, hook_g, opt_g, graphed), (net_e, hook_e, opt_e, eager) = _graph_setup(
+            layout, dtype, feature)
+        gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
+        idx = torch.arange(18, device="cuda")
+        profiling.reset_graph_counts()
+        br.reset_launch_counts()
+        losses, metrics, reserved = ([], []), [], []
+
+        def launches_of(fn):
+            before = [dict(c) for c in profiling.LAUNCH_COUNTERS]
+            out = fn()
+            return out, [{k: c[k] - b[k] for k in c}
+                         for c, b in zip(profiling.LAUNCH_COUNTERS, before)]
+
+        for k in range(5):
+            epoch = 0 if k < 3 else 1
+            scalars = {"sp": hook_g.epoch_scalars(epoch)}
+            for opt in (opt_g, opt_e):
+                opt.param_groups[0]["lr"] = 1e-4 * (1 + epoch)
+            rows = idx.roll(3 * k)
+            m, counted_g = launches_of(lambda: graphed(rows, gens[0], scalars))
+            e, counted_e = launches_of(
+                lambda: eager.eager(rows, None, scalars, eager.draw(rows, gens[1])))
+            assert counted_g == counted_e, (k, counted_g, counted_e)
+            metrics.append(m)
+            losses[0].append(float(m["reg_loss"]))
+            losses[1].append(float(e["reg_loss"]))
+            if k == 2:
+                assert profiling.GRAPH_COUNTS == {"captures": 1, "replays": 2}
+        assert profiling.GRAPH_COUNTS == {"captures": 2, "replays": 4}
+        assert len({id(m["reg_loss"]) for m in metrics}) == 5
+        assert br.LAUNCHES["bnrelu_fwd_stats"] == br.LAUNCHES["bnrelu_bwd_apply"] == 10 * pairs
+        torch.testing.assert_close(torch.tensor(losses[0]), torch.tensor(losses[1]),
+                                   rtol=1e-6, atol=0)
+        for (k, a), b in zip(net_g.state_dict().items(), net_e.state_dict().values()):
+            if a.dtype == torch.int64:
+                assert torch.equal(a, b), k
+            else:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * max(float(b.abs().max()),
+                                                                         1.0), msg=k)
+        params_g = [p for g in opt_g.param_groups for p in g["params"]]
+        params_e = [p for g in opt_e.param_groups for p in g["params"]]
+        for pg, pe in zip(params_g, params_e):
+            scale = max(float(pe.detach().abs().max()), 1.0)
+            torch.testing.assert_close(pg, pe, rtol=0, atol=1e-6 * scale)
+            sg, se = opt_g.state[pg], opt_e.state[pe]
+            assert float(sg["step"]) == float(se["step"]) == 5
+            for key in ("mu", "nu"):
+                torch.testing.assert_close(sg[key], se[key], rtol=1e-6,
+                                           atol=1e-6 * float(se[key].abs().max()))
+        del net_e, hook_e, opt_e, eager, e
+        for epoch in (2, 3, 4):
+            opt_g.param_groups[0]["lr"] = 1e-4 * (1 + epoch)
+            for k in range(2):
+                graphed(idx.roll(k), gens[0], {"sp": hook_g.epoch_scalars(epoch)})
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+        assert profiling.GRAPH_COUNTS == {"captures": 5, "replays": 10}
+        assert max(reserved) - reserved[0] <= 2 ** 21, reserved
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def test_graphed_step_state_made_in_a_capture(cuda):
+    """An optimizer that has no state yet when the step is first captured
+    (its `step` patched out through the first call, as a benchmark fault
+    does): the capture, which would make RAdam's moments inside the graph
+    and zero them at every replay, is thrown away with that state, the call
+    runs eagerly and the next one captures. Five such steps equal the same
+    steps run eagerly (parameters, RAdam's moments, step count 4), with 1
+    capture and 3 replays. An optimizer that replaces its state inside a
+    capture raises."""
+    from spcl_torch.utils import profiling
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (net_g, hook_g, opt_g, graphed), (net_e, hook_e, opt_e, eager) = _graph_setup(
+            "nhwc", torch.float32)
+        gens = [torch.Generator(device="cuda").manual_seed(11) for _ in range(2)]
+        idx = torch.arange(18, device="cuda")
+        scalars = {"sp": hook_g.epoch_scalars(0)}
+        profiling.reset_graph_counts()
+        for k in range(5):
+            for opt in (opt_g, opt_e):
+                if k == 0:
+                    opt.step = lambda closure=None: None
+                elif "step" in vars(opt):
+                    del opt.step
+            rows = idx.roll(3 * k)
+            m = graphed(rows, gens[0], scalars)
+            e = eager.eager(rows, None, scalars, eager.draw(rows, gens[1]))
+            torch.testing.assert_close(m["reg_loss"], e["reg_loss"], rtol=1e-6, atol=0)
+            if k == 1:
+                assert profiling.GRAPH_COUNTS == {"captures": 0, "replays": 0}
+        assert profiling.GRAPH_COUNTS == {"captures": 1, "replays": 3}
+        params_g = [p for g in opt_g.param_groups for p in g["params"]]
+        params_e = [p for g in opt_e.param_groups for p in g["params"]]
+        for pg, pe in zip(params_g, params_e):
+            torch.testing.assert_close(pg, pe, rtol=0,
+                                       atol=1e-6 * max(float(pe.detach().abs().max()), 1.0))
+            sg, se = opt_g.state[pg], opt_e.state[pe]
+            assert float(sg["step"]) == float(se["step"]) == 4
+            for key in ("mu", "nu"):
+                torch.testing.assert_close(sg[key], se[key], rtol=1e-6,
+                                           atol=1e-6 * float(se[key].abs().max()))
+
+        def replacing(closure=None):
+            for state in opt_g.state.values():
+                state["mu"] = state["mu"] * 1.0
+
+        opt_g.step = replacing
+        with pytest.raises(RuntimeError, match="replaced its state"):
+            graphed(idx, gens[0], scalars)
+    finally:
+        torch.backends.cudnn.deterministic = saved
