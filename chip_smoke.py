@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. device  — refuse to run without CUDA; print the card's name and power
                limit (nvidia-smi).
-  2. build   — compile spcl_torch/ops/csrc/supcon.cu and convstage.cu with
-               nvcc for sm_90a, one nvcc per source, started together.
+  2. build   — compile spcl_torch/ops/csrc/supcon.cu, convstage.cu, bnrelu.cu
+               and wattn.cu with nvcc for sm_90a, one nvcc per source,
+               started together.
   3. kernels — hold the supcon kernels against their plain PyTorch versions
                (float32, TF32 off) at 2N in {10, 60, 90, 126, 1024, 3840}, D=256,
                in every weighting mode, correct_grad on and off, and with
@@ -309,7 +310,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
                of each benchmark cell (`portbench.harness.run_cell`,
                BNRELU_CELL_SECONDS of window) with the train step's
                CUDA-graph counters and the kernels' launches a step.
- 24. report  — the `kernels` JSON line (the bf16 passes as
+ 24. slice P — Swin-Unet (`Arch.name: swin_unet`): the window-attention
+               kernels of `ops/csrc/wattn.cu` at a 2N=60 step's stage shapes
+               (56^2 x 96 .. 7^2 x 768, shifted and not) against the plain
+               forward and autograd's gradient of it (SWIN_KERNEL_TOL,
+               SWIN_GRAD_TOL; two backwards bit-equal), timed by graph
+               replay beside the plain version and the bound of
+               `portbench/counts/swin_unet.py`;
+               the whole model (decoder too) at the published widths,
+               forward + backward, against `portbench/reference/
+               swin_unet.py` on the card (TF32 off, SWIN_MODEL_TOL); 3
+               graphed Swin pretrain steps against 3 eager ones (TF32 off,
+               cuDNN deterministic: bit-equal); `LAUNCHES` against the
+               profiler's kernel events over 5 graphed steps.
+ 25. report  — the `kernels` JSON line (the bf16 passes as
                `convstage_<pass>_bf16`; the four `bnrelu_*` kernels with
                slice O's times), the nvidia-smi line, a device line
                with the slices' throughput, and last
@@ -326,7 +340,7 @@ weight inspection of its random initialisation), `--semi-mesh-only` the
 build and phase 18, `--effect-only` the build and phase 19,
 `--multihost-only` the build and phase 20, `--packed-only` the build and
 phase 21, `--surface-only` the build and phase 22, `--bnrelu-only` the
-build and phase 23.
+build and phase 23, `--swin-only` the build and phase 24.
 """
 import contextlib
 import copy
@@ -5211,7 +5225,7 @@ def bnrelu_phase(br):
         rows[stage] = {"shape": list(shape),
                        "bound_ms": 8 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
                        "kernel_ms": _graph_ms(fused, BNRELU_REPS),
-                       "plain_ms": _graph_ms(plain, 3),
+                       "plain_ms": _time_ms(plain, 3),
                        "cudnn_ms": _graph_ms(cudnn, BNRELU_REPS)}
         r = rows[stage]
         print(f"{stage} {tuple(shape)}: bound {r['bound_ms']:.4f} ms, kernels "
@@ -5265,6 +5279,166 @@ def bnrelu_cells(br):
     return out
 
 
+# ------------------------------------------------------------------ slice P
+# the stage shapes of a 2N=60 Swin-Unet pretrain step: (side, heads, shift)
+SWIN_SHAPES = ((56, 3, 0), (56, 3, 3), (28, 6, 0), (28, 6, 3), (14, 12, 0), (14, 12, 3),
+               (7, 24, 0))
+SWIN_VIEWS = 60
+SWIN_KERNEL_TOL = 1e-5     # forward, x max|plain|: float32 sums in another order
+SWIN_GRAD_TOL = 1e-4       # dqkv and dtable, x max|plain|: longer sums (dtable over windows)
+# the whole model on the card against portbench's reference, both float32 with
+# TF32 off: features x their max, parameter gradients relative L2
+SWIN_MODEL_TOL = 1e-4
+SWIN_MODEL_VIEWS = 4
+SWIN_GRAPH_STEPS = 3
+SWIN_PROFILED = 5
+SWIN_REPS = 20
+
+
+def swin_phase(wa):
+    """Slice P: the window-attention kernels at the Swin pretrain step's
+    shapes against their plain versions and their bound; the whole Swin-Unet
+    forward + backward against the plain reference on the card; graphed Swin
+    pretrain steps against eager ones, and the kernels' `LAUNCHES` against
+    the profiler's kernel events."""
+    from portbench.counts import swin_unet as counts
+    from portbench.reference import swin_unet as ref
+    from spcl_torch.entry import build_trainer
+    from spcl_torch.models import SwinUNet
+    from spcl_torch.utils import fix_all_seed
+    phase(f"slice P: Swin-Unet window attention (wattn.cu), 2N={SWIN_VIEWS} at 224^2, the "
+          "whole model against the plain reference, graphed pretrain steps")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    scale = 32 ** -0.5
+    rows, errs = {}, {"fwd": 0.0, "dqkv": 0.0, "dtable": 0.0}
+    for side, heads, shift in SWIN_SHAPES:
+        c = 32 * heads
+        qkv = torch.randn(SWIN_VIEWS, side, side, 3 * c, device=DEVICE, generator=gen)
+        table = torch.randn(169, heads, device=DEVICE, generator=gen)
+        index = wa.relative_index(7).to(DEVICE)
+        mask = wa.shift_mask(side, side, 7, shift)
+        mask = None if mask is None else mask.to(DEVICE)
+        why = wa.refusal(qkv, table, heads, 7, shift)
+        check(why is None, f"wattn refuses {side} {heads} {shift}: {why}")
+        out = wa.fwd_kernel(qkv, table, heads, shift, scale)
+        qkv_p, table_p = qkv.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        want = wa.fwd_plain(qkv_p, table_p, index, mask, heads, 7, shift, scale)
+        dout = torch.randn(out.shape, device=DEVICE, generator=gen)
+        got_b = wa.bwd_kernel(qkv, dout, table, heads, shift, scale)
+        want_b = torch.autograd.grad(want, (qkv_p, table_p), dout)
+        want = want.detach()
+
+        def plain():  # the plain forward and autograd's backward of it, timed eagerly
+            o = wa.fwd_plain(qkv_p, table_p, index, mask, heads, 7, shift, scale)
+            torch.autograd.grad(o, (qkv_p, table_p), dout)
+        again = wa.bwd_kernel(qkv, dout, table, heads, shift, scale)
+        err = {"fwd": float((out - want).abs().max() / want.abs().max()),
+               "dqkv": float((got_b[0] - want_b[0]).abs().max() / want_b[0].abs().max()),
+               "dtable": float((got_b[1] - want_b[1]).abs().max() / want_b[1].abs().max())}
+        check(err["fwd"] <= SWIN_KERNEL_TOL and err["dqkv"] <= SWIN_GRAD_TOL
+              and err["dtable"] <= SWIN_GRAD_TOL, f"wattn at {side} {heads} {shift}: {err}")
+        check(torch.equal(again[0], got_b[0]) and torch.equal(again[1], got_b[1]),
+              "wattn backward: two runs differ")
+        for k in errs:
+            errs[k] = max(errs[k], err[k])
+        bound_f, bound_b = counts.attention_bound_s(side * side, c, 49, SWIN_VIEWS)
+        r = {"bound_fwd_ms": bound_f * 1e3, "bound_bwd_ms": bound_b * 1e3,
+             "fwd_ms": _graph_ms(lambda: wa.fwd_kernel(qkv, table, heads, shift, scale),
+                                 SWIN_REPS),
+             "bwd_ms": _graph_ms(lambda: wa.bwd_kernel(qkv, dout, table, heads, shift, scale),
+                                 SWIN_REPS),
+             "plain_fwd_ms": _graph_ms(lambda: wa.fwd_plain(qkv, table, index, mask, heads, 7,
+                                                            shift, scale), 3),
+             "plain_ms": _time_ms(plain, 3),
+             **err}
+        rows[f"{side}x{side}x{c} shift {shift}"] = r
+        print(f"wattn {side}^2 x {c} ({heads} heads) shift {shift}: fwd {r['fwd_ms']:.4f} ms "
+              f"({100 * r['bound_fwd_ms'] / r['fwd_ms']:.1f}% of {r['bound_fwd_ms']:.4f}), bwd "
+              f"{r['bwd_ms']:.4f} ms ({100 * r['bound_bwd_ms'] / r['bwd_ms']:.1f}% of "
+              f"{r['bound_bwd_ms']:.4f}); plain forward {r['plain_fwd_ms']:.4f}, with autograd's "
+              f"backward {r['plain_ms']:.4f} ms; err fwd {err['fwd']:.1e} dqkv {err['dqkv']:.1e} "
+              f"dtable {err['dtable']:.1e}; two backwards bit-equal", flush=True)
+        del qkv, qkv_p, table_p, dout, out, want, got_b, want_b, again
+    # a step's eight blocks: one of each row, two of stage 4's unshifted one
+    step = {k: sum(r[k] for r in rows.values()) + rows["7x7x768 shift 0"][k]
+            for k in ("bound_fwd_ms", "bound_bwd_ms", "fwd_ms", "bwd_ms", "plain_fwd_ms",
+                      "plain_ms")}
+    bound, kernel = step["bound_fwd_ms"] + step["bound_bwd_ms"], step["fwd_ms"] + step["bwd_ms"]
+    print(f"wattn, a 2N={SWIN_VIEWS} step's eight blocks: kernels {kernel:.4f} ms against the "
+          f"bound {bound:.4f} ms ({100 * bound / kernel:.1f}%), plain "
+          f"{step['plain_ms']:.4f} ms", flush=True)
+
+    # the whole model, decoder too, against the reference (TF32 off)
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(32)
+        model = SwinUNet().to(DEVICE).train()
+        x = torch.rand(SWIN_MODEL_VIEWS, 1, 224, 224, device=DEVICE, generator=gen)
+        acts = model(x)
+        w = {k: v.detach().clone().requires_grad_(True) for k, v in model.named_parameters()}
+        shape = dict(ref.PUBLISHED, img_size=224)
+        want = ref.forward(x, w, shape)
+        feat_err = {k: float((acts[k] - want[k]).detach().abs().max() / want[k].abs().max())
+                    for k in model.ARCH_ELEMENTS}
+        cot = torch.randn(acts["logits"].shape, device=DEVICE, generator=gen)
+        names = [k for k, _ in model.named_parameters()]
+        g = torch.autograd.grad(acts["logits"], list(model.parameters()), cot)
+        gr = torch.autograd.grad(want["Final"], [w[k] for k in names], cot)
+        grad_err = max(float(torch.linalg.vector_norm(a - c) / torch.linalg.vector_norm(c))
+                       for a, c in zip(g, gr))
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved
+    print(f"Swin-Unet (published widths, {SWIN_MODEL_VIEWS} views, TF32 off) against the "
+          f"reference: features and logits x max {max(feat_err.values()):.2e} ({feat_err}), "
+          f"parameter gradients relative L2 {grad_err:.2e} (tol {SWIN_MODEL_TOL})", flush=True)
+    check(max(feat_err.values()) <= SWIN_MODEL_TOL and grad_err <= SWIN_MODEL_TOL,
+          "slice P: the model disagrees with the reference")
+    del model, acts, want, w, g, gr
+    torch.cuda.empty_cache()
+
+    out_dir = ROOT / "runs" / "chip_smoke_p"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    config = copy.deepcopy(CONFIG)
+    config["Arch"] = {"name": "swin_unet", "input_dim": 1, "num_classes": 4, "dtype": "float32",
+                      "checkpoint": None}
+    config["SPInfonceParams"]["feature_names"] = "Swin4"
+    torch.manual_seed(33)
+    start = SwinUNet().state_dict()
+
+    def make_trainer():
+        cfg = copy.deepcopy(config)
+        cfg["Trainer"].update(max_epoch=1, num_batches=SWIN_GRAPH_STEPS,
+                              save_dir=str(out_dir / "graphed"))
+        fix_all_seed(cfg["RandomSeed"])
+        trainer = build_trainer(cfg, save_dir=str(out_dir / "graphed"), pretrain=True,
+                                device=DEVICE)
+        trainer._model.load_state_dict(start)
+        trainer.init()
+        return trainer
+    graphed = _graphed_against_eager("slice P Swin-Unet", make_trainer, SWIN_GRAPH_STEPS)
+    check(graphed["loss_rel"] == 0.0 and graphed["state_rel"] == 0.0,
+          f"slice P: graphed and eager steps not bit-equal {graphed}")
+    trainer = make_trainer()
+    run = _pretrain_epochs(trainer)
+    run(2)
+    kernels, launches = _launches_against_profile("slice P Swin-Unet profiled", run,
+                                                  SWIN_PROFILED)
+    check(all(launches.get(k) == 8 for k in wa.KERNELS), f"slice P launches {launches}")
+    ms = run(10)
+    prof = _print_profile("slice P Swin-Unet pretrain step", kernels, ms, top=10)
+    del trainer
+    torch.cuda.empty_cache()
+    print("swin " + json.dumps({"rows": rows, "step": step, "errs": errs,
+                                "model_feat_err": feat_err, "model_grad_err": grad_err,
+                                "graphed": graphed, "launches": launches, "step_ms": ms,
+                                "kernel_ms": prof[0] if prof else None,
+                                "phase_s": time.perf_counter() - t0}), flush=True)
+    return {"rows": rows, "step": step, "errs": errs, "graphed": graphed, "launches": launches}
+
+
 def main():
     if sys.argv[1:2] == ["--slice-l-rank"]:  # a process of slice L (b)
         slice_l_rank(sys.argv[2], int(sys.argv[3]))
@@ -5274,11 +5448,15 @@ def main():
     from spcl_torch.ops import bnrelu_cuda as br
     from spcl_torch.ops import convstage_cuda as cs
     from spcl_torch.ops import supcon_cuda as sc
+    from spcl_torch.ops import wattn_cuda as wa
 
-    build_phase(sc, cs, br)
+    build_phase(sc, cs, br, wa)
     supcon_plans(sc)
     if "--bnrelu-only" in sys.argv[1:]:
         bnrelu_phase(br)
+        return
+    if "--swin-only" in sys.argv[1:]:
+        swin_phase(wa)
         return
     if "--stage-kernels-only" in sys.argv[1:]:  # development aids: one phase
         stage_kernel_phase(cs)
@@ -5368,6 +5546,8 @@ def main():
     slice_n = slice_n_phase(sc, cs, smi)
     torch.cuda.empty_cache()
     slice_o = bnrelu_phase(br)
+    torch.cuda.empty_cache()
+    slice_p = swin_phase(wa)
 
     main_t = timings[MAIN_2N]
     replaces = {
@@ -5444,6 +5624,13 @@ def main():
             "library_call": "F.batch_norm + F.relu(inplace=True), forward + backward (cuDNN)",
             "step": slice_o["step"], "at": "per stage, the four kernels of one BatchNorm + ReLU "
                                            "together; step: a 2N=60 step's ten"})
+    for name in wa.KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": "spcl_torch/ops/csrc/wattn.cu",
+            "replaces": "none in spcl_tpu (no transformer); the plain PyTorch window attention",
+            "launches_by_path": {"slice_p": slice_p["launches"].get(name, 0)},
+            "max_rel_err": slice_p["errs"], "rows": slice_p["rows"],
+            "step": slice_p["step"], "at": "2N=60 Swin-Unet pretrain step, forward + backward"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(f"device: {smi} | slice A (nhwc) {1e3 / steps['nhwc_ms']:.3f} steps/s, "
@@ -5490,7 +5677,10 @@ def main():
           f"slice N Sobel {slice_n['ms']['sobel_process']:.4f} ms, dense head max-pooled "
           f"10x10 fwd+bwd {slice_n['ms']['DenseProjectionHead 10x10 fwd+bwd']:.3f} ms | "
           f"slice O BatchNorm + ReLU of a 2N=60 step {slice_o['step']['kernel_ms']:.3f} ms "
-          f"(bound {slice_o['step']['bound_ms']:.3f}, cuDNN {slice_o['step']['cudnn_ms']:.3f})",
+          f"(bound {slice_o['step']['bound_ms']:.3f}, cuDNN {slice_o['step']['cudnn_ms']:.3f}) "
+          f"| slice P window attention of a Swin step "
+          f"{slice_p['step']['fwd_ms'] + slice_p['step']['bwd_ms']:.3f} ms (bound "
+          f"{slice_p['step']['bound_fwd_ms'] + slice_p['step']['bound_bwd_ms']:.3f})",
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ from ..data import (SliceDataset, corrupt_meta_labels, create_contrastive_loader
 from ..data.augment import POLICY_ZOO
 from ..hooks import (LEGACY_TRAINER_PRESETS, create_hook_from_config,
                      feature_until_from_hooks, get_individual_hooks)
-from ..models import ENCODER_NAMES, UNet
+from ..models import SwinUNet
+from ..models.stages import ARCHITECTURES, is_encoder_stage
 from ..models.masking import stages_from_range
 from ..training import trainer_zoo
 from ..utils.utils import get_logger
@@ -46,17 +47,43 @@ def separate_pretrain_finetune_configs(config: Dict) -> Tuple[Dict, Dict]:
 ARCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_model_from_config(config: Dict) -> UNet:
+# the Swin-Unet keys of the Arch block and their published values
+# (swin_tiny_patch4_window7_224_lite)
+SWIN_DEFAULTS = {"embed_dim": 96, "num_heads": [3, 6, 12, 24], "window_size": 7}
+
+
+def build_model_from_config(config: Dict):
+    """The segmentation model of the config's Arch block: `Arch.name` `unet`
+    (the default; `max_channel`, `momentum`, `dtype`, `small_c_layout`) or
+    `swin_unet` (`embed_dim`, `num_heads`, `window_size`; built for
+    `Data.crop`, else 224; float32 and the default layout only); both take
+    `input_dim` and `num_classes`."""
     arch = config.get("Arch", {})
     data_name = (config.get("Data") or {}).get("name", "acdc")
+    name = str(arch.get("name") or "unet")
+    if name not in ARCHITECTURES:
+        raise ValueError(f"Arch.name must be one of {sorted(ARCHITECTURES)}, got {name!r}")
+    model_cls = ARCHITECTURES[name]
     dtype = str(arch.get("dtype", "float32"))
     if dtype not in ARCH_DTYPES:
         raise ValueError(f"Arch.dtype must be one of {sorted(ARCH_DTYPES)}, got {dtype!r}")
     layout = str(arch.get("small_c_layout", "nhwc"))
-    return UNet(
-        small_c_layout=layout,
-        input_dim=int(arch.get("input_dim", data2input_dim.get(data_name, 1))),
-        num_classes=int(arch.get("num_classes", data2class_numbers.get(data_name, 4))),
+    input_dim = int(arch.get("input_dim", data2input_dim.get(data_name, 1)))
+    num_classes = int(arch.get("num_classes", data2class_numbers.get(data_name, 4)))
+    if model_cls is SwinUNet:
+        if dtype != "float32":
+            raise ValueError(f"Arch.name swin_unet runs in float32 only, got Arch.dtype={dtype!r}")
+        if layout != "nhwc":
+            raise ValueError("Arch.small_c_layout selects the UNet's small-channel stages; "
+                             f"Arch.name swin_unet takes only the default 'nhwc', got {layout!r}")
+        swin = {k: arch.get(k, v) for k, v in SWIN_DEFAULTS.items()}
+        return SwinUNet(input_dim=input_dim, num_classes=num_classes,
+                        img_size=int((config.get("Data") or {}).get("crop") or 224),
+                        embed_dim=int(swin["embed_dim"]),
+                        num_heads=tuple(int(h) for h in swin["num_heads"]),
+                        window_size=int(swin["window_size"]))
+    return model_cls(
+        small_c_layout=layout, input_dim=input_dim, num_classes=num_classes,
         max_channel=int(arch.get("max_channel", 256)),
         momentum=float(arch.get("momentum", 0.1)),
         dtype=ARCH_DTYPES[dtype])
@@ -120,7 +147,7 @@ def _refuse_decoder_hooks(hooks, grad_cache: int) -> None:
     spcl_tpu refuses it (training/gradcache.py:75-79): its dense point
     sampling is batch-local."""
     dense = [h.name for h in get_individual_hooks(*hooks)
-             if h.feature_name is not None and h.feature_name not in ENCODER_NAMES]
+             if h.feature_name is not None and not is_encoder_stage(h.feature_name)]
     if dense and grad_cache:
         raise NotImplementedError(
             f"decoder-stage hooks {dense} with Trainer.grad_cache: grad_cache supports "
@@ -179,7 +206,8 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
     tra_set, test_set = load_datasets_from_config(config)
 
     max_epoch = int(trainer_cfg.get("max_epoch", 75))
-    kwargs = dict(model=build_model_from_config(config),
+    model = build_model_from_config(config)
+    kwargs = dict(model=model,
                   save_dir=save_dir or trainer_cfg.get("save_dir", "runs/tmp"),
                   max_epoch=max_epoch, num_batches=int(trainer_cfg.get("num_batches", 100)),
                   config=config, seed=seed, crop=crop, data_name=data_name, device=device,
@@ -195,14 +223,15 @@ def build_trainer(config: Dict, *, save_dir: Optional[str] = None,
             tra_set, scan_sample_num=int(cl_cfg.get("scan_sample_num", 10)),
             partition_sample_num=int(cl_cfg.get("partition_sample_num", 1)),
             seed=seed, use_contrast_sampler=data_name == "acdc")
-        until = feature_until_from_hooks(*hooks)
+        until = feature_until_from_hooks(*hooks, default=model.ARCH_ELEMENTS[-1])
         trainer = trainer_zoo[name](contrastive_loader=contrastive_loader,
                                     forward_until=until, **kwargs)
         trainer.register_hooks(*hooks)
-        # decoder pretraining trains Conv5 up to `until` (reference
-        # main_pretrain_decoder.py:42-76 set_grad(True, "Conv5", until))
-        start = "Conv5" if name == "pretrain_decoder" else None
-        trainer.set_trainable_stages(stages_from_range(start, until))
+        # decoder pretraining trains the bottleneck (the UNet's Conv5) up to
+        # `until` (reference main_pretrain_decoder.py:42-76 set_grad(True,
+        # "Conv5", until))
+        start = model.ENCODER_NAMES[-1] if name == "pretrain_decoder" else None
+        trainer.set_trainable_stages(stages_from_range(start or model.ARCH_ELEMENTS[0], until))
         logger.info("pretrain trainer %s: forward_until=%s", name, until)
         return trainer
 

@@ -21,14 +21,16 @@ from .mine import MineTrainHook
 from .mixup import MixUpHook
 from .mt import MeanTeacherTrainerHook
 from .ucmt import UCMeanTeacherTrainerHook
-from ..models.unet import DECODER_NAMES, sort_arch
+from ..models.stages import is_encoder_stage, sort_stages
 from ..utils.utils import ntuple
 
 
 def feature_until_from_hooks(*hooks: TrainerHook, default: str = "Deconv_1x1") -> str:
+    """The deepest stage any hook reads, in the order of its architecture
+    (`models/stages.py`); `default` where no hook reads one."""
     names = [h.feature_name for h in get_individual_hooks(*hooks) if h.feature_name]
     if names:
-        return sort_arch(names)[-1]
+        return sort_stages(names)[-1]
     return default
 
 
@@ -119,11 +121,11 @@ def create_discrete_mi_consistency_hook(*, feature_names: Union[str, List[str]],
     n = 1 if isinstance(feature_names, str) else len(feature_names)
     brd = ntuple(n)
     feature_names = brd(feature_names)
-    n_dense = len([f for f in feature_names if f in DECODER_NAMES])
+    n_dense = len([f for f in feature_names if not is_encoder_stage(f)])
     pad_iter = iter(list(ntuple(max(n_dense, 1))(dense_paddings)) if n_dense else [])
     hooks: List[TrainerHook] = []
     for f, w in zip(feature_names, brd(mi_weights)):
-        p = next(pad_iter) if f in DECODER_NAMES else None
+        p = next(pad_iter) if not is_encoder_stage(f) else None
         hooks.append(DiscreteMITrainHook(name=f"discreteMI/{f.lower()}", feature_name=f,
                                          weight=w, padding=p, num_clusters=num_clusters,
                                          num_subheads=num_subheads))

@@ -17,7 +17,7 @@ from .base import TrainerHook
 from ..data.augment import apply_flip
 from ..losses.iic import iid_losses, iid_segmentation_losses
 from ..models.heads import ClusterHead, DenseClusterHead
-from ..models.unet import ENCODER_NAMES
+from ..models.stages import is_encoder_stage
 
 
 class DiscreteMITrainHook(TrainerHook):
@@ -25,7 +25,7 @@ class DiscreteMITrainHook(TrainerHook):
                  num_clusters: int = 20, num_subheads: int = 5, padding: int = None):
         super().__init__(name, weight)
         self.feature_name = feature_name
-        self.is_encoder = feature_name in ENCODER_NAMES
+        self.is_encoder = is_encoder_stage(feature_name)
         self.padding = int(padding or 0)
         self.num_clusters = int(num_clusters)
         self.num_subheads = int(num_subheads)

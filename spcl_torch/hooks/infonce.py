@@ -37,7 +37,7 @@ from .base import TrainerHook, global_rows, label_from_contrast_on, own_rows
 from ..data.augment import apply_flip
 from ..losses.supcon import self_paced_supcon_loss, supcon_loss
 from ..models.heads import DenseProjectionHead, ProjectionHead
-from ..models.unet import ENCODER_NAMES
+from ..models.stages import is_encoder_stage
 from ..ops.supcon_cuda import fused_self_paced_supcon, fused_supcon
 from ..parallel import mesh
 from ..parallel.contrastive import global_self_paced_supcon, sharded_self_paced_supcon
@@ -58,7 +58,7 @@ class INFONCEHook(TrainerHook):
         self.feature_name = feature_name
         self.contrast_on = contrast_on
         self.temperature = float(temperature)
-        self.is_encoder = feature_name in ENCODER_NAMES
+        self.is_encoder = is_encoder_stage(feature_name)
         if spatial_size is None:
             spatial_size = (1, 1) if self.is_encoder else (10, 10)
         self.spatial_size = tuple(spatial_size)

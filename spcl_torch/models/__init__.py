@@ -4,6 +4,7 @@ from .ema import EMATeacher, ema_update, ramped_alpha, semi_step_alpha
 from .discriminator import Discriminator
 from .heads import ClusterHead, DenseClusterHead, DenseProjectionHead, ProjectionHead
 from .masking import set_trainable_stages, stages_from_range
+from .swin_unet import SwinUNet
 from .transplant import head_state_dict_from_flax, unet_state_dict_from_flax
 
 __all__ = [
@@ -12,5 +13,5 @@ __all__ = [
     "semi_step_alpha", "Discriminator", "ClusterHead", "DenseClusterHead",
     "DenseProjectionHead", "ProjectionHead",
     "set_trainable_stages", "stages_from_range", "head_state_dict_from_flax",
-    "unet_state_dict_from_flax",
+    "unet_state_dict_from_flax", "SwinUNet",
 ]

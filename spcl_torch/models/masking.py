@@ -5,13 +5,17 @@ freeze everything past Conv5).
 `spcl_tpu` zeroes the gradients of frozen stages with a mask; here a frozen
 stage is `requires_grad=False`, and the trainer hands the optimizer only
 parameters that require gradients, so a frozen stage takes no update and no
-weight decay.
+weight decay. A range is in the order of the architecture its stage names
+belong to (`models/stages.py`; the UNet's where both ends are None).
 """
 from __future__ import annotations
 
 from typing import Iterable, List, Optional
 
-from .unet import ARCH_ELEMENTS, UNet, arch_order
+from torch import nn
+
+from .stages import elements_of
+from .unet import ARCH_ELEMENTS
 
 
 def stages_from_range(start: Optional[str] = None, end: Optional[str] = None,
@@ -22,20 +26,23 @@ def stages_from_range(start: Optional[str] = None, end: Optional[str] = None,
         raise ValueError("include_start must be True when start is None")
     if end is None and not include_end:
         raise ValueError("include_end must be True when end is None")
-    start = start or "Conv1"
-    end = end or "Deconv_1x1"
-    si, ei = arch_order(start), arch_order(end)
+    order = elements_of(start or end) if (start or end) else ARCH_ELEMENTS
+    start = start or order[0]
+    end = end or order[-1]
+    if end not in order:
+        raise ValueError(f"{start!r} and {end!r} are stages of different architectures")
+    si, ei = order.index(start), order.index(end)
     if si > ei:
         raise ValueError((start, end))
     lo = si if include_start else si + 1
     hi = ei + 1 if include_end else ei
-    return list(ARCH_ELEMENTS[lo:hi])
+    return list(order[lo:hi])
 
 
-def set_trainable_stages(model: UNet, trainable_stages: Iterable[str]) -> None:
+def set_trainable_stages(model: nn.Module, trainable_stages: Iterable[str]) -> None:
     """requires_grad=True on the parameters of `trainable_stages`, False on
-    every other stage."""
+    every other stage of the model (`model.ARCH_ELEMENTS`)."""
     trainable = set(trainable_stages)
-    for name in ARCH_ELEMENTS:
+    for name in model.ARCH_ELEMENTS:
         for p in model.stage(name).parameters():
             p.requires_grad_(name in trainable)

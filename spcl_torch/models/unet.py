@@ -153,6 +153,10 @@ class UpConv(nn.Module):
 class UNet(nn.Module):
     """5-stage encoder / 4-stage decoder UNet with named-stage outputs."""
 
+    ENCODER_NAMES = ENCODER_NAMES
+    DECODER_NAMES = DECODER_NAMES
+    ARCH_ELEMENTS = ARCH_ELEMENTS
+
     def __init__(self, input_dim: int = 1, num_classes: int = 4, max_channel: int = 256,
                  momentum: float = 0.1, small_c_layout: str = "nhwc",
                  dtype: torch.dtype = torch.float32):

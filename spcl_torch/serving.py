@@ -300,6 +300,6 @@ def export_from_checkpoint(checkpoint: str, out_path: str, *, config: Dict,
     return save_artifact(out_path, program, extra_meta={
         "checkpoint": str(checkpoint),
         "num_classes": int(model.num_classes),
-        "max_channel": int(model.max_channel),
+        "max_channel": getattr(model, "max_channel", None),
         "dtype": str(model.dtype).replace("torch.", ""),
     })

@@ -69,7 +69,8 @@ from ..data.augment import AugmentPolicy, apply_flip, augment_twice
 from ..data.device_store import DeviceStore
 from ..hooks.base import TrainerHook, label_from_contrast_on
 from ..models.norm import rank_local_statistics
-from ..models.unet import ENCODER_NAMES, UNet
+from ..models.stages import is_encoder_stage
+from ..models.unet import UNet
 from ..parallel import mesh
 from ..utils.profiling import span
 
@@ -83,7 +84,7 @@ def _check_hooks(hooks: Sequence[TrainerHook]) -> None:
                 f"grad_cache supports INFONCE-family contrastive hooks (separate embed and "
                 f"criterion phases); got {type(h).__name__} ({h.name}) — run it under the "
                 "monolithic pretrain step")
-        if h.feature_name not in ENCODER_NAMES:
+        if not is_encoder_stage(h.feature_name):
             # as spcl_tpu refuses it (training/gradcache.py:75-79)
             raise NotImplementedError(
                 f"grad_cache supports encoder contrastive hooks; {h.name} taps decoder stage "

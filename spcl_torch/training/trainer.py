@@ -333,15 +333,23 @@ class _TrainerBase:
 
     # ----------------------------------------------------------------- init
     def init(self) -> None:
-        if self._n_shards > 1 and self._model.small_c_layout in ("pallas", "packed"):
+        # only the UNet has small-channel layouts
+        layout = getattr(self._model, "small_c_layout", None)
+        if self._n_shards > 1 and layout in ("pallas", "packed"):
             # as spcl_tpu refuses both (training/trainer.py:245-253): the fused
             # stages compute single-device BatchNorm statistics
-            raise ValueError(f"Arch.small_c_layout={self._model.small_c_layout!r} is "
+            raise ValueError(f"Arch.small_c_layout={layout!r} is "
                              "incompatible with Trainer.mesh — use 'nhwc'")
         self._model.to(self._device)
         ckpt = (self._config.get("Arch") or {}).get("checkpoint")
         if ckpt:
-            self._model.load_state_dict(load_model_state_dict(ckpt), strict=False)
+            state = load_model_state_dict(ckpt)
+            own = self._model.state_dict()
+            if state and not any(k in own for k in state):
+                raise ValueError(f"Arch.checkpoint {ckpt} holds no weight of this model "
+                                 f"({type(self._model).__name__}): a checkpoint of another "
+                                 "Arch.name?")
+            self._model.load_state_dict(state, strict=False)
             self._log("warm-started model weights from %s", ckpt)
         if self._trainable_stages is not None:
             set_trainable_stages(self._model, self._trainable_stages)
